@@ -1,0 +1,30 @@
+"""Carry weights across from the JAX package.
+
+``params_from_jax(tree)`` takes the tree ``repro.launch.api.init_params``
+returns — as numpy arrays (``jax.device_get``), or any array type numpy
+can read — and gives the port's params: the same stacked segments, the
+same leaf names, the same layout ([d_in, d_out] weights, [L]-stacked
+layers).  The two frameworks draw different random numbers from the same
+seed, so parity tests start both sides from these converted params.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch import resolve_device
+
+
+def params_from_jax(tree: Any, device=None) -> Any:
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, (list, tuple)):
+            return [conv(v) for v in node]
+        return torch.as_tensor(np.array(node, dtype=np.float32), device=dev)
+
+    return conv(tree)

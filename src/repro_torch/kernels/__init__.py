@@ -1,0 +1,55 @@
+"""Kernel layer: hand-written CUDA kernels for Hopper (``repro_torch/csrc``),
+their plain PyTorch versions, the oracles (``ref``) and the shape layer
+(``dispatch``).
+
+Every kernel module pairs a wrapper with a plain version of the same
+function.  A wrapper takes the plain version only for a tensor on the CPU;
+for a CUDA tensor it launches its kernel or raises.  Each wrapper keeps an
+integer ``launches`` count (incremented where it launches, nowhere else)
+and each plain version a ``calls`` count, so a run can show which path
+served it (:func:`counts`, :func:`reset_counts`).
+"""
+from __future__ import annotations
+
+import functools
+from typing import Callable, Dict, Tuple
+
+
+def plain_version(fn: Callable) -> Callable:
+    """Mark ``fn`` as a kernel's plain PyTorch version and count its calls."""
+    @functools.wraps(fn)
+    def counted(*args, **kwargs):
+        counted.calls += 1
+        return fn(*args, **kwargs)
+
+    counted.calls = 0
+    return counted
+
+
+def registry() -> Dict[str, Tuple[Callable, Callable]]:
+    """kernel name -> (wrapper, plain version), for the five kernels of the
+    serving slice."""
+    from repro_torch.kernels import (flash_attention, paged_attention,
+                                     s2fp8_matmul, s2fp8_quant)
+    return {
+        "quant_apply": (s2fp8_quant.quant_apply,
+                        s2fp8_quant.quant_apply_plain),
+        "truncate_apply": (s2fp8_quant.truncate_apply,
+                           s2fp8_quant.truncate_apply_plain),
+        "qmatmul_nn": (s2fp8_matmul.qmatmul_nn, s2fp8_matmul.qmatmul_plain),
+        "qflash_fwd": (flash_attention.qflash_fwd,
+                       flash_attention.qflash_fwd_plain),
+        "paged_decode": (paged_attention.paged_decode_attention,
+                         paged_attention.paged_decode_plain),
+    }
+
+
+def counts() -> Dict[str, Dict[str, int]]:
+    return {name: {"launches": w.launches, "plain_calls": p.calls}
+            for name, (w, p) in registry().items()}
+
+
+def reset_counts() -> None:
+    for w, p in registry().values():
+        w.launches = 0
+        p.calls = 0

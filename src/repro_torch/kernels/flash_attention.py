@@ -1,0 +1,154 @@
+"""Payload flash attention forward: CUDA kernel + plain version.
+
+``qflash_fwd`` replaces ``qflash_fwd_pallas`` (_qflash_fwd_kernel,
+_attn_mask) of ``src/repro/kernels/flash_attention.py``.  Kernel source:
+``repro_torch/csrc/flash_attention.cu``.
+
+Bound on the card: f32 operations (QK^T and PV, halved by a causal mask).
+Design: one block per (query head, 64 query rows); K/V tiles of 64 rows
+are dequantized through per-block tables into shared memory, the score
+tile and the online-softmax state never leave the chip, fully masked tiles
+are skipped, and the fused Eq. 5 epilogue truncates the output before its
+one write.  Head dims up to 128 need no padding (the TPU's pad-to-128-lane
+step is not carried over).
+
+``flash_fwd_reference`` is the port of the reference's pure-jnp grouped
+flash forward; the plain version runs it on dequantized payloads and then
+truncates, which is the reference engine's own route.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import s2fp8
+from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels.s2fp8_quant import (FMT_ID, check_cuda_operand,
+                                             stats_arg)
+
+_MASK_VALUE = -1e30
+
+
+def _chunk(block: int, s: int) -> int:
+    """Largest block <= ``block`` that divides the sequence length."""
+    return math.gcd(min(block, s), s)
+
+
+def _chunk_mask(iq, ik, q_chunk, kv_chunk, sq, sk, causal, window, device):
+    qpos = (iq * q_chunk + torch.arange(q_chunk, device=device)[:, None]
+            + (sk - sq))
+    kpos = ik * kv_chunk + torch.arange(kv_chunk, device=device)[None, :]
+    mask = torch.ones((q_chunk, kv_chunk), dtype=torch.bool, device=device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    return mask
+
+
+def flash_fwd_reference(q, k, v, *, causal=True, window=None, q_chunk=512,
+                        kv_chunk=512, scale: Optional[float] = None):
+    """Grouped flash forward, f32: q [B,KV,G,Sq,d], k/v [B,KV,Sk,d] ->
+    (out [B,KV,G,Sq,d], lse [B,KV,G,Sq,1]).  Op-for-op port of
+    ``repro.kernels.flash_attention.flash_fwd_reference``."""
+    b, kvh, g, sq, d = q.shape
+    sk = k.shape[2]
+    q_chunk = _chunk(q_chunk, sq)
+    kv_chunk = _chunk(kv_chunk, sk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    outs, lses = [], []
+    for iq in range(nq):
+        qi = q[:, :, :, iq * q_chunk:(iq + 1) * q_chunk].float()
+        m = torch.full((b, kvh, g, q_chunk, 1), _MASK_VALUE,
+                       dtype=torch.float32, device=q.device)
+        l = torch.zeros((b, kvh, g, q_chunk, 1), dtype=torch.float32,
+                        device=q.device)
+        acc = torch.zeros((b, kvh, g, q_chunk, d), dtype=torch.float32,
+                          device=q.device)
+        for ik in range(nk):
+            ki = k[:, :, ik * kv_chunk:(ik + 1) * kv_chunk].float()
+            vi = v[:, :, ik * kv_chunk:(ik + 1) * kv_chunk].float()
+            s = torch.einsum("bkgqd,bksd->bkgqs", qi, ki) * scale
+            mask = _chunk_mask(iq, ik, q_chunk, kv_chunk, sq, sk, causal,
+                               window, q.device)
+            s = torch.where(mask, s, _MASK_VALUE)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            p = torch.where(mask, torch.exp(s - m_new), 0.0)
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            acc = acc * corr + torch.einsum("bkgqs,bksd->bkgqd", p, vi)
+            m = m_new
+        lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
+        outs.append(acc / torch.where(l == 0.0, 1.0, l))
+    return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
+
+
+def _check_shapes(qp, kp, vp, g):
+    if qp.dim() != 3 or kp.dim() != 3 or kp.shape != vp.shape:
+        raise ValueError(f"qflash wants q [BH,Sq,d], k/v [BKV,Sk,d]; got "
+                         f"{tuple(qp.shape)}, {tuple(kp.shape)}, "
+                         f"{tuple(vp.shape)}")
+    if qp.shape[0] != kp.shape[0] * g or qp.shape[2] != kp.shape[2]:
+        raise ValueError(f"inconsistent grouped shapes {tuple(qp.shape)} / "
+                         f"{tuple(kp.shape)} with g={g}")
+
+
+@plain_version
+def qflash_fwd_plain(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
+                     window=None, scale=None, out_ab=None, fmt="e5m2",
+                     q_chunk=512, kv_chunk=512):
+    """Plain version: dequantize, ``flash_fwd_reference``, then the Eq. 5
+    truncation of the output with ``out_ab``."""
+    _check_shapes(qp, kp, vp, g)
+    bh, sq, d = qp.shape
+    bkv, sk, _ = kp.shape
+    q = ref.s2fp8_dequant_ref(qp, q_ab).reshape(1, bkv, g, sq, d)
+    k = ref.s2fp8_dequant_ref(kp, k_ab).reshape(1, bkv, sk, d)
+    v = ref.s2fp8_dequant_ref(vp, v_ab).reshape(1, bkv, sk, d)
+    out, lse = flash_fwd_reference(q, k, v, causal=causal, window=window,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   scale=scale)
+    out = out.reshape(bh, sq, d)
+    if out_ab is not None:
+        out = ref.s2fp8_truncate_ref(out, stats=out_ab, fmt=fmt)
+    return out, lse.reshape(bh, sq)
+
+
+def qflash_fwd(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
+               window=None, scale=None, out_ab=None, fmt="e5m2"
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Payload flash forward.  qp: [BH, Sq, d] float8 with BH = B*KV*G;
+    kp/vp: [B*KV, Sk, d]; query head h reads K/V head h // g.  Returns
+    (out f32 [BH, Sq, d], lse f32 [BH, Sq]); with ``out_ab`` the output
+    carries the fused Eq. 5 epilogue.  CPU tensors take the plain version."""
+    _check_shapes(qp, kp, vp, g)
+    if qp.device.type == "cpu":
+        return qflash_fwd_plain(qp, kp, vp, q_ab, k_ab, v_ab, g=g,
+                                causal=causal, window=window, scale=scale,
+                                out_ab=out_ab, fmt=fmt)
+    for name, t in (("q", qp), ("k", kp), ("v", vp)):
+        check_cuda_operand(t, name, (s2fp8.FMT_QDTYPE[fmt],), qp.device)
+    bh, sq, d = qp.shape
+    sk = kp.shape[1]
+    if not 1 <= d <= 128:
+        raise ValueError(f"qflash kernel takes head dims 1..128, got {d}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    dev = qp.device
+    qab, kab, vab = (stats_arg(s, dev) for s in (q_ab, k_ab, v_ab))
+    oab = None if out_ab is None else stats_arg(out_ab, dev)
+    out = torch.empty((bh, sq, d), dtype=torch.float32, device=dev)
+    lse = torch.empty((bh, sq), dtype=torch.float32, device=dev)
+    rc = build.load("flash_attention").s2fp8_qflash_fwd(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), bh, sq, sk, d, g, qab.data_ptr(), kab.data_ptr(),
+        vab.data_ptr(), build.ptr(oab), int(oab is not None), int(causal),
+        int(window or 0), scale, FMT_ID[fmt], build.stream_ptr(dev))
+    build.check(rc, "s2fp8_qflash_fwd")
+    qflash_fwd.launches += 1
+    return out, lse
+
+
+qflash_fwd.launches = 0

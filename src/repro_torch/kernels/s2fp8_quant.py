@@ -1,0 +1,91 @@
+"""S2FP8 quantize-apply and truncate-apply: CUDA kernels + plain versions.
+
+``quant_apply`` replaces ``quant_apply_pallas`` (_apply_kernel) and
+``truncate_apply`` replaces ``truncate_apply_pallas`` (_truncate_kernel /
+_truncate_body) of ``src/repro/kernels/s2fp8_quant.py``.  Kernel source:
+``repro_torch/csrc/s2fp8_quant.cu`` (element maps in s2fp8_common.cuh).
+
+Bound on the card: bytes — one read of the input (f32 or bf16) and one
+write of the output per element.  Design: a grid-stride elementwise loop,
+(alpha, beta) read through a device pointer (no host sync).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core import s2fp8
+from repro_torch.kernels import build, plain_version, ref
+
+FMT_ID = {"e5m2": 0, "e4m3": 1}
+DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_cuda_operand(t: torch.Tensor, name: str, dtypes, device=None):
+    """Device / dtype / contiguity checks shared by the kernel wrappers."""
+    if t.device.type != "cuda":
+        raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in dtypes:
+        raise TypeError(f"{name} has dtype {t.dtype}; kernel takes {dtypes}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def stats_arg(stats, device) -> torch.Tensor:
+    """(alpha, beta) as the kernel's f32 [2] argument on ``device``."""
+    ab = s2fp8.as_stats(stats, device)
+    if ab.device != device:
+        raise ValueError(f"stats on {ab.device}, data on {device}")
+    return ab
+
+
+@plain_version
+def quant_apply_plain(x: torch.Tensor, stats, fmt: str = "e5m2"
+                      ) -> torch.Tensor:
+    """Plain version: Eq. 2 forward map, clamp at the format's max finite,
+    RNE cast — ``s2fp8.quantize`` with given stats."""
+    return s2fp8.quantize(x, stats=stats, fmt=fmt).payload
+
+
+@plain_version
+def truncate_apply_plain(x: torch.Tensor, stats, fmt: str = "e5m2"
+                         ) -> torch.Tensor:
+    """Plain version: the Eq. 5 round trip with given stats, in x's dtype."""
+    return ref.s2fp8_truncate_ref(x, stats=stats, fmt=fmt)
+
+
+def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
+    """8-bit payload of ``x`` (same shape, float8 dtype of ``fmt``) under
+    the given (alpha, beta).  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return quant_apply_plain(x, stats, fmt)
+    check_cuda_operand(x, "x", tuple(DTYPE_ID))
+    ab = stats_arg(stats, x.device)
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    rc = build.load("s2fp8_quant").s2fp8_quant_apply(
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
+        ab.data_ptr(), FMT_ID[fmt], build.stream_ptr(x.device))
+    build.check(rc, "s2fp8_quant_apply")
+    quant_apply.launches += 1
+    return out.view(s2fp8.FMT_QDTYPE[fmt])
+
+
+def truncate_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
+    """Eq. 5 round trip of ``x`` under the given (alpha, beta), returned in
+    ``x``'s dtype (f32 or bf16).  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return truncate_apply_plain(x, stats, fmt)
+    check_cuda_operand(x, "x", tuple(DTYPE_ID))
+    ab = stats_arg(stats, x.device)
+    out = torch.empty_like(x)
+    rc = build.load("s2fp8_quant").s2fp8_truncate_apply(
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), DTYPE_ID[x.dtype],
+        x.numel(), ab.data_ptr(), FMT_ID[fmt], build.stream_ptr(x.device))
+    build.check(rc, "s2fp8_truncate_apply")
+    truncate_apply.launches += 1
+    return out
+
+
+quant_apply.launches = 0
+truncate_apply.launches = 0

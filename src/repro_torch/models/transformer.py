@@ -1,0 +1,155 @@
+"""Decoder-only LM (port of the serving part of ``repro.models.transformer``).
+
+Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
+``segments`` — one dict per homogeneous run of layers with every leaf
+stacked on a leading [L] axis.  The reference's ``lax.scan`` over a
+segment becomes a Python loop over the layers that indexes the stacked
+leaves (views, no copies).
+
+Entry points: ``init_lm``, ``prefill``, ``decode_step``.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import statsbank
+from repro_torch.core.policy import Policy
+from repro_torch.models import blocks
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def segments_of(cfg: ArchConfig) -> List[Tuple[str, int]]:
+    """Group the layer pattern into maximal (block_type, run_length) runs."""
+    runs: List[Tuple[str, int]] = []
+    for t in cfg.resolved_pattern:
+        if runs and runs[-1][0] == t:
+            runs[-1] = (t, runs[-1][1] + 1)
+        else:
+            runs.append((t, 1))
+    return runs
+
+
+def _stack(trees):
+    if isinstance(trees[0], dict):
+        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random params from a seeded ``torch.Generator`` on ``device`` (the
+    reference's per-leaf std; the numbers differ — JAX and PyTorch draw
+    from different generators, see ``convert.params_from_jax``)."""
+    dev = resolve_device(device)
+    for btype, _ in segments_of(cfg):
+        if btype != "dense":
+            raise NotImplementedError(f"block type {btype!r} is not ported")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params: Dict[str, Any] = {
+        "embed": torch.randn((cfg.vocab, cfg.d_model), generator=gen,
+                             device=dev) * 0.02,
+        "final_norm": blocks.init_norm(cfg, cfg.d_model, dev),
+        "segments": [],
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
+                                     device=dev) / (cfg.d_model ** 0.5)
+    for _, length in segments_of(cfg):
+        params["segments"].append(_stack(
+            [blocks.init_attn_block(cfg, gen, dev) for _ in range(length)]))
+    return params
+
+
+def embed_tokens(params, tokens, cfg: ArchConfig, pol: Policy):
+    """Truncates the whole embedding table at the ``embed`` site (as the
+    reference does on every call), then gathers rows."""
+    with statsbank.scope("embed"):
+        table = pol.truncate(params["embed"])
+    return table[tokens].to(DTYPES[cfg.activation_dtype])
+
+
+def lm_head(params, x, cfg: ArchConfig, pol: Policy):
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    with statsbank.scope("head"):
+        return pol.dot(x, w.to(x.dtype))
+
+
+def _layer(tree, i: int):
+    if isinstance(tree, dict):
+        return {k: _layer(v, i) for k, v in tree.items()}
+    return tree[i]
+
+
+def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches,
+            cache_index=0, mode: str, cache_fmt: Optional[str] = None):
+    """Shared forward -> (hidden, caches).  ``caches``: per-segment dense
+    caches (prefill, filled in place) or paged caches (decode, updated in
+    place); ``cache_index``: [B] per-slot positions (decode)."""
+    x = embed_tokens(params, tokens, cfg, pol)
+    s = tokens.shape[1]
+    if mode == "decode":
+        ci = torch.as_tensor(cache_index, dtype=torch.int32, device=x.device)
+        positions = (ci[:, None].expand(ci.shape[0], s) if ci.dim() == 1
+                     else torch.full((s,), int(ci), dtype=torch.int32,
+                                     device=x.device))
+    else:
+        ci = None
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    for i, (btype, length) in enumerate(segments_of(cfg)):
+        name = f"seg{i}:{btype}"
+        # checks the bank's per-layer rows; a calibrating session learns
+        # the segment length here for the sites it mints
+        statsbank.segment_sites(name, length)
+        seg_p, seg_c = params["segments"][i], caches[i]
+        for li in range(length):
+            with statsbank.segment_ctx(name, li):
+                x, _ = blocks.attn_block_apply(
+                    _layer(seg_p, li), x, cfg, pol, positions,
+                    None if seg_c is None else _layer_cache(seg_c, li),
+                    ci, mode, cache_fmt)
+    x = blocks.apply_norm(params["final_norm"], x, cfg)
+    return x, caches
+
+
+def _layer_cache(seg_cache, li: int):
+    """Layer ``li``'s view of a segment cache (shared leaves pass through:
+    the paged block table has no layer axis)."""
+    return {k: (v[li] if k != "table" else v) for k, v in seg_cache.items()}
+
+
+def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None,
+                dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
+    """Dense per-segment prefill caches {"k","v"} [L, B, KV, max_len, hd]."""
+    hd = cfg.resolved_head_dim
+    return [{key: torch.zeros((length, batch, cfg.kv_heads, max_len, hd),
+                              dtype=dtype, device=device)
+             for key in ("k", "v")}
+            for _, length in segments_of(cfg)]
+
+
+def prefill(params, tokens, cfg: ArchConfig, pol: Policy, caches, *,
+            last_index=None):
+    """Process full prompts [B, S], fill the dense caches, return the logits
+    at each row's ``last_index`` (default: the last position) [B, 1, V]."""
+    x, caches = forward(params, tokens, cfg, pol, caches=caches,
+                        mode="prefill")
+    if last_index is None:
+        x_last = x[:, -1:]
+    else:
+        x_last = x[torch.arange(x.shape[0], device=x.device),
+                   last_index.long()][:, None]
+    return lm_head(params, x_last, cfg, pol), caches
+
+
+def decode_step(params, token, cfg: ArchConfig, pol: Policy, caches,
+                cache_index, *, cache_fmt: Optional[str] = None):
+    """One decode step: token [B, 1], per-slot positions [B] -> logits
+    [B, 1, V]; the paged caches are updated in place."""
+    x, caches = forward(params, token, cfg, pol, caches=caches,
+                        cache_index=cache_index, mode="decode",
+                        cache_fmt=cache_fmt)
+    return lm_head(params, x, cfg, pol), caches

@@ -1,0 +1,264 @@
+"""Paged-payload serving engine (port of ``repro.serving.engine.
+PayloadLMServer``; the dense ``LMServer`` waits for a later slice).
+
+KV lives as S2FP8 payloads in a paged block pool (serving/paged_cache.py)
+with frozen per-layer stats; every other site's stats come from the
+frozen bank, so prefill and decode run no stats reductions.  Per tick:
+
+  * batched, bucketed admission — free slots are filled FCFS from the
+    queue while a slot, the prefill-token budget and pool blocks allow;
+    admissions are grouped by power-of-two prompt bucket and each bucket
+    runs one prefill at fixed width ``admit_width`` (so the set of prefill
+    shapes is bounded by the number of buckets), then packs into the pool;
+  * block growth at decode boundaries, preempting the youngest live slot
+    (LIFO) when the pool runs dry — its request is requeued at the head
+    and restarts cleanly;
+  * one decode step for all slots with a per-slot position vector.
+
+The host loop is the reference's, line for line; the device work is the
+port's prefill / pack / decode.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core import statsbank
+from repro_torch.core.policy import Policy
+from repro_torch.models import transformer as tlm
+from repro_torch.serving import paged_cache
+
+
+@dataclasses.dataclass
+class Request:
+    prompt: np.ndarray            # [S] int32
+    max_new_tokens: int = 16
+    out: Optional[List[int]] = None
+
+
+def _bucket(n: int, lo: int = 1, hi: Optional[int] = None) -> int:
+    """Smallest lo * 2**k >= n (capped at hi): the prompt padding bucket."""
+    b = lo
+    while b < n:
+        b *= 2
+    return min(b, hi) if hi is not None else b
+
+
+class PayloadLMServer:
+    """Paged-payload serving engine (see module docstring).
+
+    ``bank``: frozen serving bank (serving/bank.py).  ``n_blocks``: pool
+    size including the trash block; the default leaves no memory pressure
+    (slots * max_blocks + 1).  ``prefill_token_budget``: per-tick cap on
+    padded prefill tokens.  The device is the params' device.
+    """
+
+    def __init__(self, cfg: ArchConfig, params, policy: Policy, *,
+                 bank: Dict[str, Any], slots: int = 8, max_len: int = 256,
+                 block: int = 16, n_blocks: Optional[int] = None,
+                 cache_fmt: str = "e5m2", eos: int = -1,
+                 admit_width: Optional[int] = None,
+                 prefill_token_budget: Optional[int] = None):
+        if max_len % block:
+            raise ValueError(f"max_len {max_len} not a multiple of "
+                             f"block {block}")
+        self.cfg, self.params, self.pol = cfg, params, policy
+        self.device = params["embed"].device
+        self.slots, self.max_len, self.eos = slots, max_len, eos
+        self.block = block
+        self.max_blocks = max_len // block
+        self.n_blocks = n_blocks or slots * self.max_blocks + 1
+        self.cache_fmt = cache_fmt
+        self.bank = bank
+        self.frozen = statsbank.FrozenBank(bank)
+        self.admit_width = admit_width or min(slots, 8)
+        self.prefill_token_budget = (prefill_token_budget
+                                     or self.admit_width * max_len)
+
+        self.caches = paged_cache.init_paged_caches(
+            cfg, slots=slots, n_blocks=self.n_blocks, block=block,
+            max_blocks=self.max_blocks, cache_fmt=cache_fmt,
+            kv_stats=paged_cache.kv_stats_from_bank(bank, cfg, cache_fmt),
+            device=self.device)
+        self.alloc = paged_cache.BlockAllocator(self.n_blocks, slots,
+                                                self.max_blocks)
+
+        self.slot_pos = np.zeros(slots, np.int32)
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        self.slot_budget = np.zeros(slots, np.int32)
+        self.slot_seq = np.zeros(slots, np.int64)       # admission order
+        self.queue: List[Request] = []
+        self.prefill_shapes: set = set()
+        self.preemptions = 0
+        self._seq = 0
+        self._tick = 0
+        self._last_token = np.zeros((slots, 1), np.int32)
+
+    # -- device work ------------------------------------------------------
+    def _prefill(self, params, tokens, last_index):
+        dense = tlm.init_caches(self.cfg, tokens.shape[0], tokens.shape[1],
+                                device=self.device)
+        with torch.no_grad(), statsbank.freeze(self.frozen):
+            return tlm.prefill(params, tokens, self.cfg, self.pol, dense,
+                               last_index=last_index)
+
+    def _pack(self, caches, dense, bids):
+        with torch.no_grad():
+            return paged_cache.pack_dense_caches(caches, dense, bids,
+                                                 self.cache_fmt)
+
+    def _decode(self, params, token, caches, pos):
+        with torch.no_grad(), statsbank.freeze(self.frozen):
+            return tlm.decode_step(params, token, self.cfg, self.pol, caches,
+                                   pos, cache_fmt=self.cache_fmt)
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        req.out = []
+        self.queue.append(req)
+
+    @property
+    def max_prefill_shapes(self) -> int:
+        return int(math.log2(self.max_len)) + 1
+
+    def cache_bytes(self):
+        """(pool_bytes, stats_bytes) of the paged cache."""
+        return paged_cache.cache_payload_bytes(self.caches)
+
+    def _sync_tables(self):
+        tb = self._to_dev(self.alloc.table)
+        for seg in self.caches:
+            seg["table"].copy_(tb)
+
+    def _preempt(self, s: int):
+        """Release slot s and requeue its request at the queue head."""
+        req = self.slot_req[s]
+        self.alloc.release(s)
+        self.slot_req[s] = None
+        if req is not None:
+            req.out = []
+            self.queue.insert(0, req)
+        self.preemptions += 1
+
+    def _pick_victim(self, exclude: int) -> Optional[int]:
+        """Youngest live slot other than ``exclude`` (LIFO preemption)."""
+        live = [s for s in range(self.slots)
+                if s != exclude and self.slot_req[s] is not None]
+        return max(live, key=lambda s: self.slot_seq[s]) if live else None
+
+    # ------------------------------------------------------------------
+    def _admit(self) -> int:
+        free = [s for s in range(self.slots) if self.slot_req[s] is None]
+        picked = []
+        used = 0
+        while self.queue and free and len(picked) < self.admit_width:
+            req = self.queue[0]
+            plen = len(req.prompt)
+            if plen >= self.max_len:
+                self.queue.pop(0)
+                req.out = []
+                continue                             # drop oversize request
+            P = _bucket(plen, lo=self.block, hi=self.max_len)
+            if picked and used + P > self.prefill_token_budget:
+                break                                # token budget: next tick
+            s = free[0]
+            if not self.alloc.alloc(s, -(-plen // self.block)):
+                break                                # pool dry: wait / preempt
+            free.pop(0)
+            self.queue.pop(0)
+            used += P
+            self._seq += 1
+            self.slot_seq[s] = self._seq
+            picked.append((s, req))
+        if not picked:
+            return 0
+
+        groups: Dict[int, list] = {}
+        for s, req in picked:
+            groups.setdefault(
+                _bucket(len(req.prompt), lo=self.block, hi=self.max_len),
+                []).append((s, req))
+        A = self.admit_width
+        for P, group in sorted(groups.items()):
+            toks = np.zeros((A, P), np.int32)
+            last = np.zeros((A,), np.int32)
+            bids = np.zeros((A, P // self.block), np.int32)  # 0 = trash
+            for r, (s, req) in enumerate(group):
+                plen = len(req.prompt)
+                toks[r, :plen] = req.prompt
+                last[r] = plen - 1
+                nb = -(-plen // self.block)
+                bids[r, :nb] = self.alloc.table[s, :nb]
+            logits, dense = self._prefill(self.params,
+                                          self._to_dev(toks).long(),
+                                          self._to_dev(last))
+            self.prefill_shapes.add((A, P))
+            assert len(self.prefill_shapes) <= self.max_prefill_shapes
+            self.caches = self._pack(self.caches, dense, self._to_dev(bids))
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(
+                np.int32)
+            for r, (s, req) in enumerate(group):
+                self.slot_req[s] = req
+                self.slot_pos[s] = len(req.prompt)
+                self.slot_budget[s] = req.max_new_tokens
+                self._last_token[s, 0] = int(nxt[r])
+                req.out.append(int(nxt[r]))
+                self.slot_budget[s] -= 1
+        return len(picked)
+
+    def step(self) -> bool:
+        """One tick: admit, grow blocks at decode boundaries (preempting the
+        youngest slot when the pool runs dry), one batched decode."""
+        self._tick += 1
+        n_admit = self._admit()
+        for s in range(self.slots):
+            if self.slot_req[s] is None:
+                continue
+            need = int(self.slot_pos[s]) // self.block + 1
+            while int(self.alloc.nalloc[s]) < need:
+                if self.alloc.alloc(s, 1):
+                    continue
+                victim = self._pick_victim(exclude=s)
+                self._preempt(s if victim is None else victim)
+                if self.slot_req[s] is None:
+                    break
+        live = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not live:
+            return bool(n_admit or self.queue)
+        self._sync_tables()
+        pos = np.zeros((self.slots,), np.int32)
+        for s in live:
+            pos[s] = self.slot_pos[s]
+        logits, self.caches = self._decode(
+            self.params, self._to_dev(self._last_token).long(), self.caches,
+            self._to_dev(pos))
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(
+            np.int32)
+        for s in live:
+            req = self.slot_req[s]
+            req.out.append(int(nxt[s]))
+            self._last_token[s, 0] = nxt[s]
+            self.slot_pos[s] += 1
+            self.slot_budget[s] -= 1
+            done = self.slot_budget[s] <= 0 or nxt[s] == self.eos \
+                or self.slot_pos[s] >= self.max_len - 1
+            if done:
+                self.alloc.release(s)
+                self.slot_req[s] = None
+        return True
+
+    def run_to_completion(self, max_ticks: int = 10_000):
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.slot_req)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return ticks

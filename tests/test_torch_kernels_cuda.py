@@ -1,0 +1,120 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card.  Marked ``cuda``: without a GPU every test skips (decided inside the
+fixture, so every worker collects the same tests).  Run on a GPU machine:
+
+    PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_kernels_cuda.py
+
+Tolerances: quantize / truncate are bit for bit (same maps, same rounding
+of each step; up to one grid step in 1e-4 of the elements is allowed for
+the math library); GEMM raw output within 1e-5 * (|A| @ |B|), epilogue and
+flash outputs at most one grid step apart in at most 1e-3 / 1e-2 of the
+elements; paged decode allclose 1e-4 relative + 1e-5 absolute.
+"""
+import pytest
+import torch
+
+from repro_torch import kernels
+from repro_torch.core import s2fp8
+from repro_torch.kernels import (flash_attention, paged_attention,
+                                 s2fp8_matmul, s2fp8_quant)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (the port's kernels run only there)")
+    kernels.reset_counts()
+    return torch.device("cuda", 0)
+
+
+def _ordinal(payload):
+    u = payload.view(torch.uint8).int()
+    return torch.where(u >= 0x80, -(u & 0x7F), u & 0x7F)
+
+
+def _steps(a, b, ab, fmt="e5m2"):
+    qa = s2fp8.quantize(a.float(), stats=ab, fmt=fmt).payload
+    qb = s2fp8.quantize(b.float(), stats=ab, fmt=fmt).payload
+    return (_ordinal(qa) - _ordinal(qb)).abs()
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_quant_truncate_kernels(dev, fmt, dtype):
+    g = torch.Generator(device=dev).manual_seed(0)
+    x = (torch.randn(1000, 333, generator=g, device=dev) * 0.1).to(dtype)
+    ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+    pk = s2fp8_quant.quant_apply(x, ab, fmt)
+    pp = s2fp8_quant.quant_apply_plain(x, ab, fmt)
+    d = (_ordinal(pk) - _ordinal(pp)).abs()
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
+    tk = s2fp8_quant.truncate_apply(x, ab, fmt)
+    tp = s2fp8_quant.truncate_apply_plain(x, ab, fmt)
+    assert tk.dtype == dtype
+    d = _steps(tk, tp, ab, fmt)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
+    assert kernels.counts()["quant_apply"]["launches"] == 1
+
+
+@pytest.mark.parametrize("mkn", [(8, 2304, 576), (333, 130, 77)])
+def test_gemm_kernel(dev, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device=dev).manual_seed(1)
+    a = torch.randn(m, k, generator=g, device=dev)
+    b = torch.randn(k, n, generator=g, device=dev) / k ** 0.5
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    qa, qb = s2fp8_quant.quant_apply(a, aab), s2fp8_quant.quant_apply(b, bab)
+    raw_k = s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab)
+    raw_p = s2fp8_matmul.qmatmul_plain(qa, aab, qb, bab)
+    da = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+    db = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * (da.abs() @ db.abs())
+                 + 1e-30).all())
+    oab = s2fp8.compute_stats(raw_p)
+    d = _steps(s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab),
+               s2fp8_matmul.qmatmul_plain(qa, aab, qb, bab, oab), oab)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
+
+
+@pytest.mark.parametrize("g,d,s", [(1, 64, 200), (2, 80, 130), (1, 32, 64)])
+def test_qflash_kernel(dev, g, d, s):
+    gen = torch.Generator(device=dev).manual_seed(2)
+    bkv = 3
+    q = torch.randn(bkv * g, s, d, generator=gen, device=dev)
+    k = torch.randn(bkv, s, d, generator=gen, device=dev)
+    v = torch.randn(bkv, s, d, generator=gen, device=dev)
+    sts = [s2fp8.compute_stats(t) for t in (q, k, v)]
+    pq, pk, pv = (s2fp8_quant.quant_apply(t, ab) for t, ab in zip((q, k, v),
+                                                                   sts))
+    raw, _ = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts, g=g)
+    oab = s2fp8.compute_stats(raw)
+    ok, lk = flash_attention.qflash_fwd(pq, pk, pv, *sts, g=g, out_ab=oab)
+    op, lp = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts, g=g,
+                                              out_ab=oab)
+    dd = _steps(ok, op, oab)
+    assert dd.max() <= 1 and (dd != 0).float().mean() <= 1e-2
+    assert (lk - lp).abs().max() <= 1e-4
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_paged_kernel(dev, fmt):
+    gen = torch.Generator(device=dev).manual_seed(3)
+    b, kvh, g, hd, blk, max_b, nb = 4, 2, 3, 64, 16, 4, 9
+    q = torch.randn(b, kvh, g, hd, generator=gen, device=dev)
+    kf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    vf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    kab = torch.tensor([4.0, 1.5], device=dev)
+    vab = torch.tensor([3.0, -0.5], device=dev)
+    kp = s2fp8_quant.quant_apply(kf, kab, fmt)
+    vp = s2fp8_quant.quant_apply(vf, vab, fmt)
+    table = torch.tensor([[1, 2, 3, 4], [5, 6, 0, 0], [0, 0, 0, 0],
+                          [7, 8, 1, 2]], dtype=torch.int32, device=dev)
+    pos = torch.tensor([5, 33, 0, 60], dtype=torch.int32, device=dev)
+    ok = paged_attention.paged_decode_attention(q, kp, vp, kab, vab, table,
+                                                pos, fmt)
+    op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab, table, pos,
+                                            fmt)
+    assert torch.isfinite(ok).all()
+    assert bool(((ok - op).abs() <= 1e-4 * op.abs() + 1e-5).all())
