@@ -7,17 +7,29 @@ Phases, each fatal on failure:
 
 1. device  — CUDA must be present; prints the card's name and power limit
              (nvidia-smi) and the software versions.
-2. build   — compiles every CUDA kernel of the serving path from
-             src/repro_torch/csrc (one nvcc per source, all at once).
-3. kernels — holds each kernel against its plain PyTorch version on the
-             card at the serving path's shapes, with the tolerance stated
-             beside each check, and times kernel, plain version and a
-             library yardstick with CUDA events.
-4. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
+2. build   — compiles every CUDA kernel of the serving and training paths
+             from src/repro_torch/csrc (one nvcc per source, all at once).
+3. kernels — holds each of the nine kernels against its plain PyTorch
+             version on the card at the serving and training paths'
+             shapes, with the tolerance stated beside each check, and times
+             kernel, plain version and a library yardstick with CUDA
+             events.
+4. small   — the reduced model on the card through the kernels and through
+             the plain versions: serving (same greedy tokens, close
+             logits) and training with the bank at k = 2, where every
+             kernel call, forward and backward, is held against its plain
+             version on the same inputs (phase 3's tolerances), then 3
+             train steps (finite, close losses).
+5. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
              a seeded generator: calibrate the frozen bank, then serve 16
              requests through PayloadLMServer (8 slots, max_len 1024,
-             block 16, e5m2 pool).  Every kernel must have launched during
-             this phase and no plain version may have run.
+             block 16, e5m2 pool).  Every serving kernel must have launched
+             during this phase and no plain version may have run.
+6. train   — full-width minicpm_2b trained 4 steps at batch 4 x seq 512
+             with the StatsBank at k = 8 (make_train_step, AdamW, remat),
+             from seeded params and seeded Markov batches.  Every training
+             kernel must have launched during this phase, no plain version
+             may have run, and every loss must be finite.
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -25,7 +37,10 @@ contract line.  Imports nothing of JAX or of the JAX package.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -43,17 +58,30 @@ H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
 REPLACES = {
     "quant_apply": "src/repro/kernels/s2fp8_quant.py:176",
     "truncate_apply": "src/repro/kernels/s2fp8_quant.py:229",
+    "dequant": "src/repro/kernels/s2fp8_quant.py:209",
     "qmatmul_nn": "src/repro/kernels/s2fp8_matmul.py:189",
+    "qmatmul_nt": "src/repro/kernels/s2fp8_matmul.py:189",
+    "qmatmul_tn": "src/repro/kernels/s2fp8_matmul.py:189",
     "qflash_fwd": "src/repro/kernels/flash_attention.py:287",
+    "qflash_bwd": "src/repro/kernels/flash_attention.py:348",
     "paged_decode": "src/repro/kernels/paged_attention.py:89",
 }
 SOURCES = {
     "quant_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
     "truncate_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
+    "dequant": "src/repro_torch/csrc/s2fp8_quant.cu",
     "qmatmul_nn": "src/repro_torch/csrc/s2fp8_matmul.cu",
+    "qmatmul_nt": "src/repro_torch/csrc/s2fp8_matmul.cu",
+    "qmatmul_tn": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qflash_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "qflash_bwd": "src/repro_torch/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
 }
+# the kernels each main path runs (phase 5 serves, phase 6 trains)
+SERVE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn", "qmatmul_nt",
+                 "qflash_fwd", "paged_decode")
+TRAIN_KERNELS = ("quant_apply", "truncate_apply", "dequant", "qmatmul_nn",
+                 "qmatmul_nt", "qmatmul_tn", "qflash_fwd", "qflash_bwd")
 
 
 def log(msg: str) -> None:
@@ -324,7 +352,159 @@ def phase_kernels(dev) -> dict:
                + table.numel() * 4 + b * 4,
                4.0 * live * kvh * g * hd,
                f"{fmt} B={b} KV={kvh} hd={hd} block={blk} live={live}")
+    train_kernel_checks(dev, rnd, record)
     return rows
+
+
+def train_kernel_checks(dev, rnd, record) -> None:
+    """The training path's kernels at the train phase's shapes (batch 4 x
+    seq 512 = 2,048 tokens, d 2304, d_ff 5760, 36 heads of 64, vocab
+    122,753)."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import flash_attention, s2fp8_matmul, s2fp8_quant
+
+    def payload(x, fmt="e5m2"):
+        ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+        return s2fp8_quant.quant_apply(x, ab, fmt), ab
+
+    # -- dequant: the flash backward's delta operands (the quantized output
+    # and its cotangent, 4 x 36 heads x 512 x 64), both formats.
+    # Tolerance: |kernel - plain| <= 1e-6 * |plain| (the same Eq. 4 map,
+    # each step rounded alike: bit for bit but for the math library).
+    for fmt in ("e4m3", "e5m2"):
+        p, ab = payload(rnd(4 * 36 * 512, 64, scale=0.05), fmt)
+        dk = s2fp8_quant.dequant(p, ab)
+        dp = s2fp8_quant.dequant_plain(p, ab)
+        err = (dk - dp).abs()
+        log(f"dequant {fmt} {tuple(p.shape)}: max err {err.max().item():.3e}"
+            f", {(err != 0).sum().item()} elements differ")
+        assert bool((err <= 1e-6 * dp.abs()).all()), err.max().item()
+        record("dequant", err.max().item(),
+               cuda_time(lambda: s2fp8_quant.dequant(p, ab)),
+               cuda_time(lambda: s2fp8_quant.dequant_plain(p, ab), iters=3),
+               None, p.numel() * 5, 0, f"{fmt} {tuple(p.shape)}")
+
+    # -- qmatmul_nt / qmatmul_tn: a ragged shape, then the backward GEMMs
+    # of the MLP and attention projections (dA = g W^T is nt, dW = x^T g
+    # is tn) and the tied head (x E^T forward is nt, dE = g^T x is tn); the
+    # times kept are the last (MLP) shape's.  Tolerance as qmatmul_nn: raw
+    # |kernel - plain| <= 1e-5 * (|A| @ |B|) + 1e-30 (f32 summation
+    # order); with the epilogue, codes at most one grid step apart in at
+    # most 1e-3 of the outputs.
+    layouts = {
+        "nt": [(333, 130, 77), (2048, 2304, 122753), (2048, 2304, 2304),
+               (2048, 5760, 2304)],
+        "tn": [(333, 130, 77), (122753, 2048, 2304), (2304, 2048, 2304),
+               (2304, 2048, 5760)],
+    }
+    for layout, shapes in layouts.items():
+        kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+        plain = getattr(s2fp8_matmul, f"qmatmul_{layout}_plain")
+        for m, k, n in shapes:
+            a_shape = (m, k) if layout == "nt" else (k, m)
+            b_shape = (n, k) if layout == "nt" else (k, n)
+            qa, aab = payload(rnd(*a_shape, dtype=torch.bfloat16))
+            qb, bab = payload(rnd(*b_shape, dtype=torch.bfloat16,
+                                  scale=k ** -0.5))
+            deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+            deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+            lhs = deq_a if layout == "nt" else deq_a.t()
+            rhs = deq_b.t() if layout == "nt" else deq_b
+            raw_k = kernel(qa, aab, qb, bab)
+            raw_p = plain(qa, aab, qb, bab)
+            err = (raw_k - raw_p).abs()
+            ok = bool((err <= 1e-5 * (lhs.abs() @ rhs.abs()) + 1e-30).all())
+            assert ok, f"qmatmul_{layout} raw {m}x{k}x{n}: max err " \
+                f"{err.max().item()}"
+            oab = s2fp8.compute_stats(raw_p)
+            ek = kernel(qa, aab, qb, bab, oab)
+            ep = plain(qa, aab, qb, bab, oab)
+            f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
+            log(f"qmatmul_{layout} {m}x{k}x{n}: raw max err "
+                f"{err.max().item():.3e}, epilogue flips {f}")
+            assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+            record(f"qmatmul_{layout}", (ek - ep).abs().max().item(),
+                   cuda_time(lambda: kernel(qa, aab, qb, bab, oab)),
+                   cuda_time(lambda: plain(qa, aab, qb, bab, oab), iters=3),
+                   cuda_time(lambda: torch.matmul(lhs, rhs)),
+                   m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+                   f"{layout} M={m} K={k} N={n} epilogue")
+            del qa, qb, deq_a, deq_b, lhs, rhs, raw_k, raw_p, err, ek, ep
+
+    # -- serving's tied head at decode (8 slots): x E^T as NT over the
+    # stored table's payload, against slice 1's route, NN over a u8
+    # transpose of that payload (the same values; the quantize is common to
+    # both).  Times only, for the serve tick; raw outputs held as above.
+    qx, xab = payload(rnd(8, 2304, dtype=torch.bfloat16))
+    qe, eab = payload(rnd(122753, 2304, dtype=torch.bfloat16, scale=0.05))
+    qet = qe.view(torch.uint8).t().contiguous().view(qe.dtype)
+    raw_nt = s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab)
+    raw_nn = s2fp8_matmul.qmatmul_nn(qx, xab, qet, eab)
+    deq_x = s2fp8.dequantize(s2fp8.S2FP8Tensor(qx, xab))
+    deq_e = s2fp8.dequantize(s2fp8.S2FP8Tensor(qe, eab))
+    err = (raw_nt - raw_nn).abs()
+    assert bool((err <= 1e-5 * (deq_x.abs() @ deq_e.abs().t())
+                 + 1e-30).all()), f"head nt vs nn: {err.max().item()}"
+    oab = s2fp8.compute_stats(raw_nt)
+    nt_ms = cuda_time(lambda: s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab, oab))
+    nn_ms = cuda_time(lambda: s2fp8_matmul.qmatmul_nn(qx, xab, qet, eab, oab))
+    tr_ms = cuda_time(lambda: qe.view(torch.uint8).t().contiguous())
+    log(f"time decode head M=8 K=2304 N=122753 epilogue: nt {nt_ms:.4f} ms;"
+        f" slice 1's route: u8 transpose {tr_ms:.4f} ms + nn {nn_ms:.4f} ms")
+    del qx, qe, qet, raw_nt, raw_nn, deq_x, deq_e, err
+
+    # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim, then the
+    # train phase's attention (4 x 36 heads, 512 tokens, head dim 64,
+    # causal).  Residuals as the node makes them: payload q/k/v, the
+    # quantized output and cotangent, lse from the forward and delta =
+    # rowsum(deq(g) * deq(o)).  Tolerance: each of dq, dk, dv within
+    # 1e-4 * max|plain| (f32 sums in another order, 64-row tiles here and
+    # 512-row chunks in the plain version).
+    cases = [(8, 2, 200, 32, 64), (6, 1, 130, 80, None), (4 * 36, 1, 512, 64,
+                                                           None)]
+    for bh, g, sl, d, window in cases:
+        qf, gf = rnd(bh, sl, d), rnd(bh, sl, d, scale=1e-3)
+        kf, vf = rnd(bh // g, sl, d), rnd(bh // g, sl, d)
+        (qq, qab), (qk, kab), (qv, vab), (qg, gab) = (
+            payload(t) for t in (qf, kf, vf, gf))
+        out, lse = flash_attention.qflash_fwd_plain(
+            qq, qk, qv, qab, kab, vab, g=g, window=window)
+        qo, oab = payload(out)
+        delta = (s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))
+                 * s2fp8.dequantize(s2fp8.S2FP8Tensor(qo, oab))).sum(-1)
+        args = (qq, qk, qv, qg, qab, kab, vab, gab, lse, delta)
+        got = flash_attention.qflash_bwd(*args, g=g, window=window)
+        want = flash_attention.qflash_bwd_plain(*args, g=g, window=window)
+        errs = []
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            e = (x - y).abs().max().item()
+            errs.append(e)
+            assert bool(torch.isfinite(x).all()), name
+            assert e <= 1e-4 * y.abs().max().item(), (name, e)
+        log(f"qflash_bwd bh={bh} g={g} S={sl} d={d} window={window}: max "
+            f"err dq/dk/dv {errs[0]:.2e} {errs[1]:.2e} {errs[2]:.2e} of "
+            f"max |plain| " + " ".join(f"{y.abs().max().item():.2e}"
+                                       for y in want))
+        deq = [s2fp8.dequantize(s2fp8.S2FP8Tensor(t, ab)).requires_grad_()
+               for t, ab in ((qq, qab), (qk, kab), (qv, vab))]
+        lib_ms = None
+        if g == 1 and window is None:
+            lib_out = torch.nn.functional.scaled_dot_product_attention(
+                *(t[None] for t in deq), is_causal=True)
+            dout = s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))[None]
+            lib_ms = cuda_time(lambda: torch.autograd.grad(
+                lib_out, deq, dout, retain_graph=True))
+        pairs = sum(min(r + 1, window or sl) for r in range(sl))
+        record("qflash_bwd", max(errs),
+               cuda_time(lambda: flash_attention.qflash_bwd(
+                   *args, g=g, window=window)),
+               cuda_time(lambda: flash_attention.qflash_bwd_plain(
+                   *args, g=g, window=window), iters=3),
+               lib_ms,
+               2 * bh * sl * d + 2 * (bh // g) * sl * d + 8 * bh * sl
+               + 3 * 4 * bh * sl * d,
+               10.0 * bh * pairs * d,
+               f"BH={bh} g={g} S={sl} d={d} window={window} causal")
 
 
 # ---------------------------------------------------------------------------
@@ -462,9 +642,7 @@ def phase_serve(dev) -> dict:
     for r in reqs:
         assert len(r.out) == 32, ("request did not complete", len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
-    for name, c in counts.items():
-        assert c["launches"] > 0, f"kernel {name} never launched: {counts}"
-        assert c["plain_calls"] == 0, f"plain {name} ran: {counts}"
+    check_counts(counts, SERVE_KERNELS)
     tokens = sum(len(r.out) for r in reqs)
     metrics = {
         "requests": len(reqs), "tokens": tokens, "ticks": ticks,
@@ -489,14 +667,404 @@ def phase_serve(dev) -> dict:
     return {"counts": counts, "metrics": metrics, "server": server}
 
 
-def phase_profile(server) -> None:
-    """Optional (--profile): device time by kernel and the device's idle
-    share over two windows of the full-width server — one admission tick
-    (8 prompts of 256 tokens: a prefill at bucket 256, then a decode) and
-    five decode ticks — with torch.profiler (CPU + CUDA activities)."""
+def check_counts(counts: dict, launched) -> None:
+    """Every kernel in ``launched`` ran, and no plain version did."""
+    for name, c in counts.items():
+        assert c["plain_calls"] == 0, f"plain {name} ran: {counts}"
+    for name in launched:
+        assert counts[name]["launches"] > 0, \
+            f"kernel {name} never launched: {counts}"
+
+
+def _lm_loss(cfg):
+    from repro_torch.models import transformer as tlm
+
+    def loss_fn(params, batch, policy):
+        return tlm.loss_fn(params, batch["tokens"], batch["labels"], cfg,
+                           policy)
+    return loss_fn
+
+
+def _bank_grads(loss_fn, params, batch, pol, bank, step, stats):
+    """Gradients of every param leaf at ``step`` over ``bank``, as the train
+    step takes them, and the bank that step would return."""
+    from repro_torch.core import statsbank
+    from repro_torch.optim.optimizers import tree_leaves
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    with statsbank.bind(bank, step, stats) as sess:
+        loss, _ = loss_fn(params, batch, pol)
+        grads = torch.autograd.grad(loss, leaves)
+    return grads, statsbank.merge_updates(bank, sess.updates)
+
+
+@contextlib.contextmanager
+def checked_engine():
+    """The cuda engine, registered as "checked", with every kernel call held
+    against the plain engine's on the same inputs, with phase 3's
+    tolerances: quantize and truncate codes at most one grid step apart in
+    at most 1e-4 of the elements, dequantize within 1e-6 relative, a raw
+    GEMM within 1e-5 * max|plain|, epilogue GEMM codes at most one step
+    apart in at most 1e-3 of the outputs, the flash forward's codes (or raw
+    output, within 1e-4 * max|plain|) in at most 1e-2 and |lse| within
+    1e-4, and each of the flash backward's dq, dk, dv within 1e-4 *
+    max|plain|.  Yields the tally by kernel: calls checked, and output
+    elements that differ from the plain version's (codes or values)."""
+    from repro_torch.core import backend as nb
+    from repro_torch.core import qdot, s2fp8
+    plain = nb.BACKENDS["plain"]
+    tally = {}
+
+    def held(kind, ok, detail, *pairs):
+        t = tally.setdefault(kind, {"calls": 0, "differ": 0})
+        t["calls"] += 1
+        t["differ"] += sum(int((x != y).sum()) for x, y in pairs)
+        assert ok, f"{kind} disagrees with its plain version: {detail}"
+
+    def codes_close(a, b, ab, fmt, frac):
+        f = flips(ordinal(a, ab, fmt), ordinal(b, ab, fmt))
+        return f["max_step"] <= 1 and f["frac"] <= frac, f
+
+    def rel_err(a, b):
+        return (a - b).abs().max().item(), b.abs().max().item()
+
+    class Checked(nb.CudaBackend):
+        name = "checked"
+
+        def quantize(self, x, *, stats, fmt="e5m2"):
+            t = super().quantize(x, stats=stats, fmt=fmt)
+            ck, cp = code_ordinal(t.payload), code_ordinal(
+                plain.quantize(x, stats=stats, fmt=fmt).payload)
+            f = flips(ck, cp)
+            held("quant_apply", f["max_step"] <= 1 and f["frac"] <= 1e-4, f,
+                 (ck, cp))
+            return t
+
+        def dequantize(self, t, dtype=torch.float32):
+            y = super().dequantize(t, dtype)
+            ref = plain.dequantize(t, dtype)
+            err = (y - ref).abs()
+            held("dequant", bool((err <= 1e-6 * ref.abs()).all()),
+                 err.max().item(), (y, ref))
+            return y
+
+        def truncate(self, x, *, stats, fmt="e5m2"):
+            y = super().truncate(x, stats=stats, fmt=fmt)
+            ref = plain.truncate(x, stats=stats, fmt=fmt)
+            held("truncate_apply", *codes_close(
+                y, ref, s2fp8.as_stats(stats, x.device), fmt, 1e-4),
+                (y, ref))
+            return y
+
+        def qmatmul(self, a, b, *, layout="nn", epilogue_stats=None,
+                    fmt="e5m2"):
+            kw = dict(layout=layout, epilogue_stats=epilogue_stats, fmt=fmt)
+            y, ref = super().qmatmul(a, b, **kw), plain.qmatmul(a, b, **kw)
+            if epilogue_stats is None:
+                err, top = rel_err(y, ref)
+                held(f"qmatmul_{layout}", err <= 1e-5 * top, (err, top),
+                     (y, ref))
+            else:
+                held(f"qmatmul_{layout}", *codes_close(
+                    y, ref, s2fp8.as_stats(epilogue_stats, y.device), fmt,
+                    1e-3), (y, ref))
+            return y
+
+    fwd, bwd = qdot._payload_flash_fwd, qdot._payload_flash_bwd
+
+    def flash_fwd(be, qq, qk, qv, causal, window, fmt, bq, bk, out_stats):
+        out, lse = fwd(be, qq, qk, qv, causal, window, fmt, bq, bk,
+                       out_stats)
+        if isinstance(be, Checked):
+            rout, rlse = fwd(plain, qq, qk, qv, causal, window, fmt, bq, bk,
+                             out_stats)
+            lerr, _ = rel_err(lse, rlse)
+            if out_stats is None:
+                err, top = rel_err(out, rout)
+                ok, detail = err <= 1e-4 * top, (err, top)
+            else:
+                ok, detail = codes_close(out, rout, s2fp8.as_stats(
+                    out_stats, out.device), fmt, 1e-2)
+            held("qflash_fwd", ok and lerr <= 1e-4, (detail, lerr),
+                 (out, rout))
+        return out, lse
+
+    def flash_bwd(be, qq, qk, qv, qg, lse, delta, causal, window, bq, bk):
+        got = bwd(be, qq, qk, qv, qg, lse, delta, causal, window, bq, bk)
+        if isinstance(be, Checked):
+            want = bwd(plain, qq, qk, qv, qg, lse, delta, causal, window,
+                       bq, bk)
+            errs = [rel_err(x, y) for x, y in zip(got, want)]
+            held("qflash_bwd", all(e <= 1e-4 * t for e, t in errs), errs,
+                 *zip(got, want))
+        return got
+
+    nb.BACKENDS["checked"] = Checked()
+    qdot._payload_flash_fwd, qdot._payload_flash_bwd = flash_fwd, flash_bwd
+    try:
+        yield tally
+    finally:
+        qdot._payload_flash_fwd, qdot._payload_flash_bwd = fwd, bwd
+        del nb.BACKENDS["checked"]
+
+
+def phase_small_train(dev) -> None:
+    """Reduced minicpm_2b (2 layers, d=128, vocab 512) at batch 2 x seq 64
+    with the bank at k = 2, once through the kernels and once through plain
+    PyTorch (plain engine), from the same seeded params and batches.  The
+    kernels run as the ``checked_engine``: every kernel call of the
+    training path, forward and backward, refresh and steady steps, is held
+    against its plain version on the same inputs, and each of the eight
+    training kernels must have been checked.
+
+    First each engine's gradients from the same params and bank, at step 0
+    (every site cold: the refresh branch) over the initial bank and at
+    step 1 (steady: the epilogue-fused GEMMs) over the bank the plain
+    engine's step 0 returns; the per-leaf ||g_kernels - g_plain|| /
+    ||g_plain|| is printed, not bounded: a code that one GEMM's summation
+    order moves by one grid step changes the inputs of every later GEMM,
+    so the whole-model gradients of two sound engines differ by several
+    percent (PERF.md, Findings), while the per-call checks see each kernel
+    on its own inputs.  Then 3 train steps (steps 0 and 2 refresh): every
+    step's loss finite and the two engines' within 0.01 of each other."""
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import statsbank
+    from repro_torch.data import synthetic
+
+    cfg = get_reduced_config("minicpm_2b").replace(n_layers=2)
+    chain = synthetic.markov_chain(1, cfg.vocab)
+    gen = torch.Generator().manual_seed(1)
+    batches = [synthetic.lm_batch(chain, gen, 2, 64, dev) for _ in range(3)]
+    loss_fn = _lm_loss(cfg)
+    stats = statsbank.StatsConfig(refresh_every=2)
+    with checked_engine() as tally:
+        _small_train(dev, cfg, batches, loss_fn, stats, tally)
+
+
+def _small_train(dev, cfg, batches, loss_fn, stats, tally) -> None:
+    from repro_torch.core import statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import transformer as tlm
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    params = tlm.init_lm(cfg, seed=1, device=dev)
+    pols = {e: make_policy("s2fp8", e) for e in ("checked", "plain")}
+    bank0 = statsbank.init_bank(loss_fn, params, batches[0], pols["plain"],
+                                stats)
+    gp0, bank1 = _bank_grads(loss_fn, params, batches[0], pols["plain"],
+                             bank0, 0, stats)
+    assert not any(c.any() for e in statsbank.cold_sites(bank1).values()
+                   for c in e.values()), "a site stayed cold after step 0"
+    gp1, _ = _bank_grads(loss_fn, params, batches[1], pols["plain"], bank1,
+                         1, stats)
+    for step, bank, gp in ((0, bank0, gp0), (1, bank1, gp1)):
+        before = {k: dict(v) for k, v in tally.items()}
+        gc, _ = _bank_grads(loss_fn, params, batches[step], pols["checked"],
+                            bank, step, stats)
+        assert all(bool(torch.isfinite(c).all()) for c in gc), step
+        rel = [((c - p).norm() / p.norm()).item() for c, p in zip(gc, gp)]
+        differ = {k: v["differ"] - before.get(k, {"differ": 0})["differ"]
+                  for k, v in tally.items()}
+        log(f"small train: step {step} gradients, ||kernels - plain|| / "
+            f"||plain|| per leaf: max {max(rel):.3e}, median "
+            f"{sorted(rel)[len(rel) // 2]:.3e} over {len(rel)} leaves; "
+            f"output elements that differ from the plain version's, by "
+            f"kernel: {differ}")
+    del params, bank0, bank1, gp0, gp1, gc
+
+    losses = {}
+    for engine, pol in pols.items():
+        params = tlm.init_lm(cfg, seed=1, device=dev)
+        opt = optimizers.adamw()
+        opt_state = opt.init(params)
+        bank = statsbank.init_bank(loss_fn, params, batches[0], pol, stats)
+        step = make_train_step(loss_fn, opt, schedules.constant(3e-3), pol,
+                               stats=stats)
+        out = []
+        for i, batch in enumerate(batches):
+            params, opt_state, bank, m = step(params, opt_state, bank, batch,
+                                              i)
+            out.append(float(m["loss"]))
+        losses[engine] = out
+    log(f"small train: losses kernels {losses['checked']} plain "
+        f"{losses['plain']}")
+    for a, b in zip(losses["checked"], losses["plain"]):
+        assert math.isfinite(a) and math.isfinite(b), losses
+        assert abs(a - b) <= 0.01, losses
+    log(f"small train: kernel calls held against their plain versions: "
+        f"{tally}")
+    missing = set(TRAIN_KERNELS) - set(tally)
+    assert not missing, f"never checked on the training path: {missing}"
+
+
+def phase_train(dev, profile: bool = False) -> dict:
+    """Full-width minicpm_2b (40 layers, remat) trained through the port's
+    entry points: seeded params, seeded Markov batches of 4 x 512 tokens,
+    ``statsbank.init_bank`` (one probe pass), then 4 steps of
+    ``make_train_step`` with the bank at k = 8 (step 0 bootstraps every
+    site, steps 1-3 are steady), AdamW.  Returns the kernel launch counts
+    of this phase and its metrics.  With ``profile``, one more steady step
+    runs under torch.profiler afterwards."""
     import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core import statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import synthetic
+    from repro_torch.models import transformer as tlm
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    cfg = get_config("minicpm_2b")
+    pol = make_policy("s2fp8")
+    steps, batch, seq = 4, 4, 512
+    t0 = time.perf_counter()
+    params = tlm.init_lm(cfg, seed=0, device=dev)
+    opt = optimizers.adamw(weight_decay=0.01)
+    opt_state = opt.init(params)
+    chain = synthetic.markov_chain(0, cfg.vocab)
+    gen = torch.Generator().manual_seed(0)
+    batches = [synthetic.lm_batch(chain, gen, batch, seq, dev)
+               for _ in range(steps + 1)]
+    torch.cuda.synchronize()
+    log(f"train: minicpm_2b {cfg.n_layers} layers, remat {cfg.remat}, "
+        f"{cfg.n_params() / 1e9:.3f} B params, batch {batch} x seq {seq}, "
+        f"set-up {time.perf_counter() - t0:.1f} s")
+    loss_fn = _lm_loss(cfg)
+    stats = statsbank.StatsConfig(refresh_every=8)
+    step_fn = make_train_step(loss_fn, opt, schedules.make_schedule(
+        "wsd", 3e-4, total_steps=steps, warmup=1), pol, stats=stats)
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # the main path starts here
+    t0 = time.perf_counter()
+    bank = statsbank.init_bank(loss_fn, params, batches[0], pol, stats)
+    torch.cuda.synchronize()
+    t_probe = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, step_ms, step_peak, step_launches = [], [], [], []
+    for i in range(steps):
+        before = kernels.counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ts = time.perf_counter()
+        params, opt_state, bank, m = step_fn(params, opt_state, bank,
+                                             batches[i + 1], i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        step_launches.append({k: c["launches"] - before[k]["launches"]
+                              for k, c in kernels.counts().items()})
+        step_peak.append(torch.cuda.max_memory_allocated() / 1e9)
+        peak = max(peak, torch.cuda.max_memory_allocated())
+        log(f"train step {i}: loss {losses[-1]:.4f}, grad_norm "
+            f"{float(m['grad_norm']):.3f}, refreshed "
+            f"{m['stats_refreshed']:.0f}, {step_ms[-1]:.1f} ms, peak "
+            f"{step_peak[-1]:.2f} GB")
+    counts = kernels.counts()                     # ... and ends here
+    if profile:
+        state = {"p": params, "o": opt_state, "b": bank}
+
+        def one_step():
+            state["p"], state["o"], state["b"], _ = step_fn(
+                state["p"], state["o"], state["b"], batches[-1], steps)
+        profile_window(f"1 steady train step (step {steps})", one_step)
+        memory_by_stage(loss_fn, opt, pol, stats, state, batches[-1],
+                        steps + 1)
+
+    assert all(math.isfinite(x) for x in losses), losses
+    check_counts(counts, TRAIN_KERNELS)
+    tokens = batch * seq
+    steady_ms = float(np.mean(step_ms[1:]))
+    flop = 6.0 * cfg.n_params() * tokens
+    metrics = {
+        "steps": steps, "tokens_per_step": tokens, "losses": losses,
+        "step_ms": step_ms, "steady_step_ms_mean": steady_ms,
+        "tokens_per_s": tokens / steady_ms * 1e3,
+        "model_tflop_per_s_6NT": flop / steady_ms / 1e9,
+        "probe_s": t_probe, "bank_sites": len(bank),
+        "step_peak_gb": step_peak, "max_memory_allocated_gb": peak / 1e9,
+        "launches_step0": step_launches[0],
+        "launches_steady_step": step_launches[-1],
+    }
+    log("train metrics: " + json.dumps(metrics))
+    log("train launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
+def memory_by_stage(loss_fn, opt, pol, stats, state, batch, step) -> None:
+    """Peak and live device memory of one more steady train step, stage by
+    stage: the loss function and the optimizer are wrapped, so the peaks
+    split at the end of the forward and at the start of the update."""
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    gb = 1e9
+    marks = []
+
+    def mark(stage):
+        torch.cuda.synchronize()
+        marks.append((stage, torch.cuda.max_memory_allocated() / gb,
+                      torch.cuda.memory_allocated() / gb))
+        torch.cuda.reset_peak_memory_stats()
+
+    def loss_marked(params, batch_, policy):
+        out = loss_fn(params, batch_, policy)
+        mark("forward")
+        return out
+
+    def update_marked(grads, opt_state, params, lr):
+        mark("backward")
+        out = opt.update(grads, opt_state, params, lr)
+        mark("update")
+        return out
+
+    step_fn = make_train_step(
+        loss_marked, optimizers.Optimizer(opt.init, update_marked),
+        schedules.constant(3e-4), pol, stats=stats)
+    mark("before")
+    state["p"], state["o"], state["b"], _ = step_fn(
+        state["p"], state["o"], state["b"], batch, step)
+    log("train memory by stage (peak GB during, live GB after): " + ", ".join(
+        f"{stage} {peak:.2f} / {live:.2f}" for stage, peak, live in marks))
+
+
+def profile_window(label: str, fn) -> None:
+    """Device time by kernel and the device's idle share while ``fn`` runs,
+    with torch.profiler (CPU + CUDA activities)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for e in prof.key_averages():
+        if e.device_type == DeviceType.CPU:
+            continue        # host ops; their kernels are listed apart
+        dev_us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, e.count, e.key))
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    log(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
+        f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
+    for ms, count, key in rows[:14]:
+        log(f"  {ms:9.2f} ms  {count:7d}x  {key[:90]}")
+
+
+def phase_profile(server) -> None:
+    """Optional (--profile): two windows of the full-width server — one
+    admission tick (8 prompts of 256 tokens: a prefill at bucket 256, then
+    a decode) and five decode ticks."""
+    import numpy as np
     from repro_torch.serving.engine import Request
 
     rng = np.random.default_rng(1)
@@ -504,32 +1072,12 @@ def phase_profile(server) -> None:
         server.submit(Request(prompt=rng.integers(
             0, server.cfg.vocab, 256, dtype=np.int32), max_new_tokens=12))
 
-    def window(label, ticks):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(ticks):
-                server.step()
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        rows = []
-        for e in prof.key_averages():
-            if e.device_type == DeviceType.CPU:
-                continue        # host ops; their kernels are listed apart
-            dev_us = getattr(e, "self_device_time_total",
-                             getattr(e, "self_cuda_time_total", 0))
-            if dev_us > 0:
-                rows.append((dev_us / 1e3, e.count, e.key))
-        rows.sort(reverse=True)
-        busy = sum(r[0] for r in rows)
-        log(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
-            f"{busy:.1f} ms, idle share {1 - busy / wall_ms:.3f}")
-        for ms, count, key in rows[:12]:
-            log(f"  {ms:9.2f} ms  {count:7d}x  {key[:90]}")
+    def ticks(n):
+        return lambda: [server.step() for _ in range(n)]
 
-    window("admission tick (prefill bucket 256 x 8 rows + decode)", 1)
-    window("5 decode ticks", 5)
+    profile_window("admission tick (prefill bucket 256 x 8 rows + decode)",
+                   ticks(1))
+    profile_window("5 decode ticks", ticks(5))
 
 
 # ---------------------------------------------------------------------------
@@ -540,8 +1088,9 @@ def main() -> int:
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v register/smem reports")
     ap.add_argument("--profile", action="store_true",
-                    help="after serving, print torch.profiler device time "
-                         "by kernel for one admission and five decode ticks")
+                    help="print torch.profiler device time by kernel for "
+                         "one admission and five decode ticks of the "
+                         "server and one steady train step")
     args = ap.parse_args()
 
     phase_device()
@@ -551,14 +1100,23 @@ def main() -> int:
     if args.only == "kernels":
         return 0
     phase_small_reference(dev)
+    phase_small_train(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
+    # the server's timing wrappers hold its own bound methods: a reference
+    # cycle, which only the collector frees (params and pool, ~12 GB)
+    del served["server"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    trained = phase_train(dev, args.profile)
     out = []
     for name, row in rows.items():
+        ls = served["counts"][name]["launches"]
+        lt = trained["counts"][name]["launches"]
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                    "replaces": REPLACES[name],
-                    "launches": served["counts"][name]["launches"],
+                    "replaces": REPLACES[name], "launches": ls + lt,
+                    "launches_serve": ls, "launches_train": lt,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],

@@ -1,9 +1,9 @@
 """Architecture configuration schema (copy of ``repro.configs.base``).
 
-The port keeps its own copy of the fields its serving slice reads, so it
-never imports the JAX package.  Field names, defaults and values match
-the reference, which lets a JAX config and a port config describe the same
-model."""
+The port keeps its own copy of the fields its serving and training
+slices read, so it never imports the JAX package. Field names, defaults
+and values match the reference, which lets a JAX config and a port
+config describe the same model."""
 from __future__ import annotations
 
 import dataclasses
@@ -31,6 +31,7 @@ class ArchConfig:
     pattern: Tuple[str, ...] = ()    # () -> ("dense",) * n_layers
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
+    remat: bool = True               # rematerialize each layer in training
     schedule: str = "cosine"
 
     @property

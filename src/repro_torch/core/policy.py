@@ -1,25 +1,35 @@
-"""Numeric policy of the port: the S2FP8 modes on the payload GEMM path.
+"""Numeric policy of the port: how every GEMM and truncation site runs.
 
-Port of the serving part of ``repro.core.policy``.  Models call
-``policy.dot`` / ``policy.truncate`` / ``policy.flash_attention`` and get
-the paper's dataflow: every GEMM runs payload-domain (``qdot_train``),
-attention runs as one payload flash node, and each result rounds to f32
-and then to the caller's dtype at the GEMM boundary (``_qdot_out``).
-The other modes (fp32, bf16, fp8, fp8_ls) and the fig4 GEMM mode come
-with later slices.
+Port of ``repro.core.policy`` for the modes the port has:
+
+  fp32       — baseline, nothing inserted
+  fp8        — raw e5m2 truncation around GEMMs (the diverging baseline):
+               operands and output through ``fp8_truncate_bidir``
+  s2fp8      — the paper's format on the payload path: every GEMM runs
+               payload-domain (``qdot_train``), attention runs as one
+               payload flash node, and each result rounds to f32 and then
+               to the caller's dtype at the GEMM boundary (``_qdot_out``)
+  s2fp8_e4m3 — the same on the e4m3 grid
+
+Truncation sites (``truncate``) follow the active StatsBank session (bank
+stats) or, outside one, exact per-call stats through ``bidir_truncate``.
+The bf16 and fp8_ls modes (with the fp8_ls trainer's ``loss_scale``) and
+the fig4 GEMM mode come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 
 from repro_torch.core import backend as nbackend
 from repro_torch.core import qdot as qdot_mod
+from repro_torch.core import s2fp8
 from repro_torch.core import statsbank
 
-MODES = ("s2fp8", "s2fp8_e4m3")
+MODES = ("fp32", "fp8", "s2fp8", "s2fp8_e4m3")
+S2FP8_MODES = ("s2fp8", "s2fp8_e4m3")
 # "auto" and "payload" both select the payload GEMM here; the composed
 # fig4 chain is not ported.
 GEMM_MODES = ("auto", "payload")
@@ -55,13 +65,23 @@ class Policy:
     def accum_dtype(self):
         return torch.float32
 
+    @property
+    def uses_payload_gemm(self) -> bool:
+        return self.mode in S2FP8_MODES
+
+    @property
+    def _wrap(self) -> Callable[[torch.Tensor], torch.Tensor]:
+        """Operand / output truncation of the non-payload modes."""
+        return s2fp8.fp8_truncate_bidir if self.mode == "fp8" else _identity
+
     def truncate(self, x: torch.Tensor) -> torch.Tensor:
-        """Bank-site Eq. 5 truncation (site kind ``t``) of the active
-        session, in ``x``'s dtype."""
+        """Tensor-level truncation at op boundaries (site kind ``t``),
+        bidirectional, in ``x``'s dtype."""
+        if not self.uses_payload_gemm:
+            return self._wrap(x)
         sess = statsbank.current_session()
         if sess is None:
-            raise ValueError("Policy.truncate runs inside a frozen or "
-                             "calibrating StatsBank session in this port")
+            return nbackend.bidir_truncate(self.backend, self._fmt)(x)
         return sess.truncate(x, fmt=self._fmt, backend=self.backend)
 
     def _qdot_out(self, y: torch.Tensor, dtype) -> torch.Tensor:
@@ -69,18 +89,70 @@ class Policy:
         the caller's dtype (reference policy.py:191-197)."""
         return y.to(self.accum_dtype).to(dtype)
 
+    def _dense(self, fn, *operands) -> torch.Tensor:
+        """fp32 / fp8 chain: truncated operands, an f32 contraction,
+        truncated output, the operands' promoted dtype."""
+        y = fn(*[self._wrap(o).to(self.accum_dtype) for o in operands])
+        dtype = operands[0].dtype
+        for o in operands[1:]:
+            dtype = torch.promote_types(dtype, o.dtype)
+        return self._wrap(y).to(dtype)
+
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        y = qdot_mod.qdot_train(a, b, backend=self.backend, fmt=self._fmt)
-        return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
+        if self.uses_payload_gemm:
+            y = qdot_mod.qdot_train(a, b, backend=self.backend, fmt=self._fmt)
+            return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
+        return self._dense(torch.matmul, a, b)
+
+    def dot_general(self, a: torch.Tensor, b: torch.Tensor,
+                    dimension_numbers) -> torch.Tensor:
+        """A batch-free ``dot_general``: payload-domain through the 2-D
+        planner (``backend.plan_qdot_general``) on the s2fp8 modes."""
+        (ca, cb), (ba, bb) = dimension_numbers
+        if ba or bb:
+            raise NotImplementedError(
+                "batched contractions need the batched payload GEMM, which "
+                "is not ported")
+        if self.uses_payload_gemm:
+            plan = nbackend.plan_qdot_general(a.shape, b.shape,
+                                              dimension_numbers)
+            if plan is None:
+                raise NotImplementedError(
+                    f"no payload GEMM layout for {tuple(a.shape)} x "
+                    f"{tuple(b.shape)} contracting {dimension_numbers}")
+            y = qdot_mod.qdot_train(a, b, plan=plan, backend=self.backend,
+                                    fmt=self._fmt)
+            return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
+        return self._dense(
+            lambda x, y: torch.tensordot(x, y, dims=(list(ca), list(cb))),
+            a, b)
+
+    def einsum(self, spec: str, *operands) -> torch.Tensor:
+        """fp32 / fp8 contractions (the plain attention path); the payload
+        einsum needs the batched payload GEMM, which is not ported."""
+        if self.uses_payload_gemm:
+            raise NotImplementedError(
+                "payload einsum needs the batched payload GEMM, which is "
+                "not ported")
+        return self._dense(lambda *xs: torch.einsum(spec, *xs), *operands)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
                         window=None) -> torch.Tensor:
-        """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]``."""
+        """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]`` — the payload
+        flash node (s2fp8 modes only)."""
+        if not self.uses_payload_gemm:
+            raise NotImplementedError(
+                f"flash attention under mode {self.mode!r} is not ported; "
+                f"models take the masked-softmax path")
         y = qdot_mod.qflash_attention(q, k, v, causal=causal, window=window,
                                       backend=self.backend, fmt=self._fmt)
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                  v.dtype)
         return self._qdot_out(y, dt)
+
+
+def _identity(x):
+    return x
 
 
 def make_policy(mode: str, backend: Optional[str] = None,

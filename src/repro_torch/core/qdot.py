@@ -1,10 +1,5 @@
-"""Payload-domain GEMM and flash-attention nodes, forward only.
-
-Port of the serving part of ``repro.core.qdot``: ``_qdot_frozen``
-(qdot.py:220), ``_qflash_frozen`` (:544) and the forward of the banked
-node (``_qdot_banked`` / ``_qflash_banked`` at a refresh step), which is
-how calibration runs.  ``qdot_train`` and ``qflash_attention`` keep their
-names; the ``torch.autograd.Function`` versions come with training.
+"""Payload-domain GEMM and flash-attention nodes (port of
+``repro.core.qdot``).
 
 Forward of a GEMM node::
 
@@ -12,9 +7,38 @@ Forward of a GEMM node::
     qB = quantize(B, b.fwd stats)
     Y  = qmatmul(qA, qB, epilogue_stats=out.fwd stats)
 
-Operands are quantized in the dtype the caller passes (bf16 activations
-and weights): the reference casts them to f32 first, which is exact, so
-the payloads are the same.
+Backward (paper Fig. 4's two transposed GEMMs, payload-domain)::
+
+    qG = quantize(g, out.bwd stats)
+    dA = qmatmul(qG, qB, layout="nt", epilogue_stats=a.bwd stats)
+    dB = qmatmul(qA, qG, layout="tn", epilogue_stats=b.bwd stats)
+
+for a forward layout "nn"; other forward layouts (the tied LM head's
+``x . E^T`` is "nt") take their pair from ``_BWD_GEMMS``.  The residuals
+saved for the backward are the 1-byte payloads plus their (alpha, beta):
+no f32 operand is kept.
+
+The nodes, each a ``torch.autograd.Function`` where the reference has a
+``jax.custom_vjp``:
+
+  * ``_QdotBanked`` / ``_QflashBanked`` (reference ``_qdot_banked``,
+    ``_qflash_banked``) — inside a training session: every operand, output
+    and cotangent uses its site's carried stats; on a refresh step (or
+    while the site is cold) the stats are refreshed from the tensor first
+    (refresh-then-use).  A steady GEMM runs one launch with the fused Eq. 5
+    epilogue; a refresh takes raw GEMM -> refresh -> truncate.  Refreshed
+    states go to the session's ``updates``.  A calibrating session runs
+    the same forward with every site refreshing.
+  * ``_QdotExact`` / ``_QflashExact`` (``_qdot_exact``, ``_qflash_exact``)
+    — outside any session (and during discovery): fresh exact stats per
+    tensor, still payload-domain with payload residuals.
+  * frozen forwards (``_qdot_frozen``, ``_qflash_frozen``) — serving:
+    frozen stats, no reductions, no autograd.
+
+Gradients cross the bf16 casts as the reference's do: an operand passed in
+bf16 gets its f32 gradient rounded to bf16.  Operands are quantized in the
+dtype the caller passes: the reference casts them to f32 first, which is
+exact, so the payloads are the same.
 """
 from __future__ import annotations
 
@@ -25,75 +49,155 @@ import torch
 
 from repro_torch.core import backend as nbackend
 from repro_torch.core import statsbank
+from repro_torch.core.backend import QdotPlan
 from repro_torch.core.s2fp8 import S2FP8Tensor
 from repro_torch.kernels import flash_attention as _fkern
 
+# Backward GEMM table: forward layout -> ((dA lhs, dA rhs, dA layout),
+# (dB lhs, dB rhs, dB layout)) over the saved payloads "a", "b" and the
+# quantized cotangent "g" (reference qdot.py:77-81).
+_BWD_GEMMS = {
+    "nn": (("g", "b", "nt"), ("a", "g", "tn")),
+    "nt": (("g", "b", "nn"), ("g", "a", "tn")),
+    "tn": (("b", "g", "nt"), ("a", "g", "nn")),
+}
 
-def _session(what: str) -> statsbank.Session:
-    sess = statsbank.current_session()
-    if sess is None:
-        raise ValueError(f"{what} runs inside a frozen (serving) or "
-                         f"calibrating StatsBank session in this port")
-    return sess
+
+def _save(ctx, *tensors: S2FP8Tensor, extra=()) -> None:
+    """Residuals: each payload with its (alpha, beta), then ``extra``."""
+    ctx.fmts = tuple(t.fmt for t in tensors)
+    ctx.save_for_backward(*[x for t in tensors for x in (t.payload, t.ab)],
+                          *extra)
 
 
-def _qdot_frozen(be, fmt, a, b, site: statsbank.Site):
+def _saved(ctx):
+    s = ctx.saved_tensors
+    n = len(ctx.fmts)
+    return ([S2FP8Tensor(s[2 * i], s[2 * i + 1], f)
+             for i, f in enumerate(ctx.fmts)], s[2 * n:])
+
+
+def _epilogue_qmatmul(be, qa, qb, layout, site, direction, fmt, backend):
+    """Sited payload GEMM: steady state is one launch with the Eq. 5
+    epilogue on the carried stats; when the site is due, raw GEMM, refresh
+    from the raw output, then truncate (refresh-then-use)."""
+    if site.need(direction):
+        y_raw = be.qmatmul(qa, qb, layout=layout, fmt=fmt)
+        ab = site.refresh(direction, y_raw, fmt, backend)
+        return be.truncate(y_raw, stats=ab, fmt=fmt)
+    return be.qmatmul(qa, qb, layout=layout,
+                      epilogue_stats=site.carried(direction), fmt=fmt)
+
+
+class _QdotBanked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, site, be, backend, fmt, layout):
+        qa = be.quantize(a, stats=site.stats("a.fwd", a, fmt, backend),
+                         fmt=fmt)
+        qb = be.quantize(b, stats=site.stats("b.fwd", b, fmt, backend),
+                         fmt=fmt)
+        y = _epilogue_qmatmul(be, qa, qb, layout, site, "out.fwd", fmt,
+                              backend)
+        _save(ctx, qa, qb)
+        ctx.meta = (site, be, backend, fmt, layout, a.dtype, b.dtype)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        site, be, backend, fmt, layout, adt, bdt = ctx.meta
+        (qa, qb), _ = _saved(ctx)
+        qg = be.quantize(g, stats=site.stats("out.bwd", g, fmt, backend),
+                         fmt=fmt)
+        ops = {"a": qa, "b": qb, "g": qg}
+        (al, ar, alay), (bl, br, blay) = _BWD_GEMMS[layout]
+        da = _epilogue_qmatmul(be, ops[al], ops[ar], alay, site, "a.bwd",
+                               fmt, backend)
+        db = _epilogue_qmatmul(be, ops[bl], ops[br], blay, site, "b.bwd",
+                               fmt, backend)
+        return da.to(adt), db.to(bdt), None, None, None, None, None
+
+
+class _QdotExact(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, b, be, fmt, layout):
+        qa = be.quantize(a, stats=be.compute_stats(a, fmt=fmt), fmt=fmt)
+        qb = be.quantize(b, stats=be.compute_stats(b, fmt=fmt), fmt=fmt)
+        y_raw = be.qmatmul(qa, qb, layout=layout, fmt=fmt)
+        _save(ctx, qa, qb)
+        ctx.meta = (be, fmt, layout, a.dtype, b.dtype)
+        return be.truncate(y_raw, stats=be.compute_stats(y_raw, fmt=fmt),
+                           fmt=fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        be, fmt, layout, adt, bdt = ctx.meta
+        (qa, qb), _ = _saved(ctx)
+        qg = be.quantize(g, stats=be.compute_stats(g, fmt=fmt), fmt=fmt)
+        ops = {"a": qa, "b": qb, "g": qg}
+        grads = []
+        for lhs, rhs, lay in _BWD_GEMMS[layout]:
+            d = be.qmatmul(ops[lhs], ops[rhs], layout=lay, fmt=fmt)
+            grads.append(be.truncate(d, stats=be.compute_stats(d, fmt=fmt),
+                                     fmt=fmt))
+        return grads[0].to(adt), grads[1].to(bdt), None, None, None
+
+
+def _qdot_frozen(be, fmt, a, b, site: statsbank.Site, layout: str):
     """Frozen-stats forward: zero stats reductions."""
     qa = be.quantize(a, stats=site.frozen("a.fwd", fmt), fmt=fmt)
     qb = be.quantize(b, stats=site.frozen("b.fwd", fmt), fmt=fmt)
-    return be.qmatmul(qa, qb, layout="nn",
+    return be.qmatmul(qa, qb, layout=layout,
                       epilogue_stats=site.frozen("out.fwd", fmt), fmt=fmt)
 
 
-def _qdot_calibrate(be, fmt, backend, a, b, site: statsbank.Site):
-    """Refresh-step forward: operand stats refreshed from the operands, the
-    raw product computed, the output stats refreshed from it, then the
-    output truncated with them (refresh-then-use)."""
-    qa = be.quantize(a, stats=site.refresh("a.fwd", a, fmt, backend), fmt=fmt)
-    qb = be.quantize(b, stats=site.refresh("b.fwd", b, fmt, backend), fmt=fmt)
-    y_raw = be.qmatmul(qa, qb, layout="nn", fmt=fmt)
-    ab = site.refresh("out.fwd", y_raw, fmt, backend)
-    return be.truncate(y_raw, stats=ab, fmt=fmt)
-
-
 def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
+               plan: Optional[QdotPlan] = None,
                backend: Optional[str] = None, fmt: str = "e5m2"
                ) -> torch.Tensor:
-    """Payload-domain ``[..., K] x [K, N] -> [..., N]`` in f32, one bank
-    node (site kind ``qt``) of the active session."""
-    if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
-        raise ValueError(f"qdot_train wants [..., K] x [K, N]; got "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
-    out_shape = a.shape[:-1] + (b.shape[-1],)
-    a2 = a.reshape(-1, a.shape[-1])
-    sess = _session("qdot_train")
+    """Differentiable payload-domain contraction, one bank node (site kind
+    ``qt``) of the active session, or exact stats outside one.  Without
+    ``plan``: the dense ``[..., K] x [K, N] -> [..., N]`` family; with a
+    :class:`QdotPlan` (``backend.plan_qdot_general``): its layout and
+    reshapes.  Returns f32 (the caller casts)."""
+    if plan is None:
+        if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
+            raise ValueError(f"qdot_train wants [..., K] x [K, N]; got "
+                             f"{tuple(a.shape)} x {tuple(b.shape)}")
+        plan = QdotPlan("nn", (-1, a.shape[-1]), tuple(b.shape),
+                        tuple(a.shape[:-1]) + (b.shape[-1],))
+    a2 = a.reshape(plan.a2_shape)
+    b2 = b.reshape(plan.b2_shape)
     be = nbackend.get_backend(backend)
-    site = sess.site("qt")
-    if sess.frozen:
-        y2 = _qdot_frozen(be, fmt, a2, b, site)
+    sess = statsbank.current_session()
+    if sess is None or sess.discovery:
+        if sess is not None:
+            sess.site("qt")                  # record, then the exact path
+        y2 = _QdotExact.apply(a2, b2, be, fmt, plan.layout)
+    elif sess.frozen:
+        y2 = _qdot_frozen(be, fmt, a2, b2, sess.site("qt"), plan.layout)
     else:
-        y2 = _qdot_calibrate(be, fmt, backend, a2, b, site)
-    return y2.reshape(out_shape)
+        y2 = _QdotBanked.apply(a2, b2, sess.site("qt"), be, backend, fmt,
+                               plan.layout)
+    return y2.reshape(plan.out_shape)
 
+
+# ===========================================================================
+# payload flash attention
+# ===========================================================================
 
 def _payload_flash_fwd(be, qq: S2FP8Tensor, qk: S2FP8Tensor, qv: S2FP8Tensor,
                        causal, window, fmt, bq, bk, out_stats):
-    """Raw payload flash forward -> (out f32 [B,KV,G,Sq,d], lse).
-
-    ``cuda`` engine: the fused kernel (epilogue truncation in the kernel
-    when ``out_stats`` is given).  ``plain`` engine: dequantize + the
-    grouped flash reference, then an elementwise truncate."""
-    b, kvh, g, sq, d = qq.payload.shape
-    sk = qk.payload.shape[2]
+    """Raw payload flash forward -> (out f32 [B,KV,G,Sq,d], lse
+    [B,KV,G,Sq,1]).  ``cuda`` engine: the fused kernel (epilogue
+    truncation in the kernel when ``out_stats`` is given).  ``plain``
+    engine: dequantize + the grouped flash reference, then an elementwise
+    truncate."""
     if isinstance(be, nbackend.CudaBackend):
-        out, lse = _fkern.qflash_fwd(
-            qq.payload.reshape(b * kvh * g, sq, d),
-            qk.payload.reshape(b * kvh, sk, d),
-            qv.payload.reshape(b * kvh, sk, d), qq.ab, qk.ab, qv.ab, g=g,
-            causal=causal, window=window, scale=1.0 / math.sqrt(d),
-            out_ab=out_stats, fmt=fmt)
-        return (out.reshape(b, kvh, g, sq, d),
-                lse.reshape(b, kvh, g, sq, 1))
+        from repro_torch.kernels import dispatch
+        return dispatch.qflash_fwd_grouped(
+            qq, qk, qv, causal=causal, window=window,
+            scale=1.0 / math.sqrt(qq.payload.shape[-1]), out_ab=out_stats,
+            fmt=fmt)
     out, lse = _fkern.flash_fwd_reference(
         be.dequantize(qq), be.dequantize(qk), be.dequantize(qv),
         causal=causal, window=window, q_chunk=bq, kv_chunk=bk)
@@ -102,13 +206,107 @@ def _payload_flash_fwd(be, qq: S2FP8Tensor, qk: S2FP8Tensor, qv: S2FP8Tensor,
     return out, lse
 
 
+def _payload_flash_bwd(be, qq, qk, qv, qg, lse, delta, causal, window, bq,
+                       bk):
+    """Raw payload flash backward -> (dq, dk, dv) f32, grouped layout,
+    score tiles recomputed from the payloads.  ``cuda``: the two-kernel
+    schedule with the group sum outside; ``plain``: the recompute
+    reference on dequantized payloads."""
+    if isinstance(be, nbackend.CudaBackend):
+        from repro_torch.kernels import dispatch
+        return dispatch.qflash_bwd_grouped(
+            qq, qk, qv, qg, lse, delta, causal=causal, window=window,
+            scale=1.0 / math.sqrt(qq.payload.shape[-1]))
+    return _fkern.flash_bwd_reference(
+        be.dequantize(qq), be.dequantize(qk), be.dequantize(qv),
+        be.dequantize(qg), lse, delta, causal=causal, window=window,
+        q_chunk=bq, kv_chunk=bk)
+
+
+def _flash_delta(be, qg: S2FP8Tensor, qo: S2FP8Tensor) -> torch.Tensor:
+    """flash-2's rowwise D = sum(dout * out) on the dequantized payloads."""
+    return (be.dequantize(qg) * be.dequantize(qo)).sum(dim=-1, keepdim=True)
+
+
+class _QflashBanked(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, site, be, backend, fmt, causal, window, bq,
+                bk):
+        qq = be.quantize(q, stats=site.stats("q.fwd", q, fmt, backend),
+                         fmt=fmt)
+        qk = be.quantize(k, stats=site.stats("k.fwd", k, fmt, backend),
+                         fmt=fmt)
+        qv = be.quantize(v, stats=site.stats("v.fwd", v, fmt, backend),
+                         fmt=fmt)
+        if site.need("out.fwd"):
+            raw, lse = _payload_flash_fwd(be, qq, qk, qv, causal, window,
+                                          fmt, bq, bk, None)
+            oab = site.refresh("out.fwd", raw, fmt, backend)
+            out = be.truncate(raw, stats=oab, fmt=fmt)
+        else:
+            oab = site.carried("out.fwd")
+            out, lse = _payload_flash_fwd(be, qq, qk, qv, causal, window,
+                                          fmt, bq, bk, oab)
+        # `out` is on the out site's grid, so this is its exact payload
+        qo = be.quantize(out, stats=oab, fmt=fmt)
+        _save(ctx, qq, qk, qv, qo, extra=(lse,))
+        ctx.meta = (site, be, backend, fmt, causal, window, bq, bk,
+                    (q.dtype, k.dtype, v.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        site, be, backend, fmt, causal, window, bq, bk, dts = ctx.meta
+        (qq, qk, qv, qo), (lse,) = _saved(ctx)
+        g = g.float()
+        qg = be.quantize(g, stats=site.stats("out.bwd", g, fmt, backend),
+                         fmt=fmt)
+        raws = _payload_flash_bwd(be, qq, qk, qv, qg, lse,
+                                  _flash_delta(be, qg, qo), causal, window,
+                                  bq, bk)
+        grads = [be.truncate(d, stats=site.stats(f"{n}.bwd", d, fmt,
+                                                 backend), fmt=fmt).to(dt)
+                 for n, d, dt in zip("qkv", raws, dts)]
+        return (*grads,) + (None,) * 8
+
+
+class _QflashExact(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, be, fmt, causal, window, bq, bk):
+        qq, qk, qv = (be.quantize(t, stats=be.compute_stats(t, fmt=fmt),
+                                  fmt=fmt) for t in (q, k, v))
+        raw, lse = _payload_flash_fwd(be, qq, qk, qv, causal, window, fmt,
+                                      bq, bk, None)
+        so = be.compute_stats(raw, fmt=fmt)
+        out = be.truncate(raw, stats=so, fmt=fmt)
+        _save(ctx, qq, qk, qv, be.quantize(out, stats=so, fmt=fmt),
+              extra=(lse,))
+        ctx.meta = (be, fmt, causal, window, bq, bk,
+                    (q.dtype, k.dtype, v.dtype))
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        be, fmt, causal, window, bq, bk, dts = ctx.meta
+        (qq, qk, qv, qo), (lse,) = _saved(ctx)
+        g = g.float()
+        qg = be.quantize(g, stats=be.compute_stats(g, fmt=fmt), fmt=fmt)
+        raws = _payload_flash_bwd(be, qq, qk, qv, qg, lse,
+                                  _flash_delta(be, qg, qo), causal, window,
+                                  bq, bk)
+        grads = [be.truncate(d, stats=be.compute_stats(d, fmt=fmt),
+                             fmt=fmt).to(dt) for d, dt in zip(raws, dts)]
+        return (*grads,) + (None,) * 6
+
+
 def qflash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      causal: bool = True, window: Optional[int] = None,
                      backend: Optional[str] = None, fmt: str = "e5m2",
                      q_chunk: int = 512, kv_chunk: int = 512
                      ) -> torch.Tensor:
-    """Payload-domain flash attention, q ``[B, KV, G, Sq, d]``, k/v
-    ``[B, KV, Sk, d]``; one bank node (site kind ``qf``).  Returns f32."""
+    """Differentiable payload-domain flash attention, q ``[B, KV, G, Sq,
+    d]``, k/v ``[B, KV, Sk, d]``; one bank node (site kind ``qf``) of the
+    active session, or exact stats outside one.  Returns f32."""
     if q.dim() != 5 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"qflash_attention wants q [B,KV,G,Sq,d], "
                          f"k/v [B,KV,Sk,d]; got {tuple(q.shape)}, "
@@ -117,21 +315,21 @@ def qflash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or q.shape[-1] != k.shape[-1]):
         raise ValueError(f"inconsistent attention shapes: {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    sess = _session("qflash_attention")
+    window = None if window is None else int(window)
     be = nbackend.get_backend(backend)
+    sess = statsbank.current_session()
+    if sess is None or sess.discovery:
+        if sess is not None:
+            sess.site("qf")                  # record, then the exact path
+        return _QflashExact.apply(q, k, v, be, fmt, causal, window, q_chunk,
+                                  kv_chunk)
     site = sess.site("qf")
     if sess.frozen:
-        qq = be.quantize(q, stats=site.frozen("q.fwd", fmt), fmt=fmt)
-        qk = be.quantize(k, stats=site.frozen("k.fwd", fmt), fmt=fmt)
-        qv = be.quantize(v, stats=site.frozen("v.fwd", fmt), fmt=fmt)
+        qq, qk, qv = (be.quantize(t, stats=site.frozen(f"{n}.fwd", fmt),
+                                  fmt=fmt) for n, t in zip("qkv", (q, k, v)))
         out, _ = _payload_flash_fwd(be, qq, qk, qv, causal, window, fmt,
                                     q_chunk, kv_chunk,
                                     site.frozen("out.fwd", fmt))
         return out
-    qq = be.quantize(q, stats=site.refresh("q.fwd", q, fmt, backend), fmt=fmt)
-    qk = be.quantize(k, stats=site.refresh("k.fwd", k, fmt, backend), fmt=fmt)
-    qv = be.quantize(v, stats=site.refresh("v.fwd", v, fmt, backend), fmt=fmt)
-    raw, _ = _payload_flash_fwd(be, qq, qk, qv, causal, window, fmt,
-                                q_chunk, kv_chunk, None)
-    ab = site.refresh("out.fwd", raw, fmt, backend)
-    return be.truncate(raw, stats=ab, fmt=fmt)
+    return _QflashBanked.apply(q, k, v, site, be, backend, fmt, causal,
+                               window, q_chunk, kv_chunk)

@@ -11,11 +11,15 @@ quantizing with device-resident stats never waits on the host.
 
 ``dequantize(quantize(x, s)) == truncate_value(x, s)`` elementwise, bit for
 bit — the identity the payload GEMMs and the paged KV cache rely on.
-The custom-gradient truncations wait for the training slice.
+
+The differentiable truncations (``truncate_ste``, ``truncate_bidir``,
+``fp8_truncate_bidir``) are ``torch.autograd.Function``s with the
+reference's gradient rules.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple, Union
 
 import torch
@@ -98,14 +102,15 @@ def compute_stats_partials(x: torch.Tensor
                            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Raw reduction triplet (sum log2|X|, max log2|X|, nonzero count as f32)
     over the nonzero elements; ``log_max`` is -inf for an all-zero tensor."""
-    x = x.float()
-    absx = x.abs()
+    absx = x.abs().float()
+    # NaN > 0 is false: NaNs are left out like zeros, as in the reference.
     nonzero = absx > 0.0
-    logx = torch.where(nonzero, torch.log2(torch.where(nonzero, absx, 1.0)),
-                       0.0)
     count = nonzero.sum().float()
-    log_sum = logx.sum()
-    log_max = torch.where(nonzero, logx, -torch.inf).max()
+    # Two temporaries the size of x, at any size: the excluded elements
+    # are -inf for the max (all excluded -> -inf, as wanted), 0 for the sum.
+    logx = torch.log2(absx).masked_fill_(~nonzero, -math.inf)
+    log_max = logx.max()
+    log_sum = logx.masked_fill_(~nonzero, 0.0).sum()
     return log_sum, log_max, count
 
 
@@ -173,3 +178,63 @@ def truncate_value_e4m3(x: torch.Tensor, stats: Optional[StatsLike] = None
                         ) -> torch.Tensor:
     """Eq. 5 round trip on the e4m3 grid (range pinned at 2^8)."""
     return _truncate(x, stats, "e4m3")
+
+
+# ---------------------------------------------------------------------------
+# Differentiable truncations (reference s2fp8.py:275-330).
+#
+# ``truncate_ste``       : T on the forward value, identity on the cotangent.
+# ``truncate_bidir``     : T on the forward value AND on the cotangent.
+# ``fp8_truncate_bidir`` : raw e5m2 RNE both ways (the paper's baseline;
+#                          unclamped, so it overflows to inf).
+# Each truncation computes exact per-call stats of the tensor it rounds.
+# ---------------------------------------------------------------------------
+
+class _TruncateSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return truncate_value(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+class _TruncateBidir(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return truncate_value(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return truncate_value(g)
+
+
+class _FP8TruncateBidir(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return fp8.truncate_e5m2(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return fp8.truncate_e5m2(g)
+
+
+def truncate_ste(x: torch.Tensor) -> torch.Tensor:
+    return _TruncateSTE.apply(x)
+
+
+def truncate_bidir(x: torch.Tensor) -> torch.Tensor:
+    return _TruncateBidir.apply(x)
+
+
+def fp8_truncate_bidir(x: torch.Tensor) -> torch.Tensor:
+    return _FP8TruncateBidir.apply(x)
+
+
+def tensor_stats(x: torch.Tensor) -> dict:
+    """(mu, m, alpha, beta) of ``x`` for logging (paper Fig. 5)."""
+    log_sum, log_max, count = compute_stats_partials(x)
+    alpha, beta = stats_from_reduction(log_sum, log_max, count)
+    return {"mu": log_sum / torch.clamp(count, min=1.0), "m": log_max,
+            "alpha": alpha, "beta": beta}

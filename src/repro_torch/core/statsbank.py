@@ -1,6 +1,6 @@
-"""StatsBank for the serving slice: per-site S2FP8 statistics, keyed like
-the reference's (``repro.core.statsbank``), frozen for serving or
-calibrated forward-only.
+"""StatsBank: per-site S2FP8 statistics, keyed like the reference's
+(``repro.core.statsbank``), carried by the train step, frozen for serving
+or calibrated forward-only.
 
 Bank layout (plain nested dicts, the reference's)::
 
@@ -23,8 +23,20 @@ port runs a Python loop over the layers, so :meth:`Session.segment_ctx`
 takes the layer index and restores the naming counters on exit, which
 gives every layer the same keys.
 
-Two sessions exist here:
+Four sessions exist here:
 
+  * :class:`TrainSession` (``bind``) — training: each site reuses its
+    carried (alpha, beta) and refreshes them only when due (every
+    ``refresh_every`` steps, or while the site has never been refreshed),
+    the reference's rule (``maybe_refresh``).  The decision is made on
+    the host from the step and the cold-site map (``cold_sites``), so a
+    steady step reads no device scalar and runs no stats reduction.  The
+    reference returns refreshed states as the bank argument's cotangent;
+    here the nodes' forward and backward write them into the session's
+    ``updates`` (copy-on-write, so a steady step copies nothing) and the
+    train step merges them into the bank it returns (``merge_updates``).
+  * :class:`DiscoverySession` (``init_bank``) — one probe pass that
+    records every site the model visits.
   * :class:`FrozenSession` (``freeze``) — serving: each site serves
     (alpha, beta) re-derived from its carried moments (``frozen_stats``);
     no reductions at all.  :class:`FrozenBank` holds those derived stats
@@ -41,8 +53,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import backend as nbackend
@@ -107,6 +120,19 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
             "last": new_last}
 
 
+def maybe_refresh(x: torch.Tensor, state: Dict[str, torch.Tensor],
+                  need: bool, step_f, cfg: StatsConfig, target_max: float,
+                  backend: Optional[str] = None):
+    """(ab, new_state or None): refresh from ``x`` when ``need`` (a host
+    bool), else the carried (alpha, beta) — refresh-then-use on refresh
+    steps, no reduction otherwise."""
+    if need:
+        new = refresh_state(x, state, step_f, ema_decay=cfg.ema_decay,
+                            target_max=target_max, backend=backend)
+        return torch.stack([new["alpha"], new["beta"]]), new
+    return torch.stack([state["alpha"], state["beta"]]), None
+
+
 def frozen_stats(state: Dict[str, torch.Tensor], fmt: str
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(alpha, beta) re-derived from a state's carried raw moments for
@@ -138,8 +164,9 @@ class FrozenBank:
 class Site:
     """One visited site of the active session (a layer's row inside a
     segment).  ``frozen(direction, fmt)`` serves frozen stats;
-    ``refresh(direction, x, fmt)`` refreshes a forward state from ``x`` and
-    returns the stats to use (calibrating sessions only)."""
+    ``refresh(direction, x, fmt)`` refreshes a state from ``x`` and returns
+    the stats to use (calibrating and training sessions); ``need``,
+    ``carried`` and ``stats`` are the training session's cadence."""
 
     def __init__(self, session: "Session", key: str):
         self.session = session
@@ -154,12 +181,26 @@ class Site:
                 backend: Optional[str] = None) -> torch.Tensor:
         return self.session.refresh(self, direction, x, fmt, backend)
 
+    def need(self, direction: str) -> bool:
+        return self.session.need(self, direction)
+
+    def carried(self, direction: str) -> torch.Tensor:
+        st = self.session.state(self, direction)
+        return torch.stack([st["alpha"], st["beta"]])
+
+    def stats(self, direction: str, x: torch.Tensor, fmt: str,
+              backend: Optional[str] = None) -> torch.Tensor:
+        """The (alpha, beta) to use for ``x``: refreshed from it when due
+        (refresh-then-use), else carried (training sessions)."""
+        return self.session.stats(self, direction, x, fmt, backend)
+
 
 class Session:
-    """Naming shared by both sessions: scopes, per-prefix counters and
+    """Naming shared by every session: scopes, per-prefix counters and
     segment contexts produce the reference's site keys."""
 
     frozen = False
+    discovery = False
 
     def __init__(self, bank: Dict[str, Any], cfg: StatsConfig):
         self.bank = bank
@@ -223,6 +264,12 @@ class Session:
         self._require(key, kind)
         return Site(self, key)
 
+    def state(self, site: Site, direction: str) -> Dict[str, torch.Tensor]:
+        """The site's carried state (its layer's row inside a segment)."""
+        full = self.bank[site.key][direction]
+        return (full if site.layer is None
+                else {f: v[site.layer] for f, v in full.items()})
+
     def _require(self, key: str, kind: str) -> None:
         if key not in self.bank:
             raise KeyError(
@@ -252,8 +299,9 @@ _KIND_DIRS = {"t": TRUNC_DIRS, "qt": GEMM_DIRS, "qf": FLASH_DIRS}
 
 
 class CalibratingSession(Session):
-    """Forward-only calibration: refresh-then-use at every visit, sites
-    minted on first visit (``[L]`` rows inside segments)."""
+    """Forward-only calibration: refresh-then-use at every visit (every
+    site is due, so the banked nodes' forward serves it), sites minted on
+    first visit (``[L]`` rows inside segments)."""
 
     def __init__(self, bank: Dict[str, Any], cfg: StatsConfig, device):
         if cfg.refresh_every != 1:
@@ -271,9 +319,8 @@ class CalibratingSession(Session):
     def refresh(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
                 backend: Optional[str] = None) -> torch.Tensor:
         full = self.bank[site.key][direction]
-        state = (full if site.layer is None
-                 else {f: v[site.layer] for f, v in full.items()})
-        new = refresh_state(x, state, 0.0, ema_decay=self.cfg.ema_decay,
+        new = refresh_state(x, self.state(site, direction), 0.0,
+                            ema_decay=self.cfg.ema_decay,
                             target_max=s2fp8.FMT_TARGET_MAX[fmt],
                             backend=backend)
         for f in STATE_FIELDS:
@@ -283,9 +330,117 @@ class CalibratingSession(Session):
                 full[f][site.layer] = new[f]
         return torch.stack([new["alpha"], new["beta"]])
 
+    def need(self, site: Site, direction: str) -> bool:
+        return True
+
+    def stats(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
+              backend: Optional[str] = None) -> torch.Tensor:
+        return self.refresh(site, direction, x, fmt, backend)
+
     def truncate(self, x, *, fmt="e5m2", backend=None):
         ab = self.site("t").refresh("fwd", x, fmt, backend)
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
+
+
+class _TruncateBanked(torch.autograd.Function):
+    """Bank-routed bidirectional truncation (paper Fig. 4): Eq. 5 on the
+    forward value with the site's "fwd" stats, on the cotangent with its
+    "bwd" stats, each refreshed when due."""
+
+    @staticmethod
+    def forward(ctx, x, site, fmt, backend):
+        ctx.meta = (site, fmt, backend)
+        ab = site.stats("fwd", x, fmt, backend)
+        return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
+
+    @staticmethod
+    def backward(ctx, g):
+        site, fmt, backend = ctx.meta
+        ab = site.stats("bwd", g, fmt, backend)
+        return (nbackend.get_backend(backend).truncate(g, stats=ab, fmt=fmt),
+                None, None, None)
+
+
+class TrainSession(Session):
+    """A train step's view of the bank.  ``cold`` maps site -> direction ->
+    host bool (an array over the layers inside a segment): the sites whose
+    ``last`` is still < 0.  A site-direction refreshes when the step is a
+    refresh step (``step % refresh_every == 0``) or it is cold."""
+
+    def __init__(self, bank: Dict[str, Any], step: int, cfg: StatsConfig,
+                 cold: Dict[str, Dict[str, np.ndarray]]):
+        super().__init__(bank, cfg)
+        self.step = int(step)
+        self.pred = self.step % cfg.refresh_every == 0
+        self.cold = cold
+        self.updates: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {}
+
+    def _require(self, key, kind):
+        if key not in self.bank:
+            raise KeyError(
+                f"site {key!r} has no StatsBank entry — the model structure "
+                f"changed since the bank was initialized; re-run "
+                f"statsbank.init_bank")
+
+    def need(self, site: Site, direction: str) -> bool:
+        if self.pred:
+            return True
+        c = self.cold[site.key][direction]
+        return bool(c if site.layer is None else c[site.layer])
+
+    def stats(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
+              backend: Optional[str] = None,
+              need: Optional[bool] = None) -> torch.Tensor:
+        if need is None:
+            need = self.need(site, direction)
+        ab, new = maybe_refresh(x, self.state(site, direction), need,
+                                self.step, self.cfg,
+                                s2fp8.FMT_TARGET_MAX[fmt], backend)
+        if new is not None:
+            entry = self.updates.setdefault(site.key, {})
+            if direction not in entry:       # copy on first write
+                entry[direction] = {f: v.clone() for f, v in
+                                    self.bank[site.key][direction].items()}
+            upd = entry[direction]
+            for f in STATE_FIELDS:
+                if site.layer is None:
+                    upd[f] = new[f]
+                else:
+                    upd[f][site.layer] = new[f]
+        return ab
+
+    def refresh(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
+                backend: Optional[str] = None) -> torch.Tensor:
+        return self.stats(site, direction, x, fmt, backend, need=True)
+
+    def truncate(self, x, *, fmt="e5m2", backend=None):
+        return _TruncateBanked.apply(x, self.site("t"), fmt, backend)
+
+
+class DiscoverySession(Session):
+    """Records every site a probe pass visits (key, segment, directions);
+    the nodes run their exact-stats path meanwhile."""
+
+    discovery = True
+
+    def __init__(self, cfg: StatsConfig):
+        super().__init__({}, cfg)
+        self.recorded: Dict[str, Tuple[Optional[str], Tuple[str, ...]]] = {}
+        self.segment_lengths: Dict[str, int] = {}
+
+    def segment_sites(self, name: str, length: int):
+        self.segment_lengths[name] = length
+        return None
+
+    def site(self, kind: str) -> None:
+        key = self._site_key(kind)
+        self.recorded[key] = (None if self._segment is None
+                              else self._segment[0], _KIND_DIRS[kind])
+        return None
+
+    def truncate(self, x, *, fmt="e5m2", backend=None):
+        self.site("t")
+        return x
 
 
 # ---------------------------------------------------------------------------
@@ -310,6 +465,19 @@ def _activate(sess: Session):
         _ACTIVE.session = None
 
 
+@contextlib.contextmanager
+def resume(sess: Optional[Session]):
+    """Run under ``sess`` in this thread too (a no-op where it is already
+    the active one).  The autograd engine replays a rematerialized layer on
+    its own device thread, where the thread-local session of the forward
+    is not active."""
+    if sess is None or current_session() is sess:
+        yield
+        return
+    with _activate(sess):
+        yield
+
+
 def freeze(bank):
     """Activate a :class:`FrozenSession` over ``bank`` (a bank dict or a
     :class:`FrozenBank`, which keeps the derived stats between calls)."""
@@ -321,6 +489,15 @@ def calibrate(bank: Dict[str, Any], cfg: StatsConfig, device):
     """Activate a :class:`CalibratingSession` that refreshes ``bank`` in
     place (sites are added on first visit)."""
     return _activate(CalibratingSession(bank, cfg, device))
+
+
+def bind(bank: Dict[str, Any], step: int, cfg: StatsConfig = StatsConfig(),
+         cold: Optional[Dict[str, Any]] = None):
+    """Activate a :class:`TrainSession` over ``bank`` for one train step;
+    refreshed states collect in the session's ``updates``.  ``cold``
+    defaults to :func:`cold_sites` of ``bank`` (one host read)."""
+    return _activate(TrainSession(bank, step, cfg,
+                                  cold_sites(bank) if cold is None else cold))
 
 
 @contextlib.contextmanager
@@ -346,3 +523,59 @@ def segment_ctx(name: str, layer: int):
         return
     with sess.segment_ctx(name, layer):
         yield
+
+
+# ---------------------------------------------------------------------------
+# discovery and bank bookkeeping
+# ---------------------------------------------------------------------------
+
+def init_bank(loss_fn: Callable, params, batch, policy,
+              cfg: StatsConfig = StatsConfig()) -> Dict[str, Any]:
+    """Discover the model's sites with one probe pass of ``loss_fn(params,
+    batch, policy)`` (no autograd) and return a bank of fresh states
+    (``last = -1``: every site bootstraps on its first step), [L]-stacked
+    for sites inside a segment, on the params' device."""
+    if current_session() is not None:
+        raise RuntimeError("cannot run discovery inside an active session")
+    sess = DiscoverySession(cfg)
+    with _activate(sess), torch.no_grad():
+        loss_fn(params, batch, policy)
+    device = params["embed"].device
+    bank = {key: {d: init_site_state(
+                None if seg is None else sess.segment_lengths[seg], device)
+                  for d in dirs}
+            for key, (seg, dirs) in sess.recorded.items()}
+    if not bank:
+        raise ValueError(
+            "no truncation sites found — StatsBank requires an s2fp8-mode "
+            f"policy (got mode={getattr(policy, 'mode', policy)!r})")
+    return bank
+
+
+def merge_updates(bank: Dict[str, Any], updates: Dict[str, Any]
+                  ) -> Dict[str, Any]:
+    """The next step's bank: every state a session refreshed, the carried
+    state elsewhere (states are never modified in place)."""
+    return {k: {d: updates.get(k, {}).get(d, st) for d, st in entry.items()}
+            for k, entry in bank.items()}
+
+
+def bookkeeping_last(bank: Dict[str, Any]) -> torch.Tensor:
+    """Every site-direction's last-refresh step, concatenated."""
+    return torch.cat([st["last"].reshape(-1)
+                      for e in bank.values() for st in e.values()])
+
+
+def cold_sites(bank: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
+    """Site -> direction -> (per-layer) ``last < 0`` on the host, from one
+    device read of :func:`bookkeeping_last`."""
+    cold = (bookkeeping_last(bank) < 0).cpu().numpy()
+    out: Dict[str, Dict[str, np.ndarray]] = {}
+    i = 0
+    for k, e in bank.items():
+        out[k] = {}
+        for d, st in e.items():
+            n = st["last"].numel()
+            out[k][d] = cold[i:i + n].reshape(st["last"].shape)
+            i += n
+    return out

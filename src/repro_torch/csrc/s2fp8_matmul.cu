@@ -1,31 +1,44 @@
-// Payload GEMM, NN layout: C[M,N] = deq(A)[M,K] . deq(B)[K,N] in f32, with
+// Payload GEMM, layouts NN / NT / TN: C[M,N] = deq(A) . deq(B) in f32, with
 // an optional fused Eq. 5 epilogue on the finished output tile.
 //
-// Replaces src/repro/kernels/s2fp8_matmul.py: s2fp8_matmul_pallas
-// (_matmul_kernel), layout "nn".
+//   nn: C[M,N] = A[M,K]   . B[K,N]      (forward GEMMs)
+//   nt: C[M,N] = A[M,K]   . B[N,K]^T    (dA = g . B^T; the tied LM head)
+//   tn: C[M,N] = A[K,M]^T . B[K,N]      (dB = A^T . g)
 //
-// Bound on the card: operations at prefill widths (M = admitted rows x
-// bucket, 2*M*K*N f32 FLOPs over 67 TFLOP/s), bytes at decode (M = 8: the
-// K*N weight payload, 1 B/elt, over 3.35 TB/s).  The inverse map is a
-// power law, not a scale, so fp8 tensor-core MMA cannot take the payloads;
-// the product runs on the f32 CUDA cores with f32 accumulation (no TF32),
-// as preferred_element_type=f32 does in the reference.
+// Replaces src/repro/kernels/s2fp8_matmul.py: s2fp8_matmul_pallas
+// (_matmul_kernel with _operand_specs), all three layouts.
+//
+// Bound on the card: operations at training and prefill widths (2*M*K*N
+// f32 FLOPs over 67 TFLOP/s), bytes at decode (M = 8: the K*N weight
+// payload, 1 B/elt, over 3.35 TB/s).  The inverse map is a power law, not
+// a scale, so fp8 tensor-core MMA cannot take the payloads; the product
+// runs on the f32 CUDA cores with f32 accumulation (no TF32), as
+// preferred_element_type=f32 does in the reference.
 //
 // Design: 128x128 output tiles, 256 threads each owning an 8x8 register
-// micro-tile, K stepped 16 at a time through shared memory.  Each block
-// first builds two 256-entry dequant tables (one per operand) with the
-// shared s2fp8::decode, so dequantization of a tile is a table lookup —
-// the same values as decoding each element, at 512 transcendental pairs
-// per block.  Ragged M/N/K edges are masked at load (zeros contribute
-// nothing) and at store.  The epilogue truncates each accumulator with
-// the output site's stats before the single write.
+// micro-tile, K stepped 16 at a time through shared memory tiles
+// As[BK][BM] and Bs[BK][BN].  Each block first builds two 256-entry
+// dequant tables (one per operand) with the shared s2fp8::decode, so
+// dequantization of a tile is a table lookup — the same values as decoding
+// each element, at 512 transcendental pairs per block.  A layout is only
+// the addressing of the tile loads (the reference's index-map swaps): no
+// transpose is materialized.  An operand stored with K contiguous (A in
+// nn/nt, B in nt) is read 8 consecutive K per thread and stored transposed
+// into the K-major tile; an operand stored with M or N contiguous (A in
+// tn, B in nn/tn) is read 8 consecutive M/N per thread and stored as is.
+// The compute loop is the same for every layout, so the three sum each
+// output in the same order.  Ragged M/N/K edges are masked at load (zeros
+// contribute nothing) and at store.  The epilogue truncates each
+// accumulator with the output site's stats before the single write.
 #include "s2fp8_common.cuh"
 
 namespace {
 
 constexpr int BM = 128, BN = 128, BK = 16, TM = 8, TN = 8, THREADS = 256;
+enum Layout { kNN = 0, kNT = 1, kTN = 2 };
 
-__global__ __launch_bounds__(THREADS) void qmatmul_nn_kernel(
+template <int LAYOUT>
+__global__ __launch_bounds__(THREADS) void qmatmul_kernel(
     const unsigned char* __restrict__ A, const unsigned char* __restrict__ B,
     float* __restrict__ C, int M, int N, int K,
     const float* __restrict__ a_ab, const float* __restrict__ b_ab,
@@ -49,28 +62,47 @@ __global__ __launch_bounds__(THREADS) void qmatmul_nn_kernel(
 #pragma unroll
     for (int j = 0; j < TN; ++j) acc[i][j] = 0.0f;
 
-  // load assignment: A tile [BM x BK]: row tid/2, 8 columns from (tid%2)*8;
-  // B tile [BK x BN]: row tid/16, 8 columns from (tid%16)*8.
-  const int ar = tid >> 1, ac = (tid & 1) * 8;
-  const int br = tid >> 4, bc = (tid & 15) * 8;
+  // load assignment.  K-contiguous operand: row tid/2 of the 128 M (or N)
+  // rows, 8 K from (tid%2)*8.  M/N-contiguous operand: K row tid/16 of 16,
+  // 8 columns from (tid%16)*8.
+  const int rr = tid >> 1, rc = (tid & 1) * 8;
+  const int kr = tid >> 4, kc = (tid & 15) * 8;
 
   for (int k0 = 0; k0 < K; k0 += BK) {
-    {
-      const int gm = m0 + ar;
+    if (LAYOUT == kTN) {           // A stored [K, M]
+      const int gk = k0 + kr;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int gk = k0 + ac + j;
-        As[ac + j][ar] = (gm < M && gk < K)
+        const int gm = m0 + kc + j;
+        As[kr][kc + j] = (gk < K && gm < M)
+                             ? lut_a[A[static_cast<size_t>(gk) * M + gm]]
+                             : 0.0f;
+      }
+    } else {                       // A stored [M, K]
+      const int gm = m0 + rr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int gk = k0 + rc + j;
+        As[rc + j][rr] = (gm < M && gk < K)
                              ? lut_a[A[static_cast<size_t>(gm) * K + gk]]
                              : 0.0f;
       }
     }
-    {
-      const int gk = k0 + br;
+    if (LAYOUT == kNT) {           // B stored [N, K]
+      const int gn = n0 + rr;
 #pragma unroll
       for (int j = 0; j < 8; ++j) {
-        const int gn = n0 + bc + j;
-        Bs[br][bc + j] = (gk < K && gn < N)
+        const int gk = k0 + rc + j;
+        Bs[rc + j][rr] = (gn < N && gk < K)
+                             ? lut_b[B[static_cast<size_t>(gn) * K + gk]]
+                             : 0.0f;
+      }
+    } else {                       // B stored [K, N]
+      const int gk = k0 + kr;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int gn = n0 + kc + j;
+        Bs[kr][kc + j] = (gk < K && gn < N)
                              ? lut_b[B[static_cast<size_t>(gk) * N + gn]]
                              : 0.0f;
       }
@@ -113,16 +145,34 @@ __global__ __launch_bounds__(THREADS) void qmatmul_nn_kernel(
 
 }  // namespace
 
-extern "C" int s2fp8_qmatmul_nn(const void* a, const void* b, void* c, int m,
-                                int n, int k, const void* a_ab,
-                                const void* b_ab, const void* o_ab,
-                                int epilogue, int fmt_a, int fmt_b, int fmt_o,
-                                void* stream) {
+// layout: 0 nn, 1 nt, 2 tn; (m, n, k) are the logical GEMM's dimensions.
+extern "C" int s2fp8_qmatmul(const void* a, const void* b, void* c, int m,
+                             int n, int k, int layout, const void* a_ab,
+                             const void* b_ab, const void* o_ab, int epilogue,
+                             int fmt_a, int fmt_b, int fmt_o, void* stream) {
   dim3 grid((n + BN - 1) / BN, (m + BM - 1) / BM);
-  qmatmul_nn_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const unsigned char*>(a),
-      static_cast<const unsigned char*>(b), static_cast<float*>(c), m, n, k,
-      static_cast<const float*>(a_ab), static_cast<const float*>(b_ab),
-      static_cast<const float*>(o_ab), epilogue, fmt_a, fmt_b, fmt_o);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const unsigned char* pa = static_cast<const unsigned char*>(a);
+  const unsigned char* pb = static_cast<const unsigned char*>(b);
+  float* pc = static_cast<float*>(c);
+  const float* sa = static_cast<const float*>(a_ab);
+  const float* sb = static_cast<const float*>(b_ab);
+  const float* so = static_cast<const float*>(o_ab);
+  switch (layout) {
+    case kNN:
+      qmatmul_kernel<kNN><<<grid, THREADS, 0, st>>>(
+          pa, pb, pc, m, n, k, sa, sb, so, epilogue, fmt_a, fmt_b, fmt_o);
+      break;
+    case kNT:
+      qmatmul_kernel<kNT><<<grid, THREADS, 0, st>>>(
+          pa, pb, pc, m, n, k, sa, sb, so, epilogue, fmt_a, fmt_b, fmt_o);
+      break;
+    case kTN:
+      qmatmul_kernel<kTN><<<grid, THREADS, 0, st>>>(
+          pa, pb, pc, m, n, k, sa, sb, so, epilogue, fmt_a, fmt_b, fmt_o);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -27,8 +27,8 @@ def plain_version(fn: Callable) -> Callable:
 
 
 def registry() -> Dict[str, Tuple[Callable, Callable]]:
-    """kernel name -> (wrapper, plain version), for the five kernels of the
-    serving slice."""
+    """kernel name -> (wrapper, plain version), for the nine kernels of the
+    serving and training slices."""
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      s2fp8_matmul, s2fp8_quant)
     return {
@@ -36,9 +36,16 @@ def registry() -> Dict[str, Tuple[Callable, Callable]]:
                         s2fp8_quant.quant_apply_plain),
         "truncate_apply": (s2fp8_quant.truncate_apply,
                            s2fp8_quant.truncate_apply_plain),
+        "dequant": (s2fp8_quant.dequant, s2fp8_quant.dequant_plain),
         "qmatmul_nn": (s2fp8_matmul.qmatmul_nn, s2fp8_matmul.qmatmul_plain),
+        "qmatmul_nt": (s2fp8_matmul.qmatmul_nt,
+                       s2fp8_matmul.qmatmul_nt_plain),
+        "qmatmul_tn": (s2fp8_matmul.qmatmul_tn,
+                       s2fp8_matmul.qmatmul_tn_plain),
         "qflash_fwd": (flash_attention.qflash_fwd,
                        flash_attention.qflash_fwd_plain),
+        "qflash_bwd": (flash_attention.qflash_bwd,
+                       flash_attention.qflash_bwd_plain),
         "paged_decode": (paged_attention.paged_decode_attention,
                          paged_attention.paged_decode_plain),
     }

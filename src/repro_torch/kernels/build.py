@@ -30,14 +30,17 @@ SIGNATURES = {
     "s2fp8_quant": {
         "s2fp8_quant_apply": (_P, _I, _P, _LL, _P, _I, _P),
         "s2fp8_truncate_apply": (_P, _I, _P, _I, _LL, _P, _I, _P),
+        "s2fp8_dequant": (_P, _P, _LL, _P, _I, _P),
     },
     "s2fp8_matmul": {
-        "s2fp8_qmatmul_nn": (_P, _P, _P, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                             _I, _P),
+        "s2fp8_qmatmul": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
+                          _I, _P),
     },
     "flash_attention": {
         "s2fp8_qflash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                              _P, _P, _I, _I, _I, _F, _I, _P),
+        "s2fp8_qflash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                             _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P),
     },
     "paged_attention": {
         "s2fp8_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,

@@ -2,9 +2,11 @@
 
 The CUDA kernels take flat contiguous tensors and mask ragged edges
 themselves, so the reference's pad-to-(8, 128) tiling
-(``repro.kernels.dispatch``: ``as_blocked_2d``, ``_gemm_pad_plan``) has no
-counterpart here: this layer only makes operands contiguous and checks
-GEMM shapes.
+(``repro.kernels.dispatch``: ``as_blocked_2d``, ``_gemm_pad_plan``,
+``pad_to_lane``) has no counterpart here: this layer makes operands
+contiguous, checks GEMM shapes, picks the GEMM layout's wrapper, and maps
+the grouped attention layout ``[B, KV, G, S, d]`` onto the kernels'
+flattened ``[B*KV*G, S, d]`` heads and back.
 """
 from __future__ import annotations
 
@@ -12,9 +14,12 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.s2fp8 import S2FP8Tensor
+from repro_torch.kernels import flash_attention as fkern
 from repro_torch.kernels import ref
-from repro_torch.kernels.s2fp8_matmul import qmatmul_nn
-from repro_torch.kernels.s2fp8_quant import quant_apply, truncate_apply
+from repro_torch.kernels.s2fp8_matmul import WRAPPERS
+from repro_torch.kernels.s2fp8_quant import (dequant, quant_apply,
+                                             truncate_apply)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -23,17 +28,20 @@ def _kernel_input(x: torch.Tensor) -> torch.Tensor:
     return x if x.dtype in _KERNEL_DTYPES else x.float()
 
 
+def _contig_payload(p: torch.Tensor) -> torch.Tensor:
+    return p if p.is_contiguous() else \
+        p.view(torch.uint8).contiguous().view(p.dtype)
+
+
 def quant_nd(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
-    """Payload of ``x`` in ``x``'s shape, any rank.  A transposed 2-D view
-    (the tied LM head's ``embed.T``) is quantized in its storage order and
-    the 1-byte payload is transposed, which is the same elementwise map."""
-    x = _kernel_input(x)
-    if x.is_contiguous():
-        return quant_apply(x, stats, fmt)
-    if x.dim() == 2 and x.t().is_contiguous():
-        p = quant_apply(x.t(), stats, fmt)
-        return p.view(torch.uint8).t().contiguous().view(p.dtype)
-    return quant_apply(x.contiguous(), stats, fmt)
+    """Payload of ``x`` in ``x``'s shape, any rank."""
+    return quant_apply(_kernel_input(x).contiguous(), stats, fmt)
+
+
+def dequant_nd(payload: torch.Tensor, stats, dtype=torch.float32
+               ) -> torch.Tensor:
+    """Eq. 4 values of a payload of any rank, in ``dtype``."""
+    return dequant(_contig_payload(payload), stats).to(dtype)
 
 
 def truncate_nd(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
@@ -45,15 +53,46 @@ def truncate_nd(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
 def qmatmul_nd(a_payload, a_ab, b_payload, b_ab, *, layout: str = "nn",
                epilogue_stats: Optional[torch.Tensor] = None,
                fmt: str = "e5m2") -> torch.Tensor:
-    """C[M,N] = deq(A) @ deq(B) for 2-D payloads, any M/K/N."""
-    if layout != "nn":
-        raise NotImplementedError(
-            f"payload GEMM layout {layout!r} comes with the training slice")
+    """The layout's payload GEMM for 2-D payloads, any M/K/N
+    (``ref.GEMM_CONTRACT`` names the three layouts)."""
     ref.gemm_dims(layout, a_payload.shape, b_payload.shape)
+    return WRAPPERS[layout](_contig_payload(a_payload), a_ab,
+                            _contig_payload(b_payload), b_ab,
+                            epilogue_stats, fmt)
 
-    def contig(p):
-        return p if p.is_contiguous() else \
-            p.view(torch.uint8).contiguous().view(p.dtype)
 
-    return qmatmul_nn(contig(a_payload), a_ab, contig(b_payload), b_ab,
-                      epilogue_stats, fmt)
+def _heads(t: S2FP8Tensor) -> torch.Tensor:
+    """[B, KV, G, S, d] or [B, KV, S, d] payload -> [B*KV(*G), S, d]."""
+    p = _contig_payload(t.payload)
+    return p.reshape(-1, p.shape[-2], p.shape[-1])
+
+
+def qflash_fwd_grouped(qq: S2FP8Tensor, qk: S2FP8Tensor, qv: S2FP8Tensor, *,
+                       causal: bool, window, scale: float, out_ab, fmt: str):
+    """Payload flash forward in the grouped layout: q [B,KV,G,Sq,d], k/v
+    [B,KV,Sk,d] -> (out f32 [B,KV,G,Sq,d], lse [B,KV,G,Sq,1])."""
+    b, kvh, g, sq, d = qq.payload.shape
+    out, lse = fkern.qflash_fwd(_heads(qq), _heads(qk), _heads(qv), qq.ab,
+                                qk.ab, qv.ab, g=g, causal=causal,
+                                window=window, scale=scale, out_ab=out_ab,
+                                fmt=fmt)
+    return out.reshape(b, kvh, g, sq, d), lse.reshape(b, kvh, g, sq, 1)
+
+
+def qflash_bwd_grouped(qq: S2FP8Tensor, qk: S2FP8Tensor, qv: S2FP8Tensor,
+                       qg: S2FP8Tensor, lse: torch.Tensor,
+                       delta: torch.Tensor, *, causal: bool, window,
+                       scale: float):
+    """Payload flash backward in the grouped layout -> raw f32 (dq
+    [B,KV,G,Sq,d], dk, dv [B,KV,Sk,d]).  The kernels write per-head dk/dv;
+    their sum over the G query heads of each K/V head happens here."""
+    b, kvh, g, sq, d = qq.payload.shape
+    sk = qk.payload.shape[2]
+    dq, dkh, dvh = fkern.qflash_bwd(
+        _heads(qq), _heads(qk), _heads(qv), _heads(qg), qq.ab, qk.ab, qv.ab,
+        qg.ab, lse.reshape(b * kvh * g, sq).contiguous(),
+        delta.reshape(b * kvh * g, sq).contiguous(), g=g, causal=causal,
+        window=window, scale=scale)
+    return (dq.reshape(b, kvh, g, sq, d),
+            dkh.reshape(b, kvh, g, sk, d).sum(dim=2),
+            dvh.reshape(b, kvh, g, sk, d).sum(dim=2))

@@ -1,20 +1,30 @@
-"""Payload flash attention forward: CUDA kernel + plain version.
+"""Payload flash attention, forward and backward: CUDA kernels + plain
+versions.
 
 ``qflash_fwd`` replaces ``qflash_fwd_pallas`` (_qflash_fwd_kernel,
-_attn_mask) of ``src/repro/kernels/flash_attention.py``.  Kernel source:
+_attn_mask) and ``qflash_bwd`` replaces ``qflash_bwd_pallas``
+(_qflash_dq_kernel, _qflash_dkdv_kernel) of
+``src/repro/kernels/flash_attention.py``.  Kernel source:
 ``repro_torch/csrc/flash_attention.cu``.
 
-Bound on the card: f32 operations (QK^T and PV, halved by a causal mask).
-Design: one block per (query head, 64 query rows); K/V tiles of 64 rows
-are dequantized through per-block tables into shared memory, the score
-tile and the online-softmax state never leave the chip, fully masked tiles
-are skipped, and the fused Eq. 5 epilogue truncates the output before its
-one write.  Head dims up to 128 need no padding (the TPU's pad-to-128-lane
-step is not carried over).
+Bound on the card: f32 operations (QK^T and PV forward; five products per
+visible pair backward; halved by a causal mask).  Forward design: one
+block per (query head, 64 query rows); K/V tiles of 64 rows are
+dequantized through per-block tables into shared memory, the score tile
+and the online-softmax state never leave the chip, fully masked tiles are
+skipped, and the fused Eq. 5 epilogue truncates the output before its one
+write.  Backward design: the recompute schedule from the payloads plus
+lse — a dq kernel (one block per 64 query rows, key tiles innermost) and a
+dk/dv kernel (one block per 64 key rows, query tiles innermost) that
+writes per-query-head dk/dv; the sum over a K/V head's G query heads is
+done outside (``dispatch.qflash_bwd_grouped``), so no float atomics.  Head
+dims up to 128 need no padding (the TPU's pad-to-128-lane step is not
+carried over).
 
-``flash_fwd_reference`` is the port of the reference's pure-jnp grouped
-flash forward; the plain version runs it on dequantized payloads and then
-truncates, which is the reference engine's own route.
+``flash_fwd_reference`` / ``flash_bwd_reference`` are ports of the
+reference's pure-jnp grouped flash forward and backward; the plain
+versions run them on dequantized payloads, which is the reference
+engine's own route.
 """
 from __future__ import annotations
 
@@ -25,8 +35,8 @@ import torch
 
 from repro_torch.core import s2fp8
 from repro_torch.kernels import build, plain_version, ref
-from repro_torch.kernels.s2fp8_quant import (FMT_ID, check_cuda_operand,
-                                             stats_arg)
+from repro_torch.kernels.s2fp8_quant import (FMT_ID, PAYLOAD_FMT,
+                                             check_cuda_operand, stats_arg)
 
 _MASK_VALUE = -1e30
 
@@ -84,6 +94,44 @@ def flash_fwd_reference(q, k, v, *, causal=True, window=None, q_chunk=512,
         lses.append(m + torch.log(torch.clamp(l, min=1e-30)))
         outs.append(acc / torch.where(l == 0.0, 1.0, l))
     return torch.cat(outs, dim=3), torch.cat(lses, dim=3)
+
+
+def flash_bwd_reference(q, k, v, dout, lse, delta, *, causal=True,
+                        window=None, q_chunk=512, kv_chunk=512,
+                        scale: Optional[float] = None):
+    """Grouped flash backward over precomputed (lse, delta), f32: q/dout
+    [B,KV,G,Sq,d], k/v [B,KV,Sk,d], lse/delta [B,KV,G,Sq,1] ->
+    (dq, dk, dv) with dk/dv summed over the G query heads.  Op-for-op port
+    of ``repro.kernels.flash_attention.flash_bwd_reference``."""
+    b, kvh, g, sq, d = q.shape
+    sk = k.shape[2]
+    q_chunk = _chunk(q_chunk, sq)
+    kv_chunk = _chunk(kv_chunk, sk)
+    nq, nk = sq // q_chunk, sk // kv_chunk
+    scale = 1.0 / math.sqrt(d) if scale is None else scale
+    dout = dout.float()
+    dq = torch.zeros((b, kvh, g, sq, d), dtype=torch.float32,
+                     device=q.device)
+    dk = torch.zeros((b, kvh, sk, d), dtype=torch.float32, device=q.device)
+    dv = torch.zeros_like(dk)
+    for iq in range(nq):
+        qs = slice(iq * q_chunk, (iq + 1) * q_chunk)
+        qi, di = q[:, :, :, qs].float(), dout[:, :, :, qs]
+        li, deli = lse[:, :, :, qs], delta[:, :, :, qs]
+        for ik in range(nk):
+            ks = slice(ik * kv_chunk, (ik + 1) * kv_chunk)
+            ki, vi = k[:, :, ks].float(), v[:, :, ks].float()
+            s = torch.einsum("bkgqd,bksd->bkgqs", qi, ki) * scale
+            mask = _chunk_mask(iq, ik, q_chunk, kv_chunk, sq, sk, causal,
+                               window, q.device)
+            s = torch.where(mask, s, _MASK_VALUE)
+            p = torch.where(mask, torch.exp(s - li), 0.0)
+            dv[:, :, ks] += torch.einsum("bkgqs,bkgqd->bksd", p, di)
+            dp = torch.einsum("bkgqd,bksd->bkgqs", di, vi)
+            ds = p * (dp - deli) * scale
+            dq[:, :, :, qs] += torch.einsum("bkgqs,bksd->bkgqd", ds, ki)
+            dk[:, :, ks] += torch.einsum("bkgqs,bkgqd->bksd", ds, qi)
+    return dq, dk, dv
 
 
 def _check_shapes(qp, kp, vp, g):
@@ -151,4 +199,75 @@ def qflash_fwd(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
     return out, lse
 
 
+@plain_version
+def qflash_bwd_plain(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
+                     g: int, causal=True, window=None, scale=None,
+                     q_chunk=512, kv_chunk=512):
+    """Plain version: dequantize, then ``flash_bwd_reference`` with every
+    query head given its own copy of its K/V head, which yields the
+    per-head dk/dv the kernel writes."""
+    _check_shapes(qp, kp, vp, g)
+    bh, sq, d = qp.shape
+    sk = kp.shape[1]
+
+    def per_head(p, ab):
+        return ref.s2fp8_dequant_ref(p, ab).repeat_interleave(
+            g, dim=0).reshape(1, bh, sk, d)
+
+    q = ref.s2fp8_dequant_ref(qp, q_ab).reshape(1, bh, 1, sq, d)
+    dout = ref.s2fp8_dequant_ref(gp, g_ab).reshape(1, bh, 1, sq, d)
+    dq, dk, dv = flash_bwd_reference(
+        q, per_head(kp, k_ab), per_head(vp, v_ab), dout,
+        lse.reshape(1, bh, 1, sq, 1), delta.reshape(1, bh, 1, sq, 1),
+        causal=causal, window=window, q_chunk=q_chunk, kv_chunk=kv_chunk,
+        scale=scale)
+    return dq.reshape(bh, sq, d), dk.reshape(bh, sk, d), dv.reshape(bh, sk, d)
+
+
+def qflash_bwd(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
+               g: int, causal=True, window=None, scale=None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Payload flash backward.  qp, gp: [BH, Sq, d] float8 (gp is the
+    quantized output cotangent); kp/vp: [B*KV, Sk, d]; lse, delta: [BH, Sq]
+    f32.  Returns raw f32 (dq [BH, Sq, d], dk [BH, Sk, d], dv [BH, Sk, d])
+    with dk/dv per query head.  CPU tensors take the plain version."""
+    _check_shapes(qp, kp, vp, g)
+    if gp.shape != qp.shape or lse.shape != qp.shape[:2] \
+            or delta.shape != qp.shape[:2]:
+        raise ValueError(f"qflash_bwd wants gp {tuple(qp.shape)} and "
+                         f"lse/delta {tuple(qp.shape[:2])}; got "
+                         f"{tuple(gp.shape)}, {tuple(lse.shape)}, "
+                         f"{tuple(delta.shape)}")
+    if qp.device.type == "cpu":
+        return qflash_bwd_plain(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse,
+                                delta, g=g, causal=causal, window=window,
+                                scale=scale)
+    check_cuda_operand(qp, "q", tuple(PAYLOAD_FMT))
+    fmt = PAYLOAD_FMT[qp.dtype]
+    for name, t in (("k", kp), ("v", vp), ("g", gp)):
+        check_cuda_operand(t, name, (qp.dtype,), qp.device)
+    for name, t in (("lse", lse), ("delta", delta)):
+        check_cuda_operand(t, name, (torch.float32,), qp.device)
+    bh, sq, d = qp.shape
+    sk = kp.shape[1]
+    if not 1 <= d <= 128:
+        raise ValueError(f"qflash kernel takes head dims 1..128, got {d}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    dev = qp.device
+    qab, kab, vab, gab = (stats_arg(s, dev) for s in (q_ab, k_ab, v_ab, g_ab))
+    dq = torch.empty((bh, sq, d), dtype=torch.float32, device=dev)
+    dk = torch.empty((bh, sk, d), dtype=torch.float32, device=dev)
+    dv = torch.empty_like(dk)
+    rc = build.load("flash_attention").s2fp8_qflash_bwd(
+        qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), gp.data_ptr(),
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), bh, sq, sk, d, g, qab.data_ptr(), kab.data_ptr(),
+        vab.data_ptr(), gab.data_ptr(), int(causal), int(window or 0), scale,
+        FMT_ID[fmt], build.stream_ptr(dev))
+    build.check(rc, "s2fp8_qflash_bwd")
+    qflash_bwd.launches += 1
+    return dq, dk, dv
+
+
 qflash_fwd.launches = 0
+qflash_bwd.launches = 0

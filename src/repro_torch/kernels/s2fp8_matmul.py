@@ -1,16 +1,23 @@
-"""Payload GEMM (NN, optional fused Eq. 5 epilogue): CUDA kernel + plain
-version.
+"""Payload GEMM (layouts NN, NT, TN, optional fused Eq. 5 epilogue): CUDA
+kernel + plain versions.
 
-``qmatmul_nn`` replaces ``s2fp8_matmul_pallas`` (_matmul_kernel, layout
-"nn") of ``src/repro/kernels/s2fp8_matmul.py``.  Kernel source:
-``repro_torch/csrc/s2fp8_matmul.cu``.
+``qmatmul_nn``, ``qmatmul_nt`` and ``qmatmul_tn`` replace
+``s2fp8_matmul_pallas`` (_matmul_kernel, layouts "nn", "nt", "tn") of
+``src/repro/kernels/s2fp8_matmul.py``.  Kernel source:
+``repro_torch/csrc/s2fp8_matmul.cu`` (one kernel templated on the layout).
 
-Bound on the card: f32 operations at prefill widths, the weight payload's
-bytes at decode.  The inverse map is a power law, so the payloads cannot
-feed fp8 tensor cores: tiles are dequantized through per-block 256-entry
-tables into shared memory and multiplied with f32 FMAs (no TF32); ragged
-M/N/K edges are masked in the kernel, so nothing is padded here.  The NT
-and TN layouts (the backward GEMMs) come with the training slice.
+    nn: C[M,N] = deq(A)[M,K]    @ deq(B)[K,N]     forward GEMMs
+    nt: C[M,N] = deq(A)[M,K]    @ deq(B)[N,K]^T   dA = g B^T; the tied head
+    tn: C[M,N] = deq(A)[K,M]^T  @ deq(B)[K,N]     dB = A^T g
+
+Bound on the card: f32 operations at training and prefill widths, the
+weight payload's bytes at decode.  The inverse map is a power law, so the
+payloads cannot feed fp8 tensor cores: tiles are dequantized through
+per-block 256-entry tables into shared memory and multiplied with f32 FMAs
+(no TF32).  A layout is only the addressing of the tile loads, the
+counterpart of the reference's index-map swaps: no transpose is
+materialized.  Ragged M/N/K edges are masked in the kernel, so nothing is
+padded here.
 """
 from __future__ import annotations
 
@@ -19,19 +26,52 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import build, plain_version, ref
-from repro_torch.kernels.s2fp8_quant import (FMT_ID, check_cuda_operand,
-                                             stats_arg)
+from repro_torch.kernels.s2fp8_quant import (FMT_ID, PAYLOAD_FMT,
+                                             check_cuda_operand, stats_arg)
 
-PAYLOAD_FMT = {torch.float8_e5m2: "e5m2", torch.float8_e4m3fn: "e4m3"}
+LAYOUT_ID = {"nn": 0, "nt": 1, "tn": 2}
 
 
-@plain_version
-def qmatmul_plain(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
-                  out_ab=None, fmt: str = "e5m2") -> torch.Tensor:
-    """Plain version: dequantize both payloads, f32 product, optional Eq. 5
-    truncation of the output with ``out_ab`` (``ref.s2fp8_matmul_ref``)."""
-    return ref.s2fp8_matmul_ref(a, a_ab, b, b_ab, out_ab, layout="nn",
-                                fmt=fmt)
+def _plain(layout: str):
+    def fn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab, out_ab=None,
+           fmt: str = "e5m2") -> torch.Tensor:
+        return ref.s2fp8_matmul_ref(a, a_ab, b, b_ab, out_ab, layout=layout,
+                                    fmt=fmt)
+    fn.__name__ = fn.__qualname__ = ("qmatmul_plain" if layout == "nn"
+                                     else f"qmatmul_{layout}_plain")
+    fn.__doc__ = (f"Plain version, layout {layout!r}: dequantize both "
+                  f"payloads, f32 product, optional Eq. 5 truncation of the "
+                  f"output with ``out_ab`` (``ref.s2fp8_matmul_ref``).")
+    return plain_version(fn)
+
+
+qmatmul_plain = _plain("nn")
+qmatmul_nt_plain = _plain("nt")
+qmatmul_tn_plain = _plain("tn")
+
+
+def _launch(layout: str, a, a_ab, b, b_ab, out_ab, fmt) -> torch.Tensor:
+    check_cuda_operand(a, "a", tuple(PAYLOAD_FMT))
+    check_cuda_operand(b, "b", tuple(PAYLOAD_FMT), a.device)
+    m, k, n = ref.gemm_dims(layout, a.shape, b.shape)
+    aab = stats_arg(a_ab, a.device)
+    bab = stats_arg(b_ab, a.device)
+    oab = None if out_ab is None else stats_arg(out_ab, a.device)
+    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    rc = build.load("s2fp8_matmul").s2fp8_qmatmul(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
+        LAYOUT_ID[layout], aab.data_ptr(), bab.data_ptr(), build.ptr(oab),
+        int(oab is not None), FMT_ID[PAYLOAD_FMT[a.dtype]],
+        FMT_ID[PAYLOAD_FMT[b.dtype]], FMT_ID[fmt], build.stream_ptr(a.device))
+    build.check(rc, f"s2fp8_qmatmul ({layout})")
+    return out
+
+
+def _check(layout: str, a: torch.Tensor, b: torch.Tensor) -> None:
+    if a.dim() != 2 or b.dim() != 2:
+        raise ValueError(f"qmatmul_{layout} wants 2-D payloads, got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    ref.gemm_dims(layout, a.shape, b.shape)
 
 
 def qmatmul_nn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
@@ -39,27 +79,41 @@ def qmatmul_nn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                fmt: str = "e5m2") -> torch.Tensor:
     """C[M,N] = deq(a)[M,K] @ deq(b)[K,N] in f32; with ``out_ab`` the output
     is Eq. 5-truncated on the ``fmt`` grid before it is written.  ``a`` and
-    ``b`` are 2-D float8 payloads (each operand's format from its dtype)."""
-    if a.dim() != 2 or b.dim() != 2:
-        raise ValueError(f"qmatmul_nn wants 2-D payloads, got "
-                         f"{tuple(a.shape)} x {tuple(b.shape)}")
-    m, k, n = ref.gemm_dims("nn", a.shape, b.shape)
+    ``b`` are 2-D float8 payloads (each operand's format from its dtype).
+    CPU tensors take the plain version."""
+    _check("nn", a, b)
     if a.device.type == "cpu":
         return qmatmul_plain(a, a_ab, b, b_ab, out_ab, fmt)
-    check_cuda_operand(a, "a", tuple(PAYLOAD_FMT))
-    check_cuda_operand(b, "b", tuple(PAYLOAD_FMT), a.device)
-    aab = stats_arg(a_ab, a.device)
-    bab = stats_arg(b_ab, a.device)
-    oab = None if out_ab is None else stats_arg(out_ab, a.device)
-    out = torch.empty((m, n), dtype=torch.float32, device=a.device)
-    rc = build.load("s2fp8_matmul").s2fp8_qmatmul_nn(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        aab.data_ptr(), bab.data_ptr(), build.ptr(oab), int(oab is not None),
-        FMT_ID[PAYLOAD_FMT[a.dtype]], FMT_ID[PAYLOAD_FMT[b.dtype]],
-        FMT_ID[fmt], build.stream_ptr(a.device))
-    build.check(rc, "s2fp8_qmatmul_nn")
+    out = _launch("nn", a, a_ab, b, b_ab, out_ab, fmt)
     qmatmul_nn.launches += 1
     return out
 
 
+def qmatmul_nt(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
+               out_ab: Optional[torch.Tensor] = None,
+               fmt: str = "e5m2") -> torch.Tensor:
+    """C[M,N] = deq(a)[M,K] @ deq(b)[N,K]^T, otherwise as ``qmatmul_nn``."""
+    _check("nt", a, b)
+    if a.device.type == "cpu":
+        return qmatmul_nt_plain(a, a_ab, b, b_ab, out_ab, fmt)
+    out = _launch("nt", a, a_ab, b, b_ab, out_ab, fmt)
+    qmatmul_nt.launches += 1
+    return out
+
+
+def qmatmul_tn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
+               out_ab: Optional[torch.Tensor] = None,
+               fmt: str = "e5m2") -> torch.Tensor:
+    """C[M,N] = deq(a)[K,M]^T @ deq(b)[K,N], otherwise as ``qmatmul_nn``."""
+    _check("tn", a, b)
+    if a.device.type == "cpu":
+        return qmatmul_tn_plain(a, a_ab, b, b_ab, out_ab, fmt)
+    out = _launch("tn", a, a_ab, b, b_ab, out_ab, fmt)
+    qmatmul_tn.launches += 1
+    return out
+
+
 qmatmul_nn.launches = 0
+qmatmul_nt.launches = 0
+qmatmul_tn.launches = 0
+WRAPPERS = {"nn": qmatmul_nn, "nt": qmatmul_nt, "tn": qmatmul_tn}

@@ -1,13 +1,17 @@
-"""S2FP8 quantize-apply and truncate-apply: CUDA kernels + plain versions.
+"""S2FP8 quantize-apply, truncate-apply and dequantize: CUDA kernels +
+plain versions.
 
-``quant_apply`` replaces ``quant_apply_pallas`` (_apply_kernel) and
+``quant_apply`` replaces ``quant_apply_pallas`` (_apply_kernel),
 ``truncate_apply`` replaces ``truncate_apply_pallas`` (_truncate_kernel /
-_truncate_body) of ``src/repro/kernels/s2fp8_quant.py``.  Kernel source:
+_truncate_body) and ``dequant`` replaces ``dequant_pallas``
+(_dequant_kernel) of ``src/repro/kernels/s2fp8_quant.py``.  Kernel source:
 ``repro_torch/csrc/s2fp8_quant.cu`` (element maps in s2fp8_common.cuh).
 
-Bound on the card: bytes — one read of the input (f32 or bf16) and one
-write of the output per element.  Design: a grid-stride elementwise loop,
-(alpha, beta) read through a device pointer (no host sync).
+Bound on the card: bytes — one read of the input (f32 or bf16, or the
+1-byte payload) and one write of the output per element.  Design: a
+grid-stride elementwise loop, (alpha, beta) read through a device pointer
+(no host sync); dequantize looks each byte up in a per-block 256-entry
+table of the Eq. 4 inverse map.
 """
 from __future__ import annotations
 
@@ -18,6 +22,7 @@ from repro_torch.kernels import build, plain_version, ref
 
 FMT_ID = {"e5m2": 0, "e4m3": 1}
 DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
+PAYLOAD_FMT = {torch.float8_e5m2: "e5m2", torch.float8_e4m3fn: "e4m3"}
 
 
 def check_cuda_operand(t: torch.Tensor, name: str, dtypes, device=None):
@@ -55,6 +60,12 @@ def truncate_apply_plain(x: torch.Tensor, stats, fmt: str = "e5m2"
     return ref.s2fp8_truncate_ref(x, stats=stats, fmt=fmt)
 
 
+@plain_version
+def dequant_plain(payload: torch.Tensor, stats) -> torch.Tensor:
+    """Plain version: the Eq. 4 inverse map of the payload, f32."""
+    return ref.s2fp8_dequant_ref(payload, stats)
+
+
 def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     """8-bit payload of ``x`` (same shape, float8 dtype of ``fmt``) under
     the given (alpha, beta).  CPU tensors take the plain version."""
@@ -87,5 +98,24 @@ def truncate_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     return out
 
 
+def dequant(payload: torch.Tensor, stats) -> torch.Tensor:
+    """f32 values of a float8 payload (same shape; the format is the
+    payload's dtype) under the given (alpha, beta).  CPU tensors take the
+    plain version."""
+    if payload.device.type == "cpu":
+        return dequant_plain(payload, stats)
+    check_cuda_operand(payload, "payload", tuple(PAYLOAD_FMT))
+    ab = stats_arg(stats, payload.device)
+    out = torch.empty(payload.shape, dtype=torch.float32,
+                      device=payload.device)
+    rc = build.load("s2fp8_quant").s2fp8_dequant(
+        payload.data_ptr(), out.data_ptr(), payload.numel(), ab.data_ptr(),
+        FMT_ID[PAYLOAD_FMT[payload.dtype]], build.stream_ptr(payload.device))
+    build.check(rc, "s2fp8_dequant")
+    dequant.launches += 1
+    return out
+
+
 quant_apply.launches = 0
 truncate_apply.launches = 0
+dequant.launches = 0

@@ -1,12 +1,13 @@
-"""Dense decoder blocks (port of the serving part of ``repro.models.blocks``).
+"""Dense decoder blocks (port of the dense part of ``repro.models.blocks``).
 
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
 goes through the policy.  Ported: RMS norm, SiLU-GLU, RoPE (scalar and
-per-slot positions), the payload fast path of ``full_attention``, the MLP,
-and ``attn_block_apply``'s prefill branch and paged-decode branch.  The
-dense-cache decode, the einsum attention and the chunked path wait for
-later slices, so prefill sequences must stay <= 2048 (the reference
-switches to chunked attention above that).
+per-slot positions), ``full_attention`` (the payload flash fast path for
+the s2fp8 modes, the masked softmax through ``policy.einsum`` for fp32 and
+fp8), the MLP, and ``attn_block_apply``'s train, prefill and paged-decode
+branches.  The dense-cache decode and the chunked path wait for later
+slices, so sequences must stay <= 2048 (the reference switches to chunked
+attention above that).
 
 The layer params keep the reference's names and layout (weights
 [d_in, d_out]), and every cast happens where the reference casts.
@@ -23,6 +24,7 @@ from repro_torch.core import statsbank
 from repro_torch.core.policy import Policy
 
 MAX_FULL_ATTENTION_SEQ = 2048
+_MASK = -1e30
 
 
 def init_norm(cfg: ArchConfig, dim: int, device=None) -> Dict[str, torch.Tensor]:
@@ -70,9 +72,25 @@ def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
 
 
 def full_attention(q, k, v, *, causal=True, window=None, policy: Policy):
-    """q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d] — the payload flash node."""
-    return policy.flash_attention(q, k, v, causal=causal,
-                                  window=window).to(q.dtype)
+    """q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d].  Payload policies run the fused
+    payload flash node; the others a plain masked softmax whose two
+    contractions go through ``policy.einsum`` (reference blocks.py:117)."""
+    if policy.uses_payload_gemm:
+        return policy.flash_attention(q, k, v, causal=causal,
+                                      window=window).to(q.dtype)
+    d = q.shape[-1]
+    sq, sk = q.shape[3], k.shape[2]
+    logits = policy.einsum("bkgqd,bksd->bkgqs", q, k).float() / math.sqrt(d)
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(torch.where(mask, logits, _MASK), dim=-1)
+    out = policy.einsum("bkgqs,bksd->bkgqd", probs, v).float()
+    return out.to(q.dtype)
 
 
 def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_in: int, d_ff: int,
@@ -119,7 +137,8 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None
 def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
                      positions: torch.Tensor, cache, cache_index, mode: str,
                      cache_fmt: Optional[str] = None):
-    """One dense block.  ``mode="prefill"`` fills the dense cache ``cache``
+    """One dense block.  ``mode="train"`` attends over the sequence and
+    keeps no cache; ``mode="prefill"`` also fills the dense cache ``cache``
     ({"k","v"} [B, KV, Smax, hd], written in place) with the kv_cache-site
     truncated K/V; ``mode="decode"`` writes into and attends over the paged
     payload cache (serving/paged_cache.py).  Returns (x, cache)."""
@@ -142,13 +161,13 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
             raise ValueError("decode runs one token against a paged cache")
         attn, cache = _paged.update_and_attend(
             qg, k, v, cache, cache_index, policy=pol, cache_fmt=cache_fmt)
-    elif mode == "prefill":
+    elif mode in ("train", "prefill"):
         if s > MAX_FULL_ATTENTION_SEQ:
             raise NotImplementedError(
-                f"prefill of {s} > {MAX_FULL_ATTENTION_SEQ} tokens needs the "
-                f"chunked attention path, which is not ported")
+                f"{mode} over {s} > {MAX_FULL_ATTENTION_SEQ} tokens needs "
+                f"the chunked attention path, which is not ported")
         attn = full_attention(qg, k, v, causal=True, policy=pol)
-        if cache is not None:
+        if mode == "prefill" and cache is not None:
             # kv_cache/t{0,1} sites: the cache holds grid-snapped values, so
             # the payload re-encode at pack time is lossless
             with statsbank.scope("kv_cache"):
@@ -158,7 +177,8 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
                 cache[key][:, :, :s] = val
                 cache[key][:, :, s:] = 0.0
     else:
-        raise ValueError(f"mode {mode!r} is not ported (prefill/decode)")
+        raise ValueError(f"mode {mode!r} is not ported "
+                         f"(train/prefill/decode)")
 
     attn = attn.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
     with statsbank.scope("attn"):

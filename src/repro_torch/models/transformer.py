@@ -1,18 +1,24 @@
-"""Decoder-only LM (port of the serving part of ``repro.models.transformer``).
+"""Decoder-only LM (port of the dense part of ``repro.models.transformer``).
 
 Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
 ``segments`` — one dict per homogeneous run of layers with every leaf
 stacked on a leading [L] axis.  The reference's ``lax.scan`` over a
-segment becomes a Python loop over the layers that indexes the stacked
-leaves (views, no copies).
+segment becomes a Python loop over the layers of the unbound stacked
+leaves (views, no copies; one backward node per leaf gathers the layers'
+gradients).  Training remats each layer with ``torch.utils.checkpoint``
+when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan body);
+the replay runs under the forward's StatsBank session, so it reads the
+same stats and mints the same site keys.
 
-Entry points: ``init_lm``, ``prefill``, ``decode_step``.
+Entry points: ``init_lm``, ``loss_fn``, ``prefill``, ``decode_step``.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
@@ -66,29 +72,40 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 
 def embed_tokens(params, tokens, cfg: ArchConfig, pol: Policy):
     """Truncates the whole embedding table at the ``embed`` site (as the
-    reference does on every call), then gathers rows."""
-    with statsbank.scope("embed"):
-        table = pol.truncate(params["embed"])
+    reference does on every call; fp32 has no site), then gathers rows."""
+    table = params["embed"]
+    if pol.mode != "fp32":
+        with statsbank.scope("embed"):
+            table = pol.truncate(table)
     return table[tokens].to(DTYPES[cfg.activation_dtype])
 
 
 def lm_head(params, x, cfg: ArchConfig, pol: Policy):
-    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    """Logits at the ``head`` site.  The tied head contracts x with the
+    stored [V, d] table, x . E^T (the "nt" payload GEMM): no transpose is
+    materialized, and the values are the reference's ``x @ E.T``."""
     with statsbank.scope("head"):
-        return pol.dot(x, w.to(x.dtype))
+        if cfg.tie_embeddings:
+            return pol.dot_general(x, params["embed"].to(x.dtype),
+                                   (((x.dim() - 1,), (1,)), ((), ())))
+        return pol.dot(x, params["head"].to(x.dtype))
 
 
-def _layer(tree, i: int):
+def _unstack(tree, length: int) -> List[Any]:
+    """Per-layer views of a stacked segment tree."""
     if isinstance(tree, dict):
-        return {k: _layer(v, i) for k, v in tree.items()}
-    return tree[i]
+        parts = {k: _unstack(v, length) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(length)]
+    return list(torch.unbind(tree, 0))
 
 
-def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches,
-            cache_index=0, mode: str, cache_fmt: Optional[str] = None):
+def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
+            cache_index=0, mode: str = "train",
+            cache_fmt: Optional[str] = None):
     """Shared forward -> (hidden, caches).  ``caches``: per-segment dense
     caches (prefill, filled in place) or paged caches (decode, updated in
-    place); ``cache_index``: [B] per-slot positions (decode)."""
+    place), None in training; ``cache_index``: [B] per-slot positions
+    (decode)."""
     x = embed_tokens(params, tokens, cfg, pol)
     s = tokens.shape[1]
     if mode == "decode":
@@ -99,20 +116,45 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches,
     else:
         ci = None
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
+    sess = statsbank.current_session()
     for i, (btype, length) in enumerate(segments_of(cfg)):
         name = f"seg{i}:{btype}"
         # checks the bank's per-layer rows; a calibrating session learns
         # the segment length here for the sites it mints
         statsbank.segment_sites(name, length)
-        seg_p, seg_c = params["segments"][i], caches[i]
-        for li in range(length):
-            with statsbank.segment_ctx(name, li):
-                x, _ = blocks.attn_block_apply(
-                    _layer(seg_p, li), x, cfg, pol, positions,
-                    None if seg_c is None else _layer_cache(seg_c, li),
-                    ci, mode, cache_fmt)
+        seg_c = None if caches is None else caches[i]
+        for li, layer_p in enumerate(_unstack(params["segments"][i],
+                                              length)):
+            layer_c = None if seg_c is None else _layer_cache(seg_c, li)
+
+            def run(x, layer_p=layer_p, layer_c=layer_c, name=name, li=li):
+                with statsbank.segment_ctx(name, li):
+                    return blocks.attn_block_apply(
+                        layer_p, x, cfg, pol, positions, layer_c, ci, mode,
+                        cache_fmt)[0]
+
+            if mode == "train" and cfg.remat and torch.is_grad_enabled():
+                # the replay in the backward runs under this forward's
+                # session, whatever thread the autograd engine uses
+                x = checkpoint(run, x, use_reentrant=False,
+                               context_fn=lambda: (contextlib.nullcontext(),
+                                                   statsbank.resume(sess)))
+            else:
+                x = run(x)
     x = blocks.apply_norm(params["final_norm"], x, cfg)
     return x, caches
+
+
+def loss_fn(params, tokens, labels, cfg: ArchConfig, pol: Policy):
+    """Next-token cross entropy plus the 1e-4 * logz^2 z-loss (reference
+    transformer.py:153-162) -> (loss, {"nll": nll})."""
+    x, _ = forward(params, tokens, cfg, pol, mode="train")
+    logits = lm_head(params, x, cfg, pol).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    nll = (logz - gold).mean()
+    zloss = 1e-4 * (logz ** 2).mean()
+    return nll + zloss, {"nll": nll}
 
 
 def _layer_cache(seg_cache, li: int):

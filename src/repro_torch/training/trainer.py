@@ -1,0 +1,99 @@
+"""Train-step factory (port of the meshless part of
+``repro.training.trainer``): numerics policy, FP32 master weights, the
+StatsBank carry.
+
+``make_train_step`` returns
+
+    step(params, opt_state, batch, step)       -> (params, opt_state, metrics)
+    step(params, opt_state, bank, batch, step) -> (params, opt_state, bank,
+                                                   metrics)      # stats=...
+
+as the reference's does.  PyTorch runs eagerly, so the step is a plain
+function: the loss runs under a :func:`statsbank.bind` session, autograd
+gives the gradients, the session's refreshed states are merged into the
+returned bank, and the optimizer updates ``params`` and ``opt_state`` in
+place (see ``optim/optimizers.py``).
+
+The bank's refresh decision is made on the host: a site refreshes when
+``step % refresh_every == 0`` or while it has never been refreshed
+(``last < 0``).  The step keeps the cold-site map of the last bank it
+returned and re-reads it (one device read, ``statsbank.cold_sites``) only
+after a step that refreshed something, so a steady step reads no device
+scalar.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import statsbank
+from repro_torch.core.policy import Policy
+from repro_torch.optim.optimizers import (Optimizer, global_norm,
+                                          tree_leaves, tree_unflatten)
+
+
+def make_train_step(loss_fn: Callable, optimizer: Optimizer,
+                    schedule: Callable, policy: Policy,
+                    stats: Optional[statsbank.StatsConfig] = None):
+    """``loss_fn(params, batch, policy) -> (loss, metrics)``; ``stats``
+    enables the StatsBank carry (build the first bank with
+    ``statsbank.init_bank(loss_fn, params, batch, policy, stats)``).
+    Metrics: loss, grad_norm (before clipping), lr, the loss_fn's own, and
+    with a bank ``stats_refreshed`` (1.0 when any site refreshed)."""
+    if stats is not None and not policy.uses_payload_gemm:
+        raise ValueError(
+            f"StatsBank requires an s2fp8-mode policy, got {policy.mode!r}")
+    # the cold-site map of the bank this step returned last
+    carried = {"bank": None, "cold": None}
+
+    def _step(params, opt_state, bank, batch, step):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        sess = None
+        if bank is None:
+            loss, metrics = loss_fn(params, batch, policy)
+            grads = torch.autograd.grad(loss, leaves)
+        else:
+            cold = (carried["cold"] if bank is carried["bank"]
+                    else statsbank.cold_sites(bank))
+            with statsbank.bind(bank, step, stats, cold) as sess:
+                loss, metrics = loss_fn(params, batch, policy)
+                # inside the session: remat replays layers in the backward
+                grads = torch.autograd.grad(loss, leaves)
+        grads = tree_unflatten(params, grads)
+        out = {k: v.detach() for k, v in metrics.items()}
+        out["loss"] = loss.detach()
+        out["grad_norm"] = global_norm(grads)
+        out["lr"] = schedule(step)
+        params, opt_state = optimizer.update(grads, opt_state, params,
+                                             out["lr"])
+        if sess is None:
+            return params, opt_state, None, out
+        new_bank = statsbank.merge_updates(bank, sess.updates)
+        refreshed = bool(sess.updates)
+        out["stats_refreshed"] = float(refreshed)
+        carried["bank"] = new_bank
+        carried["cold"] = (statsbank.cold_sites(new_bank) if refreshed
+                           else cold)
+        return params, opt_state, new_bank, out
+
+    if stats is None:
+        def train_step(params, opt_state, batch, step):
+            p, o, _, out = _step(params, opt_state, None, batch, step)
+            return p, o, out
+        return train_step
+
+    def banked_train_step(params, opt_state, bank, batch, step):
+        return _step(params, opt_state, bank, batch, step)
+    return banked_train_step
+
+
+def make_eval_step(loss_fn: Callable, policy: Policy):
+    """``eval_step(params, batch) -> metrics`` (no autograd)."""
+    @torch.no_grad()
+    def eval_step(params, batch):
+        _, metrics = loss_fn(params, batch, policy)
+        return metrics
+    return eval_step

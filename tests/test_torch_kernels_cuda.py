@@ -6,9 +6,11 @@ fixture, so every worker collects the same tests).  Run on a GPU machine:
 
 Tolerances: quantize / truncate are bit for bit (same maps, same rounding
 of each step; up to one grid step in 1e-4 of the elements is allowed for
-the math library); GEMM raw output within 1e-5 * (|A| @ |B|), epilogue and
-flash outputs at most one grid step apart in at most 1e-3 / 1e-2 of the
-elements; paged decode allclose 1e-4 relative + 1e-5 absolute.
+the math library); dequantize within 1e-6 relative; GEMM raw output (NN,
+NT, TN) within 1e-5 * (|A| @ |B|), epilogue and flash outputs at most one
+grid step apart in at most 1e-3 / 1e-2 of the elements; flash backward
+dq / dk / dv within 1e-4 * max|plain|; paged decode allclose 1e-4
+relative + 1e-5 absolute.
 """
 import pytest
 import torch
@@ -118,3 +120,70 @@ def test_paged_kernel(dev, fmt):
                                             fmt)
     assert torch.isfinite(ok).all()
     assert bool(((ok - op).abs() <= 1e-4 * op.abs() + 1e-5).all())
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_dequant_kernel(dev, fmt):
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn(777, 333, generator=g, device=dev) * 0.1
+    ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+    p = s2fp8_quant.quant_apply(x, ab, fmt)
+    dk = s2fp8_quant.dequant(p, ab)
+    dp = s2fp8_quant.dequant_plain(p, ab)
+    assert bool(((dk - dp).abs() <= 1e-6 * dp.abs()).all())
+    assert kernels.counts()["dequant"] == {"launches": 1, "plain_calls": 1}
+
+
+@pytest.mark.parametrize("layout", ["nt", "tn"])
+@pytest.mark.parametrize("mkn", [(333, 130, 77), (2048, 576, 256)])
+def test_gemm_nt_tn_kernels(dev, layout, mkn):
+    m, k, n = mkn
+    g = torch.Generator(device=dev).manual_seed(5)
+    a = torch.randn(*((m, k) if layout == "nt" else (k, m)), generator=g,
+                    device=dev)
+    b = torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=g,
+                    device=dev) / k ** 0.5
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    qa, qb = s2fp8_quant.quant_apply(a, aab), s2fp8_quant.quant_apply(b, bab)
+    kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+    plain = getattr(s2fp8_matmul, f"qmatmul_{layout}_plain")
+    da = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+    db = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+    lhs, rhs = (da, db.t()) if layout == "nt" else (da.t(), db)
+    raw_k, raw_p = kernel(qa, aab, qb, bab), plain(qa, aab, qb, bab)
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * (lhs.abs() @ rhs.abs())
+                 + 1e-30).all())
+    oab = s2fp8.compute_stats(raw_p)
+    d = _steps(kernel(qa, aab, qb, bab, oab), plain(qa, aab, qb, bab, oab),
+               oab)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
+    assert kernels.counts()[f"qmatmul_{layout}"]["launches"] == 2
+
+
+@pytest.mark.parametrize("g,d,s,window", [(1, 64, 512, None),
+                                          (2, 32, 200, 64),
+                                          (1, 80, 130, None)])
+def test_qflash_bwd_kernel(dev, g, d, s, window):
+    gen = torch.Generator(device=dev).manual_seed(6)
+    bkv = 3
+    q = torch.randn(bkv * g, s, d, generator=gen, device=dev)
+    k = torch.randn(bkv, s, d, generator=gen, device=dev)
+    v = torch.randn(bkv, s, d, generator=gen, device=dev)
+    dout = torch.randn(bkv * g, s, d, generator=gen, device=dev) * 1e-3
+    sts = [s2fp8.compute_stats(t) for t in (q, k, v, dout)]
+    pq, pk, pv, pg = (s2fp8_quant.quant_apply(t, ab)
+                      for t, ab in zip((q, k, v, dout), sts))
+    out, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], g=g,
+                                                window=window)
+    oab = s2fp8.compute_stats(out)
+    po = s2fp8_quant.quant_apply(out, oab)
+    delta = (s2fp8.dequantize(s2fp8.S2FP8Tensor(pg, sts[3]))
+             * s2fp8.dequantize(s2fp8.S2FP8Tensor(po, oab))).sum(-1)
+    args = (pq, pk, pv, pg, *sts, lse, delta)
+    got = flash_attention.qflash_bwd(*args, g=g, window=window)
+    want = flash_attention.qflash_bwd_plain(*args, g=g, window=window)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    assert kernels.counts()["qflash_bwd"] == {"launches": 1,
+                                              "plain_calls": 1}

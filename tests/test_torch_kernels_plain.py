@@ -145,10 +145,12 @@ def test_gemm_rejects_other_layouts_and_bad_shapes():
     from repro_torch.kernels import dispatch
     p = torch.zeros((4, 6), dtype=torch.uint8).view(torch.float8_e5m2)
     ab = torch.tensor([1.0, 0.0])
-    with pytest.raises(NotImplementedError):
-        dispatch.qmatmul_nd(p, ab, p, ab, layout="nt")
+    with pytest.raises(ValueError):
+        dispatch.qmatmul_nd(p, ab, p, ab, layout="tt")
     with pytest.raises(ValueError):
         s2fp8_matmul.qmatmul_nn(p, ab, p, ab)
+    with pytest.raises(ValueError):
+        s2fp8_matmul.qmatmul_tn(p, ab, p.reshape(6, 4), ab)
 
 
 @pytest.mark.parametrize("g,hd", [(1, 32), (2, 64), (2, 80), (1, 80)])
