@@ -2,6 +2,7 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain checks
+    python3 chip_smoke.py --only moe      # build, kernels, the MoE phases
 
 Phases, each fatal on failure:
 
@@ -9,17 +10,19 @@ Phases, each fatal on failure:
              (nvidia-smi) and the software versions.
 2. build   — compiles every CUDA kernel of the serving and training paths
              from src/repro_torch/csrc (one nvcc per source, all at once).
-3. kernels — holds each of the nine kernels against its plain PyTorch
+3. kernels — holds each of the ten kernels against its plain PyTorch
              version on the card at the serving and training paths'
-             shapes, with the tolerance stated beside each check, and times
+             shapes (the MoE's expert GEMMs and head dim 128 included),
+             with the tolerance stated beside each check, and times
              kernel, plain version and a library yardstick with CUDA
              events.
-4. small   — the reduced model on the card through the kernels and through
-             the plain versions: serving (same greedy tokens, close
-             logits) and training with the bank at k = 2, where every
-             kernel call, forward and backward, is held against its plain
-             version on the same inputs (phase 3's tolerances), then 3
-             train steps (finite, close losses).
+4. small   — the reduced models on the card through the kernels and
+             through the plain versions: minicpm serving (same greedy
+             tokens, close logits), and minicpm and deepseek_moe_16b
+             (global and grouped routing) training with the bank at
+             k = 2, where every kernel call, forward and backward, is held
+             against its plain version on the same inputs (phase 3's
+             tolerances), then 3 train steps (finite, close losses).
 5. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
              a seeded generator: calibrate the frozen bank, then serve 16
              requests through PayloadLMServer (8 slots, max_len 1024,
@@ -30,6 +33,13 @@ Phases, each fatal on failure:
              from seeded params and seeded Markov batches.  Every training
              kernel must have launched during this phase, no plain version
              may have run, and every loss must be finite.
+7. train-moe — full-width deepseek_moe_16b (d 2048, 16 heads of 128, 64
+             routed experts top-6 of width 1408 + 2 shared, vocab
+             102,400), depth cut to its first 4 layers (dense_first + 3
+             moe), trained 4 steps at batch 4 x seq 512 with the bank at
+             k = 8 (AdamW, remat).  The batched payload GEMM and every
+             other training kernel must have launched, no plain version
+             may have run, and every loss and aux loss must be finite.
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -62,6 +72,7 @@ REPLACES = {
     "qmatmul_nn": "src/repro/kernels/s2fp8_matmul.py:189",
     "qmatmul_nt": "src/repro/kernels/s2fp8_matmul.py:189",
     "qmatmul_tn": "src/repro/kernels/s2fp8_matmul.py:189",
+    "qmatmul_batched": "src/repro/kernels/s2fp8_matmul.py:230",
     "qflash_fwd": "src/repro/kernels/flash_attention.py:287",
     "qflash_bwd": "src/repro/kernels/flash_attention.py:348",
     "paged_decode": "src/repro/kernels/paged_attention.py:89",
@@ -73,15 +84,18 @@ SOURCES = {
     "qmatmul_nn": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qmatmul_nt": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qmatmul_tn": "src/repro_torch/csrc/s2fp8_matmul.cu",
+    "qmatmul_batched": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qflash_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "qflash_bwd": "src/repro_torch/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
 }
-# the kernels each main path runs (phase 5 serves, phase 6 trains)
+# the kernels each main path runs (phase 5 serves, phase 6 trains minicpm,
+# phase 7 trains deepseek_moe_16b)
 SERVE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn", "qmatmul_nt",
                  "qflash_fwd", "paged_decode")
 TRAIN_KERNELS = ("quant_apply", "truncate_apply", "dequant", "qmatmul_nn",
                  "qmatmul_nt", "qmatmul_tn", "qflash_fwd", "qflash_bwd")
+TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("qmatmul_batched",)
 
 
 def log(msg: str) -> None:
@@ -280,12 +294,14 @@ def phase_kernels(dev) -> dict:
         del a, b, qa, qb, raw_k, raw_p, deq_a, deq_b, scale, err, ek, ep
 
     # -- qflash_fwd: prefill attention at buckets P = 128 and 512 (8 rows x
-    # 36 heads, head dim 64, causal), plus head dims 32 and 80.  Tolerance:
+    # 36 heads, head dim 64, causal), plus head dims 32 and 80, then the
+    # MoE's training attention (4 rows x 16 heads of 128, 512 tokens: the
+    # largest tiles in shared memory, 116 KB).  Tolerance:
     # output codes differ by at most one grid step in at most 1% of the
     # elements (online-softmax blocking differs: 64 here, 512 in the
     # plain version), |lse| error <= 1e-4.
     cases = [(64, 200, 32), (64, 130, 80), (8 * 36, 128, 64),
-             (8 * 36, 512, 64)]
+             (8 * 36, 512, 64), (4 * 16, 512, 128)]
     for bh, p, d in cases:
         qf, kf, vf = (rnd(bh, p, d) for _ in range(3))
         sts = [s2fp8.compute_stats(t) for t in (qf, kf, vf)]
@@ -353,6 +369,7 @@ def phase_kernels(dev) -> dict:
                4.0 * live * kvh * g * hd,
                f"{fmt} B={b} KV={kvh} hd={hd} block={blk} live={live}")
     train_kernel_checks(dev, rnd, record)
+    moe_kernel_checks(dev, rnd, record)
     return rows
 
 
@@ -453,15 +470,16 @@ def train_kernel_checks(dev, rnd, record) -> None:
         f" slice 1's route: u8 transpose {tr_ms:.4f} ms + nn {nn_ms:.4f} ms")
     del qx, qe, qet, raw_nt, raw_nn, deq_x, deq_e, err
 
-    # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim, then the
-    # train phase's attention (4 x 36 heads, 512 tokens, head dim 64,
-    # causal).  Residuals as the node makes them: payload q/k/v, the
+    # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim, the train
+    # phase's attention (4 x 36 heads, 512 tokens, head dim 64, causal),
+    # then train-moe's (4 x 16 heads of 128: 177 KB of shared memory for
+    # dq, 213 KB for dk/dv).  Residuals as the node makes them: payload q/k/v, the
     # quantized output and cotangent, lse from the forward and delta =
     # rowsum(deq(g) * deq(o)).  Tolerance: each of dq, dk, dv within
     # 1e-4 * max|plain| (f32 sums in another order, 64-row tiles here and
     # 512-row chunks in the plain version).
-    cases = [(8, 2, 200, 32, 64), (6, 1, 130, 80, None), (4 * 36, 1, 512, 64,
-                                                           None)]
+    cases = [(8, 2, 200, 32, 64), (6, 1, 130, 80, None),
+             (4 * 36, 1, 512, 64, None), (4 * 16, 1, 512, 128, None)]
     for bh, g, sl, d, window in cases:
         qf, gf = rnd(bh, sl, d), rnd(bh, sl, d, scale=1e-3)
         kf, vf = rnd(bh // g, sl, d), rnd(bh // g, sl, d)
@@ -505,6 +523,92 @@ def train_kernel_checks(dev, rnd, record) -> None:
                + 3 * 4 * bh * sl * d,
                10.0 * bh * pairs * d,
                f"BH={bh} g={g} S={sl} d={d} window={window} causal")
+
+
+def moe_kernel_checks(dev, rnd, record) -> None:
+    """The batched payload GEMM at the train-moe phase's shapes (batch 4 x
+    seq 512 = 2,048 tokens, d 2048, 64 experts top-6 of width 1408,
+    capacity 256 per expert).  Flash at head dim 128 is checked with the
+    other flash shapes."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import s2fp8_matmul, s2fp8_quant
+
+    def payload(x):
+        ab = s2fp8.compute_stats(x)
+        return s2fp8_quant.quant_apply(x, ab), ab
+
+    # -- qmatmul_batched: each case is (layout, Ga, Gb, out_batch, M, K, N).
+    # Global routing: the gate/up einsum ecd,edf->ecf (NN, G = 64, M =
+    # cap 256, K 2048, N 1408), the down einsum ecf,efd->ecd (NN, K 1408,
+    # N 2048), their dA (NT) and dW (TN, K = 256).  Grouped routing over 4
+    # rows (capacity 64): becd,edf->becf with B broadcast (Gb = 64 of G =
+    # 256), its dA, and its dW summing the 4 row groups (out_batch 64).
+    # The times kept are the last case's (the gate/up forward, 2 of the 3
+    # forward einsums of every MoE layer).  Tolerance as the 2-D GEMM: raw
+    # |kernel - plain| <= 1e-5 * (|A| @ |B|, summed like the output) +
+    # 1e-30; with the epilogue, codes at most one grid step apart in at
+    # most 1e-3 of the outputs.  Library: torch.bmm (f32, no TF32) on the
+    # dequantized operands, B broadcast by torch.matmul, the group sum
+    # after.
+    cases = [("nn", 256, 64, None, 64, 2048, 1408),
+             ("nt", 256, 64, None, 64, 1408, 2048),
+             ("tn", 256, 256, 64, 2048, 64, 1408),
+             ("nn", 64, 64, None, 256, 1408, 2048),
+             ("nt", 64, 64, None, 256, 1408, 2048),
+             ("tn", 64, 64, None, 2048, 256, 1408),
+             ("nn", 64, 64, None, 256, 2048, 1408)]
+    for layout, ga, gb, ob, m, k, n in cases:
+        a_shape = (ga,) + ((k, m) if layout == "tn" else (m, k))
+        b_shape = (gb,) + ((n, k) if layout == "nt" else (k, n))
+        qa, aab = payload(rnd(*a_shape, dtype=torch.bfloat16))
+        qb, bab = payload(rnd(*b_shape, dtype=torch.bfloat16,
+                              scale=k ** -0.5))
+        kw = dict(layout=layout, out_batch=ob)
+        raw_k = s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, **kw)
+        raw_p = s2fp8_matmul.qmatmul_batched_plain(qa, aab, qb, bab, **kw)
+        scale = s2fp8_matmul.qmatmul_batched_plain(
+            abs_payload(qa), aab, abs_payload(qb), bab, **kw)
+        err = (raw_k - raw_p).abs()
+        assert bool((err <= 1e-5 * scale + 1e-30).all()), \
+            f"qmatmul_batched raw {layout} {a_shape} x {b_shape}: max err " \
+            f"{err.max().item()}"
+        oab = s2fp8.compute_stats(raw_p)
+        ek = s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, oab, **kw)
+        ep = s2fp8_matmul.qmatmul_batched_plain(qa, aab, qb, bab, oab, **kw)
+        f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
+        label = (f"{layout} G={max(ga, gb)} Ga={ga} Gb={gb} Go="
+                 f"{ob or max(ga, gb)} M={m} K={k} N={n} epilogue")
+        log(f"qmatmul_batched {label}: raw max err {err.max().item():.3e}, "
+            f"epilogue flips {f}")
+        assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+        del raw_k, raw_p, scale, err
+        deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+        deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+        lhs = deq_a.transpose(1, 2) if layout == "tn" else deq_a
+        rhs = deq_b.transpose(1, 2) if layout == "nt" else deq_b
+        if gb < ga:          # B broadcast over the leading groups
+            lhs = lhs.reshape(ga // gb, gb, *lhs.shape[1:])
+
+        def library():
+            y = torch.matmul(lhs, rhs)
+            return y.reshape(-1, ob, m, n).sum(0) if ob else y
+
+        g = max(ga, gb)
+        record("qmatmul_batched", (ek - ep).abs().max().item(),
+               cuda_time(lambda: s2fp8_matmul.qmatmul_batched(
+                   qa, aab, qb, bab, oab, **kw)),
+               cuda_time(lambda: s2fp8_matmul.qmatmul_batched_plain(
+                   qa, aab, qb, bab, oab, **kw), iters=3),
+               cuda_time(library),
+               ga * m * k + gb * k * n + 4 * (ob or g) * m * n,
+               2.0 * g * m * k * n, label)
+        del qa, qb, ek, ep, deq_a, deq_b, lhs, rhs
+
+
+def abs_payload(p: torch.Tensor) -> torch.Tensor:
+    """The payload of |x| (sign bit cleared): with the same stats it
+    dequantizes to the absolute values."""
+    return (p.view(torch.uint8) & 0x7F).view(p.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -771,6 +875,22 @@ def checked_engine():
                     1e-3), (y, ref))
             return y
 
+        def qmatmul_batched(self, a, b, *, layout="nn", out_batch=None,
+                            epilogue_stats=None, fmt="e5m2"):
+            kw = dict(layout=layout, out_batch=out_batch,
+                      epilogue_stats=epilogue_stats, fmt=fmt)
+            y = super().qmatmul_batched(a, b, **kw)
+            ref = plain.qmatmul_batched(a, b, **kw)
+            if epilogue_stats is None:
+                err, top = rel_err(y, ref)
+                held("qmatmul_batched", err <= 1e-5 * top, (err, top),
+                     (y, ref))
+            else:
+                held("qmatmul_batched", *codes_close(
+                    y, ref, s2fp8.as_stats(epilogue_stats, y.device), fmt,
+                    1e-3), (y, ref))
+            return y
+
     fwd, bwd = qdot._payload_flash_fwd, qdot._payload_flash_bwd
 
     def flash_fwd(be, qq, qk, qv, causal, window, fmt, bq, bk, out_stats):
@@ -829,20 +949,52 @@ def phase_small_train(dev) -> None:
     on its own inputs.  Then 3 train steps (steps 0 and 2 refresh): every
     step's loss finite and the two engines' within 0.01 of each other."""
     from repro_torch.configs import get_reduced_config
+    cfg = get_reduced_config("minicpm_2b").replace(n_layers=2)
+    _small_train(dev, cfg, TRAIN_KERNELS, 0.01)
+
+
+def phase_small_train_moe(dev) -> None:
+    """Reduced deepseek_moe_16b (3 layers: dense_first + 2 moe, d 128, 8
+    experts top-2 of width 64, 2 shared, vocab 512) through the same
+    checks as ``phase_small_train``, under global and under grouped
+    routing: every batched GEMM call of the expert einsums, forward and
+    backward (NN, NT, TN, the broadcast B and the out_batch group sum of
+    grouped routing), is held against its plain version on its own
+    inputs, and the nine training kernels must all have been checked.
+    The losses of the two engines are held within 0.1 of each other, a
+    smoke test as for minicpm but looser: at step 0 every site refreshes
+    from raw outputs that differ in the last bits, the two engines'
+    gradients then differ by up to 17% per leaf, and in an MoE a moved
+    code can also send a token whose two best experts nearly tie to the
+    other one; after two AdamW steps the losses differed by up to 0.044
+    on the H100 (PERF.md, Findings)."""
+    import dataclasses
+    from repro_torch.configs import get_reduced_config
+    base = get_reduced_config("deepseek_moe_16b")
+    for routing in ("global", "grouped"):
+        log(f"small train moe: routing {routing}")
+        cfg = base.replace(moe=dataclasses.replace(base.moe, routing=routing))
+        _small_train(dev, cfg, TRAIN_MOE_KERNELS, 0.1)
+
+
+def _small_train(dev, cfg, expected, loss_tol) -> None:
     from repro_torch.core import statsbank
     from repro_torch.data import synthetic
 
-    cfg = get_reduced_config("minicpm_2b").replace(n_layers=2)
     chain = synthetic.markov_chain(1, cfg.vocab)
     gen = torch.Generator().manual_seed(1)
     batches = [synthetic.lm_batch(chain, gen, 2, 64, dev) for _ in range(3)]
     loss_fn = _lm_loss(cfg)
     stats = statsbank.StatsConfig(refresh_every=2)
     with checked_engine() as tally:
-        _small_train(dev, cfg, batches, loss_fn, stats, tally)
+        _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
+                             loss_tol)
+    missing = set(expected) - set(tally)
+    assert not missing, f"never checked on the training path: {missing}"
 
 
-def _small_train(dev, cfg, batches, loss_fn, stats, tally) -> None:
+def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
+                         loss_tol) -> None:
     from repro_torch.core import statsbank
     from repro_torch.core.policy import make_policy
     from repro_torch.models import transformer as tlm
@@ -892,11 +1044,9 @@ def _small_train(dev, cfg, batches, loss_fn, stats, tally) -> None:
         f"{losses['plain']}")
     for a, b in zip(losses["checked"], losses["plain"]):
         assert math.isfinite(a) and math.isfinite(b), losses
-        assert abs(a - b) <= 0.01, losses
+        assert abs(a - b) <= loss_tol, losses
     log(f"small train: kernel calls held against their plain versions: "
         f"{tally}")
-    missing = set(TRAIN_KERNELS) - set(tally)
-    assert not missing, f"never checked on the training path: {missing}"
 
 
 def phase_train(dev, profile: bool = False) -> dict:
@@ -906,10 +1056,40 @@ def phase_train(dev, profile: bool = False) -> dict:
     ``make_train_step`` with the bank at k = 8 (step 0 bootstraps every
     site, steps 1-3 are steady), AdamW.  Returns the kernel launch counts
     of this phase and its metrics.  With ``profile``, one more steady step
-    runs under torch.profiler afterwards."""
+    runs under torch.profiler afterwards.  Model FLOP/s count 6 * N * T
+    with N every parameter (the tied embedding is the head's GEMM)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("minicpm_2b")
+    return _train_run(dev, cfg, "train", "wsd", cfg.n_params(),
+                      TRAIN_KERNELS, profile)
+
+
+def phase_train_moe(dev, profile: bool = False) -> dict:
+    """Full-width deepseek_moe_16b cut to its first 4 layers (dense_first +
+    3 moe; ``dataclasses.replace`` of n_layers and pattern only, printed by
+    ``launch.train.cut_depth``), trained as ``phase_train`` trains minicpm:
+    batch 4 x 512, bank k = 8, AdamW, remat, 4 steps, cosine schedule.
+    Model FLOP/s count 6 * N_active * T with N_active the weights one
+    token's GEMMs read: attention, router, its top-6 of 64 routed experts,
+    the 2 shared experts, the dense first layer's MLP and the untied head —
+    the embedding table (a lookup) is left out.  The capacity dispatch
+    computes more than that (64 experts x capacity 256 = 16,384
+    token-expert slots for 12,288 routed pairs), and the remat replay is
+    not counted either."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    cfg = cut_depth(get_config("deepseek_moe_16b"), 4)
+    n_active = cfg.n_active_params() - cfg.vocab * cfg.d_model
+    log(f"train-moe: N_active {n_active / 1e9:.4f} B of "
+        f"{cfg.n_params() / 1e9:.4f} B params")
+    return _train_run(dev, cfg, "train-moe", "cosine", n_active,
+                      TRAIN_MOE_KERNELS, profile)
+
+
+def _train_run(dev, cfg, label, schedule, n_flop, expected,
+               profile) -> dict:
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core import statsbank
     from repro_torch.core.policy import make_policy
     from repro_torch.data import synthetic
@@ -917,7 +1097,6 @@ def phase_train(dev, profile: bool = False) -> dict:
     from repro_torch.optim import optimizers, schedules
     from repro_torch.training.trainer import make_train_step
 
-    cfg = get_config("minicpm_2b")
     pol = make_policy("s2fp8")
     steps, batch, seq = 4, 4, 512
     t0 = time.perf_counter()
@@ -929,13 +1108,15 @@ def phase_train(dev, profile: bool = False) -> dict:
     batches = [synthetic.lm_batch(chain, gen, batch, seq, dev)
                for _ in range(steps + 1)]
     torch.cuda.synchronize()
-    log(f"train: minicpm_2b {cfg.n_layers} layers, remat {cfg.remat}, "
+    log(f"{label}: {cfg.name} {cfg.n_layers} layers {cfg.resolved_pattern[:4]}"
+        f"..., d={cfg.d_model}, remat {cfg.remat}, "
         f"{cfg.n_params() / 1e9:.3f} B params, batch {batch} x seq {seq}, "
-        f"set-up {time.perf_counter() - t0:.1f} s")
+        f"set-up {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     loss_fn = _lm_loss(cfg)
     stats = statsbank.StatsConfig(refresh_every=8)
     step_fn = make_train_step(loss_fn, opt, schedules.make_schedule(
-        "wsd", 3e-4, total_steps=steps, warmup=1), pol, stats=stats)
+        schedule, 3e-4, total_steps=steps, warmup=1), pol, stats=stats)
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()                        # the main path starts here
@@ -944,7 +1125,7 @@ def phase_train(dev, profile: bool = False) -> dict:
     torch.cuda.synchronize()
     t_probe = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
-    losses, step_ms, step_peak, step_launches = [], [], [], []
+    losses, auxes, step_ms, step_peak, step_launches = [], [], [], [], []
     for i in range(steps):
         before = kernels.counts()
         torch.cuda.synchronize()
@@ -953,14 +1134,15 @@ def phase_train(dev, profile: bool = False) -> dict:
         params, opt_state, bank, m = step_fn(params, opt_state, bank,
                                              batches[i + 1], i)
         losses.append(float(m["loss"]))
+        auxes.append(float(m["aux"]))
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - ts) * 1e3)
         step_launches.append({k: c["launches"] - before[k]["launches"]
                               for k, c in kernels.counts().items()})
         step_peak.append(torch.cuda.max_memory_allocated() / 1e9)
         peak = max(peak, torch.cuda.max_memory_allocated())
-        log(f"train step {i}: loss {losses[-1]:.4f}, grad_norm "
-            f"{float(m['grad_norm']):.3f}, refreshed "
+        log(f"{label} step {i}: loss {losses[-1]:.4f}, aux {auxes[-1]:.5f}, "
+            f"grad_norm {float(m['grad_norm']):.3f}, refreshed "
             f"{m['stats_refreshed']:.0f}, {step_ms[-1]:.1f} ms, peak "
             f"{step_peak[-1]:.2f} GB")
     counts = kernels.counts()                     # ... and ends here
@@ -970,27 +1152,29 @@ def phase_train(dev, profile: bool = False) -> dict:
         def one_step():
             state["p"], state["o"], state["b"], _ = step_fn(
                 state["p"], state["o"], state["b"], batches[-1], steps)
-        profile_window(f"1 steady train step (step {steps})", one_step)
+        profile_window(f"{label}: 1 steady train step (step {steps})",
+                       one_step)
         memory_by_stage(loss_fn, opt, pol, stats, state, batches[-1],
                         steps + 1)
 
-    assert all(math.isfinite(x) for x in losses), losses
-    check_counts(counts, TRAIN_KERNELS)
+    assert all(math.isfinite(x) for x in losses + auxes), (losses, auxes)
+    check_counts(counts, expected)
     tokens = batch * seq
     steady_ms = float(np.mean(step_ms[1:]))
-    flop = 6.0 * cfg.n_params() * tokens
     metrics = {
         "steps": steps, "tokens_per_step": tokens, "losses": losses,
-        "step_ms": step_ms, "steady_step_ms_mean": steady_ms,
+        "aux": auxes, "step_ms": step_ms, "step0_ms": step_ms[0],
+        "steady_step_ms_mean": steady_ms,
         "tokens_per_s": tokens / steady_ms * 1e3,
-        "model_tflop_per_s_6NT": flop / steady_ms / 1e9,
+        "flop_params": n_flop,
+        "model_tflop_per_s_6NT": 6.0 * n_flop * tokens / steady_ms / 1e9,
         "probe_s": t_probe, "bank_sites": len(bank),
         "step_peak_gb": step_peak, "max_memory_allocated_gb": peak / 1e9,
         "launches_step0": step_launches[0],
         "launches_steady_step": step_launches[-1],
     }
-    log("train metrics: " + json.dumps(metrics))
-    log("train launches: " + json.dumps(counts))
+    log(f"{label} metrics: " + json.dumps(metrics))
+    log(f"{label} launches: " + json.dumps(counts))
     return {"counts": counts, "metrics": metrics}
 
 
@@ -1082,15 +1266,24 @@ def phase_profile(server) -> None:
 
 # ---------------------------------------------------------------------------
 
+def free_device_memory() -> None:
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"device memory allocated between phases: "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels",), default=None)
+    ap.add_argument("--only", choices=("kernels", "moe"), default=None,
+                    help="kernels: build + phase 3 only; moe: build, phase "
+                         "3, the MoE part of phase 4, and phase 7")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v register/smem reports")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler device time by kernel for "
                          "one admission and five decode ticks of the "
-                         "server and one steady train step")
+                         "server and one steady step of each train phase")
     args = ap.parse_args()
 
     phase_device()
@@ -1099,24 +1292,33 @@ def main() -> int:
     rows = phase_kernels(dev)
     if args.only == "kernels":
         return 0
-    phase_small_reference(dev)
-    phase_small_train(dev)
-    served = phase_serve(dev)
-    if args.profile:
-        phase_profile(served["server"])
-    # the server's timing wrappers hold its own bound methods: a reference
-    # cycle, which only the collector frees (params and pool, ~12 GB)
-    del served["server"]
-    gc.collect()
-    torch.cuda.empty_cache()
-    trained = phase_train(dev, args.profile)
+    none = {name: {"launches": 0} for name in rows}
+    served = trained = {"counts": none}
+    if args.only != "moe":
+        phase_small_reference(dev)
+        phase_small_train(dev)
+    phase_small_train_moe(dev)
+    if args.only != "moe":
+        served = phase_serve(dev)
+        if args.profile:
+            phase_profile(served["server"])
+        # the server's timing wrappers hold its own bound methods: a
+        # reference cycle, which only the collector frees (params and
+        # pool, ~12 GB)
+        del served["server"]
+        free_device_memory()
+        trained = phase_train(dev, args.profile)
+        free_device_memory()
+    trained_moe = phase_train_moe(dev, args.profile)
     out = []
     for name, row in rows.items():
         ls = served["counts"][name]["launches"]
         lt = trained["counts"][name]["launches"]
+        lm = trained_moe["counts"][name]["launches"]
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                    "replaces": REPLACES[name], "launches": ls + lt,
+                    "replaces": REPLACES[name], "launches": ls + lt + lm,
                     "launches_serve": ls, "launches_train": lt,
+                    "launches_train_moe": lm,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],

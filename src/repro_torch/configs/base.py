@@ -3,20 +3,39 @@
 The port keeps its own copy of the fields its serving and training
 slices read, so it never imports the JAX package. Field names, defaults
 and values match the reference, which lets a JAX config and a port
-config describe the same model."""
+config describe the same model.  ``MoEConfig`` is the reference's,
+verbatim."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
-from typing import Tuple
+from typing import Optional, Tuple
 
-ARCH_IDS = ("minicpm_2b",)
+ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b")
+
+
+@dataclasses.dataclass(frozen=True)
+class MoEConfig:
+    n_experts: int
+    top_k: int
+    n_shared: int = 0
+    expert_d_ff: int = 0
+    first_dense_layers: int = 0
+    dense_d_ff: int = 0              # d_ff of the first dense layer(s)
+    capacity_factor: float = 1.25
+    router_aux_weight: float = 0.01  # load-balancing loss weight
+    # "global"  — route over all tokens (baseline; the token gather crosses
+    #             data shards -> all-gather of activations)
+    # "grouped" — route within each batch row; gathers stay data-local and
+    #             only the (much smaller) dispatched xe crosses the expert
+    #             axis (hillclimb for the collective-bound MoE cells)
+    routing: str = "global"
 
 
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense (the only family ported so far)
+    family: str                      # dense | moe (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -29,6 +48,7 @@ class ArchConfig:
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     pattern: Tuple[str, ...] = ()    # () -> ("dense",) * n_layers
+    moe: Optional[MoEConfig] = None
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True               # rematerialize each layer in training
@@ -42,15 +62,47 @@ class ArchConfig:
     def resolved_pattern(self) -> Tuple[str, ...]:
         return self.pattern or ("dense",) * self.n_layers
 
-    def n_params(self) -> int:
-        """Analytic parameter count of the dense family (embeddings once
-        if tied) — the reference's formula restricted to dense blocks."""
-        d, ff, hd = self.d_model, self.d_ff, self.resolved_head_dim
+    def _attn_params(self) -> int:
+        hd = self.resolved_head_dim
         q, kvd = self.n_heads * hd, self.kv_heads * hd
+        return 2 * self.d_model * q + 2 * self.d_model * kvd
+
+    def _mlp_params(self, d_ff: int) -> int:
         glu = self.activation.endswith("_glu")
-        per_layer = d * q + 2 * d * kvd + q * d + d * ff * (3 if glu else 2)
-        total = per_layer * len(self.resolved_pattern)
-        return total + self.vocab * d * (1 if self.tie_embeddings else 2)
+        return self.d_model * d_ff * (3 if glu else 2)
+
+    def _block_params(self, blk: str, experts: int) -> int:
+        """Weights of one block with ``experts`` routed experts counted."""
+        if blk == "dense":
+            return self._attn_params() + self._mlp_params(self.d_ff)
+        m = self.moe
+        if blk == "dense_first":
+            return self._attn_params() + self._mlp_params(
+                m.dense_d_ff or self.d_ff)
+        if blk == "moe":
+            return (self._attn_params() + self.d_model * m.n_experts
+                    + (experts + m.n_shared) * self._mlp_params(
+                        m.expert_d_ff))
+        raise NotImplementedError(f"block type {blk!r} is not ported")
+
+    def n_params(self) -> int:
+        """Analytic parameter count of the ported block types (embeddings
+        once if tied).  Unlike the reference's formula, which skips them,
+        ``dense_first`` blocks are counted, at ``moe.dense_d_ff``."""
+        total = sum(self._block_params(b, self.moe.n_experts if self.moe
+                                       else 0)
+                    for b in self.resolved_pattern)
+        return total + self.vocab * self.d_model * (
+            1 if self.tie_embeddings else 2)
+
+    def n_active_params(self) -> int:
+        """Params one token reads: every weight but the routed experts it
+        is not sent to (``top_k`` of ``n_experts`` per MoE block; the
+        router, shared experts, embedding row and head are counted)."""
+        total = sum(self._block_params(b, self.moe.top_k if self.moe else 0)
+                    for b in self.resolved_pattern)
+        return total + self.vocab * self.d_model * (
+            1 if self.tie_embeddings else 2)
 
     def replace(self, **kw) -> "ArchConfig":
         return dataclasses.replace(self, **kw)

@@ -4,7 +4,9 @@
 returns — as numpy arrays (``jax.device_get``), or any array type numpy
 can read — and gives the port's params: the same stacked segments, the
 same leaf names, the same layout ([d_in, d_out] weights, [L]-stacked
-layers).  The two frameworks draw different random numbers from the same
+layers), MoE blocks included (``moe/router`` [L, d, E], the stacked
+experts ``moe/we_gate``, ``we_up`` [L, E, d, f] and ``we_down`` [L, E, f,
+d], ``moe/shared/*``) and the untied ``head``.  The two frameworks draw different random numbers from the same
 seed, so parity tests start both sides from these converted params.
 """
 from __future__ import annotations

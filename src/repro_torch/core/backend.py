@@ -16,12 +16,14 @@ reduction on both engines (the reference's exact-stats engine runs it
 outside any Pallas kernel too).
 
 Also here, as in the reference: ``bidir_truncate`` (the exact-stats
-differentiable truncation per engine) and ``plan_qdot_general`` (how a
-contraction maps onto the 2-D payload GEMM layouts).
+differentiable truncation per engine), and ``plan_qdot_general`` and
+``plan_einsum`` (how a contraction maps onto the 2-D or batched payload
+GEMM layouts).
 """
 from __future__ import annotations
 
 import functools
+import string
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
@@ -63,6 +65,18 @@ class NumericsBackend:
         site's Eq. 5 truncation (on the ``fmt`` grid)."""
         raise NotImplementedError
 
+    def qmatmul_batched(self, a: S2FP8Tensor, b: S2FP8Tensor, *,
+                        layout: str = "nn", out_batch: Optional[int] = None,
+                        epilogue_stats=None, fmt: str = "e5m2"
+                        ) -> torch.Tensor:
+        """Batched payload GEMM on 3-D payloads ``[Ga, ., .]`` x ``[Gb, .,
+        .]``: combined batch ``G = max(Ga, Gb)``, operand slice ``g % Gx``
+        for step ``g`` (the ``becd,edf`` broadcast), ``out_batch`` (default
+        ``G``) < ``G`` sums the ``G // out_batch`` groups into one output
+        slice (the dW of a broadcast operand); ``epilogue_stats`` as in
+        :meth:`qmatmul`."""
+        raise NotImplementedError
+
     def __repr__(self):
         return f"<NumericsBackend {self.name!r}>"
 
@@ -88,6 +102,15 @@ class PlainBackend(NumericsBackend):
         return ref.s2fp8_matmul_ref(a.payload, a.ab, b.payload, b.ab, oab,
                                     layout=layout, fmt=fmt)
 
+    def qmatmul_batched(self, a, b, *, layout="nn", out_batch=None,
+                        epilogue_stats=None, fmt="e5m2"):
+        from repro_torch.kernels import ref
+        oab = (None if epilogue_stats is None
+               else s2fp8.as_stats(epilogue_stats, a.payload.device))
+        return ref.s2fp8_matmul_batched_ref(
+            a.payload, a.ab, b.payload, b.ab, oab, layout=layout,
+            out_batch=out_batch, fmt=fmt)
+
 
 class CudaBackend(NumericsBackend):
     """Hand-written CUDA kernels (the reference's ``pallas`` counterpart)."""
@@ -112,6 +135,13 @@ class CudaBackend(NumericsBackend):
         return dispatch.qmatmul_nd(a.payload, a.ab, b.payload, b.ab,
                                    layout=layout,
                                    epilogue_stats=epilogue_stats, fmt=fmt)
+
+    def qmatmul_batched(self, a, b, *, layout="nn", out_batch=None,
+                        epilogue_stats=None, fmt="e5m2"):
+        from repro_torch.kernels import dispatch
+        return dispatch.qmatmul_batched_nd(
+            a.payload, a.ab, b.payload, b.ab, layout=layout,
+            out_batch=out_batch, epilogue_stats=epilogue_stats, fmt=fmt)
 
 
 BACKENDS: Dict[str, NumericsBackend] = {"plain": PlainBackend(),
@@ -156,18 +186,39 @@ def bidir_truncate(backend: Optional[str] = None, fmt: str = "e5m2"):
 
 
 # ---------------------------------------------------------------------------
-# contraction planning (reference backend.py:159-262, the 2-D part)
+# contraction planning (reference backend.py:159-349)
 # ---------------------------------------------------------------------------
 
 class QdotPlan(NamedTuple):
-    """How one contraction maps onto a 2-D payload GEMM: the kernel layout,
-    the operands' 2-D reshape targets and the final output shape.  The
-    batched fields of the reference wait for the batched GEMM."""
+    """How one contraction maps onto the payload GEMM kernels: the kernel
+    layout, the operands' reshape targets and the final output shape.
+    ``batch == 1`` is a 2-D GEMM (2-D shapes); ``batch > 1`` makes
+    ``a2_shape`` a ``(G, ., .)`` at the full combined batch and ``b2_shape``
+    a ``(Gb, ., .)`` with ``Gb | G`` — ``Gb < G`` broadcasts B across the
+    leading ``G // Gb`` groups (the ``becd,edf`` family)."""
 
     layout: str
     a2_shape: Tuple[int, ...]
     b2_shape: Tuple[int, ...]
     out_shape: Tuple[int, ...]
+    batch: int = 1
+    b_batch: int = 1
+
+
+def execute_qdot_plan(backend_obj: NumericsBackend, plan: QdotPlan,
+                      a: S2FP8Tensor, b: S2FP8Tensor, *,
+                      epilogue_stats=None, fmt: str = "e5m2") -> torch.Tensor:
+    """Run a planned contraction on quantized operands: payload reshapes,
+    the 2-D or batched kernel, the output reshape."""
+    qa, qb = a.reshape(plan.a2_shape), b.reshape(plan.b2_shape)
+    if plan.batch == 1:
+        y = backend_obj.qmatmul(qa, qb, layout=plan.layout,
+                                epilogue_stats=epilogue_stats, fmt=fmt)
+    else:
+        y = backend_obj.qmatmul_batched(qa, qb, layout=plan.layout,
+                                        epilogue_stats=epilogue_stats,
+                                        fmt=fmt)
+    return y.reshape(plan.out_shape)
 
 
 def _prod(dims) -> int:
@@ -177,38 +228,143 @@ def _prod(dims) -> int:
     return p
 
 
+def _plan_from_parts(layout: str, batch_dims, b_batch_dims, m: int, k: int,
+                     n: int, out_shape) -> Optional[QdotPlan]:
+    """A QdotPlan from the decomposed contraction: combined batch dims (all
+    of A's leading dims), B's stored batch dims (a trailing subset),
+    per-slice (m, k, n), and the logical output shape."""
+    g, gb = _prod(batch_dims), _prod(b_batch_dims)
+    if 0 in (g, gb, m, k, n):
+        return None                      # degenerate sizes: no kernel path
+    if layout == "nn":
+        a2, b2 = (m, k), (k, n)
+    elif layout == "nt":
+        a2, b2 = (m, k), (n, k)
+    else:
+        a2, b2 = (k, m), (k, n)
+    if g == 1:
+        return QdotPlan(layout, a2, b2, tuple(out_shape))
+    return QdotPlan(layout, (g,) + a2, (gb,) + b2, tuple(out_shape), g, gb)
+
+
 def plan_qdot_general(a_shape, b_shape, dimension_numbers
                       ) -> Optional[QdotPlan]:
-    """Map a batch-free dot_general onto a 2-D payload GEMM, or None.
+    """Map a dot_general onto a payload GEMM, or None when unsupported.
 
-    One contracting dim per operand, at the boundary of its free dims (the
-    rest flatten contiguously); the output is ``a_free + b_free``.  This
-    covers the dense ``...k,kn->...n`` GEMMs ("nn") and the tied LM head
-    ``x . E^T`` contracting both last dims ("nt"), and ``k...,kn`` ("tn").
-    Batch dims (the reference's batched GEMM) and the "tt" case have no
-    kernel here and give None."""
+    One contracting dim per operand at the boundary of its free dims (the
+    rest flatten contiguously), and batch dims — if any — leading and in
+    order on both operands.  The output follows the dot_general
+    convention ``batch + a_free + b_free``.  Covers the dense
+    ``...k,kn->...n`` GEMMs ("nn"), the tied LM head ``x . E^T`` ("nt"),
+    ``k...,kn`` ("tn") and their batched forms; (first, last) on (a, b) —
+    the "tt" case — has no kernel layout and gives None."""
     (ca, cb), (batch_a, batch_b) = dimension_numbers
-    if batch_a or batch_b or len(ca) != 1 or len(cb) != 1:
+    if len(ca) != 1 or len(cb) != 1:
+        return None
+    nb = len(batch_a)
+    if tuple(batch_a) != tuple(range(nb)) or \
+            tuple(batch_b) != tuple(range(nb)):
+        return None
+    if tuple(a_shape[:nb]) != tuple(b_shape[:nb]):
         return None
     ca, cb = ca[0], cb[0]
-    if ca not in (0, len(a_shape) - 1) or cb not in (0, len(b_shape) - 1):
+    if ca not in (nb, len(a_shape) - 1) or cb not in (nb, len(b_shape) - 1):
         return None
     a_last = ca == len(a_shape) - 1
-    b_first = cb == 0
+    b_first = cb == nb
     if not a_last and not b_first:
         return None                      # "tt": no layout variant
     k = a_shape[ca]
     if k != b_shape[cb]:
         return None
-    a_rest = tuple(d for i, d in enumerate(a_shape) if i != ca)
-    b_rest = tuple(d for i, d in enumerate(b_shape) if i != cb)
-    m, n = _prod(a_rest), _prod(b_rest)
-    if 0 in (m, k, n):
+    a_rest = tuple(d for i, d in enumerate(a_shape) if i >= nb and i != ca)
+    b_rest = tuple(d for i, d in enumerate(b_shape) if i >= nb and i != cb)
+    layout = "nn" if (a_last and b_first) else ("nt" if a_last else "tn")
+    batch = tuple(a_shape[:nb])
+    return _plan_from_parts(layout, batch, batch, _prod(a_rest), k,
+                            _prod(b_rest), batch + a_rest + b_rest)
+
+
+def plan_einsum(spec: str, a_shape, b_shape) -> Optional[QdotPlan]:
+    """Map a two-operand einsum onto a payload GEMM, or None.
+
+    The family the kernels execute, as the reference's:
+
+      * exactly one contracted label, first or last among each operand's
+        non-batch labels (no "tt", no multi-label contraction, no
+        sum-over-free);
+      * B's labels are ``shared-batch + free/contract``; A's are ``lead +
+        shared-batch + free/contract`` where ``lead`` are free labels only
+        (they broadcast B — the ``becd,edf`` family);
+      * the output is exactly ``lead + shared + a_free + b_free``, the
+        order the batched GEMM produces, so the plan is pure reshapes.
+
+    This covers the dense ``bsd,df->bsf`` family, the MoE expert einsums
+    ``ecd,edf->ecf`` / ``becd,edf->becf`` and the attention contractions
+    ``bkgqd,bksd->bkgqs`` / ``bkgqs,bksd->bkgqd``."""
+    if "->" not in spec:
         return None
-    if a_last and b_first:
-        layout, a2, b2 = "nn", (m, k), (k, n)
-    elif a_last:
-        layout, a2, b2 = "nt", (m, k), (n, k)
+    lhs, lo = spec.replace(" ", "").split("->")
+    parts = lhs.split(",")
+    if len(parts) != 2:
+        return None
+    la, lb = parts
+    if "." in lb:
+        return None                      # ellipsis rhs: ambiguous layout
+    if "..." in la:
+        # concretize "..." with fresh labels, shared between lhs and out
+        n_ell = len(a_shape) - (len(la) - 3)
+        if n_ell < 0 or "..." not in lo:
+            return None
+        fresh = "".join(c for c in string.ascii_letters
+                        if c not in spec)[:n_ell]
+        if len(fresh) != n_ell:
+            return None
+        la = la.replace("...", fresh)
+        lo = lo.replace("...", fresh)
+    if "." in la + lo or len(la) != len(a_shape) or len(lb) != len(b_shape):
+        return None
+    if len(set(la)) != len(la) or len(set(lb)) != len(lb) \
+            or len(set(lo)) != len(lo):
+        return None
+    sa, sb, so = set(la), set(lb), set(lo)
+    if not so <= (sa | sb):
+        return None
+    contract = (sa & sb) - so
+    if len(contract) != 1:
+        return None
+    k_lab = contract.pop()
+    if (sa - {k_lab}) - so or (sb - {k_lab}) - so:
+        return None                      # sum-over-free: not a pure GEMM
+    shared = "".join(c for c in la if c in sb and c != k_lab)
+    if not lb.startswith(shared):
+        return None
+    rb = lb[len(shared):]
+    if shared:
+        i0 = la.index(shared[0])
+        if la[i0:i0 + len(shared)] != shared:
+            return None
+        lead, ra = la[:i0], la[i0 + len(shared):]
+        if any(c in sb for c in lead):
+            return None                  # shared labels must be contiguous
     else:
-        layout, a2, b2 = "tn", (k, m), (k, n)
-    return QdotPlan(layout, a2, b2, a_rest + b_rest)
+        lead, ra = "", la
+    fa = "".join(c for c in ra if c != k_lab)
+    fb = "".join(c for c in rb if c != k_lab)
+    if ra not in (fa + k_lab, k_lab + fa) or rb not in (k_lab + fb, fb + k_lab):
+        return None
+    if lo != lead + shared + fa + fb:
+        return None
+    a_last, b_first = ra.endswith(k_lab), rb.startswith(k_lab)
+    if not a_last and not b_first:
+        return None                      # "tt"
+    dims = dict(zip(la, a_shape))
+    for c, d in zip(lb, b_shape):
+        if dims.setdefault(c, d) != d:
+            return None
+    layout = "nn" if (a_last and b_first) else ("nt" if a_last else "tn")
+    return _plan_from_parts(
+        layout, tuple(dims[c] for c in lead + shared),
+        tuple(dims[c] for c in shared),
+        _prod(dims[c] for c in fa), dims[k_lab], _prod(dims[c] for c in fb),
+        tuple(dims[c] for c in lo))

@@ -93,10 +93,7 @@ class Policy:
         """fp32 / fp8 chain: truncated operands, an f32 contraction,
         truncated output, the operands' promoted dtype."""
         y = fn(*[self._wrap(o).to(self.accum_dtype) for o in operands])
-        dtype = operands[0].dtype
-        for o in operands[1:]:
-            dtype = torch.promote_types(dtype, o.dtype)
-        return self._wrap(y).to(dtype)
+        return self._wrap(y).to(_promoted(operands))
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         if self.uses_payload_gemm:
@@ -106,13 +103,11 @@ class Policy:
 
     def dot_general(self, a: torch.Tensor, b: torch.Tensor,
                     dimension_numbers) -> torch.Tensor:
-        """A batch-free ``dot_general``: payload-domain through the 2-D
-        planner (``backend.plan_qdot_general``) on the s2fp8 modes."""
-        (ca, cb), (ba, bb) = dimension_numbers
-        if ba or bb:
-            raise NotImplementedError(
-                "batched contractions need the batched payload GEMM, which "
-                "is not ported")
+        """``lax.dot_general`` semantics (output ``batch + a_free +
+        b_free``).  On the s2fp8 modes every contraction the planner maps
+        (``backend.plan_qdot_general``: dense, NT/TN, batched) runs
+        payload-domain; the rest would need the composed Fig. 4 chain,
+        which is not ported, and raise."""
         if self.uses_payload_gemm:
             plan = nbackend.plan_qdot_general(a.shape, b.shape,
                                               dimension_numbers)
@@ -123,17 +118,26 @@ class Policy:
             y = qdot_mod.qdot_train(a, b, plan=plan, backend=self.backend,
                                     fmt=self._fmt)
             return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
-        return self._dense(
-            lambda x, y: torch.tensordot(x, y, dims=(list(ca), list(cb))),
-            a, b)
+        spec = _dot_general_spec(a.dim(), b.dim(), dimension_numbers)
+        return self._dense(lambda x, y: torch.einsum(spec, x, y), a, b)
 
     def einsum(self, spec: str, *operands) -> torch.Tensor:
-        """fp32 / fp8 contractions (the plain attention path); the payload
-        einsum needs the batched payload GEMM, which is not ported."""
+        """Two-operand contractions the planner maps (``backend.
+        plan_einsum``: dense, batched ``ecd,edf->ecf``, broadcast
+        ``becd,edf->becf``, attention) run payload-domain on the s2fp8
+        modes; the others would need the composed Fig. 4 chain, which is
+        not ported, and raise.  fp32 / fp8 run the plain chain."""
         if self.uses_payload_gemm:
-            raise NotImplementedError(
-                "payload einsum needs the batched payload GEMM, which is "
-                "not ported")
+            plan = (nbackend.plan_einsum(spec, operands[0].shape,
+                                         operands[1].shape)
+                    if len(operands) == 2 else None)
+            if plan is None:
+                raise NotImplementedError(
+                    f"no payload GEMM layout for einsum {spec!r} over "
+                    f"{[tuple(o.shape) for o in operands]}")
+            y = qdot_mod.qdot_train(*operands, plan=plan,
+                                    backend=self.backend, fmt=self._fmt)
+            return self._qdot_out(y, _promoted(operands))
         return self._dense(lambda *xs: torch.einsum(spec, *xs), *operands)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
@@ -153,6 +157,28 @@ class Policy:
 
 def _identity(x):
     return x
+
+
+def _promoted(operands) -> torch.dtype:
+    """The contraction's result dtype: the operands' promoted dtype."""
+    dtype = operands[0].dtype
+    for o in operands[1:]:
+        dtype = torch.promote_types(dtype, o.dtype)
+    return dtype
+
+
+def _dot_general_spec(a_rank: int, b_rank: int, dimension_numbers) -> str:
+    """The einsum of a ``dot_general``: output ``batch + a_free +
+    b_free``."""
+    (ca, cb), (ba, bb) = dimension_numbers
+    la = [chr(ord("a") + i) for i in range(a_rank)]
+    lb = [chr(ord("a") + a_rank + i) for i in range(b_rank)]
+    for i, j in list(zip(ca, cb)) + list(zip(ba, bb)):
+        lb[j] = la[i]
+    out = ([la[i] for i in ba]
+           + [la[i] for i in range(a_rank) if i not in ca and i not in ba]
+           + [lb[j] for j in range(b_rank) if j not in cb and j not in bb])
+    return f"{''.join(la)},{''.join(lb)}->{''.join(out)}"
 
 
 def make_policy(mode: str, backend: Optional[str] = None,

@@ -16,7 +16,17 @@ Backward (paper Fig. 4's two transposed GEMMs, payload-domain)::
 for a forward layout "nn"; other forward layouts (the tied LM head's
 ``x . E^T`` is "nt") take their pair from ``_BWD_GEMMS``.  The residuals
 saved for the backward are the 1-byte payloads plus their (alpha, beta):
-no f32 operand is kept.
+no f32 operand is kept, and the backward reads them through the NT and TN
+layouts, with no transposed copy.
+
+Batched contractions (the MoE expert einsums) take the same nodes through
+a :class:`QdotPlan` with ``batch > 1``: the operands reshape onto a
+``(G, ., .)`` batched payload GEMM (``_qmm`` dispatches on rank), a
+broadcast weight (``becd,edf``: ``Gb < G``) stays stored once, and its dW
+sums the ``G // Gb`` broadcast groups inside the kernel (``out_batch``,
+``_gemm_structure``).  The six StatsBank directions and the residuals do
+not depend on the shape, so a batched node costs what a dense one does in
+stats state.
 
 The nodes, each a ``torch.autograd.Function`` where the reference has a
 ``jax.custom_vjp``:
@@ -63,6 +73,30 @@ _BWD_GEMMS = {
 }
 
 
+def _qmm(be, qx: S2FP8Tensor, qy: S2FP8Tensor, layout: str, *,
+         out_batch: Optional[int] = None, epilogue_stats=None,
+         fmt: str = "e5m2") -> torch.Tensor:
+    """Rank dispatch (reference qdot.py:84-93): 2-D payloads -> ``qmatmul``,
+    3-D -> the batched GEMM (``out_batch`` sums broadcast groups)."""
+    if qx.payload.dim() == 2:
+        return be.qmatmul(qx, qy, layout=layout,
+                          epilogue_stats=epilogue_stats, fmt=fmt)
+    return be.qmatmul_batched(qx, qy, layout=layout, out_batch=out_batch,
+                              epilogue_stats=epilogue_stats, fmt=fmt)
+
+
+def _gemm_structure(plan: QdotPlan):
+    """(forward layout, dA spec, dB spec) of a plan (reference
+    qdot.py:126-138).  Each backward spec is (lhs, rhs, layout,
+    out_batch): out_batch sums the broadcast groups when the
+    differentiated operand is stored broadcast (``Gb < G``)."""
+    (da_l, da_r, da_lay), (db_l, db_r, db_lay) = _BWD_GEMMS[plan.layout]
+    a_ob, b_ob = (None, None) if plan.batch == 1 else (plan.batch,
+                                                       plan.b_batch)
+    return (plan.layout, (da_l, da_r, da_lay, a_ob),
+            (db_l, db_r, db_lay, b_ob))
+
+
 def _save(ctx, *tensors: S2FP8Tensor, extra=()) -> None:
     """Residuals: each payload with its (alpha, beta), then ``extra``."""
     ctx.fmts = tuple(t.fmt for t in tensors)
@@ -77,66 +111,67 @@ def _saved(ctx):
              for i, f in enumerate(ctx.fmts)], s[2 * n:])
 
 
-def _epilogue_qmatmul(be, qa, qb, layout, site, direction, fmt, backend):
+def _epilogue_qmatmul(be, qa, qb, layout, site, direction, fmt, backend,
+                      out_batch=None):
     """Sited payload GEMM: steady state is one launch with the Eq. 5
     epilogue on the carried stats; when the site is due, raw GEMM, refresh
     from the raw output, then truncate (refresh-then-use)."""
     if site.need(direction):
-        y_raw = be.qmatmul(qa, qb, layout=layout, fmt=fmt)
+        y_raw = _qmm(be, qa, qb, layout, out_batch=out_batch, fmt=fmt)
         ab = site.refresh(direction, y_raw, fmt, backend)
         return be.truncate(y_raw, stats=ab, fmt=fmt)
-    return be.qmatmul(qa, qb, layout=layout,
-                      epilogue_stats=site.carried(direction), fmt=fmt)
+    return _qmm(be, qa, qb, layout, out_batch=out_batch,
+                epilogue_stats=site.carried(direction), fmt=fmt)
 
 
 class _QdotBanked(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, site, be, backend, fmt, layout):
+    def forward(ctx, a, b, site, be, backend, fmt, plan):
         qa = be.quantize(a, stats=site.stats("a.fwd", a, fmt, backend),
                          fmt=fmt)
         qb = be.quantize(b, stats=site.stats("b.fwd", b, fmt, backend),
                          fmt=fmt)
-        y = _epilogue_qmatmul(be, qa, qb, layout, site, "out.fwd", fmt,
+        y = _epilogue_qmatmul(be, qa, qb, plan.layout, site, "out.fwd", fmt,
                               backend)
         _save(ctx, qa, qb)
-        ctx.meta = (site, be, backend, fmt, layout, a.dtype, b.dtype)
+        ctx.meta = (site, be, backend, fmt, plan, a.dtype, b.dtype)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        site, be, backend, fmt, layout, adt, bdt = ctx.meta
+        site, be, backend, fmt, plan, adt, bdt = ctx.meta
         (qa, qb), _ = _saved(ctx)
         qg = be.quantize(g, stats=site.stats("out.bwd", g, fmt, backend),
                          fmt=fmt)
         ops = {"a": qa, "b": qb, "g": qg}
-        (al, ar, alay), (bl, br, blay) = _BWD_GEMMS[layout]
+        _, (al, ar, alay, aob), (bl, br, blay, bob) = _gemm_structure(plan)
         da = _epilogue_qmatmul(be, ops[al], ops[ar], alay, site, "a.bwd",
-                               fmt, backend)
+                               fmt, backend, aob)
         db = _epilogue_qmatmul(be, ops[bl], ops[br], blay, site, "b.bwd",
-                               fmt, backend)
+                               fmt, backend, bob)
         return da.to(adt), db.to(bdt), None, None, None, None, None
 
 
 class _QdotExact(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, a, b, be, fmt, layout):
+    def forward(ctx, a, b, be, fmt, plan):
         qa = be.quantize(a, stats=be.compute_stats(a, fmt=fmt), fmt=fmt)
         qb = be.quantize(b, stats=be.compute_stats(b, fmt=fmt), fmt=fmt)
-        y_raw = be.qmatmul(qa, qb, layout=layout, fmt=fmt)
+        y_raw = _qmm(be, qa, qb, plan.layout, fmt=fmt)
         _save(ctx, qa, qb)
-        ctx.meta = (be, fmt, layout, a.dtype, b.dtype)
+        ctx.meta = (be, fmt, plan, a.dtype, b.dtype)
         return be.truncate(y_raw, stats=be.compute_stats(y_raw, fmt=fmt),
                            fmt=fmt)
 
     @staticmethod
     def backward(ctx, g):
-        be, fmt, layout, adt, bdt = ctx.meta
+        be, fmt, plan, adt, bdt = ctx.meta
         (qa, qb), _ = _saved(ctx)
         qg = be.quantize(g, stats=be.compute_stats(g, fmt=fmt), fmt=fmt)
         ops = {"a": qa, "b": qb, "g": qg}
         grads = []
-        for lhs, rhs, lay in _BWD_GEMMS[layout]:
-            d = be.qmatmul(ops[lhs], ops[rhs], layout=lay, fmt=fmt)
+        for lhs, rhs, lay, ob in _gemm_structure(plan)[1:]:
+            d = _qmm(be, ops[lhs], ops[rhs], lay, out_batch=ob, fmt=fmt)
             grads.append(be.truncate(d, stats=be.compute_stats(d, fmt=fmt),
                                      fmt=fmt))
         return grads[0].to(adt), grads[1].to(bdt), None, None, None
@@ -146,8 +181,8 @@ def _qdot_frozen(be, fmt, a, b, site: statsbank.Site, layout: str):
     """Frozen-stats forward: zero stats reductions."""
     qa = be.quantize(a, stats=site.frozen("a.fwd", fmt), fmt=fmt)
     qb = be.quantize(b, stats=site.frozen("b.fwd", fmt), fmt=fmt)
-    return be.qmatmul(qa, qb, layout=layout,
-                      epilogue_stats=site.frozen("out.fwd", fmt), fmt=fmt)
+    return _qmm(be, qa, qb, layout,
+                epilogue_stats=site.frozen("out.fwd", fmt), fmt=fmt)
 
 
 def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
@@ -157,8 +192,9 @@ def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
     """Differentiable payload-domain contraction, one bank node (site kind
     ``qt``) of the active session, or exact stats outside one.  Without
     ``plan``: the dense ``[..., K] x [K, N] -> [..., N]`` family; with a
-    :class:`QdotPlan` (``backend.plan_qdot_general``): its layout and
-    reshapes.  Returns f32 (the caller casts)."""
+    :class:`QdotPlan` (``backend.plan_qdot_general`` or
+    ``backend.plan_einsum``): its layout, reshapes and batch, broadcast
+    operands included.  Returns f32 (the caller casts)."""
     if plan is None:
         if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
             raise ValueError(f"qdot_train wants [..., K] x [K, N]; got "
@@ -172,12 +208,12 @@ def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
     if sess is None or sess.discovery:
         if sess is not None:
             sess.site("qt")                  # record, then the exact path
-        y2 = _QdotExact.apply(a2, b2, be, fmt, plan.layout)
+        y2 = _QdotExact.apply(a2, b2, be, fmt, plan)
     elif sess.frozen:
         y2 = _qdot_frozen(be, fmt, a2, b2, sess.site("qt"), plan.layout)
     else:
         y2 = _QdotBanked.apply(a2, b2, sess.site("qt"), be, backend, fmt,
-                               plan.layout)
+                               plan)
     return y2.reshape(plan.out_shape)
 
 

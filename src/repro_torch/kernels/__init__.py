@@ -27,8 +27,8 @@ def plain_version(fn: Callable) -> Callable:
 
 
 def registry() -> Dict[str, Tuple[Callable, Callable]]:
-    """kernel name -> (wrapper, plain version), for the nine kernels of the
-    serving and training slices."""
+    """kernel name -> (wrapper, plain version), for the ten kernels of the
+    serving, dense training and MoE training slices."""
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      s2fp8_matmul, s2fp8_quant)
     return {
@@ -42,6 +42,8 @@ def registry() -> Dict[str, Tuple[Callable, Callable]]:
                        s2fp8_matmul.qmatmul_nt_plain),
         "qmatmul_tn": (s2fp8_matmul.qmatmul_tn,
                        s2fp8_matmul.qmatmul_tn_plain),
+        "qmatmul_batched": (s2fp8_matmul.qmatmul_batched,
+                            s2fp8_matmul.qmatmul_batched_plain),
         "qflash_fwd": (flash_attention.qflash_fwd,
                        flash_attention.qflash_fwd_plain),
         "qflash_bwd": (flash_attention.qflash_bwd,

@@ -35,6 +35,8 @@ SIGNATURES = {
     "s2fp8_matmul": {
         "s2fp8_qmatmul": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
                           _I, _P),
+        "s2fp8_qmatmul_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                                  _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "flash_attention": {
         "s2fp8_qflash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,

@@ -17,7 +17,7 @@ import torch
 from repro_torch.core.s2fp8 import S2FP8Tensor
 from repro_torch.kernels import flash_attention as fkern
 from repro_torch.kernels import ref
-from repro_torch.kernels.s2fp8_matmul import WRAPPERS
+from repro_torch.kernels.s2fp8_matmul import WRAPPERS, qmatmul_batched
 from repro_torch.kernels.s2fp8_quant import (dequant, quant_apply,
                                              truncate_apply)
 
@@ -59,6 +59,19 @@ def qmatmul_nd(a_payload, a_ab, b_payload, b_ab, *, layout: str = "nn",
     return WRAPPERS[layout](_contig_payload(a_payload), a_ab,
                             _contig_payload(b_payload), b_ab,
                             epilogue_stats, fmt)
+
+
+def qmatmul_batched_nd(a_payload, a_ab, b_payload, b_ab, *,
+                       layout: str = "nn", out_batch: Optional[int] = None,
+                       epilogue_stats: Optional[torch.Tensor] = None,
+                       fmt: str = "e5m2") -> torch.Tensor:
+    """The batched payload GEMM for 3-D payloads, any M/K/N: C[Go,M,N] with
+    the broadcast and ``out_batch`` semantics of ``qmatmul_batched``.  The
+    kernel masks ragged edges, so nothing is padded (the reference pads
+    for Pallas tiles only)."""
+    return qmatmul_batched(_contig_payload(a_payload), a_ab,
+                           _contig_payload(b_payload), b_ab, epilogue_stats,
+                           layout=layout, out_batch=out_batch, fmt=fmt)
 
 
 def _heads(t: S2FP8Tensor) -> torch.Tensor:

@@ -56,3 +56,44 @@ def s2fp8_matmul_ref(a_payload, a_ab, b_payload, b_ab,
     if out_ab is not None:
         y = s2fp8_truncate_ref(y, stats=out_ab, fmt=fmt)
     return y
+
+
+def batched_dims(ga: int, gb: int, out_batch: Optional[int] = None):
+    """(G, Go) of a batched payload GEMM with operand batches ``ga`` and
+    ``gb``: the combined batch ``G = max(Ga, Gb)`` (each must divide it)
+    and the output batch ``Go`` (default ``G``; it must divide ``G``)."""
+    g = max(ga, gb)
+    if min(ga, gb) < 1 or g % ga or g % gb:
+        raise ValueError(f"batch sizes {ga} / {gb} do not divide evenly")
+    go = g if out_batch is None else int(out_batch)
+    if go < 1 or g % go:
+        raise ValueError(f"out_batch {go} does not divide batch {g}")
+    return g, go
+
+
+def s2fp8_matmul_batched_ref(a_payload, a_ab, b_payload, b_ab,
+                             out_ab: Optional[torch.Tensor] = None, *,
+                             layout: str = "nn",
+                             out_batch: Optional[int] = None,
+                             fmt: str = "e5m2"):
+    """Batched dequant-GEMM oracle: ``a [Ga, ., .] x b [Gb, ., .]`` over the
+    combined batch ``G = max(Ga, Gb)``, where operand slice ``g % Gx``
+    feeds combined step ``g`` (the trailing-aligned broadcast);
+    ``out_batch < G`` sums the ``G // out_batch`` groups of steps that share
+    ``g % out_batch`` into one output slice.  Per-slice layouts as
+    :func:`s2fp8_matmul_ref`; the optional Eq. 5 epilogue runs on the
+    summed output."""
+    g, go = batched_dims(a_payload.shape[0], b_payload.shape[0], out_batch)
+    gemm_dims(layout, a_payload.shape[1:], b_payload.shape[1:])
+    a = s2fp8_dequant_ref(a_payload, a_ab)
+    b = s2fp8_dequant_ref(b_payload, b_ab)
+    # repeat tiles the whole batch, so slice i of the result is x[i % Gx]
+    a = a.repeat(g // a.shape[0], 1, 1)
+    b = b.repeat(g // b.shape[0], 1, 1)
+    y = torch.einsum("g" + GEMM_CONTRACT[layout].replace(",", ",g")
+                     .replace("->", "->g"), a, b)
+    if go != g:
+        y = y.reshape((g // go, go) + tuple(y.shape[1:])).sum(dim=0)
+    if out_ab is not None:
+        y = s2fp8_truncate_ref(y, stats=out_ab, fmt=fmt)
+    return y

@@ -18,6 +18,16 @@ per-block 256-entry tables into shared memory and multiplied with f32 FMAs
 counterpart of the reference's index-map swaps: no transpose is
 materialized.  Ragged M/N/K edges are masked in the kernel, so nothing is
 padded here.
+
+``qmatmul_batched`` replaces ``s2fp8_matmul_batched_pallas``
+(_batched_matmul_kernel): C[Go,M,N] from A[Ga,.,.] and B[Gb,.,.] in any
+layout, over the combined batch G = max(Ga, Gb) where step g reads slice
+g % Gx of each operand, with the G / Go groups of steps that share
+g % Go summed into one output slice — every expert einsum of the MoE
+blocks, forward (NN) and backward (NT for dA, TN for dW, ``out_batch`` for
+the dW of a broadcast weight).  Same kernel, with a grid axis over the
+output slices and a loop over the reduction groups inside each block, so
+every output sums in one fixed order without atomics.
 """
 from __future__ import annotations
 
@@ -113,7 +123,57 @@ def qmatmul_tn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     return out
 
 
+@plain_version
+def qmatmul_batched_plain(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
+                          out_ab=None, *, layout: str = "nn",
+                          out_batch: Optional[int] = None,
+                          fmt: str = "e5m2") -> torch.Tensor:
+    """Plain version of the batched GEMM: dequantize, expand both operands
+    to the combined batch, one f32 einsum, the group sum, then the optional
+    Eq. 5 truncation (``ref.s2fp8_matmul_batched_ref``)."""
+    return ref.s2fp8_matmul_batched_ref(a, a_ab, b, b_ab, out_ab,
+                                        layout=layout, out_batch=out_batch,
+                                        fmt=fmt)
+
+
+def qmatmul_batched(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
+                    out_ab: Optional[torch.Tensor] = None, *,
+                    layout: str = "nn", out_batch: Optional[int] = None,
+                    fmt: str = "e5m2") -> torch.Tensor:
+    """C[Go,M,N] (f32) of 3-D float8 payloads ``a`` [Ga, ., .] and ``b``
+    [Gb, ., .] under ``layout`` (per slice, as ``qmatmul_nn`` and
+    friends); ``out_batch`` (default G) sums the broadcast groups; with
+    ``out_ab`` the summed output is Eq. 5-truncated on the ``fmt`` grid.
+    CPU tensors take the plain version."""
+    if a.dim() != 3 or b.dim() != 3:
+        raise ValueError(f"qmatmul_batched wants 3-D payloads, got "
+                         f"{tuple(a.shape)} x {tuple(b.shape)}")
+    g, go = ref.batched_dims(a.shape[0], b.shape[0], out_batch)
+    m, k, n = ref.gemm_dims(layout, a.shape[1:], b.shape[1:])
+    if a.device.type == "cpu":
+        return qmatmul_batched_plain(a, a_ab, b, b_ab, out_ab, layout=layout,
+                                     out_batch=out_batch, fmt=fmt)
+    check_cuda_operand(a, "a", tuple(PAYLOAD_FMT))
+    check_cuda_operand(b, "b", tuple(PAYLOAD_FMT), a.device)
+    if go > 65535:
+        raise ValueError(f"out_batch {go} exceeds the grid's z limit 65535")
+    aab = stats_arg(a_ab, a.device)
+    bab = stats_arg(b_ab, a.device)
+    oab = None if out_ab is None else stats_arg(out_ab, a.device)
+    out = torch.empty((go, m, n), dtype=torch.float32, device=a.device)
+    rc = build.load("s2fp8_matmul").s2fp8_qmatmul_batched(
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.shape[0],
+        b.shape[0], go, g // go, LAYOUT_ID[layout], aab.data_ptr(),
+        bab.data_ptr(), build.ptr(oab), int(oab is not None),
+        FMT_ID[PAYLOAD_FMT[a.dtype]], FMT_ID[PAYLOAD_FMT[b.dtype]],
+        FMT_ID[fmt], build.stream_ptr(a.device))
+    build.check(rc, f"s2fp8_qmatmul_batched ({layout})")
+    qmatmul_batched.launches += 1
+    return out
+
+
 qmatmul_nn.launches = 0
 qmatmul_nt.launches = 0
 qmatmul_tn.launches = 0
+qmatmul_batched.launches = 0
 WRAPPERS = {"nn": qmatmul_nn, "nt": qmatmul_nt, "tn": qmatmul_tn}

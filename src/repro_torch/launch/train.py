@@ -4,16 +4,22 @@
         --steps 4 --batch 4 --seq 512 --stats-refresh-every 8   # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --reduced --device cpu --steps 3 --batch 2 --seq 32   # plain versions
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek_moe_16b --n-layers 4 --steps 4 --batch 4 --seq 512 \
+        --stats-refresh-every 8      # full width, depth cut to 4 layers
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
 reference's launcher.  ``--stats-refresh-every k`` trains with the
 StatsBank (refresh every k steps); 0 trains s2fp8 with exact per-call
-stats.  Prints one JSON line per step: loss, step ms, tokens/s.
+stats.  ``--n-layers N`` cuts the depth to the first N layers of the
+config's pattern (widths unchanged) and says so.  Prints one JSON line per
+step: loss, the MoE aux loss, step ms, tokens/s.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import time
 
@@ -33,6 +39,8 @@ def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
+    ap.add_argument("--n-layers", type=int, default=0,
+                    help="cut the depth to the pattern's first N layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default="s2fp8",
                     choices=("fp32", "fp8", "s2fp8"))
@@ -46,6 +54,8 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if args.n_layers:
+        cfg = cut_depth(cfg, args.n_layers)
     pol = make_policy(args.policy)
     opt = optimizers.adamw(weight_decay=0.01)
     sched = schedules.make_schedule(
@@ -86,9 +96,23 @@ def main(argv=None):
                                                  batch, s)
         loss = float(m["loss"])            # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
-        print(json.dumps({"step": s, "loss": loss, "step_ms": ms,
+        print(json.dumps({"step": s, "loss": loss, "aux": float(m["aux"]),
+                          "step_ms": ms,
                           "tokens_per_s": args.batch * args.seq / ms * 1e3}),
               flush=True)
+
+
+def cut_depth(cfg, n_layers: int):
+    """``cfg`` with only the first ``n_layers`` layers of its pattern
+    (``dataclasses.replace`` of ``n_layers`` and ``pattern``; no width
+    changes), announced on stdout."""
+    pattern = cfg.resolved_pattern[:n_layers]
+    if len(pattern) != n_layers:
+        raise ValueError(f"{cfg.name} has {cfg.n_layers} layers; cannot cut "
+                         f"to {n_layers}")
+    print(f"[depth cut] {cfg.name}: {cfg.n_layers} -> {n_layers} layers, "
+          f"pattern {pattern}", flush=True)
+    return dataclasses.replace(cfg, n_layers=n_layers, pattern=pattern)
 
 
 if __name__ == "__main__":

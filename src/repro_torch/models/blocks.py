@@ -1,13 +1,16 @@
-"""Dense decoder blocks (port of the dense part of ``repro.models.blocks``).
+"""Decoder blocks (port of the attention-bearing part of
+``repro.models.blocks``).
 
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
 goes through the policy.  Ported: RMS norm, SiLU-GLU, RoPE (scalar and
 per-slot positions), ``full_attention`` (the payload flash fast path for
 the s2fp8 modes, the masked softmax through ``policy.einsum`` for fp32 and
-fp8), the MLP, and ``attn_block_apply``'s train, prefill and paged-decode
-branches.  The dense-cache decode and the chunked path wait for later
-slices, so sequences must stay <= 2048 (the reference switches to chunked
-attention above that).
+fp8), the MLP, the MoE (token-choice top-k routing with capacity, global
+or grouped per batch row, shared experts, the load-balance aux loss), and
+``attn_block_apply``'s train, prefill and paged-decode branches for the
+``dense``, ``dense_first`` and ``moe`` block types.  The dense-cache
+decode and the chunked path wait for later slices, so sequences must stay
+<= 2048 (the reference switches to chunked attention above that).
 
 The layer params keep the reference's names and layout (weights
 [d_in, d_out]), and every cast happens where the reference casts.
@@ -113,9 +116,145 @@ def mlp_fwd(p, x, cfg: ArchConfig, pol: Policy):
         return pol.dot(h, p["w_down"].to(x.dtype))
 
 
-def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None
-                    ) -> Dict[str, Any]:
-    """Same leaves and per-leaf std as the reference's init_attn_block."""
+def init_moe(cfg: ArchConfig, gen: torch.Generator, device=None
+             ) -> Dict[str, Any]:
+    """Router [d, E], stacked experts [E, d, f] / [E, f, d], and the shared
+    experts fused into one MLP of width ``n_shared * f`` (the reference's
+    leaves and per-leaf std)."""
+    m = cfg.moe
+    d, f = cfg.d_model, m.expert_d_ff
+    std_d, std_f = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    p = {"router": normal((d, m.n_experts), std_d),
+         "we_gate": normal((m.n_experts, d, f), std_d),
+         "we_down": normal((m.n_experts, f, d), std_f),
+         "we_up": normal((m.n_experts, d, f), std_d)}
+    if m.n_shared:
+        p["shared"] = init_mlp(cfg, gen, d, m.n_shared * f, device)
+    return p
+
+
+def _top_k(x: torch.Tensor, k: int):
+    """(values, indices) of the ``k`` largest entries along the last dim,
+    ties to the lower index — ``jax.lax.top_k``'s order.  A stable
+    descending sort gives it; ``torch.topk`` leaves the order of ties
+    unspecified, and the capacity selection picks mostly among tied zero
+    affinities whenever an expert has fewer tokens than its capacity."""
+    vals, order = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], order[..., :k]
+
+
+def route(router: torch.Tensor, x: torch.Tensor, m):
+    """Token-choice top-k routing with per-expert capacity, as the
+    reference's ``moe_fwd`` (x [T, d]: global, capacity rounded up to 128)
+    and ``_moe_fwd_grouped`` (x [B, S, d]: per row, rounded up to 16) do it.
+    Returns (probs [..., E], idx [..., k], w_ec [..., E, C], tok_idx [...,
+    E, C]): each token's k experts, and each expert's C tokens (indices
+    into the token axis) with their routing weights."""
+    multiple = 128 if x.dim() == 2 else 16
+    probs = torch.softmax(torch.matmul(x.float(), router), dim=-1)
+    gate, idx = _top_k(probs, m.top_k)
+    aff = torch.zeros(probs.shape, dtype=torch.float32,
+                      device=x.device).scatter(-1, idx, gate)
+    tokens = x.shape[-2]
+    cap = int(math.ceil(tokens * m.top_k / m.n_experts * m.capacity_factor))
+    cap = max(multiple, ((cap + multiple - 1) // multiple) * multiple)
+    w_ec, tok_idx = _top_k(aff.transpose(-1, -2), min(cap, tokens))
+    return probs, idx, w_ec, tok_idx
+
+
+def _combine(oe: torch.Tensor, rows: torch.Tensor, n_tokens: int,
+             dtype) -> torch.Tensor:
+    """out[t] = the sum of the expert outputs ``oe [..., E, C, d]`` routed
+    to token ``t`` (``rows [..., E, C]``), in ``dtype``.
+
+    The reference's ``out.at[tok_idx].add(oe)`` adds in that dtype,
+    rounding after each add, in expert-major order.  Here each expert's
+    outputs are added in one ``index_add_`` in expert order: within an
+    expert the capacity selection picks distinct tokens, so no two adds of
+    a call meet and every token's sum is rounded in the reference's order.
+    A single ``index_add_`` over all experts would add in an unspecified
+    order on the card (atomics)."""
+    d = oe.shape[-1]
+    oe = oe.to(dtype)
+    out = torch.zeros((n_tokens, d), dtype=dtype, device=oe.device)
+    for e in range(rows.shape[-2]):
+        out.index_add_(0, rows[..., e, :].reshape(-1),
+                       oe[..., e, :, :].reshape(-1, d))
+    return out
+
+
+def _aux_loss(idx: torch.Tensor, probs: torch.Tensor, m) -> torch.Tensor:
+    """Switch-style load balance: E * sum_e f_e * P_e * weight, f_e the
+    share of routing choices, P_e the mean router probability."""
+    lead = tuple(range(idx.dim() - 1))
+    f_e = torch.nn.functional.one_hot(idx, m.n_experts).float().sum(
+        dim=-2).mean(dim=lead)
+    p_e = probs.mean(dim=lead)
+    return m.n_experts * (f_e * p_e).sum() * m.router_aux_weight
+
+
+def _experts(p, xe: torch.Tensor, w_ec: torch.Tensor, cfg: ArchConfig,
+             pol: Policy, lead: str = "") -> torch.Tensor:
+    """The routed experts' SiLU-GLU on their dispatched tokens ``xe [lead,
+    E, C, d]``, each output scaled by its routing weight: three expert
+    einsums on the batched payload GEMM (``lead`` "b": the weights are
+    broadcast over the batch rows)."""
+    hg = pol.einsum(f"{lead}ecd,edf->{lead}ecf", xe,
+                    p["we_gate"].to(xe.dtype))
+    hl = pol.einsum(f"{lead}ecd,edf->{lead}ecf", xe, p["we_up"].to(xe.dtype))
+    h = activate(hg, hl, cfg.activation)
+    oe = pol.einsum(f"{lead}ecf,efd->{lead}ecd", h,
+                    p["we_down"].to(xe.dtype))
+    return oe * w_ec[..., None].to(oe.dtype)
+
+
+def moe_fwd(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy):
+    """Gather-based capacity dispatch (reference blocks.py:273-324):
+    token-choice top-k routing, then each expert takes its top-C tokens by
+    routing weight (C = T*k/E * capacity_factor, rounded up to 128).
+    Dropped tokens keep only the shared-expert and residual paths.  The
+    router stays an f32 ``torch.matmul`` outside any kernel, as the
+    reference leaves it.  Returns (out [B, S, d], aux)."""
+    m = cfg.moe
+    if m.routing == "grouped":
+        return _moe_fwd_grouped(p, x, cfg, pol)
+    b, s, d = x.shape
+    t = b * s
+    xt = x.reshape(t, d)
+    probs, idx, w_ec, tok_idx = route(p["router"], xt, m)
+    xe = xt[tok_idx.reshape(-1)].reshape(tok_idx.shape + (d,))
+    out = _combine(_experts(p, xe, w_ec, cfg, pol), tok_idx, t, x.dtype)
+    if m.n_shared:
+        out = out + mlp_fwd(p["shared"], xt, cfg, pol)
+    return out.reshape(b, s, d), _aux_loss(idx, probs, m)
+
+
+def _moe_fwd_grouped(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy):
+    """Grouped (per batch row) routing (reference blocks.py:326-376): each
+    row routes its own tokens with a per-(row, expert) capacity rounded up
+    to 16; the expert einsums broadcast the stored weights over the rows
+    (``becd,edf->becf``: B slice ``g % E`` of the combined batch)."""
+    m = cfg.moe
+    b, s, d = x.shape
+    probs, idx, w_ec, tok_idx = route(p["router"], x, m)
+    rows = torch.arange(b, device=x.device)[:, None, None]
+    xe = x[rows, tok_idx]                                      # [B, E, C, d]
+    oe = _experts(p, xe, w_ec, cfg, pol, lead="b")
+    out = _combine(oe, rows * s + tok_idx, b * s, x.dtype).reshape(b, s, d)
+    if m.n_shared:
+        out = out + mlp_fwd(p["shared"], x, cfg, pol)
+    return out, _aux_loss(idx, probs, m)
+
+
+def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None,
+                    block_type: str = "dense") -> Dict[str, Any]:
+    """Same leaves and per-leaf std as the reference's init_attn_block:
+    ``moe`` blocks hold a ``moe`` subtree, ``dense_first`` blocks an MLP of
+    width ``moe.dense_d_ff``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.kv_heads
     std, std_o = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
@@ -123,25 +262,37 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None
     def normal(shape, s):
         return torch.randn(shape, generator=gen, device=device) * s
 
-    return {
+    p = {
         "ln1": init_norm(cfg, d, device),
         "wq": normal((d, h * hd), std),
         "wk": normal((d, kv * hd), std),
         "wv": normal((d, kv * hd), std),
         "wo": normal((h * hd, d), std_o),
         "ln2": init_norm(cfg, d, device),
-        "mlp": init_mlp(cfg, gen, d, cfg.d_ff, device),
     }
+    if block_type == "moe":
+        p["moe"] = init_moe(cfg, gen, device)
+    elif block_type in ("dense", "dense_first"):
+        d_ff = cfg.d_ff
+        if block_type == "dense_first" and cfg.moe:
+            d_ff = cfg.moe.dense_d_ff or cfg.d_ff
+        p["mlp"] = init_mlp(cfg, gen, d, d_ff, device)
+    else:
+        raise NotImplementedError(f"block type {block_type!r} is not ported")
+    return p
 
 
 def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
                      positions: torch.Tensor, cache, cache_index, mode: str,
+                     block_type: str = "dense",
                      cache_fmt: Optional[str] = None):
-    """One dense block.  ``mode="train"`` attends over the sequence and
+    """One attention block.  ``mode="train"`` attends over the sequence and
     keeps no cache; ``mode="prefill"`` also fills the dense cache ``cache``
     ({"k","v"} [B, KV, Smax, hd], written in place) with the kv_cache-site
     truncated K/V; ``mode="decode"`` writes into and attends over the paged
-    payload cache (serving/paged_cache.py).  Returns (x, cache)."""
+    payload cache (serving/paged_cache.py).  A ``moe`` block runs its MoE
+    under the ``moe`` StatsBank scope.  Returns (x, cache, aux): aux is the
+    MoE's load-balance loss, 0 for the other block types."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.kv_heads
@@ -184,5 +335,10 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     with statsbank.scope("attn"):
         x = x + pol.dot(attn, p["wo"].to(x.dtype))
     xn2 = apply_norm(p["ln2"], x, cfg)
-    x = x + mlp_fwd(p["mlp"], xn2, cfg, pol)
-    return x, cache
+    if block_type == "moe":
+        with statsbank.scope("moe"):
+            y, aux = moe_fwd(p["moe"], xn2, cfg, pol)
+    else:
+        y = mlp_fwd(p["mlp"], xn2, cfg, pol)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, cache, aux

@@ -1,4 +1,5 @@
-"""Decoder-only LM (port of the dense part of ``repro.models.transformer``).
+"""Decoder-only LM (port of ``repro.models.transformer`` for the dense,
+``dense_first`` and ``moe`` block types).
 
 Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
 ``segments`` — one dict per homogeneous run of layers with every leaf
@@ -8,7 +9,10 @@ leaves (views, no copies; one backward node per leaf gathers the layers'
 gradients).  Training remats each layer with ``torch.utils.checkpoint``
 when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan body);
 the replay runs under the forward's StatsBank session, so it reads the
-same stats and mints the same site keys.
+same stats and mints the same site keys, and it routes the MoE tokens as
+the forward did (the routing is a deterministic function of the layer's
+input: f32 router product, stable sorts).  The MoE load-balance losses
+are summed over the layers into the loss.
 
 Entry points: ``init_lm``, ``loss_fn``, ``prefill``, ``decode_step``.
 """
@@ -27,6 +31,7 @@ from repro_torch.core.policy import Policy
 from repro_torch.models import blocks
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+BLOCK_TYPES = ("dense", "dense_first", "moe")
 
 
 def segments_of(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -52,7 +57,7 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     from different generators, see ``convert.params_from_jax``)."""
     dev = resolve_device(device)
     for btype, _ in segments_of(cfg):
-        if btype != "dense":
+        if btype not in BLOCK_TYPES:
             raise NotImplementedError(f"block type {btype!r} is not ported")
     gen = torch.Generator(device=dev).manual_seed(seed)
     params: Dict[str, Any] = {
@@ -64,9 +69,10 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["head"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
                                      device=dev) / (cfg.d_model ** 0.5)
-    for _, length in segments_of(cfg):
+    for btype, length in segments_of(cfg):
         params["segments"].append(_stack(
-            [blocks.init_attn_block(cfg, gen, dev) for _ in range(length)]))
+            [blocks.init_attn_block(cfg, gen, dev, btype)
+             for _ in range(length)]))
     return params
 
 
@@ -102,10 +108,10 @@ def _unstack(tree, length: int) -> List[Any]:
 def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
             cache_index=0, mode: str = "train",
             cache_fmt: Optional[str] = None):
-    """Shared forward -> (hidden, caches).  ``caches``: per-segment dense
-    caches (prefill, filled in place) or paged caches (decode, updated in
-    place), None in training; ``cache_index``: [B] per-slot positions
-    (decode)."""
+    """Shared forward -> (hidden, total aux, caches).  ``caches``:
+    per-segment dense caches (prefill, filled in place) or paged caches
+    (decode, updated in place), None in training; ``cache_index``: [B]
+    per-slot positions (decode)."""
     x = embed_tokens(params, tokens, cfg, pol)
     s = tokens.shape[1]
     if mode == "decode":
@@ -117,6 +123,7 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
         ci = None
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
     sess = statsbank.current_session()
+    total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (btype, length) in enumerate(segments_of(cfg)):
         name = f"seg{i}:{btype}"
         # checks the bank's per-layer rows; a calibrating session learns
@@ -127,34 +134,39 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
                                               length)):
             layer_c = None if seg_c is None else _layer_cache(seg_c, li)
 
-            def run(x, layer_p=layer_p, layer_c=layer_c, name=name, li=li):
+            def run(x, layer_p=layer_p, layer_c=layer_c, name=name, li=li,
+                    btype=btype):
                 with statsbank.segment_ctx(name, li):
-                    return blocks.attn_block_apply(
+                    y, _, aux = blocks.attn_block_apply(
                         layer_p, x, cfg, pol, positions, layer_c, ci, mode,
-                        cache_fmt)[0]
+                        btype, cache_fmt)
+                return y, aux
 
             if mode == "train" and cfg.remat and torch.is_grad_enabled():
                 # the replay in the backward runs under this forward's
                 # session, whatever thread the autograd engine uses
-                x = checkpoint(run, x, use_reentrant=False,
-                               context_fn=lambda: (contextlib.nullcontext(),
-                                                   statsbank.resume(sess)))
+                x, aux = checkpoint(
+                    run, x, use_reentrant=False,
+                    context_fn=lambda: (contextlib.nullcontext(),
+                                        statsbank.resume(sess)))
             else:
-                x = run(x)
+                x, aux = run(x)
+            total_aux = total_aux + aux
     x = blocks.apply_norm(params["final_norm"], x, cfg)
-    return x, caches
+    return x, total_aux, caches
 
 
 def loss_fn(params, tokens, labels, cfg: ArchConfig, pol: Policy):
-    """Next-token cross entropy plus the 1e-4 * logz^2 z-loss (reference
-    transformer.py:153-162) -> (loss, {"nll": nll})."""
-    x, _ = forward(params, tokens, cfg, pol, mode="train")
+    """Next-token cross entropy plus the 1e-4 * logz^2 z-loss and the MoE
+    load-balance aux (reference transformer.py:153-162) -> (loss, {"nll":
+    nll, "aux": aux})."""
+    x, aux, _ = forward(params, tokens, cfg, pol, mode="train")
     logits = lm_head(params, x, cfg, pol).float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = logits.gather(-1, labels[..., None].long())[..., 0]
     nll = (logz - gold).mean()
     zloss = 1e-4 * (logz ** 2).mean()
-    return nll + zloss, {"nll": nll}
+    return nll + zloss + aux, {"nll": nll, "aux": aux}
 
 
 def _layer_cache(seg_cache, li: int):
@@ -177,8 +189,8 @@ def prefill(params, tokens, cfg: ArchConfig, pol: Policy, caches, *,
             last_index=None):
     """Process full prompts [B, S], fill the dense caches, return the logits
     at each row's ``last_index`` (default: the last position) [B, 1, V]."""
-    x, caches = forward(params, tokens, cfg, pol, caches=caches,
-                        mode="prefill")
+    x, _, caches = forward(params, tokens, cfg, pol, caches=caches,
+                           mode="prefill")
     if last_index is None:
         x_last = x[:, -1:]
     else:
@@ -191,7 +203,7 @@ def decode_step(params, token, cfg: ArchConfig, pol: Policy, caches,
                 cache_index, *, cache_fmt: Optional[str] = None):
     """One decode step: token [B, 1], per-slot positions [B] -> logits
     [B, 1, V]; the paged caches are updated in place."""
-    x, caches = forward(params, token, cfg, pol, caches=caches,
-                        cache_index=cache_index, mode="decode",
-                        cache_fmt=cache_fmt)
+    x, _, caches = forward(params, token, cfg, pol, caches=caches,
+                           cache_index=cache_index, mode="decode",
+                           cache_fmt=cache_fmt)
     return lm_head(params, x, cfg, pol), caches

@@ -10,7 +10,8 @@ the math library); dequantize within 1e-6 relative; GEMM raw output (NN,
 NT, TN) within 1e-5 * (|A| @ |B|), epilogue and flash outputs at most one
 grid step apart in at most 1e-3 / 1e-2 of the elements; flash backward
 dq / dk / dv within 1e-4 * max|plain|; paged decode allclose 1e-4
-relative + 1e-5 absolute.
+relative + 1e-5 absolute; the batched GEMM as the 2-D one, raw within
+1e-5 * (|A| @ |B|) summed over each output's groups.
 """
 import pytest
 import torch
@@ -187,3 +188,76 @@ def test_qflash_bwd_kernel(dev, g, d, s, window):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
     assert kernels.counts()["qflash_bwd"] == {"launches": 1,
                                               "plain_calls": 1}
+
+
+@pytest.mark.parametrize("layout,ga,gb,out_batch,mkn", [
+    ("nn", 6, 6, None, (200, 130, 77)),
+    ("nt", 6, 6, None, (200, 130, 77)),
+    ("tn", 6, 6, None, (77, 200, 130)),
+    ("nn", 12, 6, None, (64, 256, 96)),       # broadcast B (becd,edf)
+    ("nt", 12, 6, None, (64, 96, 256)),       # its dA
+    ("tn", 12, 12, 6, (256, 64, 96)),         # its dW: groups summed
+    ("tn", 3, 12, 6, (100, 40, 33)),          # broadcast A + group sum
+])
+def test_batched_gemm_kernel(dev, layout, ga, gb, out_batch, mkn):
+    m, k, n = mkn
+    gen = torch.Generator(device=dev).manual_seed(7)
+    ash = {"nn": (m, k), "nt": (m, k), "tn": (k, m)}[layout]
+    bsh = {"nn": (k, n), "nt": (n, k), "tn": (k, n)}[layout]
+    a = torch.randn(ga, *ash, generator=gen, device=dev)
+    b = torch.randn(gb, *bsh, generator=gen, device=dev) / k ** 0.5
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    qa, qb = s2fp8_quant.quant_apply(a, aab), s2fp8_quant.quant_apply(b, bab)
+    kw = dict(layout=layout, out_batch=out_batch)
+    raw_k = s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, **kw)
+    raw_p = s2fp8_matmul.qmatmul_batched_plain(qa, aab, qb, bab, **kw)
+    # |A| @ |B| through the plain version on |payload| values
+    scale = s2fp8_matmul.qmatmul_batched_plain(
+        _abs_payload(qa), aab, _abs_payload(qb), bab, **kw)
+    assert raw_k.shape == raw_p.shape
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * scale + 1e-30).all())
+    oab = s2fp8.compute_stats(raw_p)
+    d = _steps(s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, oab, **kw),
+               s2fp8_matmul.qmatmul_batched_plain(qa, aab, qb, bab, oab,
+                                                  **kw), oab)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
+    assert kernels.counts()["qmatmul_batched"] == {"launches": 2,
+                                                   "plain_calls": 3}
+
+
+def _abs_payload(p):
+    """The payload of |x|: the sign bit cleared."""
+    return (p.view(torch.uint8) & 0x7F).view(p.dtype)
+
+
+@pytest.mark.parametrize("g", [1, 2])
+def test_qflash_fwd_bwd_kernels_head_dim_128(dev, g):
+    """d = 128 (DeepSeekMoE's heads): the largest tiles in shared memory
+    (the dq and dk/dv kernels need the opt-in above 48 KB)."""
+    gen = torch.Generator(device=dev).manual_seed(8)
+    bkv, s, d = 4, 300, 128
+    q = torch.randn(bkv * g, s, d, generator=gen, device=dev)
+    k = torch.randn(bkv, s, d, generator=gen, device=dev)
+    v = torch.randn(bkv, s, d, generator=gen, device=dev)
+    dout = torch.randn(bkv * g, s, d, generator=gen, device=dev) * 1e-3
+    sts = [s2fp8.compute_stats(t) for t in (q, k, v, dout)]
+    pq, pk, pv, pg = (s2fp8_quant.quant_apply(t, ab)
+                      for t, ab in zip((q, k, v, dout), sts))
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], g=g)
+    oab = s2fp8.compute_stats(raw)
+    ok, lk = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], g=g,
+                                        out_ab=oab)
+    op, lp = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], g=g,
+                                              out_ab=oab)
+    dd = _steps(ok, op, oab)
+    assert dd.max() <= 1 and (dd != 0).float().mean() <= 1e-2
+    assert (lk - lp).abs().max() <= 1e-4
+    po = s2fp8_quant.quant_apply(raw, oab)
+    delta = (s2fp8.dequantize(s2fp8.S2FP8Tensor(pg, sts[3]))
+             * s2fp8.dequantize(s2fp8.S2FP8Tensor(po, oab))).sum(-1)
+    args = (pq, pk, pv, pg, *sts, lse, delta)
+    got = flash_attention.qflash_bwd(*args, g=g)
+    want = flash_attention.qflash_bwd_plain(*args, g=g)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
