@@ -2,7 +2,6 @@
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --only kernels  # build + kernel-vs-plain checks
-    python3 chip_smoke.py --only moe      # build, kernels, the MoE phases
 
 Phases, each fatal on failure:
 
@@ -294,14 +293,15 @@ def phase_kernels(dev) -> dict:
         del a, b, qa, qb, raw_k, raw_p, deq_a, deq_b, scale, err, ek, ep
 
     # -- qflash_fwd: prefill attention at buckets P = 128 and 512 (8 rows x
-    # 36 heads, head dim 64, causal), plus head dims 32 and 80, then the
+    # 36 heads, head dim 64, causal), plus head dims 32 and 80 and the
     # MoE's training attention (4 rows x 16 heads of 128, 512 tokens: the
-    # largest tiles in shared memory, 116 KB).  Tolerance:
+    # largest tiles in shared memory, 116 KB); the times kept are the last
+    # (serving's P = 512) shape's.  Tolerance:
     # output codes differ by at most one grid step in at most 1% of the
     # elements (online-softmax blocking differs: 64 here, 512 in the
     # plain version), |lse| error <= 1e-4.
-    cases = [(64, 200, 32), (64, 130, 80), (8 * 36, 128, 64),
-             (8 * 36, 512, 64), (4 * 16, 512, 128)]
+    cases = [(64, 200, 32), (64, 130, 80), (4 * 16, 512, 128),
+             (8 * 36, 128, 64), (8 * 36, 512, 64)]
     for bh, p, d in cases:
         qf, kf, vf = (rnd(bh, p, d) for _ in range(3))
         sts = [s2fp8.compute_stats(t) for t in (qf, kf, vf)]
@@ -470,16 +470,17 @@ def train_kernel_checks(dev, rnd, record) -> None:
         f" slice 1's route: u8 transpose {tr_ms:.4f} ms + nn {nn_ms:.4f} ms")
     del qx, qe, qet, raw_nt, raw_nn, deq_x, deq_e, err
 
-    # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim, the train
-    # phase's attention (4 x 36 heads, 512 tokens, head dim 64, causal),
-    # then train-moe's (4 x 16 heads of 128: 177 KB of shared memory for
-    # dq, 213 KB for dk/dv).  Residuals as the node makes them: payload q/k/v, the
+    # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim,
+    # train-moe's attention (4 x 16 heads of 128: 177 KB of shared memory
+    # for dq, 213 KB for dk/dv), then the train phase's (4 x 36 heads, 512
+    # tokens, head dim 64, causal), whose times are kept.  Residuals as the
+    # node makes them: payload q/k/v, the
     # quantized output and cotangent, lse from the forward and delta =
     # rowsum(deq(g) * deq(o)).  Tolerance: each of dq, dk, dv within
     # 1e-4 * max|plain| (f32 sums in another order, 64-row tiles here and
     # 512-row chunks in the plain version).
     cases = [(8, 2, 200, 32, 64), (6, 1, 130, 80, None),
-             (4 * 36, 1, 512, 64, None), (4 * 16, 1, 512, 128, None)]
+             (4 * 16, 1, 512, 128, None), (4 * 36, 1, 512, 64, None)]
     for bh, g, sl, d, window in cases:
         qf, gf = rnd(bh, sl, d), rnd(bh, sl, d, scale=1e-3)
         kf, vf = rnd(bh // g, sl, d), rnd(bh // g, sl, d)
@@ -539,10 +540,11 @@ def moe_kernel_checks(dev, rnd, record) -> None:
 
     # -- qmatmul_batched: each case is (layout, Ga, Gb, out_batch, M, K, N).
     # Global routing: the gate/up einsum ecd,edf->ecf (NN, G = 64, M =
-    # cap 256, K 2048, N 1408), the down einsum ecf,efd->ecd (NN, K 1408,
-    # N 2048), their dA (NT) and dW (TN, K = 256).  Grouped routing over 4
-    # rows (capacity 64): becd,edf->becf with B broadcast (Gb = 64 of G =
-    # 256), its dA, and its dW summing the 4 row groups (out_batch 64).
+    # cap 256, K 2048, N 1408) and the down einsum ecf,efd->ecd (NN, K 1408,
+    # N 2048), each with its dA (NT) and dW (TN, K = 256).  Grouped
+    # routing over 4 rows (capacity 64): becd,edf->becf with B broadcast
+    # (Gb = 64 of G = 256), its dA, and its dW summing the 4 row groups
+    # (out_batch 64).
     # The times kept are the last case's (the gate/up forward, 2 of the 3
     # forward einsums of every MoE layer).  Tolerance as the 2-D GEMM: raw
     # |kernel - plain| <= 1e-5 * (|A| @ |B|, summed like the output) +
@@ -554,6 +556,8 @@ def moe_kernel_checks(dev, rnd, record) -> None:
              ("nt", 256, 64, None, 64, 1408, 2048),
              ("tn", 256, 256, 64, 2048, 64, 1408),
              ("nn", 64, 64, None, 256, 1408, 2048),
+             ("nt", 64, 64, None, 256, 2048, 1408),
+             ("tn", 64, 64, None, 1408, 256, 2048),
              ("nt", 64, 64, None, 256, 1408, 2048),
              ("tn", 64, 64, None, 2048, 256, 1408),
              ("nn", 64, 64, None, 256, 2048, 1408)]
@@ -929,6 +933,50 @@ def checked_engine():
         del nb.BACKENDS["checked"]
 
 
+@contextlib.contextmanager
+def recorded_routes():
+    """Records (idx, tok_idx) of every MoE ``route`` call, remat replays
+    included, while the block is open; yields the list."""
+    from repro_torch.models import blocks
+    route, calls = blocks.route, []
+
+    def recording(*args):
+        out = route(*args)
+        calls.append((out[1], out[3]))
+        return out
+
+    blocks.route = recording
+    try:
+        yield calls
+    finally:
+        blocks.route = route
+
+
+def routes_moved(got, want) -> str:
+    """Entries of two engines' route calls that differ, call by call:
+    token -> expert choices (idx) and expert -> token picks (tok_idx), each
+    as pairs that one engine chose and the other did not, and as positions
+    that differ (tok_idx lists each expert's picks by affinity, so a pick
+    that only moves within the list moves positions, not pairs)."""
+    assert len(got) == len(want), (len(got), len(want))
+
+    def member(ix, n):
+        return torch.zeros(ix.shape[:-1] + (n,), dtype=torch.bool,
+                           device=ix.device).scatter(-1, ix, True)
+
+    out = []
+    for k, name in enumerate(("idx", "tok_idx")):
+        pairs = pos = total = 0
+        for g, w in zip(got, want):
+            n = int(max(g[k].max(), w[k].max())) + 1
+            pairs += int((member(g[k], n) & ~member(w[k], n)).sum())
+            pos += int((g[k] != w[k]).sum())
+            total += w[k].numel()
+        out.append(f"{name} {pairs} of {total} pairs moved ({pos} "
+                   f"positions differ)")
+    return ", ".join(out)
+
+
 def phase_small_train(dev) -> None:
     """Reduced minicpm_2b (2 layers, d=128, vocab 512) at batch 2 x seq 64
     with the bank at k = 2, once through the kernels and once through plain
@@ -1005,16 +1053,19 @@ def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
     pols = {e: make_policy("s2fp8", e) for e in ("checked", "plain")}
     bank0 = statsbank.init_bank(loss_fn, params, batches[0], pols["plain"],
                                 stats)
-    gp0, bank1 = _bank_grads(loss_fn, params, batches[0], pols["plain"],
-                             bank0, 0, stats)
+    with recorded_routes() as rp0:
+        gp0, bank1 = _bank_grads(loss_fn, params, batches[0], pols["plain"],
+                                 bank0, 0, stats)
     assert not any(c.any() for e in statsbank.cold_sites(bank1).values()
                    for c in e.values()), "a site stayed cold after step 0"
-    gp1, _ = _bank_grads(loss_fn, params, batches[1], pols["plain"], bank1,
-                         1, stats)
-    for step, bank, gp in ((0, bank0, gp0), (1, bank1, gp1)):
+    with recorded_routes() as rp1:
+        gp1, _ = _bank_grads(loss_fn, params, batches[1], pols["plain"],
+                             bank1, 1, stats)
+    for step, bank, gp, rp in ((0, bank0, gp0, rp0), (1, bank1, gp1, rp1)):
         before = {k: dict(v) for k, v in tally.items()}
-        gc, _ = _bank_grads(loss_fn, params, batches[step], pols["checked"],
-                            bank, step, stats)
+        with recorded_routes() as rc:
+            gc, _ = _bank_grads(loss_fn, params, batches[step],
+                                pols["checked"], bank, step, stats)
         assert all(bool(torch.isfinite(c).all()) for c in gc), step
         rel = [((c - p).norm() / p.norm()).item() for c, p in zip(gc, gp)]
         differ = {k: v["differ"] - before.get(k, {"differ": 0})["differ"]
@@ -1024,6 +1075,10 @@ def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
             f"{sorted(rel)[len(rel) // 2]:.3e} over {len(rel)} leaves; "
             f"output elements that differ from the plain version's, by "
             f"kernel: {differ}")
+        if rp:
+            log(f"small train: step {step} routing, entries that differ "
+                f"from the plain engine's over {len(rp)} route calls: "
+                + routes_moved(rc, rp))
     del params, bank0, bank1, gp0, gp1, gc
 
     losses = {}
@@ -1275,9 +1330,9 @@ def free_device_memory() -> None:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels", "moe"), default=None,
-                    help="kernels: build + phase 3 only; moe: build, phase "
-                         "3, the MoE part of phase 4, and phase 7")
+    ap.add_argument("--only", choices=("kernels",), default=None,
+                    help="build + phase 3 only (no kernels or contract "
+                         "line)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v register/smem reports")
     ap.add_argument("--profile", action="store_true",
@@ -1292,23 +1347,18 @@ def main() -> int:
     rows = phase_kernels(dev)
     if args.only == "kernels":
         return 0
-    none = {name: {"launches": 0} for name in rows}
-    served = trained = {"counts": none}
-    if args.only != "moe":
-        phase_small_reference(dev)
-        phase_small_train(dev)
+    phase_small_reference(dev)
+    phase_small_train(dev)
     phase_small_train_moe(dev)
-    if args.only != "moe":
-        served = phase_serve(dev)
-        if args.profile:
-            phase_profile(served["server"])
-        # the server's timing wrappers hold its own bound methods: a
-        # reference cycle, which only the collector frees (params and
-        # pool, ~12 GB)
-        del served["server"]
-        free_device_memory()
-        trained = phase_train(dev, args.profile)
-        free_device_memory()
+    served = phase_serve(dev)
+    if args.profile:
+        phase_profile(served["server"])
+    # the server's timing wrappers hold its own bound methods: a reference
+    # cycle, which only the collector frees (params and pool, ~12 GB)
+    del served["server"]
+    free_device_memory()
+    trained = phase_train(dev, args.profile)
+    free_device_memory()
     trained_moe = phase_train_moe(dev, args.profile)
     out = []
     for name, row in rows.items():

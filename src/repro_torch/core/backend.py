@@ -205,22 +205,6 @@ class QdotPlan(NamedTuple):
     b_batch: int = 1
 
 
-def execute_qdot_plan(backend_obj: NumericsBackend, plan: QdotPlan,
-                      a: S2FP8Tensor, b: S2FP8Tensor, *,
-                      epilogue_stats=None, fmt: str = "e5m2") -> torch.Tensor:
-    """Run a planned contraction on quantized operands: payload reshapes,
-    the 2-D or batched kernel, the output reshape."""
-    qa, qb = a.reshape(plan.a2_shape), b.reshape(plan.b2_shape)
-    if plan.batch == 1:
-        y = backend_obj.qmatmul(qa, qb, layout=plan.layout,
-                                epilogue_stats=epilogue_stats, fmt=fmt)
-    else:
-        y = backend_obj.qmatmul_batched(qa, qb, layout=plan.layout,
-                                        epilogue_stats=epilogue_stats,
-                                        fmt=fmt)
-    return y.reshape(plan.out_shape)
-
-
 def _prod(dims) -> int:
     p = 1
     for d in dims:

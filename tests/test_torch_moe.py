@@ -46,21 +46,9 @@ from repro_torch.core import qdot as tqdot
 from repro_torch.core import statsbank as tsb
 from repro_torch.core.policy import make_policy
 from repro_torch.models import blocks as tblocks
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work.  The suite runs in
-    several worker processes at once, and OpenMP's parallel regions slow
-    down by orders of magnitude on oversubscribed cores: six processes
-    training the reduced MoE at once took 145 s a step with 8 threads
-    each, 0.6 s with one.  Restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 K_EVERY = 16
 STEADY, REFRESH = 101, 96

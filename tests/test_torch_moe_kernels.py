@@ -30,24 +30,13 @@ from repro.core import s2fp8 as js2
 from repro.kernels import ref as jref
 from repro_torch import kernels
 from repro_torch.core import backend as tbackend
+from repro_torch.core import qdot as tqdot
 from repro_torch.core import s2fp8 as ts2
 from repro_torch.core.policy import make_policy
 from repro_torch.kernels import dispatch, s2fp8_matmul
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work.  The suite runs in
-    several worker processes at once, and OpenMP's parallel regions slow
-    down by orders of magnitude on oversubscribed cores: six processes
-    training the reduced MoE at once took 145 s a step with 8 threads
-    each, 0.6 s with one.  Restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 M, K, N = 24, 40, 20
 
@@ -178,19 +167,25 @@ def test_planner_accepts_as_the_reference(spec, ash, bsh, want):
     assert plan is not None, spec
     assert (plan.layout, plan.batch, plan.b_batch) == want, (spec, plan)
     assert tuple(plan) == tuple(jbackend.plan_einsum(spec, ash, bsh))
-    # the plan is pure reshapes: run on payloads it gives the einsum of
-    # their values
+    # the plan is pure reshapes: the nodes' GEMM dispatch on the reshaped
+    # payloads gives the einsum of their values (1e-5 * max: f32 sums in
+    # another order) ...
     rng = np.random.default_rng(0)
     a = torch.from_numpy(rng.standard_normal(ash).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(bsh).astype(np.float32))
     be = tbackend.get_backend("plain")
-    qa = be.quantize(a.reshape(plan.a2_shape), stats=ts2.compute_stats(a))
-    qb = be.quantize(b.reshape(plan.b2_shape), stats=ts2.compute_stats(b))
-    out = tbackend.execute_qdot_plan(be, plan, qa, qb)
+    a2, b2 = a.reshape(plan.a2_shape), b.reshape(plan.b2_shape)
+    qa = be.quantize(a2, stats=be.compute_stats(a2))
+    qb = be.quantize(b2, stats=be.compute_stats(b2))
+    raw = tqdot._qmm(be, qa, qb, plan.layout).reshape(plan.out_shape)
     exp = torch.einsum(spec, be.dequantize(qa).reshape(ash),
                        be.dequantize(qb).reshape(bsh))
-    assert out.shape == exp.shape
-    assert (out - exp).abs().max() <= 1e-5 * exp.abs().max()
+    assert raw.shape == exp.shape
+    assert (raw - exp).abs().max() <= 1e-5 * exp.abs().max()
+    # ... and ``qdot_train`` with the plan (exact stats, no session) is that
+    # product truncated on its own stats, bit for bit
+    y = tqdot.qdot_train(a, b, plan=plan, backend="plain")
+    assert torch.equal(y, be.truncate(raw, stats=be.compute_stats(raw)))
 
 
 @pytest.mark.parametrize("spec,ash,bsh", REJECTED)

@@ -58,21 +58,9 @@ from repro_torch.models import transformer as tlm
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.training import trainer as ttrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def one_torch_thread():
-    """One intra-op thread for this module's torch work.  The suite runs in
-    several worker processes at once, and OpenMP's parallel regions slow
-    down by orders of magnitude on oversubscribed cores: six processes
-    training the reduced MoE at once took 145 s a step with 8 threads
-    each, 0.6 s with one.  Restored afterwards."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 STEPS, K_EVERY = 24, 4
 LOSS_BOUND = (0.08, 0.03)        # largest, mean |port - JAX| per step
