@@ -9,19 +9,23 @@ Phases, each fatal on failure:
              (nvidia-smi) and the software versions.
 2. build   — compiles every CUDA kernel of the serving and training paths
              from src/repro_torch/csrc (one nvcc per source, all at once).
-3. kernels — holds each of the ten kernels against its plain PyTorch
-             version on the card at the serving and training paths'
-             shapes (the MoE's expert GEMMs and head dim 128 included),
-             with the tolerance stated beside each check, and times
-             kernel, plain version and a library yardstick with CUDA
-             events.
+3. kernels — holds each of the thirteen kernels against its plain
+             PyTorch version on the card at the serving and training
+             paths' shapes (the MoE's expert GEMMs, head dim 128 and the
+             exact-stats path's tensors included), with the tolerance
+             stated beside each check, and times kernel, plain version
+             and a library yardstick with CUDA events.
 4. small   — the reduced models on the card through the kernels and
              through the plain versions: minicpm serving (same greedy
              tokens, close logits), and minicpm and deepseek_moe_16b
              (global and grouped routing) training with the bank at
              k = 2, where every kernel call, forward and backward, is held
              against its plain version on the same inputs (phase 3's
-             tolerances), then 3 train steps (finite, close losses).
+             tolerances), then 3 train steps (finite, close losses); then
+             minicpm on the cuda_fused engine, exact stats in payload and
+             in fig4 mode and the bank at k = 2, held the same way; and
+             one counted step each: the cuda_fused exact step runs as
+             many aten reductions as the fp32 step, the cuda one more.
 5. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
              a seeded generator: calibrate the frozen bank, then serve 16
              requests through PayloadLMServer (8 slots, max_len 1024,
@@ -39,6 +43,17 @@ Phases, each fatal on failure:
              k = 8 (AdamW, remat).  The batched payload GEMM and every
              other training kernel must have launched, no plain version
              may have run, and every loss and aux loss must be finite.
+8. train-exact — full-width minicpm_2b, 3 steps at batch 4 x seq 512 with
+             exact per-call stats on the cuda_fused engine, payload GEMMs:
+             the stats, quantize-with-stats and fused truncate kernels and
+             every training kernel must have launched, no plain version
+             may have run, every loss finite.  Then one more step on the
+             cuda engine (stats from torch reductions), timed beside it.
+9. train-fig4 — the same model and batch in fig4 mode on cuda_fused (the
+             Fig. 4 chain: every operand, output and cotangent through the
+             fused truncate kernel around f32 torch.matmul / einsum, TF32
+             off), 3 steps: the fused truncate must have launched, no plain
+             version may have run, every loss finite.
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -68,6 +83,9 @@ REPLACES = {
     "quant_apply": "src/repro/kernels/s2fp8_quant.py:176",
     "truncate_apply": "src/repro/kernels/s2fp8_quant.py:229",
     "dequant": "src/repro/kernels/s2fp8_quant.py:209",
+    "stats": "src/repro/kernels/s2fp8_quant.py:157",
+    "quant": "src/repro/kernels/s2fp8_quant.py:197",
+    "truncate_fused": "src/repro/kernels/s2fp8_quant.py:254",
     "qmatmul_nn": "src/repro/kernels/s2fp8_matmul.py:189",
     "qmatmul_nt": "src/repro/kernels/s2fp8_matmul.py:189",
     "qmatmul_tn": "src/repro/kernels/s2fp8_matmul.py:189",
@@ -80,6 +98,9 @@ SOURCES = {
     "quant_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
     "truncate_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
     "dequant": "src/repro_torch/csrc/s2fp8_quant.cu",
+    "stats": "src/repro_torch/csrc/s2fp8_quant.cu",
+    "quant": "src/repro_torch/csrc/s2fp8_quant.cu",
+    "truncate_fused": "src/repro_torch/csrc/s2fp8_quant.cu",
     "qmatmul_nn": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qmatmul_nt": "src/repro_torch/csrc/s2fp8_matmul.cu",
     "qmatmul_tn": "src/repro_torch/csrc/s2fp8_matmul.cu",
@@ -89,12 +110,16 @@ SOURCES = {
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
 }
 # the kernels each main path runs (phase 5 serves, phase 6 trains minicpm,
-# phase 7 trains deepseek_moe_16b)
+# phase 7 trains deepseek_moe_16b, phases 8 and 9 train minicpm with exact
+# stats on the cuda_fused engine, payload and fig4)
 SERVE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn", "qmatmul_nt",
                  "qflash_fwd", "paged_decode")
 TRAIN_KERNELS = ("quant_apply", "truncate_apply", "dequant", "qmatmul_nn",
                  "qmatmul_nt", "qmatmul_tn", "qflash_fwd", "qflash_bwd")
 TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("qmatmul_batched",)
+STATS_KERNELS = ("stats", "quant", "truncate_fused")
+TRAIN_EXACT_KERNELS = TRAIN_KERNELS + STATS_KERNELS
+TRAIN_FIG4_KERNELS = ("truncate_fused",)
 
 
 def log(msg: str) -> None:
@@ -193,19 +218,23 @@ def phase_kernels(dev) -> dict:
         return (torch.randn(*shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape):
+    def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape,
+               keep=True, **extra):
         """Keep the worst error over every shape checked, and the times and
-        bound of the last shape (each list ends with a main-path shape)."""
+        bound of the last shape recorded with ``keep`` (each list ends with
+        a main-path shape, or marks it)."""
         tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
-        row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=max(tb, tf),
-                   bound_by="bytes" if tb >= tf else "operations",
-                   shape=shape)
+        bound_by = "bytes" if tb >= tf else "operations"
+        if keep or "ms" not in row:
+            row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                       bound_ms=max(tb, tf), bound_by=bound_by, shape=shape,
+                       **extra)
         log(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-            f"{max(tb, tf):.4f} ms ({row['bound_by']})")
+            f"{max(tb, tf):.4f} ms ({bound_by})"
+            + "".join(f", {k} {v:.4f} ms" for k, v in extra.items()))
 
     # -- quant_apply / truncate_apply at the path's largest operands: a
     # prefill activation and the tied head weight (bf16, quantized per
@@ -370,6 +399,7 @@ def phase_kernels(dev) -> dict:
                f"{fmt} B={b} KV={kvh} hd={hd} block={blk} live={live}")
     train_kernel_checks(dev, rnd, record)
     moe_kernel_checks(dev, rnd, record)
+    stats_kernel_checks(dev, rnd, record)
     return rows
 
 
@@ -609,6 +639,126 @@ def moe_kernel_checks(dev, rnd, record) -> None:
         del qa, qb, ek, ep, deq_a, deq_b, lhs, rhs
 
 
+def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Largest distance in units of the last place between two f32
+    tensors of the same signs."""
+    d = (a.float().view(torch.int32).long()
+         - b.float().view(torch.int32).long()).abs()
+    return int(d.max().item()) if d.numel() else 0
+
+
+def stats_kernel_checks(dev, rnd, record) -> None:
+    """The stats kernels at the exact-stats path's tensors (train-exact and
+    train-fig4: batch 4 x seq 512 = 2,048 tokens of minicpm_2b): the tied
+    embedding table (122,753 x 2,304 f32, truncated at the embed site), the
+    fig4 head logits (2,048 x 122,753 f32), a bf16 activation (2,048 x
+    2,304, a GEMM operand) and a GEMM output (2,048 x 5,760 f32).  Each
+    kernel runs on every shape; the times kept are those of its most
+    frequent call: stats on the GEMM output, quantize-with-stats on the
+    activation, the fused truncate on the embedding table.  Beside the
+    stats kernel, the cuda engine's torch reduction of the same stats
+    (``s2fp8.compute_stats``) is timed.
+
+    Tolerances: the stats' max and nonzero count equal to the plain
+    version's, the sum within 1e-6 relative (f64 sums in another order),
+    alpha and beta within 4 ulp; payload and truncated codes at most one
+    grid step apart in at most 1e-4 of the elements (the maps round each
+    step alike; the allowance is for an ulp of the stats); the stats
+    kernel gives the same bits twice; quantize-with-stats and the fused
+    truncate equal quantize-apply and truncate-apply under the stats
+    kernel's (alpha, beta), bit for bit.  Then the all-zero, constant and
+    NaN-bearing cases."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import s2fp8_quant as sq
+
+    emb = ("embedding table", (122753, 2304), torch.float32, 0.05)
+    logits = ("fig4 head logits", (2048, 122753), torch.float32, 3.0)
+    act = ("bf16 activation", (2048, 2304), torch.bfloat16, 1.0)
+    out = ("GEMM output", (2048, 5760), torch.float32, 0.3)
+    main = {"stats": out, "quant": act, "truncate_fused": emb}
+    u8 = torch.uint8
+    for case in (emb, logits, act, out):
+        label, shape, dtype, scale = case
+        x = rnd(*shape, dtype=dtype, scale=scale)
+        n, elt = x.numel(), x.element_size()
+        tag = f"{label} {shape} {str(dtype)[6:]}"
+        tk, abk = sq.stats_partials(x)
+        tp, abp = sq.stats_partials_plain(x)
+        srel = ((tk[0] - tp[0]).abs() / tp[0].abs()).item()
+        u = ulps(abk, abp)
+        tk2, abk2 = sq.stats_partials(x)
+        log(f"stats {tag}: kernel {tk.tolist()} {abk.tolist()}, plain "
+            f"{tp.tolist()} {abp.tolist()}: sum rel err {srel:.2e}, "
+            f"(alpha, beta) {u} ulp")
+        assert torch.equal(tk[1:], tp[1:]), (tk, tp)
+        assert srel <= 1e-6 and u <= 4, (srel, u)
+        assert torch.equal(tk, tk2) and torch.equal(abk, abk2)
+        record("stats", (abk - abp).abs().max().item(),
+               cuda_time(lambda: sq.stats_partials(x)),
+               cuda_time(lambda: sq.stats_partials_plain(x), iters=3), None,
+               n * elt + 20, 0, tag, keep=case is main["stats"],
+               torch_reduction_ms=cuda_time(lambda: s2fp8.compute_stats(x),
+                                            iters=3))
+
+        pk, qab = sq.quant(x)
+        assert torch.equal(qab, abk)
+        assert torch.equal(pk.view(u8), sq.quant_apply(x, abk).view(u8))
+        pp, pab = sq.quant_plain(x)
+        f = flips(code_ordinal(pk), code_ordinal(pp))
+        log(f"quant {tag}: codes against the plain version {f}; equal to "
+            f"quant_apply under the stats kernel's (alpha, beta)")
+        assert f["max_step"] <= 1 and f["frac"] <= 1e-4, f
+        err = (s2fp8.dequantize(s2fp8.S2FP8Tensor(pk, qab))
+               - s2fp8.dequantize(s2fp8.S2FP8Tensor(pp, pab))).abs().max()
+        del pp
+        record("quant", err.item(), cuda_time(lambda: sq.quant(x)),
+               cuda_time(lambda: sq.quant_plain(x), iters=3), None,
+               n * (elt + 1) + 8, 0, tag, keep=case is main["quant"])
+        del pk
+
+        ok, oab = sq.truncate_fused(x)
+        assert ok.dtype == dtype and torch.equal(oab, abk)
+        assert torch.equal(ok, sq.truncate_apply(x, abk)), \
+            "truncate_fused differs from truncate_apply(x, stats(x))"
+        op, _ = sq.truncate_fused_plain(x)
+        f = flips(ordinal(ok, abk, "e5m2"), ordinal(op, abk, "e5m2"))
+        log(f"truncate_fused {tag}: codes against the plain version {f}; "
+            f"bit-equal to truncate_apply(x, stats(x))")
+        assert f["max_step"] <= 1 and f["frac"] <= 1e-4, f
+        err = (ok.float() - op.float()).abs().max().item()
+        del ok, op
+        record("truncate_fused", err, cuda_time(lambda: sq.truncate_fused(x)),
+               cuda_time(lambda: sq.truncate_fused_plain(x), iters=3), None,
+               2 * n * elt + 8, 0, tag, keep=case is main["truncate_fused"])
+        del x
+
+    z = torch.zeros(4096, 33, device=dev)
+    tk, ab = sq.stats_partials(z)
+    assert tk.tolist() == [0.0, -math.inf, 0.0] and ab.tolist() == [1, 0]
+    zo, zab = sq.truncate_fused(z)
+    zp, zpab = sq.quant(z)
+    assert zab.tolist() == [1, 0] and zpab.tolist() == [1, 0]
+    assert not zo.any() and not zp.view(u8).any()
+    c = torch.full((300, 77), 2.75, device=dev)
+    co, cab = sq.truncate_fused(c)
+    assert torch.equal(cab, sq.truncate_fused_plain(c)[1])
+    assert (co - 2.75).abs().max().item() <= 2.75e-2, co.unique()
+    x = rnd(513, 129)
+    x[::3, ::5] = math.nan
+    tk, abk = sq.stats_partials(x)
+    tz, abz = sq.stats_partials(torch.nan_to_num(x, nan=0.0))
+    assert torch.equal(tk, tz) and torch.equal(abk, abz)
+    xo, _ = sq.truncate_fused(x)
+    f = flips(ordinal(xo, abk, "e5m2"),
+              ordinal(sq.truncate_fused_plain(x)[0], abk, "e5m2"))
+    assert not xo.isnan().any() and f["max_step"] <= 1 \
+        and f["frac"] <= 1e-4, f
+    log(f"stats kernels, degenerate inputs: zeros -> (1, 0) and zeros; "
+        f"constant 2.75 -> {co.unique().tolist()}; NaNs left out of the "
+        f"stats ({int(tk[2].item())} of {x.numel()} counted), truncated "
+        f"to 0")
+
+
 def abs_payload(p: torch.Tensor) -> torch.Tensor:
     """The payload of |x| (sign bit cleared): with the same stats it
     dequantizes to the absolute values."""
@@ -808,19 +958,24 @@ def _bank_grads(loss_fn, params, batch, pol, bank, step, stats):
 
 
 @contextlib.contextmanager
-def checked_engine():
-    """The cuda engine, registered as "checked", with every kernel call held
-    against the plain engine's on the same inputs, with phase 3's
-    tolerances: quantize and truncate codes at most one grid step apart in
-    at most 1e-4 of the elements, dequantize within 1e-6 relative, a raw
-    GEMM within 1e-5 * max|plain|, epilogue GEMM codes at most one step
-    apart in at most 1e-3 of the outputs, the flash forward's codes (or raw
-    output, within 1e-4 * max|plain|) in at most 1e-2 and |lse| within
-    1e-4, and each of the flash backward's dq, dk, dv within 1e-4 *
-    max|plain|.  Yields the tally by kernel: calls checked, and output
-    elements that differ from the plain version's (codes or values)."""
+def checked_engine(stats_mode: str = "exact"):
+    """The cuda engine (``stats_mode="fused"``: the cuda_fused engine),
+    registered as "checked", with every kernel call held against the plain
+    versions on the same inputs, with phase 3's tolerances: quantize and
+    truncate codes at most one grid step apart in at most 1e-4 of the
+    elements, dequantize within 1e-6 relative, a raw GEMM within 1e-5 *
+    max|plain|, epilogue GEMM codes at most one step apart in at most 1e-3
+    of the outputs, the flash forward's codes (or raw output, within 1e-4
+    * max|plain|) in at most 1e-2 and |lse| within 1e-4, and each of the
+    flash backward's dq, dk, dv within 1e-4 * max|plain|; on the fused
+    engine the stats kernel's max and count equal to the plain version's,
+    its sum within 1e-6 relative and (alpha, beta) within 4 ulp, and the
+    quantize-with-stats kernel's (alpha, beta) within 4 ulp too.  Yields
+    the tally by kernel: calls checked, and output elements that differ
+    from the plain version's (codes or values)."""
     from repro_torch.core import backend as nb
     from repro_torch.core import qdot, s2fp8
+    from repro_torch.kernels import s2fp8_quant as sq
     plain = nb.BACKENDS["plain"]
     tally = {}
 
@@ -837,13 +992,40 @@ def checked_engine():
     def rel_err(a, b):
         return (a - b).abs().max().item(), b.abs().max().item()
 
+    def stats_close(tk, tp):
+        rel = ((tk[0] - tp[0]).abs() / tp[0].abs().clamp(min=1e-30)).item()
+        return bool(torch.equal(tk[1:], tp[1:])) and rel <= 1e-6, (tk, tp)
+
     class Checked(nb.CudaBackend):
         name = "checked"
+        fused = stats_mode == "fused"
 
-        def quantize(self, x, *, stats, fmt="e5m2"):
+        def compute_stats_partials(self, x):
+            out = super().compute_stats_partials(x)
+            if self.fused:
+                tk, (tp, _) = torch.stack(out), sq.stats_partials_plain(x)
+                held("stats", *stats_close(tk, tp), (tk, tp))
+            return out
+
+        def compute_stats(self, x, *, fmt="e5m2"):
+            ab = super().compute_stats(x, fmt=fmt)
+            if self.fused:
+                _, abp = sq.stats_partials_plain(x, s2fp8.FMT_TARGET_MAX[fmt])
+                u = ulps(ab, abp)
+                held("stats", u <= 4, u, (ab, abp))
+            return ab
+
+        def quantize(self, x, *, stats=None, fmt="e5m2"):
             t = super().quantize(x, stats=stats, fmt=fmt)
+            if stats is None and self.fused:
+                pp, abp = sq.quant_plain(x, fmt)
+                ck, cp = code_ordinal(t.payload), code_ordinal(pp)
+                f, u = flips(ck, cp), ulps(t.ab, abp)
+                held("quant", f["max_step"] <= 1 and f["frac"] <= 1e-4
+                     and u <= 4, (f, u), (ck, cp))
+                return t
             ck, cp = code_ordinal(t.payload), code_ordinal(
-                plain.quantize(x, stats=stats, fmt=fmt).payload)
+                plain.quantize(x, stats=t.ab, fmt=fmt).payload)
             f = flips(ck, cp)
             held("quant_apply", f["max_step"] <= 1 and f["frac"] <= 1e-4, f,
                  (ck, cp))
@@ -857,8 +1039,15 @@ def checked_engine():
                  err.max().item(), (y, ref))
             return y
 
-        def truncate(self, x, *, stats, fmt="e5m2"):
+        def truncate(self, x, *, stats=None, fmt="e5m2"):
             y = super().truncate(x, stats=stats, fmt=fmt)
+            if stats is None and self.fused:
+                ref, abp = sq.truncate_fused_plain(x, fmt)
+                held("truncate_fused", *codes_close(y, ref, abp, fmt, 1e-4),
+                     (y, ref))
+                return y
+            if stats is None:           # the exact engine's torch stats
+                stats = self.compute_stats(x, fmt=fmt)
             ref = plain.truncate(x, stats=stats, fmt=fmt)
             held("truncate_apply", *codes_close(
                 y, ref, s2fp8.as_stats(stats, x.device), fmt, 1e-4),
@@ -924,7 +1113,7 @@ def checked_engine():
                  *zip(got, want))
         return got
 
-    nb.BACKENDS["checked"] = Checked()
+    nb.BACKENDS["checked"] = Checked(stats_mode=stats_mode)
     qdot._payload_flash_fwd, qdot._payload_flash_bwd = flash_fwd, flash_bwd
     try:
         yield tally
@@ -1025,20 +1214,105 @@ def phase_small_train_moe(dev) -> None:
         _small_train(dev, cfg, TRAIN_MOE_KERNELS, 0.1)
 
 
-def _small_train(dev, cfg, expected, loss_tol) -> None:
-    from repro_torch.core import statsbank
+def _small_batches(cfg, dev):
     from repro_torch.data import synthetic
-
     chain = synthetic.markov_chain(1, cfg.vocab)
     gen = torch.Generator().manual_seed(1)
-    batches = [synthetic.lm_batch(chain, gen, 2, 64, dev) for _ in range(3)]
+    return [synthetic.lm_batch(chain, gen, 2, 64, dev) for _ in range(3)]
+
+
+def _small_train(dev, cfg, expected, loss_tol, stats_mode="exact") -> None:
+    from repro_torch.core import statsbank
+
+    batches = _small_batches(cfg, dev)
     loss_fn = _lm_loss(cfg)
     stats = statsbank.StatsConfig(refresh_every=2)
-    with checked_engine() as tally:
+    with checked_engine(stats_mode) as tally:
         _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
                              loss_tol)
     missing = set(expected) - set(tally)
     assert not missing, f"never checked on the training path: {missing}"
+
+
+def phase_small_fused(dev) -> None:
+    """Reduced minicpm_2b (2 layers, d=128, vocab 512) at batch 2 x seq 64
+    on the cuda_fused engine, run as the ``checked_engine`` (every kernel
+    call held against its plain version on the same inputs, the stats
+    kernels included) against the plain engine: 3 steps with exact
+    per-call stats on the payload GEMMs, 3 in fig4 mode, and the bank at
+    k = 2 (``phase_small_train``'s run, refreshes through the stats
+    kernel); every loss finite and within 0.01 of the plain engine's.
+    Then one counted train step each (``statsbank.count_reductions``),
+    exact stats: the cuda_fused s2fp8 step runs as many whole-tensor aten
+    reductions as the fp32 step (its stats run in kernels), the cuda s2fp8
+    step more (three torch reductions per stats)."""
+    from repro_torch.configs import get_reduced_config
+    cfg = get_reduced_config("minicpm_2b").replace(n_layers=2)
+    _small_train_exact(dev, cfg, "payload", TRAIN_EXACT_KERNELS)
+    _small_train_exact(dev, cfg, "fig4", TRAIN_FIG4_KERNELS)
+    log("small train cuda_fused: bank k = 2")
+    _small_train(dev, cfg, TRAIN_KERNELS + ("stats",), 0.01,
+                 stats_mode="fused")
+    _counted_steps(dev, cfg)
+
+
+def _small_train_exact(dev, cfg, gemm_mode, expected) -> None:
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import transformer as tlm
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    batches = _small_batches(cfg, dev)
+    loss_fn = _lm_loss(cfg)
+    losses = {}
+    with checked_engine("fused") as tally:
+        for engine in ("checked", "plain"):
+            pol = make_policy("s2fp8", engine, gemm_mode)
+            params = tlm.init_lm(cfg, seed=1, device=dev)
+            opt = optimizers.adamw()
+            opt_state = opt.init(params)
+            step = make_train_step(loss_fn, opt, schedules.constant(3e-3),
+                                   pol)
+            out = []
+            for i, batch in enumerate(batches):
+                params, opt_state, m = step(params, opt_state, batch, i)
+                out.append(float(m["loss"]))
+            losses[engine] = out
+    log(f"small train cuda_fused exact {gemm_mode}: losses kernels "
+        f"{losses['checked']} plain {losses['plain']}; kernel calls held "
+        f"against their plain versions: {tally}")
+    for a, b in zip(losses["checked"], losses["plain"]):
+        assert math.isfinite(a) and math.isfinite(b), losses
+        assert abs(a - b) <= 0.01, losses
+    missing = set(expected) - set(tally)
+    assert not missing, f"never checked on the {gemm_mode} path: {missing}"
+
+
+def _counted_steps(dev, cfg) -> None:
+    from repro_torch.core import statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import transformer as tlm
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    batch = _small_batches(cfg, dev)[0]
+    loss_fn = _lm_loss(cfg)
+    n = {}
+    for label, mode, engine in (("fp32", "fp32", "cuda"),
+                                ("cuda_fused", "s2fp8", "cuda_fused"),
+                                ("cuda", "s2fp8", "cuda")):
+        params = tlm.init_lm(cfg, seed=1, device=dev)
+        opt = optimizers.adamw()
+        step = make_train_step(loss_fn, opt, schedules.constant(3e-3),
+                               make_policy(mode, engine))
+        opt_state = opt.init(params)
+        with statsbank.count_reductions() as c:
+            step(params, opt_state, batch, 0)
+            torch.cuda.synchronize()
+        n[label] = c.n
+        log(f"counted step {label}: {c.n} whole-tensor aten reductions; "
+            f"every reduction by overload: {c.by_op}")
+    assert n["cuda_fused"] == n["fp32"] < n["cuda"], n
 
 
 def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
@@ -1141,8 +1415,49 @@ def phase_train_moe(dev, profile: bool = False) -> dict:
                       TRAIN_MOE_KERNELS, profile)
 
 
-def _train_run(dev, cfg, label, schedule, n_flop, expected,
-               profile) -> dict:
+def phase_train_exact(dev, profile: bool = False) -> dict:
+    """Full-width minicpm_2b as ``phase_train`` trains it, but with exact
+    per-call stats (no bank) on the cuda_fused engine and the payload
+    GEMMs, 3 steps: every stats reduction in the stats kernel, every
+    operand and cotangent quantized by the quantize-with-stats kernel, the
+    embedding table truncated by the fused truncate.  Then one more step
+    of the same model on the cuda engine (the same kernels, the stats from
+    torch reductions), timed beside it and not counted."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    cfg = get_config("minicpm_2b")
+    return _train_run(dev, cfg, "train-exact", "wsd", cfg.n_params(),
+                      TRAIN_EXACT_KERNELS, profile,
+                      pol=make_policy("s2fp8", "cuda_fused", "payload"),
+                      refresh_every=0, steps=3,
+                      compare=make_policy("s2fp8", "cuda", "payload"))
+
+
+def phase_train_fig4(dev, profile: bool = False) -> dict:
+    """Full-width minicpm_2b in fig4 mode on the cuda_fused engine, exact
+    stats, 3 steps at batch 4 x 512: every GEMM the Fig. 4 chain (the
+    operands, the output and, on the way back, the cotangent and both
+    operand gradients through the fused truncate kernel, around an f32
+    torch.matmul / einsum with TF32 off), attention the masked softmax
+    with its two einsums through the chain (seq 512 <= 2048)."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    cfg = get_config("minicpm_2b")
+    log(f"train-fig4: f32 products, TF32 allowed: "
+        f"{torch.backends.cuda.matmul.allow_tf32}")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    return _train_run(dev, cfg, "train-fig4", "wsd", cfg.n_params(),
+                      TRAIN_FIG4_KERNELS, profile,
+                      pol=make_policy("s2fp8", "cuda_fused", "fig4"),
+                      refresh_every=0, steps=3)
+
+
+def _train_run(dev, cfg, label, schedule, n_flop, expected, profile, *,
+               pol=None, refresh_every=8, steps=4, compare=None) -> dict:
+    """``steps`` train steps of ``cfg`` at batch 4 x 512 under ``pol``
+    (default: s2fp8 on the cuda engine), with the bank at
+    ``refresh_every`` or (0) exact per-call stats; ``compare``: one more
+    step under that policy, timed and not counted."""
     import numpy as np
     from repro_torch import kernels
     from repro_torch.core import statsbank
@@ -1152,8 +1467,8 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected,
     from repro_torch.optim import optimizers, schedules
     from repro_torch.training.trainer import make_train_step
 
-    pol = make_policy("s2fp8")
-    steps, batch, seq = 4, 4, 512
+    pol = pol or make_policy("s2fp8")
+    batch, seq = 4, 512
     t0 = time.perf_counter()
     params = tlm.init_lm(cfg, seed=0, device=dev)
     opt = optimizers.adamw(weight_decay=0.01)
@@ -1169,14 +1484,21 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected,
         f"set-up {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
     loss_fn = _lm_loss(cfg)
-    stats = statsbank.StatsConfig(refresh_every=8)
-    step_fn = make_train_step(loss_fn, opt, schedules.make_schedule(
-        schedule, 3e-4, total_steps=steps, warmup=1), pol, stats=stats)
+    stats = (statsbank.StatsConfig(refresh_every=refresh_every)
+             if refresh_every else None)
+    sched = schedules.make_schedule(schedule, 3e-4, total_steps=steps,
+                                    warmup=1)
+    step_fn = _stepper(make_train_step(loss_fn, opt, sched, pol,
+                                       stats=stats))
+    log(f"{label}: engine {pol.backend_obj.name}, gemm "
+        f"{'payload' if pol.uses_payload_gemm else 'fig4'}, "
+        f"{f'bank k = {refresh_every}' if stats else 'exact stats'}")
 
     torch.cuda.reset_peak_memory_stats()
     kernels.reset_counts()                        # the main path starts here
     t0 = time.perf_counter()
-    bank = statsbank.init_bank(loss_fn, params, batches[0], pol, stats)
+    bank = (statsbank.init_bank(loss_fn, params, batches[0], pol, stats)
+            if stats else None)
     torch.cuda.synchronize()
     t_probe = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -1198,19 +1520,34 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected,
         peak = max(peak, torch.cuda.max_memory_allocated())
         log(f"{label} step {i}: loss {losses[-1]:.4f}, aux {auxes[-1]:.5f}, "
             f"grad_norm {float(m['grad_norm']):.3f}, refreshed "
-            f"{m['stats_refreshed']:.0f}, {step_ms[-1]:.1f} ms, peak "
-            f"{step_peak[-1]:.2f} GB")
+            f"{m.get('stats_refreshed', 1.0):.0f}, {step_ms[-1]:.1f} ms, "
+            f"peak {step_peak[-1]:.2f} GB")
     counts = kernels.counts()                     # ... and ends here
+    compare_ms = None
+    if compare is not None:
+        cmp_fn = _stepper(make_train_step(loss_fn, opt, sched, compare))
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, opt_state, _, m = cmp_fn(params, opt_state, None,
+                                         batches[-1], steps)
+        loss_c = float(m["loss"])
+        torch.cuda.synchronize()
+        compare_ms = (time.perf_counter() - ts) * 1e3
+        assert math.isfinite(loss_c), loss_c
+        log(f"{label}: one more step on the {compare.backend_obj.name} "
+            f"engine (torch-reduction stats): {compare_ms:.1f} ms, loss "
+            f"{loss_c:.4f}; {pol.backend_obj.name} steps 1-{steps - 1} "
+            f"{float(np.mean(step_ms[1:])):.1f} ms mean")
     if profile:
         state = {"p": params, "o": opt_state, "b": bank}
 
         def one_step():
             state["p"], state["o"], state["b"], _ = step_fn(
-                state["p"], state["o"], state["b"], batches[-1], steps)
-        profile_window(f"{label}: 1 steady train step (step {steps})",
+                state["p"], state["o"], state["b"], batches[-1], steps + 1)
+        profile_window(f"{label}: 1 steady train step (step {steps + 1})",
                        one_step)
         memory_by_stage(loss_fn, opt, pol, stats, state, batches[-1],
-                        steps + 1)
+                        steps + 2)
 
     assert all(math.isfinite(x) for x in losses + auxes), (losses, auxes)
     check_counts(counts, expected)
@@ -1223,14 +1560,26 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected,
         "tokens_per_s": tokens / steady_ms * 1e3,
         "flop_params": n_flop,
         "model_tflop_per_s_6NT": 6.0 * n_flop * tokens / steady_ms / 1e9,
-        "probe_s": t_probe, "bank_sites": len(bank),
+        "probe_s": t_probe, "bank_sites": len(bank) if bank else 0,
         "step_peak_gb": step_peak, "max_memory_allocated_gb": peak / 1e9,
         "launches_step0": step_launches[0],
         "launches_steady_step": step_launches[-1],
+        "compare_step_ms": compare_ms,
     }
     log(f"{label} metrics: " + json.dumps(metrics))
     log(f"{label} launches: " + json.dumps(counts))
     return {"counts": counts, "metrics": metrics}
+
+
+def _stepper(train_step):
+    """``step(params, opt_state, bank, batch, i) -> (params, opt_state,
+    bank, metrics)`` for a banked or a bank-less train step (bank None)."""
+    def step(params, opt_state, bank, batch, i):
+        if bank is None:
+            params, opt_state, m = train_step(params, opt_state, batch, i)
+            return params, opt_state, None, m
+        return train_step(params, opt_state, bank, batch, i)
+    return step
 
 
 def memory_by_stage(loss_fn, opt, pol, stats, state, batch, step) -> None:
@@ -1260,9 +1609,9 @@ def memory_by_stage(loss_fn, opt, pol, stats, state, batch, step) -> None:
         mark("update")
         return out
 
-    step_fn = make_train_step(
+    step_fn = _stepper(make_train_step(
         loss_marked, optimizers.Optimizer(opt.init, update_marked),
-        schedules.constant(3e-4), pol, stats=stats)
+        schedules.constant(3e-4), pol, stats=stats))
     mark("before")
     state["p"], state["o"], state["b"], _ = step_fn(
         state["p"], state["o"], state["b"], batch, step)
@@ -1350,6 +1699,7 @@ def main() -> int:
     phase_small_reference(dev)
     phase_small_train(dev)
     phase_small_train_moe(dev)
+    phase_small_fused(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
@@ -1360,15 +1710,23 @@ def main() -> int:
     trained = phase_train(dev, args.profile)
     free_device_memory()
     trained_moe = phase_train_moe(dev, args.profile)
+    free_device_memory()
+    trained_exact = phase_train_exact(dev, args.profile)
+    free_device_memory()
+    trained_fig4 = phase_train_fig4(dev, args.profile)
     out = []
     for name, row in rows.items():
         ls = served["counts"][name]["launches"]
         lt = trained["counts"][name]["launches"]
         lm = trained_moe["counts"][name]["launches"]
+        le = trained_exact["counts"][name]["launches"]
+        lf = trained_fig4["counts"][name]["launches"]
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                    "replaces": REPLACES[name], "launches": ls + lt + lm,
+                    "replaces": REPLACES[name],
+                    "launches": ls + lt + lm + le + lf,
                     "launches_serve": ls, "launches_train": lt,
-                    "launches_train_moe": lm,
+                    "launches_train_moe": lm, "launches_train_exact": le,
+                    "launches_train_fig4": lf,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],

@@ -1,19 +1,27 @@
-"""Numerics-backend registry of the port: one interface, two engines.
+"""Numerics-backend registry of the port: one interface, three engines.
 
-Counterpart of ``repro.core.backend`` with its own two-entry table
-(nothing is registered into the JAX package's registry):
+Counterpart of ``repro.core.backend`` with its own table (nothing is
+registered into the JAX package's registry):
 
-  * ``"plain"`` — plain PyTorch (core/s2fp8.py + kernels/ref.py) on any
-    device; the counterpart of the reference's ``RefBackend``;
-  * ``"cuda"``  — the hand-written kernels through kernels/dispatch.py; the
-    counterpart of ``PallasBackend``.  Its wrappers launch the CUDA kernel
-    for a CUDA tensor and take the kernel's plain version for a CPU tensor,
-    which is how the CPU tests run this engine.
+  * ``"plain"``      — plain PyTorch (core/s2fp8.py + kernels/ref.py) on
+    any device; the counterpart of the reference's ``RefBackend``;
+  * ``"cuda"``       — the hand-written kernels through
+    kernels/dispatch.py, with the exact stats of a tensor from the torch
+    reduction (``s2fp8.compute_stats``); the counterpart of
+    ``PallasBackend()`` (``stats_mode="exact"``);
+  * ``"cuda_fused"`` — the same kernels, with every exact stats
+    reduction in the stats kernels: ``compute_stats``,
+    ``compute_stats_partials``, ``quantize(x)`` and ``truncate(x)``
+    without stats run the stats, quantize-with-stats and fused truncate
+    kernels; the counterpart of ``pallas_fused``
+    (``stats_mode="fused"``).
 
-``"auto"`` resolves to ``"cuda"``.  (alpha, beta) travel as f32 [2]
-tensors (core/s2fp8.py ``as_stats``).  The stats reduction is a torch
-reduction on both engines (the reference's exact-stats engine runs it
-outside any Pallas kernel too).
+The kernel wrappers launch the CUDA kernel for a CUDA tensor and take the
+kernel's plain version for a CPU tensor, which is how the CPU tests run
+the two kernel engines.  ``"auto"`` resolves to ``"cuda"``.  (alpha, beta)
+travel as f32 [2] tensors (core/s2fp8.py ``as_stats``).  ``quantize`` and
+``truncate`` take ``stats=None`` as the reference's do: exact stats of
+the tensor, reduced the engine's way.
 
 Also here, as in the reference: ``bidir_truncate`` (the exact-stats
 differentiable truncation per engine), and ``plan_qdot_general`` and
@@ -48,15 +56,19 @@ class NumericsBackend:
         """Exact (alpha, beta) of ``x`` for ``fmt``'s range, f32 [2]."""
         return s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
 
-    def quantize(self, x: torch.Tensor, *, stats,
+    def quantize(self, x: torch.Tensor, *, stats=None,
                  fmt: str = "e5m2") -> S2FP8Tensor:
+        """Payload of ``x`` under ``stats``, or under the exact stats of
+        ``x`` when ``stats`` is None."""
         raise NotImplementedError
 
     def dequantize(self, t: S2FP8Tensor, dtype=torch.float32) -> torch.Tensor:
         return s2fp8.dequantize(t, dtype)
 
-    def truncate(self, x: torch.Tensor, *, stats,
+    def truncate(self, x: torch.Tensor, *, stats=None,
                  fmt: str = "e5m2") -> torch.Tensor:
+        """Eq. 5 round trip of ``x`` under ``stats``, or under the exact
+        stats of ``x`` when ``stats`` is None; in ``x``'s dtype."""
         raise NotImplementedError
 
     def qmatmul(self, a: S2FP8Tensor, b: S2FP8Tensor, *, layout: str = "nn",
@@ -86,14 +98,12 @@ class PlainBackend(NumericsBackend):
 
     name = "plain"
 
-    def quantize(self, x, *, stats, fmt="e5m2"):
-        return s2fp8.quantize(x, stats=s2fp8.as_stats(stats, x.device),
-                              fmt=fmt)
+    def quantize(self, x, *, stats=None, fmt="e5m2"):
+        return s2fp8.quantize(x, stats=stats, fmt=fmt)
 
-    def truncate(self, x, *, stats, fmt="e5m2"):
+    def truncate(self, x, *, stats=None, fmt="e5m2"):
         from repro_torch.kernels import ref
-        return ref.s2fp8_truncate_ref(x, stats=s2fp8.as_stats(
-            stats, x.device), fmt=fmt)
+        return ref.s2fp8_truncate_ref(x, stats=stats, fmt=fmt)
 
     def qmatmul(self, a, b, *, layout="nn", epilogue_stats=None, fmt="e5m2"):
         from repro_torch.kernels import ref
@@ -113,22 +123,51 @@ class PlainBackend(NumericsBackend):
 
 
 class CudaBackend(NumericsBackend):
-    """Hand-written CUDA kernels (the reference's ``pallas`` counterpart)."""
+    """Hand-written CUDA kernels (the reference's ``PallasBackend``).
+
+    ``stats_mode``: "exact" (``cuda``) takes the exact stats of a tensor
+    from the torch reduction, so they are bit for bit the plain engine's;
+    "fused" (``cuda_fused``) takes them from the stats kernels (a
+    deterministic f64-summed reduction, float-tolerance parity)."""
 
     name = "cuda"
 
-    def quantize(self, x, *, stats, fmt="e5m2"):
+    def __init__(self, *, stats_mode: str = "exact",
+                 name: Optional[str] = None):
+        if stats_mode not in ("exact", "fused"):
+            raise ValueError(f"stats_mode must be 'exact' or 'fused', "
+                             f"got {stats_mode!r}")
+        self.stats_mode = stats_mode
+        if name is not None:
+            self.name = name
+
+    def compute_stats_partials(self, x):
+        if self.stats_mode == "exact":
+            return super().compute_stats_partials(x)
         from repro_torch.kernels import dispatch
-        ab = s2fp8.as_stats(stats, x.device)
-        return S2FP8Tensor(dispatch.quant_nd(x, ab, fmt), ab, fmt)
+        return dispatch.stats_partials_nd(x)
+
+    def compute_stats(self, x, *, fmt="e5m2"):
+        if self.stats_mode == "exact":
+            return super().compute_stats(x, fmt=fmt)
+        from repro_torch.kernels import dispatch
+        return dispatch.stats_nd(x, s2fp8.FMT_TARGET_MAX[fmt])
+
+    def quantize(self, x, *, stats=None, fmt="e5m2"):
+        from repro_torch.kernels import dispatch
+        if stats is None and self.stats_mode == "exact":
+            stats = self.compute_stats(x, fmt=fmt)
+        payload, ab = dispatch.quant_nd(x, stats, fmt)
+        return S2FP8Tensor(payload, ab, fmt)
 
     def dequantize(self, t, dtype=torch.float32):
         from repro_torch.kernels import dispatch
         return dispatch.dequant_nd(t.payload, t.ab, dtype)
 
-    def truncate(self, x, *, stats, fmt="e5m2"):
+    def truncate(self, x, *, stats=None, fmt="e5m2"):
         from repro_torch.kernels import dispatch
-        return dispatch.truncate_nd(x, s2fp8.as_stats(stats, x.device), fmt)
+        return dispatch.truncate_nd(x, stats, fmt,
+                                    fused_stats=self.stats_mode == "fused")
 
     def qmatmul(self, a, b, *, layout="nn", epilogue_stats=None, fmt="e5m2"):
         from repro_torch.kernels import dispatch
@@ -144,8 +183,11 @@ class CudaBackend(NumericsBackend):
             out_batch=out_batch, epilogue_stats=epilogue_stats, fmt=fmt)
 
 
-BACKENDS: Dict[str, NumericsBackend] = {"plain": PlainBackend(),
-                                         "cuda": CudaBackend()}
+BACKENDS: Dict[str, NumericsBackend] = {
+    "plain": PlainBackend(),
+    "cuda": CudaBackend(),
+    "cuda_fused": CudaBackend(stats_mode="fused", name="cuda_fused"),
+}
 
 
 def get_backend(name: Optional[str] = None) -> NumericsBackend:
@@ -167,11 +209,10 @@ def get_backend(name: Optional[str] = None) -> NumericsBackend:
 def bidir_truncate(backend: Optional[str] = None, fmt: str = "e5m2"):
     """Eq. 5 with fresh exact stats on the forward value AND on the
     cotangent, through the named engine (one callable per (engine,
-    format))."""
+    format)): ``truncate`` without stats, as the reference calls it."""
 
     def trunc(x):
-        be = get_backend(backend)
-        return be.truncate(x, stats=be.compute_stats(x, fmt=fmt), fmt=fmt)
+        return get_backend(backend).truncate(x, fmt=fmt)
 
     class _Bidir(torch.autograd.Function):
         @staticmethod

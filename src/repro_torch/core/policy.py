@@ -5,20 +5,36 @@ Port of ``repro.core.policy`` for the modes the port has:
   fp32       — baseline, nothing inserted
   fp8        — raw e5m2 truncation around GEMMs (the diverging baseline):
                operands and output through ``fp8_truncate_bidir``
-  s2fp8      — the paper's format on the payload path: every GEMM runs
-               payload-domain (``qdot_train``), attention runs as one
-               payload flash node, and each result rounds to f32 and then
-               to the caller's dtype at the GEMM boundary (``_qdot_out``)
+  s2fp8      — the paper's format
   s2fp8_e4m3 — the same on the e4m3 grid
 
-Truncation sites (``truncate``) follow the active StatsBank session (bank
-stats) or, outside one, exact per-call stats through ``bidir_truncate``.
-The bf16 and fp8_ls modes (with the fp8_ls trainer's ``loss_scale``) and
-the fig4 GEMM mode come with later slices.
+and, for the s2fp8 modes, the reference's GEMM modes:
+
+  payload — every GEMM runs payload-domain (``qdot_train``), attention
+            runs as one payload flash node, and each result rounds to f32
+            and then to the caller's dtype at the GEMM boundary
+            (``_qdot_out``); a contraction the planner rejects raises
+  fig4    — the paper's Fig. 4 chain: every operand and the output
+            truncated (bidirectionally: the cotangents too) around an f32
+            ``torch.matmul`` / ``torch.einsum``; attention takes the
+            masked softmax with its two einsums through the chain
+  auto    — payload, on every engine of the port (the reference's
+            ``auto`` takes fig4 on its ``ref`` engine)
+
+The f32 product of the chain runs as the reference's does outside any
+kernel: ``torch.matmul`` in full f32 (PyTorch's default on CUDA, TF32 off;
+the launchers print the setting), bf16 operands promoted to f32 as
+``jnp.dot`` with ``preferred_element_type=f32`` promotes them.
+
+Truncation sites (``truncate``, and the chain's operands and outputs)
+follow the active StatsBank session (bank stats) or, outside one, exact
+per-call stats through ``bidir_truncate``.  The bf16 and fp8_ls modes
+(with the fp8_ls trainer's ``loss_scale``) come with later slices.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable, Optional
 
 import torch
@@ -30,9 +46,24 @@ from repro_torch.core import statsbank
 
 MODES = ("fp32", "fp8", "s2fp8", "s2fp8_e4m3")
 S2FP8_MODES = ("s2fp8", "s2fp8_e4m3")
-# "auto" and "payload" both select the payload GEMM here; the composed
-# fig4 chain is not ported.
-GEMM_MODES = ("auto", "payload")
+# "auto" selects the payload GEMM on every engine of the port
+GEMM_MODES = ("auto", "payload", "fig4")
+
+
+@functools.lru_cache(maxsize=None)
+def _s2fp8_wrap(backend: Optional[str], fmt: str) -> Callable:
+    """Session-aware truncation of the s2fp8 modes (reference
+    ``_s2fp8_wrap``): under a StatsBank session the site's stats (site
+    kind ``t``), else exact per-call stats through ``bidir_truncate``."""
+    exact = nbackend.bidir_truncate(backend, fmt)
+
+    def wrap(x):
+        sess = statsbank.current_session()
+        if sess is not None:
+            return sess.truncate(x, fmt=fmt, backend=backend)
+        return exact(x)
+
+    return wrap
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,22 +98,22 @@ class Policy:
 
     @property
     def uses_payload_gemm(self) -> bool:
-        return self.mode in S2FP8_MODES
+        """Whether the s2fp8 GEMMs run payload-domain (``qdot_train``):
+        every gemm_mode but fig4."""
+        return self.mode in S2FP8_MODES and self.gemm_mode != "fig4"
 
     @property
     def _wrap(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Operand / output truncation of the non-payload modes."""
+        """Operand / output truncation of the chain, and the truncation of
+        every site, bidirectional, in the tensor's dtype."""
+        if self.mode in S2FP8_MODES:
+            return _s2fp8_wrap(self.backend, self._fmt)
         return s2fp8.fp8_truncate_bidir if self.mode == "fp8" else _identity
 
     def truncate(self, x: torch.Tensor) -> torch.Tensor:
         """Tensor-level truncation at op boundaries (site kind ``t``),
         bidirectional, in ``x``'s dtype."""
-        if not self.uses_payload_gemm:
-            return self._wrap(x)
-        sess = statsbank.current_session()
-        if sess is None:
-            return nbackend.bidir_truncate(self.backend, self._fmt)(x)
-        return sess.truncate(x, fmt=self._fmt, backend=self.backend)
+        return self._wrap(x)
 
     def _qdot_out(self, y: torch.Tensor, dtype) -> torch.Tensor:
         """Round the payload path's f32 result through ``accum_dtype`` to
@@ -90,8 +121,8 @@ class Policy:
         return y.to(self.accum_dtype).to(dtype)
 
     def _dense(self, fn, *operands) -> torch.Tensor:
-        """fp32 / fp8 chain: truncated operands, an f32 contraction,
-        truncated output, the operands' promoted dtype."""
+        """The chain of fp32, fp8 and fig4: truncated operands, an f32
+        contraction, truncated output, the operands' promoted dtype."""
         y = fn(*[self._wrap(o).to(self.accum_dtype) for o in operands])
         return self._wrap(y).to(_promoted(operands))
 
@@ -104,10 +135,10 @@ class Policy:
     def dot_general(self, a: torch.Tensor, b: torch.Tensor,
                     dimension_numbers) -> torch.Tensor:
         """``lax.dot_general`` semantics (output ``batch + a_free +
-        b_free``).  On the s2fp8 modes every contraction the planner maps
+        b_free``).  On the payload path every contraction the planner maps
         (``backend.plan_qdot_general``: dense, NT/TN, batched) runs
-        payload-domain; the rest would need the composed Fig. 4 chain,
-        which is not ported, and raise."""
+        payload-domain and the rest raise; fig4, fp32 and fp8 run the
+        chain."""
         if self.uses_payload_gemm:
             plan = nbackend.plan_qdot_general(a.shape, b.shape,
                                               dimension_numbers)
@@ -124,9 +155,9 @@ class Policy:
     def einsum(self, spec: str, *operands) -> torch.Tensor:
         """Two-operand contractions the planner maps (``backend.
         plan_einsum``: dense, batched ``ecd,edf->ecf``, broadcast
-        ``becd,edf->becf``, attention) run payload-domain on the s2fp8
-        modes; the others would need the composed Fig. 4 chain, which is
-        not ported, and raise.  fp32 / fp8 run the plain chain."""
+        ``becd,edf->becf``, attention) run payload-domain on the payload
+        path, and the others raise there; fig4, fp32 and fp8 run the
+        chain, any contraction."""
         if self.uses_payload_gemm:
             plan = (nbackend.plan_einsum(spec, operands[0].shape,
                                          operands[1].shape)
@@ -143,11 +174,12 @@ class Policy:
     def flash_attention(self, q, k, v, *, causal: bool = True,
                         window=None) -> torch.Tensor:
         """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]`` — the payload
-        flash node (s2fp8 modes only)."""
+        flash node (the payload path only)."""
         if not self.uses_payload_gemm:
             raise NotImplementedError(
-                f"flash attention under mode {self.mode!r} is not ported; "
-                f"models take the masked-softmax path")
+                f"flash attention under mode {self.mode!r}, gemm_mode "
+                f"{self.gemm_mode!r} is not ported; models take the "
+                f"masked-softmax path")
         y = qdot_mod.qflash_attention(q, k, v, causal=causal, window=window,
                                       backend=self.backend, fmt=self._fmt)
         dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),

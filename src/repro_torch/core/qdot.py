@@ -41,7 +41,11 @@ The nodes, each a ``torch.autograd.Function`` where the reference has a
     the same forward with every site refreshing.
   * ``_QdotExact`` / ``_QflashExact`` (``_qdot_exact``, ``_qflash_exact``)
     — outside any session (and during discovery): fresh exact stats per
-    tensor, still payload-domain with payload residuals.
+    tensor, still payload-domain with payload residuals.  Their calls
+    follow the reference's: each operand and cotangent is ``quantize``d
+    without stats (the engine reduces them its own way: on ``cuda_fused``
+    the quantize-with-stats kernel), each raw output gets
+    ``compute_stats`` and then ``truncate`` with them.
   * frozen forwards (``_qdot_frozen``, ``_qflash_frozen``) — serving:
     frozen stats, no reductions, no autograd.
 
@@ -155,8 +159,8 @@ class _QdotBanked(torch.autograd.Function):
 class _QdotExact(torch.autograd.Function):
     @staticmethod
     def forward(ctx, a, b, be, fmt, plan):
-        qa = be.quantize(a, stats=be.compute_stats(a, fmt=fmt), fmt=fmt)
-        qb = be.quantize(b, stats=be.compute_stats(b, fmt=fmt), fmt=fmt)
+        qa = be.quantize(a, fmt=fmt)
+        qb = be.quantize(b, fmt=fmt)
         y_raw = _qmm(be, qa, qb, plan.layout, fmt=fmt)
         _save(ctx, qa, qb)
         ctx.meta = (be, fmt, plan, a.dtype, b.dtype)
@@ -167,7 +171,7 @@ class _QdotExact(torch.autograd.Function):
     def backward(ctx, g):
         be, fmt, plan, adt, bdt = ctx.meta
         (qa, qb), _ = _saved(ctx)
-        qg = be.quantize(g, stats=be.compute_stats(g, fmt=fmt), fmt=fmt)
+        qg = be.quantize(g, fmt=fmt)
         ops = {"a": qa, "b": qb, "g": qg}
         grads = []
         for lhs, rhs, lay, ob in _gemm_structure(plan)[1:]:
@@ -309,8 +313,7 @@ class _QflashBanked(torch.autograd.Function):
 class _QflashExact(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, be, fmt, causal, window, bq, bk):
-        qq, qk, qv = (be.quantize(t, stats=be.compute_stats(t, fmt=fmt),
-                                  fmt=fmt) for t in (q, k, v))
+        qq, qk, qv = (be.quantize(t, fmt=fmt) for t in (q, k, v))
         raw, lse = _payload_flash_fwd(be, qq, qk, qv, causal, window, fmt,
                                       bq, bk, None)
         so = be.compute_stats(raw, fmt=fmt)
@@ -326,7 +329,7 @@ class _QflashExact(torch.autograd.Function):
         be, fmt, causal, window, bq, bk, dts = ctx.meta
         (qq, qk, qv, qo), (lse,) = _saved(ctx)
         g = g.float()
-        qg = be.quantize(g, stats=be.compute_stats(g, fmt=fmt), fmt=fmt)
+        qg = be.quantize(g, fmt=fmt)
         raws = _payload_flash_bwd(be, qq, qk, qv, qg, lse,
                                   _flash_delta(be, qg, qo), causal, window,
                                   bq, bk)

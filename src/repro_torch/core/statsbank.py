@@ -47,6 +47,10 @@ Four sessions exist here:
     sees (``refresh_state``), then uses them (refresh-then-use).  Sites are
     created on first visit.  Cotangent ("bwd") states are never refreshed
     here — nothing in serving reads them.
+
+:class:`count_reductions` counts the aten reductions a step executes: a
+steady banked step runs as many as an fp32 step, and so does an exact
+step on the ``cuda_fused`` engine, whose stats run in kernels.
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from typing import Any, Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import backend as nbackend
 from repro_torch.core import s2fp8
@@ -564,6 +569,49 @@ def bookkeeping_last(bank: Dict[str, Any]) -> torch.Tensor:
     """Every site-direction's last-refresh step, concatenated."""
     return torch.cat([st["last"].reshape(-1)
                       for e in bank.values() for st in e.values()])
+
+
+# ---------------------------------------------------------------------------
+# counting executed reductions (reference statsbank.py count_reductions)
+# ---------------------------------------------------------------------------
+
+REDUCE_OPS = frozenset({
+    "sum", "nansum", "mean", "nanmean", "prod", "max", "min", "amax", "amin",
+    "aminmax", "argmax", "argmin", "logsumexp", "norm", "linalg_vector_norm",
+    "_foreach_norm", "var", "std", "var_mean", "std_mean"})
+
+
+class count_reductions(TorchDispatchMode):
+    """Counts the aten reductions executed while the context is open (the
+    port's counterpart of the reference's jaxpr ``count_reductions``:
+    PyTorch runs eagerly, so what ran is what is counted).
+
+    ``n`` counts reductions of a whole tensor to a scalar (a 0-dim result:
+    the kind every S2FP8 stats reduction is, Eq. 3-4, and the loss and
+    gradient-norm sums); ``by_op`` counts every reduction by aten overload
+    and kind ("scalar" or "dim"), reductions along a dimension (norms,
+    softmax, attention) included.  Elementwise overloads of ``max`` and
+    ``min`` (``.other``) are not reductions and are not counted.  Work
+    that runs inside a kernel of this repository does not reach aten and
+    is not counted: on the ``cuda_fused`` engine a step's stats leave the
+    count."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+        self.by_op: Dict[Tuple[str, str], int] = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        pk = func.overloadpacket.__name__
+        if pk in REDUCE_OPS and func._schema.overload_name != "other":
+            outs = out if isinstance(out, (tuple, list)) else (out,)
+            scalar = all(isinstance(o, torch.Tensor) and o.dim() == 0
+                         for o in outs)
+            key = (str(func), "scalar" if scalar else "dim")
+            self.by_op[key] = self.by_op.get(key, 0) + 1
+            self.n += int(scalar)
+        return out
 
 
 def cold_sites(bank: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:

@@ -4,7 +4,9 @@
 // kernels, the payload GEMM's dequant table and Eq. 5 epilogue, the flash
 // kernel's dequant table and epilogue, and the paged-decode dequant table.
 // It is the counterpart of ``_truncate_body`` / ``_dequant`` in
-// src/repro/kernels/s2fp8_quant.py and s2fp8_matmul.py.
+// src/repro/kernels/s2fp8_quant.py and s2fp8_matmul.py.  Also here: the
+// statistics reduction (Eq. 3-4) that the stats, quantize-with-stats and
+// fused truncate kernels share, and ``stats_from_reduction``.
 //
 // Numerics contract (kept so the kernels agree with the plain PyTorch
 // versions): full-precision log2f / exp2f (no --use_fast_math); the
@@ -99,6 +101,128 @@ __device__ __forceinline__ void store_from_f32(void* p, long long i, float v,
     static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
   else
     static_cast<float*>(p)[i] = v;
+}
+
+// ---------------------------------------------------------------------------
+// Statistics (Eq. 3-4): (sum log2|x|, max log2|x|, nonzero count) over the
+// nonzero elements.  Zeros and NaNs are left out (NaN > 0 is false), as in
+// the reference.  The sum is kept in f64 and the count in 64-bit integers,
+// so the result does not depend on the grid beyond f64 rounding; every
+// reduction below runs in a fixed order (no atomics), so a tensor gives the
+// same bits on every run with the same grid.
+// ---------------------------------------------------------------------------
+
+constexpr int kStatsThreads = 256;   // block size of every stats kernel
+
+struct StatsPartial {
+  double sum;
+  float max;
+  long long count;
+};
+
+__device__ __forceinline__ StatsPartial stats_identity() {
+  return StatsPartial{0.0, __int_as_float(0xff800000), 0};  // max = -inf
+}
+
+__device__ __forceinline__ StatsPartial stats_combine(StatsPartial a,
+                                                      StatsPartial b) {
+  return StatsPartial{a.sum + b.sum, fmaxf(a.max, b.max), a.count + b.count};
+}
+
+// This thread's share of x under the grid-stride map (element i goes to
+// thread i mod (gridDim.x * blockDim.x)): the map the stats kernel and the
+// fused truncate kernel's phase 0 both use.
+__device__ __forceinline__ StatsPartial stats_thread_partial(const void* x,
+                                                             int dtype,
+                                                             long long n) {
+  StatsPartial p = stats_identity();
+  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
+  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
+                     threadIdx.x;
+       i < n; i += stride) {
+    float a = fabsf(load_as_f32(x, i, dtype));
+    if (a > 0.0f) {
+      float l = log2f(a);
+      p.sum += static_cast<double>(l);
+      p.max = fmaxf(p.max, l);
+      p.count += 1;
+    }
+  }
+  return p;
+}
+
+__device__ __forceinline__ StatsPartial stats_warp_reduce(StatsPartial p) {
+  for (int off = 16; off > 0; off >>= 1) {
+    StatsPartial o;
+    o.sum = __shfl_down_sync(0xffffffffu, p.sum, off);
+    o.max = __shfl_down_sync(0xffffffffu, p.max, off);
+    o.count = __shfl_down_sync(0xffffffffu, p.count, off);
+    p = stats_combine(p, o);
+  }
+  return p;
+}
+
+// The block's total, valid in thread 0; every thread of the block calls it.
+// ``smem`` holds one partial per warp (32 entries).
+__device__ __forceinline__ StatsPartial stats_block_reduce(StatsPartial p,
+                                                           StatsPartial* smem) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  p = stats_warp_reduce(p);
+  if (lane == 0) smem[warp] = p;
+  __syncthreads();
+  if (warp == 0) {
+    p = lane < static_cast<int>((blockDim.x + 31) >> 5) ? smem[lane]
+                                                         : stats_identity();
+    p = stats_warp_reduce(p);
+  }
+  __syncthreads();
+  return p;
+}
+
+// Total over the per-block partials, in a fixed order, valid in thread 0.
+// The partials are read through L2 (__ldcg): the fused kernel reads them in
+// the launch that wrote them.
+__device__ __forceinline__ StatsPartial stats_reduce_partials(
+    const StatsPartial* parts, int nparts, StatsPartial* smem) {
+  StatsPartial p = stats_identity();
+  for (int i = threadIdx.x; i < nparts; i += blockDim.x)
+    p = stats_combine(p, StatsPartial{__ldcg(&parts[i].sum),
+                                      __ldcg(&parts[i].max),
+                                      __ldcg(&parts[i].count)});
+  return stats_block_reduce(p, smem);
+}
+
+// (sum, max, count) -> (alpha, beta), op for op as core/s2fp8.py
+// ``stats_from_reduction``: IEEE f32 division, each step rounded alone.
+// An all-zero tensor gives (1, 0); a constant magnitude a pure shift.
+__device__ __forceinline__ void stats_from_reduction(float log_sum,
+                                                     float log_max,
+                                                     float count,
+                                                     float target_max,
+                                                     float* alpha,
+                                                     float* beta) {
+  float mu = __fdiv_rn(log_sum, fmaxf(count, 1.0f));
+  float spread = __fsub_rn(log_max, mu);
+  bool degenerate = spread < 1e-6f;
+  float a = degenerate ? 1.0f : __fdiv_rn(target_max, spread);
+  float b = degenerate ? __fsub_rn(target_max, log_max) : __fmul_rn(-a, mu);
+  if (count == 0.0f) {
+    a = 1.0f;
+    b = 0.0f;
+  }
+  *alpha = a;
+  *beta = b;
+}
+
+// The triplet as f32 (sum rounded once from f64, count converted from the
+// exact integer) and its (alpha, beta).
+__device__ __forceinline__ void stats_finish(StatsPartial t, float target_max,
+                                             float* triplet, float* ab) {
+  triplet[0] = __double2float_rn(t.sum);
+  triplet[1] = t.max;
+  triplet[2] = __ll2float_rn(t.count);
+  stats_from_reduction(triplet[0], triplet[1], triplet[2], target_max,
+                       &ab[0], &ab[1]);
 }
 
 }  // namespace s2fp8

@@ -27,8 +27,9 @@ def plain_version(fn: Callable) -> Callable:
 
 
 def registry() -> Dict[str, Tuple[Callable, Callable]]:
-    """kernel name -> (wrapper, plain version), for the ten kernels of the
-    serving, dense training and MoE training slices."""
+    """kernel name -> (wrapper, plain version), for the thirteen kernels
+    of the serving, dense training, MoE training and exact-stats
+    (fused-stats engine) slices."""
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      s2fp8_matmul, s2fp8_quant)
     return {
@@ -37,6 +38,11 @@ def registry() -> Dict[str, Tuple[Callable, Callable]]:
         "truncate_apply": (s2fp8_quant.truncate_apply,
                            s2fp8_quant.truncate_apply_plain),
         "dequant": (s2fp8_quant.dequant, s2fp8_quant.dequant_plain),
+        "stats": (s2fp8_quant.stats_partials,
+                  s2fp8_quant.stats_partials_plain),
+        "quant": (s2fp8_quant.quant, s2fp8_quant.quant_plain),
+        "truncate_fused": (s2fp8_quant.truncate_fused,
+                           s2fp8_quant.truncate_fused_plain),
         "qmatmul_nn": (s2fp8_matmul.qmatmul_nn, s2fp8_matmul.qmatmul_plain),
         "qmatmul_nt": (s2fp8_matmul.qmatmul_nt,
                        s2fp8_matmul.qmatmul_nt_plain),

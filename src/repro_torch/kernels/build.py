@@ -31,6 +31,10 @@ SIGNATURES = {
         "s2fp8_quant_apply": (_P, _I, _P, _LL, _P, _I, _P),
         "s2fp8_truncate_apply": (_P, _I, _P, _I, _LL, _P, _I, _P),
         "s2fp8_dequant": (_P, _P, _LL, _P, _I, _P),
+        "s2fp8_stats": (_P, _I, _LL, _P, _LL, _P, _P, _F, _P),
+        "s2fp8_quant": (_P, _I, _P, _LL, _P, _LL, _P, _P, _F, _I, _P),
+        "s2fp8_truncate_fused": (_P, _I, _P, _I, _LL, _P, _LL, _P, _P, _F,
+                                 _I, _P),
     },
     "s2fp8_matmul": {
         "s2fp8_qmatmul": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,

@@ -7,6 +7,12 @@ themselves, so the reference's pad-to-(8, 128) tiling
 contiguous, checks GEMM shapes, picks the GEMM layout's wrapper, and maps
 the grouped attention layout ``[B, KV, G, S, d]`` onto the kernels'
 flattened ``[B*KV*G, S, d]`` heads and back.
+
+Stats selection of the quantize and truncate entry points follows the
+reference's (``stats_nd``, ``quant_nd(stats=None)``,
+``truncate_nd(fused_stats=...)``): given (alpha, beta), one elementwise
+pass; without them, exact stats of the tensor — the torch reduction
+(``s2fp8.compute_stats``), or with ``fused_stats`` the stats kernels.
 """
 from __future__ import annotations
 
@@ -14,12 +20,14 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core import s2fp8
 from repro_torch.core.s2fp8 import S2FP8Tensor
 from repro_torch.kernels import flash_attention as fkern
 from repro_torch.kernels import ref
 from repro_torch.kernels.s2fp8_matmul import WRAPPERS, qmatmul_batched
-from repro_torch.kernels.s2fp8_quant import (dequant, quant_apply,
-                                             truncate_apply)
+from repro_torch.kernels.s2fp8_quant import (dequant, quant, quant_apply,
+                                             stats_partials, truncate_apply,
+                                             truncate_fused)
 
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
@@ -33,9 +41,27 @@ def _contig_payload(p: torch.Tensor) -> torch.Tensor:
         p.view(torch.uint8).contiguous().view(p.dtype)
 
 
-def quant_nd(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
-    """Payload of ``x`` in ``x``'s shape, any rank."""
-    return quant_apply(_kernel_input(x).contiguous(), stats, fmt)
+def stats_partials_nd(x: torch.Tensor):
+    """(sum log2|x|, max log2|x|, nonzero count) of ``x`` (any rank) from
+    the stats kernel, three f32 scalars on x's device."""
+    triplet, _ = stats_partials(_kernel_input(x).contiguous())
+    return triplet[0], triplet[1], triplet[2]
+
+
+def stats_nd(x: torch.Tensor, target_max: float = s2fp8.TARGET_MAX_LOG2
+             ) -> torch.Tensor:
+    """(alpha, beta) of ``x`` (any rank) from the stats kernel, f32 [2]."""
+    return stats_partials(_kernel_input(x).contiguous(), target_max)[1]
+
+
+def quant_nd(x: torch.Tensor, stats=None, fmt: str = "e5m2"):
+    """(payload in ``x``'s shape, ab), any rank: with ``stats``, the
+    quantize-apply kernel; without, the quantize-with-stats kernel."""
+    x = _kernel_input(x).contiguous()
+    if stats is None:
+        return quant(x, fmt)
+    ab = s2fp8.as_stats(stats, x.device)
+    return quant_apply(x, ab, fmt), ab
 
 
 def dequant_nd(payload: torch.Tensor, stats, dtype=torch.float32
@@ -44,9 +70,18 @@ def dequant_nd(payload: torch.Tensor, stats, dtype=torch.float32
     return dequant(_contig_payload(payload), stats).to(dtype)
 
 
-def truncate_nd(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
-    """Eq. 5 round trip of ``x`` (any rank), in ``x``'s dtype."""
-    y = truncate_apply(_kernel_input(x).contiguous(), stats, fmt)
+def truncate_nd(x: torch.Tensor, stats=None, fmt: str = "e5m2",
+                fused_stats: bool = False) -> torch.Tensor:
+    """Eq. 5 round trip of ``x`` (any rank), in ``x``'s dtype.  Without
+    ``stats``: exact stats of ``x``, in the fused kernel with
+    ``fused_stats``, else from the torch reduction."""
+    xk = _kernel_input(x).contiguous()
+    if stats is None and fused_stats:
+        y, _ = truncate_fused(xk, fmt)
+    else:
+        if stats is None:
+            stats = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+        y = truncate_apply(xk, stats, fmt)
     return y.to(x.dtype)
 
 

@@ -2,6 +2,7 @@
 ground truth each kernel's plain version is built from."""
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -36,6 +37,22 @@ def gemm_dims(layout: str, a_shape, b_shape):
 def s2fp8_dequant_ref(payload, ab, dtype=torch.float32):
     return s2fp8.dequantize(s2fp8.S2FP8Tensor(payload, s2fp8.as_stats(
         ab, payload.device)), dtype)
+
+
+def s2fp8_stats_partials_ref(x: torch.Tensor) -> torch.Tensor:
+    """Stats reduction oracle: f32 [3] of (sum log2|X|, max log2|X|,
+    nonzero count) over the nonzero elements (zeros and NaNs left out),
+    the sum taken in f64 and rounded once to f32, the count exact before
+    its cast: the reduction the stats kernels compute, in another order.
+    ``max`` is -inf for an all-zero (or empty) tensor."""
+    absx = x.detach().abs().float()
+    nonzero = absx > 0.0
+    logx = torch.log2(absx)
+    log_max = (logx.masked_fill(~nonzero, -math.inf).max() if x.numel()
+               else torch.tensor(-math.inf, device=x.device))
+    log_sum = logx.masked_fill_(~nonzero, 0.0).double().sum()
+    return torch.stack([log_sum.float(), log_max,
+                        nonzero.sum().float()])
 
 
 def s2fp8_truncate_ref(x, stats=None, fmt: str = "e5m2"):

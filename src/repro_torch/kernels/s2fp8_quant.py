@@ -1,17 +1,29 @@
-"""S2FP8 quantize-apply, truncate-apply and dequantize: CUDA kernels +
-plain versions.
+"""S2FP8 quantize-apply, truncate-apply, dequantize and the statistics
+kernels: CUDA kernels + plain versions.
 
-``quant_apply`` replaces ``quant_apply_pallas`` (_apply_kernel),
-``truncate_apply`` replaces ``truncate_apply_pallas`` (_truncate_kernel /
-_truncate_body) and ``dequant`` replaces ``dequant_pallas``
-(_dequant_kernel) of ``src/repro/kernels/s2fp8_quant.py``.  Kernel source:
-``repro_torch/csrc/s2fp8_quant.cu`` (element maps in s2fp8_common.cuh).
+Of ``src/repro/kernels/s2fp8_quant.py``: ``quant_apply`` replaces
+``quant_apply_pallas`` (_apply_kernel), ``truncate_apply`` replaces
+``truncate_apply_pallas`` (_truncate_kernel / _truncate_body), ``dequant``
+replaces ``dequant_pallas`` (_dequant_kernel), ``stats_partials``
+replaces ``stats_pallas`` (_stats_kernel), ``quant`` replaces
+``quant_pallas`` (stats, then apply) and ``truncate_fused`` replaces
+``truncate_fused_pallas`` (_truncate_fused_kernel).  Kernel source:
+``repro_torch/csrc/s2fp8_quant.cu`` (element maps and the stats reduction
+in s2fp8_common.cuh).
 
 Bound on the card: bytes — one read of the input (f32 or bf16, or the
-1-byte payload) and one write of the output per element.  Design: a
-grid-stride elementwise loop, (alpha, beta) read through a device pointer
-(no host sync); dequantize looks each byte up in a per-block 256-entry
-table of the Eq. 4 inverse map.
+1-byte payload) and one write of the output per element; the stats read
+the input once, quantize-with-stats and the fused truncate twice.  Design:
+a grid-stride elementwise loop, (alpha, beta) read through a device
+pointer (no host sync); dequantize looks each byte up in a per-block
+256-entry table of the Eq. 4 inverse map.  The stats are a deterministic
+two-stage reduction (per-block partials with the sum in f64 and the count
+in 64-bit integers, then one block sums them in a fixed order; no
+atomics), and the fused truncate is one cooperative launch whose phase 0
+is that reduction: it equals ``truncate_apply(x, stats(x))`` bit for bit.
+
+The stats wrappers return the triplet (sum log2|x|, max log2|x|, nonzero
+count) as f32 [3] and (alpha, beta) as f32 [2], both on x's device.
 """
 from __future__ import annotations
 
@@ -64,6 +76,106 @@ def truncate_apply_plain(x: torch.Tensor, stats, fmt: str = "e5m2"
 def dequant_plain(payload: torch.Tensor, stats) -> torch.Tensor:
     """Plain version: the Eq. 4 inverse map of the payload, f32."""
     return ref.s2fp8_dequant_ref(payload, stats)
+
+
+def _stats_plain(x: torch.Tensor, target_max: float):
+    triplet = ref.s2fp8_stats_partials_ref(x)
+    alpha, beta = s2fp8.stats_from_reduction(triplet[0], triplet[1],
+                                             triplet[2], target_max)
+    return triplet, torch.stack([alpha, beta])
+
+
+@plain_version
+def stats_partials_plain(x: torch.Tensor,
+                         target_max: float = s2fp8.TARGET_MAX_LOG2):
+    """Plain version: (triplet, ab) from ``ref.s2fp8_stats_partials_ref``
+    and ``s2fp8.stats_from_reduction``."""
+    return _stats_plain(x, target_max)
+
+
+@plain_version
+def quant_plain(x: torch.Tensor, fmt: str = "e5m2"):
+    """Plain version: (payload, ab) — the stats of x for ``fmt``'s range,
+    then the quantize-apply map with them."""
+    _, ab = _stats_plain(x, s2fp8.FMT_TARGET_MAX[fmt])
+    return s2fp8.quantize(x, stats=ab, fmt=fmt).payload, ab
+
+
+@plain_version
+def truncate_fused_plain(x: torch.Tensor, fmt: str = "e5m2"):
+    """Plain version: (out in x's dtype, ab) — the stats of x for
+    ``fmt``'s range, then the Eq. 5 round trip with them."""
+    _, ab = _stats_plain(x, s2fp8.FMT_TARGET_MAX[fmt])
+    return ref.s2fp8_truncate_ref(x, stats=ab, fmt=fmt), ab
+
+
+# per-block partials of the stats kernels (24 B each; the card's grid rule
+# stays under 4096 blocks, and the library checks it)
+_STATS_SCRATCH_BYTES = 24 * 4096
+
+
+def _stats_outputs(x: torch.Tensor):
+    """(scratch, triplet, ab) for one stats launch on x's device."""
+    scratch = torch.empty(_STATS_SCRATCH_BYTES, dtype=torch.uint8,
+                          device=x.device)
+    out = torch.empty(5, dtype=torch.float32, device=x.device)
+    return scratch, out[:3], out[3:]
+
+
+def stats_partials(x: torch.Tensor,
+                   target_max: float = s2fp8.TARGET_MAX_LOG2):
+    """(triplet f32 [3], ab f32 [2]) of ``x`` (f32 or bf16, any shape):
+    the Eq. 3-4 reduction and the (alpha, beta) it gives for a range of
+    2^target_max.  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return stats_partials_plain(x, target_max)
+    check_cuda_operand(x, "x", tuple(DTYPE_ID))
+    scratch, triplet, ab = _stats_outputs(x)
+    rc = build.load("s2fp8_quant").s2fp8_stats(
+        x.data_ptr(), DTYPE_ID[x.dtype], x.numel(), scratch.data_ptr(),
+        scratch.numel(), triplet.data_ptr(), ab.data_ptr(), target_max,
+        build.stream_ptr(x.device))
+    build.check(rc, "s2fp8_stats")
+    stats_partials.launches += 1
+    return triplet, ab
+
+
+def quant(x: torch.Tensor, fmt: str = "e5m2"):
+    """(payload, ab): ``x`` quantized with its own exact stats for
+    ``fmt`` — the stats kernel, then quantize-apply with (alpha, beta)
+    read on the device.  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return quant_plain(x, fmt)
+    check_cuda_operand(x, "x", tuple(DTYPE_ID))
+    scratch, triplet, ab = _stats_outputs(x)
+    out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
+    rc = build.load("s2fp8_quant").s2fp8_quant(
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
+        scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
+        ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
+        build.stream_ptr(x.device))
+    build.check(rc, "s2fp8_quant")
+    quant.launches += 1
+    return out.view(s2fp8.FMT_QDTYPE[fmt]), ab
+
+
+def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
+    """(out, ab): the Eq. 5 round trip of ``x`` with its own exact stats,
+    out in ``x``'s dtype — one cooperative launch (stats, grid barrier,
+    apply).  CPU tensors take the plain version."""
+    if x.device.type == "cpu":
+        return truncate_fused_plain(x, fmt)
+    check_cuda_operand(x, "x", tuple(DTYPE_ID))
+    scratch, triplet, ab = _stats_outputs(x)
+    out = torch.empty_like(x)
+    rc = build.load("s2fp8_quant").s2fp8_truncate_fused(
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), DTYPE_ID[x.dtype],
+        x.numel(), scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
+        ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
+        build.stream_ptr(x.device))
+    build.check(rc, "s2fp8_truncate_fused")
+    truncate_fused.launches += 1
+    return out, ab
 
 
 def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
@@ -119,3 +231,6 @@ def dequant(payload: torch.Tensor, stats) -> torch.Tensor:
 quant_apply.launches = 0
 truncate_apply.launches = 0
 dequant.launches = 0
+stats_partials.launches = 0
+quant.launches = 0
+truncate_fused.launches = 0

@@ -7,12 +7,18 @@
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch deepseek_moe_16b --n-layers 4 --steps 4 --batch 4 --seq 512 \
         --stats-refresh-every 8      # full width, depth cut to 4 layers
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+        --backend cuda_fused --gemm-mode fig4 --steps 3 --batch 4 --seq 512
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
 reference's launcher.  ``--stats-refresh-every k`` trains with the
 StatsBank (refresh every k steps); 0 trains s2fp8 with exact per-call
-stats.  ``--n-layers N`` cuts the depth to the first N layers of the
+stats.  ``--backend`` picks the numerics engine (``cuda_fused``: the
+exact stats in the stats kernels) and ``--gemm-mode`` the s2fp8 GEMM path
+(``payload``, or ``fig4``: the truncation chain around f32 products); the
+header line prints both as resolved, and whether f32 products may use
+TF32.  ``--n-layers N`` cuts the depth to the first N layers of the
 config's pattern (widths unchanged) and says so.  Prints one JSON line per
 step: loss, the MoE aux loss, step ms, tokens/s.
 """
@@ -27,8 +33,9 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config, get_reduced_config
+from repro_torch.core import backend as nbackend
 from repro_torch.core import statsbank
-from repro_torch.core.policy import make_policy
+from repro_torch.core.policy import GEMM_MODES, S2FP8_MODES, make_policy
 from repro_torch.data import synthetic
 from repro_torch.models import transformer as tlm
 from repro_torch.optim import optimizers, schedules
@@ -44,6 +51,15 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default="s2fp8",
                     choices=("fp32", "fp8", "s2fp8"))
+    ap.add_argument("--backend", default="auto",
+                    choices=("auto",) + tuple(nbackend.BACKENDS),
+                    help="numerics engine: 'cuda' (kernels, torch stats "
+                         "reductions), 'cuda_fused' (kernels, stats "
+                         "kernels), 'plain'; 'auto' = cuda")
+    ap.add_argument("--gemm-mode", default="auto", choices=GEMM_MODES,
+                    help="s2fp8 GEMMs: 'payload' = qdot_train (payload "
+                         "GEMM kernels), 'fig4' = truncation chain around "
+                         "f32 products; 'auto' = payload")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)
@@ -56,7 +72,7 @@ def main(argv=None):
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.n_layers:
         cfg = cut_depth(cfg, args.n_layers)
-    pol = make_policy(args.policy)
+    pol = make_policy(args.policy, args.backend, args.gemm_mode)
     opt = optimizers.adamw(weight_decay=0.01)
     sched = schedules.make_schedule(
         cfg.schedule if cfg.schedule == "wsd" else "cosine", args.lr,
@@ -80,8 +96,12 @@ def main(argv=None):
     bank = None
     if stats_cfg is not None:
         bank = statsbank.init_bank(loss_fn, params, data(0), pol, stats_cfg)
+    gemm = ("-" if pol.mode not in S2FP8_MODES
+            else "payload" if pol.uses_payload_gemm else "fig4")
     print(f"[train] {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
           f"{cfg.n_params() / 1e6:.1f} M params, policy {args.policy}, "
+          f"backend {args.backend} -> {pol.backend_obj.name}, gemm {gemm}, "
+          f"tf32 {torch.backends.cuda.matmul.allow_tf32}, "
           f"bank {'off' if bank is None else f'{len(bank)} sites'}, on {dev}",
           flush=True)
     for s in range(args.steps):

@@ -47,7 +47,7 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
 
 def _encode(x: torch.Tensor, stats, cache_fmt: str) -> torch.Tensor:
     """Values -> pool payload bytes."""
-    return dispatch.quant_nd(x, stats, cache_fmt)
+    return dispatch.quant_nd(x, stats, cache_fmt)[0]
 
 
 def kv_stats_from_bank(bank: Dict[str, Any], cfg: ArchConfig,

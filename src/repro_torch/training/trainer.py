@@ -28,7 +28,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import statsbank
-from repro_torch.core.policy import Policy
+from repro_torch.core.policy import S2FP8_MODES, Policy
 from repro_torch.optim.optimizers import (Optimizer, global_norm,
                                           tree_leaves, tree_unflatten)
 
@@ -41,7 +41,7 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     ``statsbank.init_bank(loss_fn, params, batch, policy, stats)``).
     Metrics: loss, grad_norm (before clipping), lr, the loss_fn's own, and
     with a bank ``stats_refreshed`` (1.0 when any site refreshed)."""
-    if stats is not None and not policy.uses_payload_gemm:
+    if stats is not None and policy.mode not in S2FP8_MODES:
         raise ValueError(
             f"StatsBank requires an s2fp8-mode policy, got {policy.mode!r}")
     # the cold-site map of the bank this step returned last

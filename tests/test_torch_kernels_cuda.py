@@ -11,7 +11,12 @@ NT, TN) within 1e-5 * (|A| @ |B|), epilogue and flash outputs at most one
 grid step apart in at most 1e-3 / 1e-2 of the elements; flash backward
 dq / dk / dv within 1e-4 * max|plain|; paged decode allclose 1e-4
 relative + 1e-5 absolute; the batched GEMM as the 2-D one, raw within
-1e-5 * (|A| @ |B|) summed over each output's groups.
+1e-5 * (|A| @ |B|) summed over each output's groups; the stats kernel's
+max and count equal to the plain version's, its sum within 1e-6 relative
+(f64 sums in another order), (alpha, beta) within 4 ulp, and the
+quantize-with-stats and fused truncate kernels bit for bit the
+quantize-apply and truncate-apply kernels under the stats kernel's
+(alpha, beta).
 """
 import pytest
 import torch
@@ -261,3 +266,75 @@ def test_qflash_fwd_bwd_kernels_head_dim_128(dev, g):
     for x, y in zip(got, want):
         assert bool(torch.isfinite(x).all())
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def _ulps(a, b):
+    """Distance in units of the last place between two f32 tensors of the
+    same signs."""
+    return (a.float().view(torch.int32).long()
+            - b.float().view(torch.int32).long()).abs()
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(1000, 333), (3000, 4096), (7,), (0,)])
+def test_stats_quant_truncate_fused_kernels(dev, fmt, dtype, shape):
+    """The stats kernel, quantize-with-stats and the fused truncate against
+    their plain versions: max and count equal, sum within 1e-6 relative,
+    (alpha, beta) within 4 ulp, payload and truncated codes at most one
+    step apart in at most 1e-4 of the elements; and against each other bit
+    for bit (quant = quant_apply with the stats kernel's (alpha, beta),
+    truncate_fused = truncate_apply with them), on every run."""
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = (torch.randn(shape, generator=gen, device=dev) * 1e-3).to(dtype)
+    target = s2fp8.FMT_TARGET_MAX[fmt]
+    tk, abk = s2fp8_quant.stats_partials(x, target)
+    tp, abp = s2fp8_quant.stats_partials_plain(x, target)
+    assert torch.equal(tk[1:], tp[1:])
+    assert (tk[0] - tp[0]).abs() <= 1e-6 * tp[0].abs()
+    assert _ulps(abk, abp).max() <= 4
+    tk2, abk2 = s2fp8_quant.stats_partials(x, target)
+    assert torch.equal(tk, tk2) and torch.equal(abk, abk2)
+
+    pk, qab = s2fp8_quant.quant(x, fmt)
+    assert torch.equal(qab, abk)
+    assert torch.equal(pk.view(torch.uint8),
+                       s2fp8_quant.quant_apply(x, abk, fmt).view(torch.uint8))
+    pp, _ = s2fp8_quant.quant_plain(x, fmt)
+    d = (_ordinal(pk) - _ordinal(pp)).abs()
+    assert d.numel() == 0 or (d.max() <= 1 and (d != 0).float().mean() <= 1e-4)
+
+    ok, oab = s2fp8_quant.truncate_fused(x, fmt)
+    assert ok.dtype == dtype and torch.equal(oab, abk)
+    assert torch.equal(ok, s2fp8_quant.truncate_apply(x, abk, fmt))
+    op, _ = s2fp8_quant.truncate_fused_plain(x, fmt)
+    d = _steps(ok, op, abk, fmt)
+    assert d.numel() == 0 or (d.max() <= 1 and (d != 0).float().mean() <= 1e-4)
+    c = kernels.counts()
+    assert c["stats"]["launches"] == 2 and c["quant"]["launches"] == 1
+    assert c["truncate_fused"]["launches"] == 1
+
+
+def test_stats_kernels_degenerate_inputs(dev):
+    """All zeros -> (1, 0) and zeros back; a constant comes back unchanged;
+    NaNs are left out of the stats and truncate to zero, as in the plain
+    versions."""
+    z = torch.zeros(4096, 33, device=dev)
+    tk, ab = s2fp8_quant.stats_partials(z)
+    assert tk.tolist() == [0.0, float("-inf"), 0.0] and ab.tolist() == [1, 0]
+    out, ab = s2fp8_quant.truncate_fused(z)
+    assert ab.tolist() == [1.0, 0.0] and not out.any()
+    c = torch.full((300, 77), 2.75, device=dev)
+    out, ab = s2fp8_quant.truncate_fused(c)
+    assert torch.equal(ab, s2fp8_quant.truncate_fused_plain(c)[1])
+    assert (out - 2.75).abs().max() <= 2.75e-2
+    x = torch.randn(513, 129, device=dev)
+    x[::3, ::5] = float("nan")
+    tk, abk = s2fp8_quant.stats_partials(x)
+    tz, abz = s2fp8_quant.stats_partials(torch.nan_to_num(x, nan=0.0))
+    assert torch.equal(tk, tz) and torch.equal(abk, abz)
+    out, _ = s2fp8_quant.truncate_fused(x)
+    want, _ = s2fp8_quant.truncate_fused_plain(x)
+    assert not out.isnan().any()
+    d = _steps(out, want, abk)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
