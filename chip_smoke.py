@@ -9,10 +9,12 @@ Phases, each fatal on failure:
              (nvidia-smi) and the software versions.
 2. build   — compiles every CUDA kernel of the serving and training paths
              from src/repro_torch/csrc (one nvcc per source, all at once).
-3. kernels — holds each of the thirteen kernels against its plain
+3. kernels — holds each of the fifteen kernels against its plain
              PyTorch version on the card at the serving and training
-             paths' shapes (the MoE's expert GEMMs, head dim 128 and the
-             exact-stats path's tensors included), with the tolerance
+             paths' shapes (the MoE's expert GEMMs, head dim 128, the
+             exact-stats path's tensors, serve-mamba's selective scan and
+             the plain flash forward of ``kernels.ops`` included), with the
+             tolerance
              stated beside each check, and times kernel, plain version
              and a library yardstick with CUDA events.
 4. small   — the reduced models on the card through the kernels and
@@ -25,7 +27,12 @@ Phases, each fatal on failure:
              minicpm on the cuda_fused engine, exact stats in payload and
              in fig4 mode and the bank at k = 2, held the same way; and
              one counted step each: the cuda_fused exact step runs as
-             many aten reductions as the fp32 step, the cuda one more.
+             many aten reductions as the fp32 step, the cuda one more; and
+             reduced falcon_mamba_7b served by LMServer through the
+             kernels and through the plain versions, in fp32 (every scan
+             call held against its plain version, the same greedy tokens)
+             and in s2fp8 on cuda_fused (every kernel call held, close
+             logits).
 5. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
              a seeded generator: calibrate the frozen bank, then serve 16
              requests through PayloadLMServer (8 slots, max_len 1024,
@@ -54,6 +61,18 @@ Phases, each fatal on failure:
              fused truncate kernel around f32 torch.matmul / einsum, TF32
              off), 3 steps: the fused truncate must have launched, no plain
              version may have run, every loss finite.
+10. serve-mamba — full-width falcon_mamba_7b at full depth (64 mamba1
+             layers, d 4096, di 8192, state 16, vocab 65,024, untied head;
+             7.27 B f32 params) from a seeded generator, served through the
+             dense-cache LMServer: 8 slots, 8 requests with prompts of
+             64-512 tokens, 16 new tokens each, s2fp8 with exact per-call
+             stats on the cuda_fused engine and payload GEMMs.  Every
+             prefill must launch the selective-scan kernel once per layer,
+             every kernel of the path must have launched and no plain
+             version may have run.
+11. ops      — each function of ``repro_torch.kernels.ops`` once on the
+             card: each one's kernel must launch, and its result must agree
+             with the same function's oracle (``use_kernel=False``).
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -93,6 +112,8 @@ REPLACES = {
     "qflash_fwd": "src/repro/kernels/flash_attention.py:287",
     "qflash_bwd": "src/repro/kernels/flash_attention.py:348",
     "paged_decode": "src/repro/kernels/paged_attention.py:89",
+    "selective_scan": "src/repro/kernels/selective_scan.py:58",
+    "flash_fwd": "src/repro/kernels/flash_attention.py:91",
 }
 SOURCES = {
     "quant_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
@@ -108,10 +129,13 @@ SOURCES = {
     "qflash_fwd": "src/repro_torch/csrc/flash_attention.cu",
     "qflash_bwd": "src/repro_torch/csrc/flash_attention.cu",
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
+    "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
+    "flash_fwd": "src/repro_torch/csrc/flash_attention.cu",
 }
 # the kernels each main path runs (phase 5 serves, phase 6 trains minicpm,
 # phase 7 trains deepseek_moe_16b, phases 8 and 9 train minicpm with exact
-# stats on the cuda_fused engine, payload and fig4)
+# stats on the cuda_fused engine, payload and fig4, phase 10 serves
+# falcon_mamba_7b with exact stats on cuda_fused, phase 11 calls the ops)
 SERVE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn", "qmatmul_nt",
                  "qflash_fwd", "paged_decode")
 TRAIN_KERNELS = ("quant_apply", "truncate_apply", "dequant", "qmatmul_nn",
@@ -120,6 +144,12 @@ TRAIN_MOE_KERNELS = TRAIN_KERNELS + ("qmatmul_batched",)
 STATS_KERNELS = ("stats", "quant", "truncate_fused")
 TRAIN_EXACT_KERNELS = TRAIN_KERNELS + STATS_KERNELS
 TRAIN_FIG4_KERNELS = ("truncate_fused",)
+SERVE_MAMBA_KERNELS = STATS_KERNELS + ("truncate_apply", "qmatmul_nn",
+                                       "selective_scan")
+OPS_KERNELS = ("quant", "dequant", "truncate_apply", "qmatmul_nn",
+               "flash_fwd")
+PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
+          "serve_mamba", "ops")
 
 
 def log(msg: str) -> None:
@@ -400,7 +430,97 @@ def phase_kernels(dev) -> dict:
     train_kernel_checks(dev, rnd, record)
     moe_kernel_checks(dev, rnd, record)
     stats_kernel_checks(dev, rnd, record)
+    mamba_ops_kernel_checks(dev, rnd, record)
     return rows
+
+
+def mamba_ops_kernel_checks(dev, rnd, record) -> None:
+    """The selective scan at serve-mamba's largest prefill (8 rows x bucket
+    512, di 8192, 16 states, f32, the model's A = -(1..16) per channel)
+    and the plain flash forward of ``kernels.ops`` at 4 x 32 heads x 2048
+    x d 128 causal (the time kept), 4 x 32 heads x 512 queries over 2048
+    keys with a window of 1024, and a ragged bf16 non-causal case."""
+    from repro_torch.kernels import flash_attention
+    from repro_torch.kernels import selective_scan as ss
+
+    # -- selective_scan.  Tolerance: y and the final h each within 1e-5 *
+    # max |plain| (the state update rounds the same ops in the same order
+    # on both sides, so h should agree bit for bit but for the math
+    # library's exp; y's 16-term sum over the states runs in another
+    # order).  No single PyTorch call computes the scan: library none.
+    b, s, di, n = 8, 512, 8192, 16
+    x = rnd(b, s, di, scale=0.5)
+    dt = torch.nn.functional.softplus(rnd(b, s, di) - 1.0)
+    bm, cm = rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    d_skip = torch.ones(di, device=dev)
+    args = (x, dt, bm, cm, a, d_skip)
+    yk, hk = ss.selective_scan(*args)
+    yp, hp = ss.selective_scan_plain(*args)
+    ey, eh = (yk - yp).abs().max().item(), (hk - hp).abs().max().item()
+    ty, th = yp.abs().max().item(), hp.abs().max().item()
+    log(f"selective_scan B={b} S={s} di={di} n={n}: y err {ey:.3e} (max "
+        f"{ty:.3e}), h err {eh:.3e} (max {th:.3e}), h equal "
+        f"{bool(torch.equal(hk, hp))}")
+    assert ey <= 1e-5 * ty and eh <= 1e-5 * th, (ey, ty, eh, th)
+    record("selective_scan", max(ey, eh),
+           cuda_time(lambda: ss.selective_scan(*args)),
+           cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
+                     warmup=1), None,
+           4 * (3 * b * s * di + 2 * b * s * n + di * n + di + b * di * n),
+           float(b * s * di * (7 * n + 3)), f"B={b} S={s} di={di} n={n} f32")
+    del args, x, dt, bm, cm, a, d_skip, yk, hk, yp, hp
+
+    # -- flash_fwd.  Tolerance: f32 allclose at rtol 2e-4, atol 2e-5, the
+    # reference's own tolerance for its kernel against the oracle (the
+    # online softmax runs in 64-key tiles here, 512 in the plain version);
+    # bf16 outputs within rtol 1e-2, atol 1e-3 (one bf16 rounding of f32
+    # values that differ in the last bits).  Library: SDPA on the same
+    # tensors (f32, TF32 off), with a boolean mask for the window.
+    cases = [(2, 4, 200, 333, 80, False, None, torch.bfloat16, False),
+             (4, 32, 512, 2048, 128, True, 1024, torch.float32, False),
+             (4, 32, 2048, 2048, 128, True, None, torch.float32, True)]
+    for b, h, sq, sk, d, causal, window, dtype, keep in cases:
+        q = rnd(b, h, sq, d, dtype=dtype)
+        k, v = rnd(b, h, sk, d, dtype=dtype), rnd(b, h, sk, d, dtype=dtype)
+        ok = flash_attention.flash_attention(q, k, v, causal=causal,
+                                             window=window)
+        op = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                                   window=window)
+        err = (ok.float() - op.float()).abs()
+        rtol, atol = ((2e-4, 2e-5) if dtype == torch.float32
+                      else (1e-2, 1e-3))
+        log(f"flash_fwd B={b} H={h} Sq={sq} Sk={sk} d={d} causal={causal} "
+            f"window={window} {dtype}: max err {err.max().item():.3e}")
+        assert ok.dtype == dtype
+        assert bool((err <= atol + rtol * op.float().abs()).all()), \
+            err.max().item()
+        qpos = torch.arange(sq, device=dev)[:, None] + (sk - sq)
+        kpos = torch.arange(sk, device=dev)[None, :]
+        mask = torch.ones((sq, sk), dtype=torch.bool, device=dev)
+        if causal:
+            mask &= kpos <= qpos
+        if window:
+            mask &= kpos > qpos - window
+        pairs = int(mask.sum().item())
+        sdpa_mask = None if (window is None and (not causal or sq == sk)) \
+            else mask
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=sdpa_mask,
+                is_causal=causal and sdpa_mask is None)
+        es = q.element_size()
+        record("flash_fwd", err.max().item(),
+               cuda_time(lambda: flash_attention.flash_attention(
+                   q, k, v, causal=causal, window=window)),
+               cuda_time(lambda: flash_attention.flash_attention_plain(
+                   q, k, v, causal=causal, window=window), iters=3),
+               cuda_time(library), es * (2 * q.numel() + 2 * k.numel()),
+               4.0 * b * h * pairs * d,
+               f"B={b} H={h} Sq={sq} Sk={sk} d={d} causal={causal} "
+               f"window={window} {str(dtype)[6:]}", keep=keep)
+        del q, k, v, ok, op, err
 
 
 def train_kernel_checks(dev, rnd, record) -> None:
@@ -1378,6 +1498,115 @@ def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
         f"{tally}")
 
 
+@contextlib.contextmanager
+def scan_route(check: bool):
+    """Routes the mamba1 blocks' selective scan: with ``check``, through
+    the kernel, each call held against the plain version on the same
+    inputs (y and h within 1e-5 * max |plain|, phase 3's tolerance); else
+    through the plain version.  Yields the tally of calls checked."""
+    from repro_torch.kernels import selective_scan as ss
+    from repro_torch.models import blocks
+    kernel, tally = blocks.selective_scan, {"calls": 0, "differ": 0}
+
+    def checked(*args):
+        yk, hk = kernel(*args)
+        yp, hp = ss.selective_scan_plain(*args)
+        for got, want in ((yk, yp), (hk, hp)):
+            err, top = (got - want).abs().max().item(), want.abs().max().item()
+            assert err <= 1e-5 * top, ("selective_scan", err, top)
+            tally["differ"] += int((got != want).sum())
+        tally["calls"] += 1
+        return yk, hk
+
+    blocks.selective_scan = checked if check else ss.selective_scan_plain
+    try:
+        yield tally
+    finally:
+        blocks.selective_scan = kernel
+
+
+def phase_small_mamba(dev) -> None:
+    """Reduced falcon_mamba_7b (4 mamba1 layers, d 128, di 256, 8 states,
+    vocab 512) served by LMServer on the card (4 slots, prompts of 5, 8, 3
+    and 20 tokens: buckets 8, 8, 4 and 32, so three are padded), once
+    through the kernels and once through the plain versions, from the same
+    seeded params.  fp32: every scan call held against its plain version
+    and the same greedy tokens.  s2fp8, exact stats, payload GEMMs: the
+    cuda_fused engine run as the ``checked_engine`` (every kernel call held
+    against its plain version on the same inputs, phase 3's tolerances)
+    against the plain engine; logits finite, and at each step the rows
+    whose tokens so far agree within max |diff| <= 0.5 and mean <= 0.1
+    (the two engines' exact stats differ in their last bits, f64 against
+    f32 sums, which moves payload codes across rounding boundaries and
+    spreads through the recurrence; the CPU tests see the same between the
+    port and the reference)."""
+    import numpy as np
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import transformer as tlm
+    from repro_torch.serving.engine import LMServer, Request
+
+    cfg = get_reduced_config("falcon_mamba_7b")
+    params = tlm.init_lm(cfg, seed=1, device=dev)
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in (5, 8, 3, 20)]
+
+    def serve(pol):
+        """Greedy tokens per request and, per step, (logits of the rows it
+        ran [rows, V], rows, tokens each row had emitted)."""
+        srv = LMServer(cfg, params, pol, slots=len(prompts), max_len=64)
+        steps = []
+        prefill, decode = srv._prefill, srv._decode
+
+        def p(params_, tokens, last):
+            out = prefill(params_, tokens, last)
+            rows = (tokens != 0).any(dim=1).nonzero()[:, 0].tolist()
+            steps.append((out[0][rows, -1].float(), rows, 0))
+            return out
+
+        def d(*args):
+            rows = [s for s, r in enumerate(srv.slot_req) if r is not None]
+            n_out = len(srv.slot_req[rows[0]].out)
+            out = decode(*args)
+            steps.append((out[0][rows, -1].float(), rows, n_out))
+            return out
+
+        srv._prefill, srv._decode = p, d
+        reqs = [Request(prompt=x, max_new_tokens=6) for x in prompts]
+        for r in reqs:
+            srv.submit(r)
+        srv.run_to_completion()
+        return [r.out for r in reqs], steps
+
+    with scan_route(check=True) as scans:
+        tk, _ = serve(make_policy("fp32"))
+    with scan_route(check=False):
+        tp, _ = serve(make_policy("fp32"))
+    log(f"small mamba fp32: tokens kernels {tk} plain {tp}; scan calls "
+        f"held against the plain version: {scans}")
+    assert tk == tp, "kernel and plain scans chose different tokens"
+
+    with checked_engine("fused") as tally, scan_route(check=True) as scans:
+        tk, sk = serve(make_policy("s2fp8", "checked", "payload"))
+    with scan_route(check=False):
+        tp, sp = serve(make_policy("s2fp8", "plain", "payload"))
+    log(f"small mamba s2fp8: tokens kernels {tk} plain {tp}; kernel calls "
+        f"held against their plain versions: {tally}, scans {scans}")
+    assert len(sk) == len(sp)
+    for i, ((lk, rows, n_out), (lp, rows_p, _)) in enumerate(zip(sk, sp)):
+        assert rows == rows_p and bool(torch.isfinite(lk).all()), i
+        same = [j for j, r in enumerate(rows) if tk[r][:n_out] == tp[r][:n_out]]
+        if not same:
+            continue
+        dlt = (lk[same] - lp[same]).abs()
+        log(f"small mamba s2fp8 step {i}: {len(same)} rows agree so far, "
+            f"max {dlt.max().item():.4f} mean {dlt.mean().item():.5f}")
+        assert dlt.max().item() <= 0.5 and dlt.mean().item() <= 0.1
+    missing = set(SERVE_MAMBA_KERNELS) - set(tally) - {"selective_scan"}
+    assert not missing and scans["calls"], f"never checked: {missing}"
+
+
 def phase_train(dev, profile: bool = False) -> dict:
     """Full-width minicpm_2b (40 layers, remat) trained through the port's
     entry points: seeded params, seeded Markov batches of 4 x 512 tokens,
@@ -1571,6 +1800,160 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected, profile, *,
     return {"counts": counts, "metrics": metrics}
 
 
+def phase_serve_mamba(dev, profile: bool = False) -> dict:
+    """Full-width falcon_mamba_7b at full depth through the port's entry
+    points: seeded params (``init_lm``), then LMServer with 8 slots serving
+    8 requests (prompts of 64-512 tokens from a seeded generator, 16 new
+    tokens each), s2fp8 with exact per-call stats on the cuda_fused engine
+    and payload GEMMs (no bank).  Every prefill must run the selective-scan
+    kernel once per layer.  Returns the kernel launch counts of this phase
+    and its metrics (tok/s over ``run_to_completion``, prefill ms per call,
+    decode ms per tick, peak device memory).  With ``profile``, an
+    admission tick and five decode ticks of 8 more requests run under
+    torch.profiler afterwards."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import transformer as tlm
+    from repro_torch.serving.engine import LMServer, Request
+
+    cfg = get_config("falcon_mamba_7b")
+    pol = make_policy("s2fp8", "cuda_fused", "payload")
+    t0 = time.perf_counter()
+    params = tlm.init_lm(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    log(f"serve-mamba: falcon_mamba_7b {cfg.n_layers} layers, d="
+        f"{cfg.d_model}, di {cfg.ssm.expand * cfg.d_model}, state "
+        f"{cfg.ssm.state}, vocab {cfg.vocab}, {cfg.n_params() / 1e9:.3f} B "
+        f"params, init {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; engine "
+        f"{pol.backend_obj.name}, payload GEMMs, exact stats")
+    rng = np.random.default_rng(0)
+    prompt_lens = rng.integers(64, 513, 8)
+    reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(n),
+                                        dtype=np.int32), max_new_tokens=16)
+            for n in prompt_lens]
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # the main path starts here
+    server = LMServer(cfg, params, pol, slots=8, max_len=1024)
+    timing = {"prefill": [], "decode": []}
+    scans_per_prefill = []
+    prefill, decode = server._prefill, server._decode
+
+    def timed(kind, fn):
+        def run(*args):
+            before = kernels.counts()["selective_scan"]["launches"]
+            torch.cuda.synchronize()
+            ts = time.perf_counter()
+            out = fn(*args)
+            assert bool(torch.isfinite(out[0].float()).all()), kind
+            torch.cuda.synchronize()
+            timing[kind].append((time.perf_counter() - ts) * 1e3)
+            if kind == "prefill":
+                scans_per_prefill.append(
+                    kernels.counts()["selective_scan"]["launches"] - before)
+            return out
+        return run
+
+    server._prefill = timed("prefill", prefill)
+    server._decode = timed("decode", decode)
+    for r in reqs:
+        server.submit(r)
+    t0 = time.perf_counter()
+    ticks = server.run_to_completion()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.counts()                     # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+
+    for r in reqs:
+        assert len(r.out) == 16, ("request did not complete", len(r.out))
+        assert all(0 <= t < cfg.vocab for t in r.out)
+    check_counts(counts, SERVE_MAMBA_KERNELS)
+    assert scans_per_prefill and all(
+        n == cfg.n_layers for n in scans_per_prefill), scans_per_prefill
+    tokens = sum(len(r.out) for r in reqs)
+    metrics = {
+        "requests": len(reqs), "tokens": tokens, "ticks": ticks,
+        "prompt_tokens": int(prompt_lens.sum()),
+        "wall_s": wall, "tok_per_s": tokens / wall,
+        "prefill_calls": len(timing["prefill"]),
+        "prefill_ms": timing["prefill"],
+        "prefill_ms_mean": float(np.mean(timing["prefill"])),
+        "decode_ticks": len(timing["decode"]),
+        "decode_ms_median": float(np.median(timing["decode"])),
+        "decode_ms_mean": float(np.mean(timing["decode"])),
+        "prefill_shapes": sorted(server.prefill_shapes),
+        "scans_per_prefill": scans_per_prefill,
+        "max_memory_allocated_gb": peak / 1e9,
+        "cache_bytes": server.cache_bytes(),
+    }
+    log("serve-mamba metrics: " + json.dumps(metrics))
+    log("serve-mamba launches: " + json.dumps(counts))
+    for i, r in enumerate(reqs[:2]):
+        log(f"  req{i} ({len(r.prompt)} prompt tokens): {r.out[:8]}...")
+    if profile:
+        server._prefill, server._decode = prefill, decode
+        phase_profile(server)
+    return {"counts": counts, "metrics": metrics}
+
+
+def phase_ops(dev) -> dict:
+    """Each function of ``repro_torch.kernels.ops`` once on CUDA tensors
+    (``use_kernel=None``): quantize and dequantize a 1024 x 2304 f32
+    activation, truncate it, multiply its payload by a 2304 x 576 weight's,
+    and flash attention over 2 x 8 heads x 256 x 64 (causal).  Every one's
+    kernel must launch and no plain version may run.  Each result is then
+    held against the oracle (``use_kernel=False``): quantize within 4 ulp
+    on (alpha, beta) and codes one step apart in at most 1e-3 of the
+    elements (kernel stats sum in f64, the oracle's in f32); dequantize
+    within 1e-6 relative; truncate codes one step apart in at most 1e-4;
+    the GEMM within 1e-5 * max |oracle|; attention allclose at rtol 2e-4,
+    atol 2e-5."""
+    from repro_torch import kernels
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import ops
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn(1024, 2304, generator=gen, device=dev) * 0.05
+    w = torch.randn(2304, 576, generator=gen, device=dev) / 48.0
+    q, k, v = (torch.randn(2, 8, 256, 64, generator=gen, device=dev)
+               for _ in range(3))
+    kernels.reset_counts()                        # the ops start here
+    px, ax, bx = ops.s2fp8_quant(x)
+    pw, aw, bw = ops.s2fp8_quant(w)
+    dx = ops.s2fp8_dequant(px, ax, bx)
+    tx = ops.s2fp8_truncate(x)
+    y = ops.s2fp8_matmul(px, ax, bx, pw, aw, bw)
+    o = ops.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    counts = kernels.counts()                     # ... and end here
+    check_counts(counts, OPS_KERNELS)
+
+    po, ao, bo = ops.s2fp8_quant(x, use_kernel=False)
+    u = ulps(torch.stack([ax, bx]), torch.stack([ao, bo]))
+    fq = flips(code_ordinal(px), code_ordinal(po))
+    ed = ((dx - ops.s2fp8_dequant(px, ax, bx, use_kernel=False)).abs()
+          / dx.abs().clamp(min=1e-30)).max().item()
+    to = ops.s2fp8_truncate(x, use_kernel=False)
+    ab = s2fp8.compute_stats(x)         # the stats both truncations use
+    ft = flips(ordinal(tx, ab, "e5m2"), ordinal(to, ab, "e5m2"))
+    yo = ops.s2fp8_matmul(px, ax, bx, pw, aw, bw, use_kernel=False)
+    ey, ty = (y - yo).abs().max().item(), yo.abs().max().item()
+    oo = ops.flash_attention(q, k, v, causal=True, use_kernel=False)
+    eo = (o - oo).abs()
+    log(f"ops: quant stats {u} ulp, flips {fq}; dequant rel err {ed:.2e}; "
+        f"truncate flips {ft}; matmul err {ey:.3e} of {ty:.3e}; attention "
+        f"err {eo.max().item():.3e}")
+    assert u <= 4 and fq["max_step"] <= 1 and fq["frac"] <= 1e-3, (u, fq)
+    assert ed <= 1e-6 and ey <= 1e-5 * ty, (ed, ey, ty)
+    assert ft["max_step"] <= 1 and ft["frac"] <= 1e-4, ft
+    assert bool((eo <= 2e-5 + 2e-4 * oo.abs()).all()), eo.max().item()
+    log("ops launches: " + json.dumps(counts))
+    return {"counts": counts}
+
+
 def _stepper(train_step):
     """``step(params, opt_state, bank, batch, i) -> (params, opt_state,
     bank, metrics)`` for a banked or a bank-less train step (bank None)."""
@@ -1686,7 +2069,7 @@ def main() -> int:
                     help="print nvcc -Xptxas -v register/smem reports")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler device time by kernel for "
-                         "one admission and five decode ticks of the "
+                         "one admission and five decode ticks of each "
                          "server and one steady step of each train phase")
     args = ap.parse_args()
 
@@ -1700,6 +2083,7 @@ def main() -> int:
     phase_small_train(dev)
     phase_small_train_moe(dev)
     phase_small_fused(dev)
+    phase_small_mamba(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
@@ -1714,19 +2098,19 @@ def main() -> int:
     trained_exact = phase_train_exact(dev, args.profile)
     free_device_memory()
     trained_fig4 = phase_train_fig4(dev, args.profile)
+    free_device_memory()
+    served_mamba = phase_serve_mamba(dev, args.profile)
+    free_device_memory()
+    by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
+                                 trained_fig4, served_mamba,
+                                 phase_ops(dev))))
     out = []
     for name, row in rows.items():
-        ls = served["counts"][name]["launches"]
-        lt = trained["counts"][name]["launches"]
-        lm = trained_moe["counts"][name]["launches"]
-        le = trained_exact["counts"][name]["launches"]
-        lf = trained_fig4["counts"][name]["launches"]
+        launches = {f"launches_{ph}": r["counts"][name]["launches"]
+                    for ph, r in by_phase.items()}
         out.append({"name": name, "route": "cuda", "source": SOURCES[name],
                     "replaces": REPLACES[name],
-                    "launches": ls + lt + lm + le + lf,
-                    "launches_serve": ls, "launches_train": lt,
-                    "launches_train_moe": lm, "launches_train_exact": le,
-                    "launches_train_fig4": lf,
+                    "launches": sum(launches.values()), **launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],

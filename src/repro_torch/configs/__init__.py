@@ -1,2 +1,3 @@
 from repro_torch.configs.base import (ARCH_IDS, ArchConfig, MoEConfig,
-                                      get_config, get_reduced_config)
+                                      SSMConfig, get_config,
+                                      get_reduced_config)

@@ -3,15 +3,15 @@
 The port keeps its own copy of the fields its serving and training
 slices read, so it never imports the JAX package. Field names, defaults
 and values match the reference, which lets a JAX config and a port
-config describe the same model.  ``MoEConfig`` is the reference's,
-verbatim."""
+config describe the same model.  ``MoEConfig`` and ``SSMConfig`` are the
+reference's, verbatim."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b")
+ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b", "falcon_mamba_7b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,9 +33,18 @@ class MoEConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class SSMConfig:
+    state: int = 16
+    expand: int = 2
+    conv_kernel: int = 4
+    dt_rank: int = 0                 # mamba1; 0 -> d_model // 16
+    head_dim: int = 64               # mamba2
+
+
+@dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe (the families ported)
+    family: str                      # dense | moe | ssm (the families ported)
     n_layers: int
     d_model: int
     n_heads: int
@@ -49,9 +58,13 @@ class ArchConfig:
     tie_embeddings: bool = False
     pattern: Tuple[str, ...] = ()    # () -> ("dense",) * n_layers
     moe: Optional[MoEConfig] = None
+    ssm: Optional[SSMConfig] = None
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True               # rematerialize each layer in training
+    # SSM scan schedule; the port's prefill runs every schedule as its
+    # selective-scan kernel, so the field is carried for the configs only
+    ssm_impl: str = "step"
     schedule: str = "cosine"
 
     @property
@@ -75,6 +88,12 @@ class ArchConfig:
         """Weights of one block with ``experts`` routed experts counted."""
         if blk == "dense":
             return self._attn_params() + self._mlp_params(self.d_ff)
+        if blk == "mamba1":
+            s, d = self.ssm, self.d_model
+            di = s.expand * d
+            dtr = s.dt_rank or d // 16
+            return (d * 2 * di + di * s.conv_kernel + di * (dtr + 2 * s.state)
+                    + dtr * di + di * s.state + di * d)
         m = self.moe
         if blk == "dense_first":
             return self._attn_params() + self._mlp_params(
@@ -88,7 +107,9 @@ class ArchConfig:
     def n_params(self) -> int:
         """Analytic parameter count of the ported block types (embeddings
         once if tied).  Unlike the reference's formula, which skips them,
-        ``dense_first`` blocks are counted, at ``moe.dense_d_ff``."""
+        ``dense_first`` blocks are counted, at ``moe.dense_d_ff``.  A
+        ``mamba1`` block counts its matrices, the conv kernel and A, as the
+        reference does (not its biases, D or norm scale)."""
         total = sum(self._block_params(b, self.moe.n_experts if self.moe
                                        else 0)
                     for b in self.resolved_pattern)

@@ -68,7 +68,7 @@ def _s2fp8_wrap(backend: Optional[str], fmt: str) -> Callable:
 
 @dataclasses.dataclass(frozen=True)
 class Policy:
-    mode: str = "s2fp8"
+    mode: str = "fp32"                 # the reference's default
     backend: str = "auto"
     gemm_mode: str = "auto"
 

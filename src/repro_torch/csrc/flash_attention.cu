@@ -1,10 +1,14 @@
-// Payload flash attention over S2FP8 payloads, END-aligned causal / window
-// mask, grouped-query K/V.
+// Flash attention forward, END-aligned causal / window mask, grouped-query
+// K/V, in two forms that share one tile loop (qflash_fwd_kernel<SRC>):
 //
-// Forward: softmax(QK^T * scale) V, rowwise logsumexp, optional fused
-// Eq. 5 epilogue on the output.  Replaces
-// src/repro/kernels/flash_attention.py: qflash_fwd_pallas
-// (_qflash_fwd_kernel, mask from _attn_mask).
+// * payload (SRC = kPayload): Q/K/V are S2FP8 payloads; softmax(QK^T *
+//   scale) V, rowwise logsumexp, optional fused Eq. 5 epilogue on the
+//   output.  Replaces src/repro/kernels/flash_attention.py:
+//   qflash_fwd_pallas (_qflash_fwd_kernel, mask from _attn_mask).
+// * plain (SRC = kF32 / kBF16): Q/K/V are f32 or bf16 values, read with
+//   no dequantize; the output has their dtype, accumulated in f32; no
+//   logsumexp, no epilogue.  Replaces flash_attention_pallas
+//   (_flash_kernel): masked logits -1e30, a row that sees no key gives 0.
 //
 // Backward (below qflash_fwd_kernel): the recompute schedule over payload
 // residuals, two kernels.  Replaces qflash_bwd_pallas (_qflash_dq_kernel
@@ -12,22 +16,39 @@
 //
 // Forward bound on the card: operations (about 4*Sq*Sk*d f32 FLOPs per
 // head, half of that under a causal mask, over 67 TFLOP/s); the payloads
-// are 1 B/elt and read a few times.  Design: one block per (head, 64 query rows); K/V
-// stream through shared memory 64 rows at a time, dequantized through
-// per-block 256-entry tables built with the shared s2fp8::decode; the
-// 64x64 score tile and the running (max, denominator) live in shared
-// memory and the output accumulator in registers, so nothing of size
-// Sq*Sk reaches device memory.  Tiles that the mask hides completely are
-// skipped, which leaves every sum unchanged (their probabilities are 0 and
-// their correction factor 1).  Masked logits are filled with -1e30, as in
-// the reference, so the online rescaling never sees inf - inf.  Query
-// head h reads K/V head h / g.  Head dims up to 128 (32, 64, 80 tested).
+// are 1 B/elt (plain: 4 or 2 B/elt) and read a few times.  Design: one
+// block per (head, 64 query rows); K/V stream through shared memory 64
+// rows at a time (payloads dequantized through per-block 256-entry tables
+// built with the shared s2fp8::decode); the 64x64 score tile and the
+// running (max, denominator) live in shared memory and the output
+// accumulator in registers, so nothing of size Sq*Sk reaches device
+// memory.  Tiles that the mask hides completely are skipped, which leaves
+// every sum unchanged (their probabilities are 0 and their correction
+// factor 1).  Masked logits are filled with -1e30, as in the reference,
+// so the online rescaling never sees inf - inf.  Query head h reads K/V
+// head h / g.  Head dims up to 128 (32, 64, 80, 128 tested).
+#include <type_traits>
+
 #include "s2fp8_common.cuh"
 
 namespace {
 
 constexpr int FQ = 64, FK = 64, THREADS = 256, DMAX = 128, SLD = FK + 1;
 constexpr float kMask = -1e30f;
+
+// what the forward's Q/K/V hold (and, for the plain forms, its output)
+enum Src { kPayload = 0, kF32 = 1, kBF16 = 2 };
+template <int SRC> struct Elem { using T = unsigned char; };
+template <> struct Elem<kF32> { using T = float; };
+template <> struct Elem<kBF16> { using T = __nv_bfloat16; };
+
+template <int SRC>
+__device__ __forceinline__ float load_elem(const typename Elem<SRC>::T* p,
+                                           size_t i, const float* lut) {
+  if constexpr (SRC == kPayload) return lut[p[i]];
+  else if constexpr (SRC == kF32) return p[i];
+  else return __bfloat162float(p[i]);
+}
 
 size_t smem_bytes(int d) {
   return sizeof(float) *
@@ -47,9 +68,13 @@ __device__ __forceinline__ bool visible(int qpos, int kpos, int sk,
   return true;
 }
 
+template <int SRC>
 __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
-    const unsigned char* __restrict__ qp, const unsigned char* __restrict__ kp,
-    const unsigned char* __restrict__ vp, float* __restrict__ out,
+    const typename Elem<SRC>::T* __restrict__ qp,
+    const typename Elem<SRC>::T* __restrict__ kp,
+    const typename Elem<SRC>::T* __restrict__ vp,
+    typename std::conditional<SRC == kBF16, __nv_bfloat16, float>::type*
+        __restrict__ out,
     float* __restrict__ lse, int sq, int sk, int d, int g,
     const float* __restrict__ q_ab, const float* __restrict__ k_ab,
     const float* __restrict__ v_ab, const float* __restrict__ o_ab,
@@ -72,21 +97,24 @@ __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
   const int q0 = blockIdx.x * FQ;
   const int shift = sk - sq;           // END alignment of query rows
 
-  s2fp8::fill_lut(lut_q, q_ab, fmt);
-  s2fp8::fill_lut(lut_k, k_ab, fmt);
-  s2fp8::fill_lut(lut_v, v_ab, fmt);
+  if constexpr (SRC == kPayload) {
+    s2fp8::fill_lut(lut_q, q_ab, fmt);
+    s2fp8::fill_lut(lut_k, k_ab, fmt);
+    s2fp8::fill_lut(lut_v, v_ab, fmt);
+  }
   if (tid < FQ) {
     m_s[tid] = kMask;
     l_s[tid] = 0.0f;
   }
   __syncthreads();
 
-  const unsigned char* qbase = qp + static_cast<size_t>(bh) * sq * d;
+  const auto* qbase = qp + static_cast<size_t>(bh) * sq * d;
   for (int idx = tid; idx < FQ * d; idx += THREADS) {
     const int r = idx / d, c = idx % d;
     const int gq = q0 + r;
-    Qt[c * FQ + r] = gq < sq ? lut_q[qbase[static_cast<size_t>(gq) * d + c]]
-                             : 0.0f;
+    Qt[c * FQ + r] =
+        gq < sq ? load_elem<SRC>(qbase, static_cast<size_t>(gq) * d + c, lut_q)
+                : 0.0f;
   }
 
   // score micro-tile: rows tr*4..+3, cols tc*4..+3; output micro-tile: rows
@@ -101,8 +129,8 @@ __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
 
   const int qpos_lo = q0 + shift;
   const int qpos_hi = min(q0 + FQ, sq) - 1 + shift;
-  const unsigned char* kbase = kp + static_cast<size_t>(bkv) * sk * d;
-  const unsigned char* vbase = vp + static_cast<size_t>(bkv) * sk * d;
+  const auto* kbase = kp + static_cast<size_t>(bkv) * sk * d;
+  const auto* vbase = vp + static_cast<size_t>(bkv) * sk * d;
 
   for (int k0 = 0; k0 < sk; k0 += FK) {
     if (causal && k0 > qpos_hi) break;                       // all later too
@@ -113,8 +141,8 @@ __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
       const int gk = k0 + t;
       const bool in = gk < sk;
       const size_t off = static_cast<size_t>(gk) * d + c;
-      Kt[c * FK + t] = in ? lut_k[kbase[off]] : 0.0f;
-      Vs[t * d + c] = in ? lut_v[vbase[off]] : 0.0f;
+      Kt[c * FK + t] = in ? load_elem<SRC>(kbase, off, lut_k) : 0.0f;
+      Vs[t * d + c] = in ? load_elem<SRC>(vbase, off, lut_v) : 0.0f;
     }
     __syncthreads();
 
@@ -210,7 +238,7 @@ __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
   __syncthreads();
 
   float oa = 1.0f, ob = 0.0f;
-  if (epilogue) {
+  if (SRC == kPayload && epilogue) {
     oa = o_ab[0];
     ob = o_ab[1];
   }
@@ -221,16 +249,22 @@ __global__ __launch_bounds__(THREADS) void qflash_fwd_kernel(
     if (gq >= sq) continue;
     const float l = l_s[r];
     const float denom = l == 0.0f ? 1.0f : l;
-    float* orow = out + (static_cast<size_t>(bh) * sq + gq) * d;
+    auto* orow = out + (static_cast<size_t>(bh) * sq + gq) * d;
 #pragma unroll
     for (int j = 0; j < DMAX / 16; ++j) {
       const int c = tc + 16 * j;
       if (j >= ncol || c >= d) continue;
       float v = acc[i][j] / denom;
-      if (epilogue) v = s2fp8::truncate(v, oa, ob, fmt);
-      orow[c] = v;
+      if constexpr (SRC == kPayload) {
+        if (epilogue) v = s2fp8::truncate(v, oa, ob, fmt);
+        orow[c] = v;
+      } else if constexpr (SRC == kBF16) {
+        orow[c] = __float2bfloat16_rn(v);
+      } else {
+        orow[c] = v;
+      }
     }
-    if (tc == 0)
+    if (lse != nullptr && tc == 0)
       lse[static_cast<size_t>(bh) * sq + gq] =
           m_s[r] + logf(fmaxf(l, 1e-30f));
   }
@@ -362,8 +396,8 @@ __global__ __launch_bounds__(THREADS) void qflash_dq_kernel(
 
   const int qpos_lo = q0 + shift;
   const int qpos_hi = min(q0 + FQ, sq) - 1 + shift;
-  const unsigned char* kbase = kp + static_cast<size_t>(bkv) * sk * d;
-  const unsigned char* vbase = vp + static_cast<size_t>(bkv) * sk * d;
+  const auto* kbase = kp + static_cast<size_t>(bkv) * sk * d;
+  const auto* vbase = vp + static_cast<size_t>(bkv) * sk * d;
 
   for (int k0 = 0; k0 < sk; k0 += FK) {
     if (causal && k0 > qpos_hi) break;                       // all later too
@@ -624,12 +658,12 @@ extern "C" int s2fp8_qflash_fwd(const void* q, const void* k, const void* v,
   if (d < 1 || d > DMAX) return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = smem_bytes(d);
   cudaError_t err = cudaFuncSetAttribute(
-      qflash_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      qflash_fwd_kernel<kPayload>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((sq + FQ - 1) / FQ, bh);
-  qflash_fwd_kernel<<<grid, THREADS, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
+  qflash_fwd_kernel<kPayload><<<grid, THREADS, smem,
+                                static_cast<cudaStream_t>(stream)>>>(
       static_cast<const unsigned char*>(q),
       static_cast<const unsigned char*>(k),
       static_cast<const unsigned char*>(v), static_cast<float*>(out),
@@ -638,6 +672,38 @@ extern "C" int s2fp8_qflash_fwd(const void* q, const void* k, const void* v,
       static_cast<const float*>(v_ab), static_cast<const float*>(o_ab),
       epilogue, causal, window, scale, fmt);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plain forward: q [bh, sq, d], k / v [bh, sk, d] and out [bh, sq, d]
+// all f32 (dtype 0) or all bf16 (dtype 1); the K/V heads already
+// broadcast (g = 1).
+template <int SRC>
+int launch_flash_fwd(const void* q, const void* k, const void* v, void* out,
+                     int bh, int sq, int sk, int d, int causal, int window,
+                     float scale, cudaStream_t st) {
+  using T = typename Elem<SRC>::T;
+  const size_t smem = smem_bytes(d);
+  cudaError_t err = cudaFuncSetAttribute(
+      qflash_fwd_kernel<SRC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  qflash_fwd_kernel<SRC><<<dim3((sq + FQ - 1) / FQ, bh), THREADS, smem, st>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), static_cast<T*>(out), nullptr, sq, sk, d, 1,
+      nullptr, nullptr, nullptr, nullptr, 0, causal, window, scale, 0);
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int flash_fwd(const void* q, const void* k, const void* v,
+                         void* out, int bh, int sq, int sk, int d, int dtype,
+                         int causal, int window, float scale, void* stream) {
+  if (d < 1 || d > DMAX || (dtype != 0 && dtype != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return dtype == 0 ? launch_flash_fwd<kF32>(q, k, v, out, bh, sq, sk, d,
+                                             causal, window, scale, st)
+                    : launch_flash_fwd<kBF16>(q, k, v, out, bh, sq, sk, d,
+                                              causal, window, scale, st);
 }
 
 // Both backward kernels on the stream: dq [bh, sq, d], per-head dk / dv

@@ -27,11 +27,13 @@ def plain_version(fn: Callable) -> Callable:
 
 
 def registry() -> Dict[str, Tuple[Callable, Callable]]:
-    """kernel name -> (wrapper, plain version), for the thirteen kernels
-    of the serving, dense training, MoE training and exact-stats
-    (fused-stats engine) slices."""
+    """kernel name -> (wrapper, plain version), for the fifteen kernels
+    of the serving, dense training, MoE training, exact-stats (fused-stats
+    engine) and Mamba serving slices, and the plain flash forward of
+    ``kernels.ops``."""
     from repro_torch.kernels import (flash_attention, paged_attention,
-                                     s2fp8_matmul, s2fp8_quant)
+                                     s2fp8_matmul, s2fp8_quant,
+                                     selective_scan)
     return {
         "quant_apply": (s2fp8_quant.quant_apply,
                         s2fp8_quant.quant_apply_plain),
@@ -56,6 +58,10 @@ def registry() -> Dict[str, Tuple[Callable, Callable]]:
                        flash_attention.qflash_bwd_plain),
         "paged_decode": (paged_attention.paged_decode_attention,
                          paged_attention.paged_decode_plain),
+        "selective_scan": (selective_scan.selective_scan,
+                           selective_scan.selective_scan_plain),
+        "flash_fwd": (flash_attention.flash_attention,
+                      flash_attention.flash_attention_plain),
     }
 
 

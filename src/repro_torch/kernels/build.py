@@ -21,7 +21,8 @@ from typing import Dict, Iterable, Optional
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
-SOURCES = ("s2fp8_quant", "s2fp8_matmul", "flash_attention", "paged_attention")
+SOURCES = ("s2fp8_quant", "s2fp8_matmul", "flash_attention", "paged_attention",
+           "selective_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -47,10 +48,15 @@ SIGNATURES = {
                              _P, _P, _I, _I, _I, _F, _I, _P),
         "s2fp8_qflash_bwd": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                              _I, _I, _P, _P, _P, _P, _I, _I, _F, _I, _P),
+        "flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "paged_attention": {
         "s2fp8_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                                _I, _P, _P, _F, _I, _P),
+    },
+    "selective_scan": {
+        "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                           _P),
     },
 }
 

@@ -1,11 +1,14 @@
-"""Payload flash attention, forward and backward: CUDA kernels + plain
-versions.
+"""Flash attention: the payload forward and backward and the plain
+forward, CUDA kernels + plain versions.
 
 ``qflash_fwd`` replaces ``qflash_fwd_pallas`` (_qflash_fwd_kernel,
-_attn_mask) and ``qflash_bwd`` replaces ``qflash_bwd_pallas``
-(_qflash_dq_kernel, _qflash_dkdv_kernel) of
+_attn_mask), ``qflash_bwd`` replaces ``qflash_bwd_pallas``
+(_qflash_dq_kernel, _qflash_dkdv_kernel) and ``flash_attention`` replaces
+``flash_attention_pallas`` (_flash_kernel) of
 ``src/repro/kernels/flash_attention.py``.  Kernel source:
-``repro_torch/csrc/flash_attention.cu``.
+``repro_torch/csrc/flash_attention.cu``; the plain forward is the payload
+forward's tile loop instantiated for f32 or bf16 loads, without the
+dequantize, the logsumexp and the Eq. 5 epilogue.
 
 Bound on the card: f32 operations (QK^T and PV forward; five products per
 visible pair backward; halved by a causal mask).  Forward design: one
@@ -35,7 +38,7 @@ import torch
 
 from repro_torch.core import s2fp8
 from repro_torch.kernels import build, plain_version, ref
-from repro_torch.kernels.s2fp8_quant import (FMT_ID, PAYLOAD_FMT,
+from repro_torch.kernels.s2fp8_quant import (DTYPE_ID, FMT_ID, PAYLOAD_FMT,
                                              check_cuda_operand, stats_arg)
 
 _MASK_VALUE = -1e30
@@ -269,5 +272,54 @@ def qflash_bwd(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
     return dq, dk, dv
 
 
+def _check_plain(q, k, v, window) -> None:
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape \
+            or q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"flash_attention wants q [B,H,Sq,D], k/v "
+                         f"[B,H,Sk,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be a positive number of keys, got "
+                         f"{window}")
+
+
+@plain_version
+def flash_attention_plain(q, k, v, *, causal=True, window=None
+                          ) -> torch.Tensor:
+    """Plain version: ``flash_fwd_reference`` with one query head per K/V
+    head; the output in q's dtype."""
+    _check_plain(q, k, v, window)
+    out, _ = flash_fwd_reference(q[:, :, None], k, v, causal=causal,
+                                 window=window)
+    return out[:, :, 0].to(q.dtype)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None) -> torch.Tensor:
+    """Flash attention forward over values: q [B, H, Sq, D], k/v [B, H,
+    Sk, D] (K/V heads already broadcast), all f32 or all bf16, contiguous,
+    D <= 128; causal and/or windowed, query rows aligned to the end of the
+    key axis.  Accumulates in f32 and returns q's dtype; a row that sees no
+    key gives 0.  CPU tensors take the plain version."""
+    _check_plain(q, k, v, window)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    check_cuda_operand(q, "q", tuple(DTYPE_ID))
+    for name, t in (("k", k), ("v", v)):
+        check_cuda_operand(t, name, (q.dtype,), q.device)
+    b, h, sq, d = q.shape
+    sk = k.shape[2]
+    if not 1 <= d <= 128:
+        raise ValueError(f"flash kernel takes head dims 1..128, got {d}")
+    out = torch.empty_like(q)
+    rc = build.load("flash_attention").flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,
+        sk, d, DTYPE_ID[q.dtype], int(causal), int(window or 0),
+        1.0 / math.sqrt(d), build.stream_ptr(q.device))
+    build.check(rc, "flash_fwd")
+    flash_attention.launches += 1
+    return out
+
+
 qflash_fwd.launches = 0
 qflash_bwd.launches = 0
+flash_attention.launches = 0

@@ -114,3 +114,49 @@ def s2fp8_matmul_batched_ref(a_payload, a_ab, b_payload, b_ab,
     if out_ab is not None:
         y = s2fp8_truncate_ref(y, stats=out_ab, fmt=fmt)
     return y
+
+
+def s2fp8_quant_ref(x: torch.Tensor, fmt: str = "e5m2"):
+    """(payload, alpha, beta) of ``x`` with its own exact stats."""
+    t = s2fp8.quantize(x, fmt=fmt)
+    return t.payload, t.alpha, t.beta
+
+
+def selective_scan_ref(x, dt, bmat, cmat, a, d_skip):
+    """Mamba-1 selective scan oracle, f32: x, dt [B,S,di]; bmat, cmat
+    [B,S,n]; a [di,n]; d_skip [di] -> (y [B,S,di], h_final [B,di,n]).
+    Per step h = h * exp(dt A) + (dt x) B and y = h.C + D x (reference
+    ``ref.selective_scan_ref``)."""
+    x, dt, bmat, cmat, a, d_skip = (t.float() for t in
+                                    (x, dt, bmat, cmat, a, d_skip))
+    b, s, di = x.shape
+    h = torch.zeros((b, di, bmat.shape[-1]), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        xt, dtt = x[:, t], dt[:, t]
+        h = (h * torch.exp(dtt[:, :, None] * a)
+             + (dtt * xt)[:, :, None] * bmat[:, t, None, :])
+        ys.append(torch.einsum("bdn,bn->bd", h, cmat[:, t]) + d_skip * xt)
+    return torch.stack(ys, dim=1), h
+
+
+def attention_ref(q, k, v, *, causal: bool = True,
+                  window: Optional[int] = None):
+    """Softmax attention oracle in f32: q [B,H,Sq,D], k/v [B,H,Sk,D] (KV
+    heads already broadcast), query rows aligned to the end of the key
+    axis.  Masked logits are -inf, so a row that sees no key is NaN, as in
+    the reference's ``ref.attention_ref``."""
+    q, k, v = q.float(), k.float(), v.float()
+    d = q.shape[-1]
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) / math.sqrt(d)
+    sq, sk = q.shape[2], k.shape[2]
+    qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    probs = torch.softmax(logits.masked_fill(~mask, -math.inf), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, v)

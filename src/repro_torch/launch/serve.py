@@ -1,12 +1,18 @@
-"""Serving launcher of the port: the paged-payload engine.
+"""Serving launcher of the port: the paged-payload engine (attention
+models) and the dense-cache engine (mamba1 models).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --requests 16 --slots 8 --max-len 1024            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --reduced --device cpu --requests 4 --max-len 64  # plain versions
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch falcon_mamba_7b --reduced --engine dense --device cpu
 
-Params are random from ``--seed``; the frozen bank is calibrated on the
-device from seeded random prompts (serving/bank.py).
+Params are random from ``--seed``.  The payload engine serves from a
+frozen bank calibrated on the device from seeded random prompts
+(serving/bank.py); the dense engine uses exact per-call stats, and its
+s2fp8 default is payload GEMMs on the ``cuda_fused`` engine (every stats
+reduction in a kernel).
 """
 from __future__ import annotations
 
@@ -22,7 +28,7 @@ from repro_torch.core.policy import make_policy
 from repro_torch.models import transformer as tlm
 from repro_torch.serving import bank as sbank
 from repro_torch.serving import paged_cache
-from repro_torch.serving.engine import PayloadLMServer, Request
+from repro_torch.serving.engine import LMServer, PayloadLMServer, Request
 
 
 def main(argv=None):
@@ -32,7 +38,12 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default="s2fp8",
                     choices=("s2fp8", "s2fp8_e4m3"))
-    ap.add_argument("--engine", choices=("payload",), default="payload")
+    ap.add_argument("--engine", choices=("dense", "payload"),
+                    default="payload")
+    ap.add_argument("--backend", default=None,
+                    choices=("auto", "plain", "cuda", "cuda_fused"),
+                    help="numerics engine (default: cuda_fused for the "
+                         "dense engine, auto for the payload engine)")
     ap.add_argument("--cache-fmt", default="e5m2",
                     choices=paged_cache.CACHE_FMTS)
     ap.add_argument("--block", type=int, default=16)
@@ -47,21 +58,32 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
-    pol = make_policy(args.policy)
+    dense = args.engine == "dense"
+    backend = args.backend or ("cuda_fused" if dense else "auto")
+    pol = make_policy(args.policy, backend, "payload")
+    print(f"[serve] {cfg.name}, engine {args.engine}, policy {pol.mode}, "
+          f"numerics {pol.backend_obj.name}, gemm payload, on {dev}")
     params = tlm.init_lm(cfg, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
-    calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, min(
-        args.prompt_len, 32)), dtype=np.int64), device=dev)
-    print(f"[serve] calibrating frozen bank ({args.calib_passes} passes)...")
-    bank = sbank.calibrate_serving_bank(params, cfg, pol, calib,
-                                        passes=args.calib_passes)
-    server = PayloadLMServer(cfg, params, pol, bank=bank, slots=args.slots,
-                             max_len=args.max_len, block=args.block,
-                             cache_fmt=args.cache_fmt)
-    pool_b, stats_b = server.cache_bytes()
-    print(f"[serve] paged cache: {pool_b/1e6:.2f} MB pool + {stats_b} B "
-          f"frozen stats ({args.cache_fmt}, block={args.block}, "
-          f"{server.n_blocks} blocks) on {dev}")
+    if dense:
+        server = LMServer(cfg, params, pol, slots=args.slots,
+                          max_len=args.max_len)
+        print(f"[serve] dense cache: {server.cache_bytes()/1e6:.2f} MB, "
+              f"exact per-call stats")
+    else:
+        calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, min(
+            args.prompt_len, 32)), dtype=np.int64), device=dev)
+        print(f"[serve] calibrating frozen bank ({args.calib_passes} "
+              f"passes)...")
+        bank = sbank.calibrate_serving_bank(params, cfg, pol, calib,
+                                            passes=args.calib_passes)
+        server = PayloadLMServer(cfg, params, pol, bank=bank,
+                                 slots=args.slots, max_len=args.max_len,
+                                 block=args.block, cache_fmt=args.cache_fmt)
+        pool_b, stats_b = server.cache_bytes()
+        print(f"[serve] paged cache: {pool_b/1e6:.2f} MB pool + {stats_b} B "
+              f"frozen stats ({args.cache_fmt}, block={args.block}, "
+              f"{server.n_blocks} blocks)")
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, args.prompt_len,
                                         dtype=np.int32),
                     max_new_tokens=args.new_tokens)
@@ -78,7 +100,8 @@ def main(argv=None):
     total = sum(len(r.out) for r in reqs)
     print(f"[serve] {args.requests} requests, {total} tokens, {ticks} ticks, "
           f"{dt:.2f}s ({total/dt:.1f} tok/s), {len(server.prefill_shapes)} "
-          f"prefill shapes, {server.preemptions} preemptions")
+          f"prefill shapes"
+          + ("" if dense else f", {server.preemptions} preemptions"))
     for i, r in enumerate(reqs[:3]):
         print(f"  req{i}: {r.out[:8]}...")
 

@@ -1,4 +1,4 @@
-"""Decoder blocks (port of the attention-bearing part of
+"""Decoder blocks (port of the attention-bearing and Mamba-1 parts of
 ``repro.models.blocks``).
 
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
@@ -11,6 +11,14 @@ or grouped per batch row, shared experts, the load-balance aux loss), and
 ``dense``, ``dense_first`` and ``moe`` block types.  The dense-cache
 decode and the chunked path wait for later slices, so sequences must stay
 <= 2048 (the reference switches to chunked attention above that).
+
+Mamba-1 (``mamba1``): ``init_mamba1`` and ``mamba1_apply`` in prefill and
+single-token decode over a dense {conv, ssm} cache.  Prefill runs the
+selective-scan kernel (kernels/selective_scan.py); decode is the
+reference's single recurrence step in plain torch ops, as the reference
+computes it outside any kernel.  Training a mamba1 block raises: the scan
+has no backward yet.  ``init_block``, ``block_apply`` and ``init_cache``
+dispatch by block type as the reference's do.
 
 The layer params keep the reference's names and layout (weights
 [d_in, d_out]), and every cast happens where the reference casts.
@@ -25,6 +33,7 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import statsbank
 from repro_torch.core.policy import Policy
+from repro_torch.kernels.selective_scan import selective_scan
 
 MAX_FULL_ATTENTION_SEQ = 2048
 _MASK = -1e30
@@ -342,3 +351,180 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
         y = mlp_fwd(p["mlp"], xn2, cfg, pol)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, cache, aux
+
+
+# =========================================================================
+# Mamba-1 (falcon-mamba)
+# =========================================================================
+
+def _silu_f32(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` on f32, as XLA lowers it: x * 1 / (1 + exp(-x))."""
+    return x * (1.0 / (1.0 + torch.exp(-x)))
+
+
+def _causal_conv1d(x: torch.Tensor, kernel: torch.Tensor,
+                   bias: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv, x [B, S, C], kernel [K, C], in f32 (the
+    reference's ``conv_general_dilated`` over a left pad of K-1 zeros:
+    out[s] = sum_k x[s - K + 1 + k] * kernel[k]), then ``+ bias`` and back
+    to x's dtype.  The K products are summed in k order with plain torch
+    ops, as the decode step sums its window."""
+    k, s = kernel.shape[0], x.shape[1]
+    xp = torch.nn.functional.pad(x.float(), (0, 0, k - 1, 0))
+    out = xp[:, 0:s] * kernel[0]
+    for i in range(1, k):
+        out = out + xp[:, i:i + s] * kernel[i]
+    return (out + bias).to(x.dtype)
+
+
+def init_mamba1(cfg: ArchConfig, gen: torch.Generator, device=None
+                ) -> Dict[str, torch.Tensor]:
+    """The reference's leaves, shapes and per-leaf std: A = -exp(a_log)
+    with a_log = log(1..n) per channel, dt's bias softplus^-1(0.01), D =
+    1."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    dtr = s.dt_rank or d // 16
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    b_dt = math.log(math.expm1(0.01))
+    return {
+        "ln": init_norm(cfg, d, device),
+        "w_in": normal((d, 2 * di), 1.0 / math.sqrt(d)),
+        "conv_w": normal((s.conv_kernel, di), 0.1),
+        "conv_b": torch.zeros((di,), dtype=torch.float32, device=device),
+        "w_x": normal((di, dtr + 2 * s.state), 1.0 / math.sqrt(di)),
+        "w_dt": normal((dtr, di), 1.0 / math.sqrt(dtr)),
+        "b_dt": torch.full((di,), b_dt, dtype=torch.float32, device=device),
+        "a_log": torch.log(torch.arange(
+            1, s.state + 1, dtype=torch.float32, device=device)
+        ).repeat(di, 1),
+        "d_skip": torch.ones((di,), dtype=torch.float32, device=device),
+        "w_out": normal((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
+                 mode: str):
+    """One Mamba-1 block (reference blocks.py:578-652).  ``mode="prefill"``
+    runs the causal conv and the selective-scan kernel over the sequence
+    and, given a cache, writes its last K-1 conv inputs and the final state
+    into it in place; ``mode="decode"`` advances one token from the cache
+    (updated in place).  The three GEMMs go through the policy; dt's
+    projection is an f32 ``torch.matmul`` and the conv and the decode step
+    plain f32 ops, as the reference computes them outside the policy.
+    Returns (x, cache, aux = 0)."""
+    if mode == "train":
+        raise NotImplementedError(
+            "training a mamba1 block needs the selective scan's backward, "
+            "which is not ported (the reference has no backward kernel for "
+            "the scan either); mamba1 runs in prefill and decode")
+    if mode not in ("prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not ported (prefill/decode)")
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    di = s_cfg.expand * d
+    dtr = s_cfg.dt_rank or d // 16
+    n = s_cfg.state
+    kk = s_cfg.conv_kernel
+
+    xn = apply_norm(p["ln"], x, cfg)
+    xz = pol.dot(xn, p["w_in"].to(x.dtype))                  # [B, S, 2di]
+    xpart, z = xz[..., :di], xz[..., di:]
+
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError("mamba1 decode runs one token against a cache")
+        wdt = torch.promote_types(cache["conv"].dtype, xpart.dtype)
+        window = torch.cat([cache["conv"].to(wdt), xpart.to(wdt)], dim=1)
+        wf = window.float()
+        xc = wf[:, 0] * p["conv_w"][0]
+        for i in range(1, kk):
+            xc = xc + wf[:, i] * p["conv_w"][i]
+        xc = _silu_f32(xc + p["conv_b"]).to(x.dtype)[:, None]  # [B, 1, di]
+        new_conv = window[:, 1:]
+    else:
+        if cache is not None and s < kk - 1:
+            raise ValueError(f"a prefill that fills the cache needs at least "
+                             f"{kk - 1} tokens, got {s}")
+        xc = _silu_f32(_causal_conv1d(xpart, p["conv_w"], p["conv_b"])
+                       .float()).to(x.dtype)
+        new_conv = None if cache is None else xpart[:, s - (kk - 1):]
+
+    xdb = pol.dot(xc, p["w_x"].to(x.dtype)).float()
+    dt_r, bmat, cmat = torch.split(xdb, [dtr, n, n], dim=-1)   # [B, S, *]
+    dt_lin = torch.matmul(dt_r, p["w_dt"]) + p["b_dt"]
+    dt = torch.logaddexp(dt_lin, torch.zeros_like(dt_lin))     # softplus
+    a = -torch.exp(p["a_log"])                                 # [di, n]
+    xcf = xc.float()
+
+    if mode == "decode":
+        h0 = cache["ssm"].float()                              # [B, di, n]
+        da = torch.exp(dt[:, 0, :, None] * a)
+        hn = (h0 * da + (dt[:, 0, :, None] * bmat[:, 0, None, :])
+              * xcf[:, 0, :, None])
+        y = torch.einsum("bdn,bn->bd", hn, cmat[:, 0])[:, None]
+        y = y + p["d_skip"] * xcf
+    else:
+        # the kernel adds D x inside the scan (the reference adds the same
+        # f32 term after it): only the order of the sums differs
+        y, hn = selective_scan(xcf.contiguous(), dt.contiguous(),
+                               bmat.contiguous(), cmat.contiguous(),
+                               a.contiguous(), p["d_skip"].contiguous())
+    y = y.to(x.dtype)
+    y = y * (z * (1.0 / (1.0 + torch.exp(-z))))   # silu(z), rounded per op
+    out = pol.dot(y, p["w_out"].to(x.dtype))
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(hn)
+    return x + out, cache, torch.zeros((), dtype=torch.float32,
+                                       device=x.device)
+
+
+# =========================================================================
+# Uniform dispatch + caches
+# =========================================================================
+
+ATTN_BLOCK_TYPES = ("dense", "dense_first", "moe")
+
+
+def init_block(block_type: str, cfg: ArchConfig, gen: torch.Generator,
+               device=None) -> Dict[str, Any]:
+    if block_type in ATTN_BLOCK_TYPES:
+        return init_attn_block(cfg, gen, device, block_type)
+    if block_type == "mamba1":
+        return init_mamba1(cfg, gen, device)
+    raise NotImplementedError(f"block type {block_type!r} is not ported")
+
+
+def block_apply(block_type: str, params, x: torch.Tensor, cfg: ArchConfig,
+                pol: Policy, positions, cache=None, cache_index=None,
+                mode: str = "train", cache_fmt: Optional[str] = None):
+    if block_type in ATTN_BLOCK_TYPES:
+        return attn_block_apply(params, x, cfg, pol, positions, cache,
+                                cache_index, mode, block_type, cache_fmt)
+    if block_type == "mamba1":
+        return mamba1_apply(params, x, cfg, pol, cache, mode)
+    raise NotImplementedError(f"block type {block_type!r} is not ported")
+
+
+def init_cache(block_type: str, cfg: ArchConfig, batch: int, max_len: int,
+               dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
+    """One layer's dense cache: attention {k, v} [B, KV, max_len, hd] in
+    ``dtype``; mamba1 {conv [B, K-1, di] in ``dtype``, ssm [B, di, n] in
+    f32}."""
+    if block_type in ATTN_BLOCK_TYPES:
+        shape = (batch, cfg.kv_heads, max_len, cfg.resolved_head_dim)
+        return {key: torch.zeros(shape, dtype=dtype, device=device)
+                for key in ("k", "v")}
+    if block_type == "mamba1":
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        return {"conv": torch.zeros((batch, s.conv_kernel - 1, di),
+                                    dtype=dtype, device=device),
+                "ssm": torch.zeros((batch, di, s.state), dtype=torch.float32,
+                                   device=device)}
+    raise NotImplementedError(f"block type {block_type!r} is not ported")

@@ -1,5 +1,5 @@
 """Decoder-only LM (port of ``repro.models.transformer`` for the dense,
-``dense_first`` and ``moe`` block types).
+``dense_first``, ``moe`` and ``mamba1`` block types).
 
 Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
 ``segments`` — one dict per homogeneous run of layers with every leaf
@@ -31,7 +31,7 @@ from repro_torch.core.policy import Policy
 from repro_torch.models import blocks
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-BLOCK_TYPES = ("dense", "dense_first", "moe")
+BLOCK_TYPES = blocks.ATTN_BLOCK_TYPES + ("mamba1",)
 
 
 def segments_of(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -45,10 +45,29 @@ def segments_of(cfg: ArchConfig) -> List[Tuple[str, int]]:
     return runs
 
 
-def _stack(trees):
-    if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+def _stack_layers(make, length: int):
+    """The [L]-stacked tree of ``length`` layers made in order by
+    ``make()``, each copied into the stack as soon as it is made (peak
+    memory: the stack plus one layer)."""
+    def alloc(t):
+        if isinstance(t, dict):
+            return {k: alloc(v) for k, v in t.items()}
+        return torch.empty((length,) + tuple(t.shape), dtype=t.dtype,
+                           device=t.device)
+
+    def put(dst, src, i):
+        if isinstance(src, dict):
+            for k in src:
+                put(dst[k], src[k], i)
+        else:
+            dst[i].copy_(src)
+
+    layer = make()
+    out = alloc(layer)
+    put(out, layer, 0)
+    for i in range(1, length):
+        put(out, make(), i)
+    return out
 
 
 def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
@@ -70,9 +89,8 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
         params["head"] = torch.randn((cfg.d_model, cfg.vocab), generator=gen,
                                      device=dev) / (cfg.d_model ** 0.5)
     for btype, length in segments_of(cfg):
-        params["segments"].append(_stack(
-            [blocks.init_attn_block(cfg, gen, dev, btype)
-             for _ in range(length)]))
+        params["segments"].append(_stack_layers(
+            lambda: blocks.init_block(btype, cfg, gen, dev), length))
     return params
 
 
@@ -109,9 +127,9 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
             cache_index=0, mode: str = "train",
             cache_fmt: Optional[str] = None):
     """Shared forward -> (hidden, total aux, caches).  ``caches``:
-    per-segment dense caches (prefill, filled in place) or paged caches
-    (decode, updated in place), None in training; ``cache_index``: [B]
-    per-slot positions (decode)."""
+    per-segment dense caches (prefill, and mamba1 decode) or paged caches
+    (attention decode), filled or updated in place, None in training;
+    ``cache_index``: [B] per-slot positions (decode)."""
     x = embed_tokens(params, tokens, cfg, pol)
     s = tokens.shape[1]
     if mode == "decode":
@@ -137,9 +155,9 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
             def run(x, layer_p=layer_p, layer_c=layer_c, name=name, li=li,
                     btype=btype):
                 with statsbank.segment_ctx(name, li):
-                    y, _, aux = blocks.attn_block_apply(
-                        layer_p, x, cfg, pol, positions, layer_c, ci, mode,
-                        btype, cache_fmt)
+                    y, _, aux = blocks.block_apply(
+                        btype, layer_p, x, cfg, pol, positions, layer_c, ci,
+                        mode, cache_fmt)
                 return y, aux
 
             if mode == "train" and cfg.remat and torch.is_grad_enabled():
@@ -177,18 +195,24 @@ def _layer_cache(seg_cache, li: int):
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None,
                 dtype=torch.float32) -> List[Dict[str, torch.Tensor]]:
-    """Dense per-segment prefill caches {"k","v"} [L, B, KV, max_len, hd]."""
-    hd = cfg.resolved_head_dim
-    return [{key: torch.zeros((length, batch, cfg.kv_heads, max_len, hd),
-                              dtype=dtype, device=device)
-             for key in ("k", "v")}
-            for _, length in segments_of(cfg)]
+    """Dense per-segment caches, each leaf of ``blocks.init_cache`` stacked
+    on a leading [L] axis: attention {"k","v"} [L, B, KV, max_len, hd],
+    mamba1 {"conv" [L, B, K-1, di] in ``dtype``, "ssm" [L, B, di, n]
+    f32}."""
+    caches = []
+    for btype, length in segments_of(cfg):
+        shapes = blocks.init_cache(btype, cfg, batch, max_len, dtype, "meta")
+        caches.append({k: torch.zeros((length,) + tuple(v.shape),
+                                      dtype=v.dtype, device=device)
+                       for k, v in shapes.items()})
+    return caches
 
 
 def prefill(params, tokens, cfg: ArchConfig, pol: Policy, caches, *,
             last_index=None):
-    """Process full prompts [B, S], fill the dense caches, return the logits
-    at each row's ``last_index`` (default: the last position) [B, 1, V]."""
+    """Process full prompts [B, S], fill the dense caches (in place; None
+    keeps no cache), return the logits at each row's ``last_index``
+    (default: the last position) [B, 1, V]."""
     x, _, caches = forward(params, tokens, cfg, pol, caches=caches,
                            mode="prefill")
     if last_index is None:
@@ -202,7 +226,8 @@ def prefill(params, tokens, cfg: ArchConfig, pol: Policy, caches, *,
 def decode_step(params, token, cfg: ArchConfig, pol: Policy, caches,
                 cache_index, *, cache_fmt: Optional[str] = None):
     """One decode step: token [B, 1], per-slot positions [B] -> logits
-    [B, 1, V]; the paged caches are updated in place."""
+    [B, 1, V]; the caches (paged for attention, dense for mamba1) are
+    updated in place."""
     x, _, caches = forward(params, token, cfg, pol, caches=caches,
                            cache_index=cache_index, mode="decode",
                            cache_fmt=cache_fmt)

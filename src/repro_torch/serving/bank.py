@@ -43,9 +43,10 @@ def calibrate_serving_bank(params, cfg: ArchConfig, policy: Policy,
     sites visited in the order of the reference's probe.
 
     One deliberate difference from the reference's export: it also probes
-    a dense-cache decode step, whose attention runs through
-    ``policy.einsum`` and the batched payload GEMM, which is not ported.
-    The decode probe is left out.  The prefill probe alone mints every key
+    a dense-cache decode step, whose attention is the reference's
+    ``decode_attention`` over a dense cache, which is not ported (its
+    ``policy.einsum`` runs on the batched payload GEMM, which is).  The
+    decode probe is left out.  The prefill probe alone mints every key
     the port's frozen prefill and paged decode read (embed/t0, head/qt0,
     the per-layer attn/qt0..3, mlp/qt0..2, qf0 and kv_cache/t0,t1 sites);
     a site's cotangent ("bwd") states stay at their initial values.

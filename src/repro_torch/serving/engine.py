@@ -1,7 +1,22 @@
-"""Paged-payload serving engine (port of ``repro.serving.engine.
-PayloadLMServer``; the dense ``LMServer`` waits for a later slice).
+"""Serving engines (port of ``repro.serving.engine``): the dense-cache
+``LMServer`` and the paged-payload ``PayloadLMServer``.
 
-KV lives as S2FP8 payloads in a paged block pool (serving/paged_cache.py)
+``LMServer`` serves over one dense cache tree at width ``slots`` (f32
+leaves; the mamba1 blocks' conv windows and SSM states).  Per tick it
+fills every free slot FCFS, runs one prefill per power-of-two prompt
+bucket at width ``slots`` (prompts right-padded in their own slot rows,
+logits read at each row's true last index) into a fresh cache tree,
+copies only the admitted columns into the server's tree, then runs one
+decode step for all slots with a per-slot position vector.  Prefill and
+decode use exact per-call stats (no bank session), as the reference's
+engine does.  Its dense-cache decode covers mamba1 blocks only: the
+reference's attention decode over a dense cache (``decode_attention``)
+is not ported, so attention patterns are served by ``PayloadLMServer``.
+As in the reference, a padded prompt's mamba1 scan and conv window run on
+through the pad tokens, so a prompt shorter than its bucket decodes from a
+state that includes the pads.
+
+``PayloadLMServer``: KV lives as S2FP8 payloads in a paged block pool (serving/paged_cache.py)
 with frozen per-layer stats; every other site's stats come from the
 frozen bank, so prefill and decode run no stats reductions.  Per tick:
 
@@ -15,8 +30,8 @@ frozen bank, so prefill and decode run no stats reductions.  Per tick:
     and restarts cleanly;
   * one decode step for all slots with a per-slot position vector.
 
-The host loop is the reference's, line for line; the device work is the
-port's prefill / pack / decode.
+Both host loops are the reference's, line for line; the device work is
+the port's prefill / pack / decode.
 """
 from __future__ import annotations
 
@@ -47,6 +62,145 @@ def _bucket(n: int, lo: int = 1, hi: Optional[int] = None) -> int:
     while b < n:
         b *= 2
     return min(b, hi) if hi is not None else b
+
+
+class LMServer:
+    """Slot-batched LM serving over a dense f32 cache tree (see module
+    docstring).  The device is the params' device."""
+
+    def __init__(self, cfg: ArchConfig, params, policy: Policy,
+                 slots: int = 4, max_len: int = 256, eos: int = -1):
+        self.cfg, self.params, self.pol = cfg, params, policy
+        self.device = params["embed"].device
+        self.slots, self.max_len, self.eos = slots, max_len, eos
+        self.caches = tlm.init_caches(cfg, slots, max_len,
+                                      device=self.device,
+                                      dtype=torch.float32)
+        self.slot_pos = np.zeros(slots, np.int32)       # next cache index
+        self.slot_req: List[Optional[Request]] = [None] * slots
+        self.slot_budget = np.zeros(slots, np.int32)
+        self.queue: List[Request] = []
+        self.prefill_shapes: set = set()                # (A, P) pairs run
+        self._last_token = np.zeros((slots, 1), np.int32)
+        self._no_dense_decode = sorted(
+            {b for b in cfg.resolved_pattern if b != "mamba1"})
+
+    # -- device work ------------------------------------------------------
+    def _prefill(self, params, tokens, last_index):
+        fresh = tlm.init_caches(self.cfg, tokens.shape[0], self.max_len,
+                                device=self.device, dtype=torch.float32)
+        with torch.no_grad():
+            return tlm.prefill(params, tokens, self.cfg, self.pol, fresh,
+                               last_index=last_index)
+
+    def _decode(self, params, token, caches, pos):
+        if self._no_dense_decode:
+            raise NotImplementedError(
+                f"dense-cache decode of {self._no_dense_decode} blocks needs "
+                f"the reference's decode_attention (blocks.py:205), which is "
+                f"not ported; serve attention models with PayloadLMServer")
+        with torch.no_grad():
+            return tlm.decode_step(params, token, self.cfg, self.pol, caches,
+                                   pos)
+
+    def _to_dev(self, a: np.ndarray) -> torch.Tensor:
+        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def submit(self, req: Request):
+        req.out = []
+        self.queue.append(req)
+
+    @property
+    def max_prefill_shapes(self) -> int:
+        """Upper bound on distinct prefill shapes (bucket count)."""
+        return int(math.log2(self.max_len)) + 1
+
+    def cache_bytes(self) -> int:
+        return sum(v.numel() * v.element_size()
+                   for seg in self.caches for v in seg.values())
+
+    def _admit(self):
+        """Fill every free slot from the queue, then run one prefill per
+        prompt bucket at batch width ``slots`` and merge only the admitted
+        columns into the cache tree."""
+        adm = []
+        for s in range(self.slots):
+            if self.slot_req[s] is None and self.queue:
+                adm.append((s, self.queue.pop(0)))
+        if not adm:
+            return
+        groups: Dict[int, list] = {}
+        for s, req in adm:
+            if len(req.prompt) >= self.max_len:
+                raise ValueError(f"prompt of {len(req.prompt)} tokens "
+                                 f"exceeds max_len {self.max_len}")
+            groups.setdefault(
+                _bucket(len(req.prompt), hi=self.max_len), []).append((s, req))
+        for P, group in sorted(groups.items()):
+            toks = np.zeros((self.slots, P), np.int32)
+            last = np.zeros((self.slots,), np.int32)
+            for s, req in group:
+                toks[s, :len(req.prompt)] = req.prompt
+                last[s] = len(req.prompt) - 1
+            logits, caches = self._prefill(self.params,
+                                           self._to_dev(toks).long(),
+                                           self._to_dev(last))
+            self.prefill_shapes.add((self.slots, P))
+            assert len(self.prefill_shapes) <= self.max_prefill_shapes
+            cols = self._to_dev(np.asarray([s for s, _ in group])).long()
+            for new_seg, old_seg in zip(caches, self.caches):
+                for key, new in new_seg.items():
+                    if new.dim() >= 2:
+                        old_seg[key][:, cols] = new[:, cols]
+                    else:
+                        old_seg[key] = new
+            nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(
+                np.int32)
+            for s, req in group:
+                self.slot_req[s] = req
+                self.slot_pos[s] = len(req.prompt)
+                self.slot_budget[s] = req.max_new_tokens
+                self._last_token[s, 0] = int(nxt[s])
+                req.out.append(int(nxt[s]))
+                self.slot_budget[s] -= 1
+
+    def step(self) -> bool:
+        """One engine tick: admit, one decode step for all live slots.
+        Returns False when idle."""
+        self._admit()
+        live = [s for s in range(self.slots) if self.slot_req[s] is not None]
+        if not live:
+            return False
+        # per-slot position vector: dead slots decode garbage at position 0,
+        # discarded here
+        pos = np.zeros((self.slots,), np.int32)
+        for s in live:
+            pos[s] = self.slot_pos[s]
+        logits, self.caches = self._decode(
+            self.params, self._to_dev(self._last_token).long(), self.caches,
+            self._to_dev(pos))
+        nxt = torch.argmax(logits[:, -1], dim=-1).cpu().numpy().astype(
+            np.int32)
+        for s in live:
+            req = self.slot_req[s]
+            req.out.append(int(nxt[s]))
+            self._last_token[s, 0] = nxt[s]
+            self.slot_pos[s] += 1
+            self.slot_budget[s] -= 1
+            done = self.slot_budget[s] <= 0 or nxt[s] == self.eos \
+                or self.slot_pos[s] >= self.max_len - 1
+            if done:
+                self.slot_req[s] = None
+        return True
+
+    def run_to_completion(self, max_ticks: int = 10_000):
+        ticks = 0
+        while (self.queue or any(r is not None for r in self.slot_req)) \
+                and ticks < max_ticks:
+            self.step()
+            ticks += 1
+        return ticks
 
 
 class PayloadLMServer:

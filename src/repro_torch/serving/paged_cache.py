@@ -41,6 +41,14 @@ def _check_fmt(cache_fmt: str) -> None:
                          f"want one of {CACHE_FMTS}")
 
 
+def _check_blocks(cfg: ArchConfig) -> None:
+    from repro_torch.models import transformer as tlm
+    for i, (btype, _) in enumerate(tlm.segments_of(cfg)):
+        if btype not in PAGED_BLOCK_TYPES:
+            raise ValueError(f"paged serving supports global-attention "
+                             f"blocks only, got {btype!r} (segment {i})")
+
+
 def _u8(t: torch.Tensor) -> torch.Tensor:
     return t.view(torch.uint8)
 
@@ -56,6 +64,7 @@ def kv_stats_from_bank(bank: Dict[str, Any], cfg: ArchConfig,
     ``seg{i}:{btype}/kv_cache/t{0,1}`` sites (t0 = K, t1 = V), derived with
     ``statsbank.frozen_stats`` like every other frozen site."""
     from repro_torch.models import transformer as tlm
+    _check_blocks(cfg)
     out = []
     for i, (btype, length) in enumerate(tlm.segments_of(cfg)):
         abs_ = []
@@ -75,12 +84,10 @@ def init_paged_caches(cfg: ArchConfig, *, slots: int, n_blocks: int,
     """Per-segment paged caches (module docstring has the layout)."""
     from repro_torch.models import transformer as tlm
     _check_fmt(cache_fmt)
+    _check_blocks(cfg)
     hd = cfg.resolved_head_dim
     caches = []
     for i, (btype, length) in enumerate(tlm.segments_of(cfg)):
-        if btype not in PAGED_BLOCK_TYPES:
-            raise ValueError(f"paged serving supports global-attention "
-                             f"blocks only, got {btype!r} (segment {i})")
         kab, vab = kv_stats[i]
         shape = (length, n_blocks, cfg.kv_heads, block, hd)
         qdt = s2fp8.FMT_QDTYPE[cache_fmt]

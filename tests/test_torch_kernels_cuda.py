@@ -16,7 +16,12 @@ max and count equal to the plain version's, its sum within 1e-6 relative
 (f64 sums in another order), (alpha, beta) within 4 ulp, and the
 quantize-with-stats and fused truncate kernels bit for bit the
 quantize-apply and truncate-apply kernels under the stats kernel's
-(alpha, beta).
+(alpha, beta); the selective scan's y and final h within 1e-5 * max
+|plain| (the same rounded ops on both sides, the sum over the states in
+another order); the plain flash forward allclose at rtol 2e-4, atol 2e-5
+in f32 (the reference's tolerance for its kernel against the oracle) and
+rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
+that sees no key exactly 0 on both sides.
 """
 import pytest
 import torch
@@ -24,7 +29,7 @@ import torch
 from repro_torch import kernels
 from repro_torch.core import s2fp8
 from repro_torch.kernels import (flash_attention, paged_attention,
-                                 s2fp8_matmul, s2fp8_quant)
+                                 s2fp8_matmul, s2fp8_quant, selective_scan)
 
 pytestmark = pytest.mark.cuda
 
@@ -338,3 +343,59 @@ def test_stats_kernels_degenerate_inputs(dev):
     assert not out.isnan().any()
     d = _steps(out, want, abk)
     assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
+
+
+@pytest.mark.parametrize("b,s,di,n", [(2, 100, 300, 16), (1, 64, 128, 8),
+                                      (3, 7, 33, 1)])
+def test_selective_scan_kernel(dev, b, s, di, n):
+    g = torch.Generator(device=dev).manual_seed(5)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    args = (rnd(b, s, di, scale=0.5),
+            torch.nn.functional.softplus(rnd(b, s, di) - 1.0),
+            rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5),
+            -torch.exp(rnd(di, n, scale=0.3)), rnd(di))
+    yk, hk = selective_scan.selective_scan(*args)
+    yp, hp = selective_scan.selective_scan_plain(*args)
+    assert yk.shape == (b, s, di) and hk.shape == (b, di, n)
+    assert (yk - yp).abs().max() <= 1e-5 * yp.abs().max()
+    assert (hk - hp).abs().max() <= 1e-5 * hp.abs().max()
+    assert kernels.counts()["selective_scan"]["launches"] == 1
+    with pytest.raises(ValueError, match="states"):
+        selective_scan.selective_scan(*args[:2], rnd(b, s, 17), rnd(b, s, 17),
+                                      rnd(di, 17), args[5])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal,window,sq,sk,d", [
+    (True, None, 200, 200, 64), (True, 64, 100, 300, 128),
+    (False, None, 130, 70, 32), (True, 30, 64, 64, 80),
+    (True, None, 100, 60, 64)])
+def test_flash_fwd_kernel(dev, dtype, causal, window, sq, sk, d):
+    """The last case has Sq > Sk: its first 40 query rows see no key."""
+    g = torch.Generator(device=dev).manual_seed(6)
+    q = torch.randn(2, 3, sq, d, generator=g, device=dev).to(dtype)
+    k = torch.randn(2, 3, sk, d, generator=g, device=dev).to(dtype)
+    v = torch.randn(2, 3, sk, d, generator=g, device=dev).to(dtype)
+    ok = flash_attention.flash_attention(q, k, v, causal=causal,
+                                         window=window)
+    op = flash_attention.flash_attention_plain(q, k, v, causal=causal,
+                                               window=window)
+    assert ok.dtype == dtype and ok.shape == q.shape
+    rtol, atol = (2e-4, 2e-5) if dtype == torch.float32 else (1e-2, 1e-3)
+    torch.testing.assert_close(ok.float(), op.float(), rtol=rtol, atol=atol)
+    if sq > sk and causal:
+        assert not ok[:, :, :sq - sk].any() and not op[:, :, :sq - sk].any()
+    assert kernels.counts()["flash_fwd"]["launches"] == 1
+
+
+def test_flash_fwd_kernel_refuses(dev):
+    q = torch.randn(1, 2, 8, 144, device=dev)
+    with pytest.raises(ValueError, match="head dims"):
+        flash_attention.flash_attention(q, q, q)
+    q = torch.randn(1, 2, 8, 64, device=dev)
+    with pytest.raises(TypeError):
+        flash_attention.flash_attention(q, q.bfloat16(), q)
+    assert kernels.counts()["flash_fwd"]["launches"] == 0
