@@ -16,7 +16,9 @@ Phases, each fatal on failure:
              the plain flash forward of ``kernels.ops`` included), with the
              tolerance
              stated beside each check, and times kernel, plain version
-             and a library yardstick with CUDA events.
+             and a library yardstick with CUDA events (the flash kernels
+             also with their TFLOP/s and their bound on TF32 tensor
+             cores at three passes).
 4. small   — the reduced models on the card through the kernels and
              through the plain versions: minicpm serving (same greedy
              tokens, close logits), and minicpm and deepseek_moe_16b
@@ -84,6 +86,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -96,6 +99,8 @@ sys.path.insert(0, str(ROOT / "src"))
 
 H100_BYTES_PER_S = 3.35e12           # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
+H100_TF32_FLOPS = 495e12             # TF32 tensor cores, dense
+TC_PASSES = 3                        # the flash kernels' compensated TF32
 
 # TPU kernel each port replaces (src/repro/... file:line of the Pallas entry)
 REPLACES = {
@@ -226,9 +231,36 @@ def phase_build(ptxas: bool) -> None:
             lines = [l for l in text.splitlines()
                      if "registers" in l or "spill" in l or "smem" in l]
             log(f"ptxas {name}: " + " | ".join(l.strip() for l in lines))
+            spilled = [int(n) for n in re.findall(r"(\d+) bytes spill", text)]
+            assert not any(spilled), f"a kernel of {name} spills registers"
     for name in build.SOURCES:
         build.load(name)
     log(f"build: {len(build.SOURCES)} libraries in {dt:.1f} s")
+    if ptxas:
+        check_flash_tensor_cores()
+
+
+def check_flash_tensor_cores() -> None:
+    """Every instantiation of the three flash kernels holds tensor-core
+    products (HMMA) in its SASS."""
+    from repro_torch.kernels import build
+    tool = Path(build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run(
+        [str(tool), "-sass", str(build.library_path("flash_attention"))],
+        capture_output=True, text=True, check=True).stdout
+    hmma, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            hmma[fn] = 0
+        elif fn is not None and "HMMA" in line:
+            hmma[fn] += 1
+    for kernel in ("qflash_fwd_kernel", "qflash_dq_kernel",
+                   "qflash_dkdv_kernel"):
+        found = [n for f, n in hmma.items() if kernel in f]
+        log(f"sass {kernel}: HMMA instructions per instantiation {found}")
+        assert found and all(found), f"{kernel}: no tensor-core products"
 
 
 # ---------------------------------------------------------------------------
@@ -249,11 +281,17 @@ def phase_kernels(dev) -> dict:
                 ).to(dtype)
 
     def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape,
-               keep=True, **extra):
+               keep=True, tensor_cores=False, **extra):
         """Keep the worst error over every shape checked, and the times and
         bound of the last shape recorded with ``keep`` (each list ends with
-        a main-path shape, or marks it)."""
+        a main-path shape, or marks it).  ``tensor_cores``: the kernel runs
+        its f32 products as TC_PASSES TF32 tensor-core passes, so its
+        operations bound is the smaller of the f32-core time and that."""
         tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+        kind = "f32 cores"
+        if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
+            tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
+            kind = f"{TC_PASSES}xTF32 tensor cores"
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
         bound_by = "bytes" if tb >= tf else "operations"
@@ -261,10 +299,13 @@ def phase_kernels(dev) -> dict:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=max(tb, tf), bound_by=bound_by, shape=shape,
                        **extra)
-        log(f"time {name} [{shape}]: kernel {ms:.4f} ms, plain "
+        rate = (f", {flops / ms / 1e9:.1f} TFLOP/s (f32 work)" if flops
+                else "")
+        log(f"time {name} [{shape}]: kernel {ms:.4f} ms{rate}, plain "
             f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-            f"{max(tb, tf):.4f} ms ({bound_by})"
-            + "".join(f", {k} {v:.4f} ms" for k, v in extra.items()))
+            f"{max(tb, tf):.4f} ms ("
+            + ("bytes" if bound_by == "bytes" else f"operations, {kind}")
+            + ")" + "".join(f", {k} {v:.4f} ms" for k, v in extra.items()))
 
     # -- quant_apply / truncate_apply at the path's largest operands: a
     # prefill activation and the tied head weight (bf16, quantized per
@@ -390,7 +431,8 @@ def phase_kernels(dev) -> dict:
                              deq[0][None], deq[1][None], deq[2][None],
                              is_causal=True)),
                3 * bh * p * d + bh * p * d * 4 + bh * p * 4,
-               4.0 * bh * pairs * d, f"BH={bh} P={p} d={d} causal")
+               4.0 * bh * pairs * d, f"BH={bh} P={p} d={d} causal",
+               tensor_cores=True)
 
     # -- paged_decode: 8 slots x 36 KV heads, head dim 64, block 16, 64
     # blocks per slot, positions across the whole context, both formats.
@@ -519,7 +561,8 @@ def mamba_ops_kernel_checks(dev, rnd, record) -> None:
                cuda_time(library), es * (2 * q.numel() + 2 * k.numel()),
                4.0 * b * h * pairs * d,
                f"B={b} H={h} Sq={sq} Sk={sk} d={d} causal={causal} "
-               f"window={window} {str(dtype)[6:]}", keep=keep)
+               f"window={window} {str(dtype)[6:]}", keep=keep,
+               tensor_cores=True)
         del q, k, v, ok, op, err
 
 
@@ -673,7 +716,8 @@ def train_kernel_checks(dev, rnd, record) -> None:
                2 * bh * sl * d + 2 * (bh // g) * sl * d + 8 * bh * sl
                + 3 * 4 * bh * sl * d,
                10.0 * bh * pairs * d,
-               f"BH={bh} g={g} S={sl} d={d} window={window} causal")
+               f"BH={bh} g={g} S={sl} d={d} window={window} causal",
+               tensor_cores=True)
 
 
 def moe_kernel_checks(dev, rnd, record) -> None:
@@ -908,13 +952,15 @@ def phase_small_reference(dev) -> None:
     params = tlm.init_lm(cfg, seed=1, device=dev)
     rng = np.random.default_rng(1)
     calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)), device=dev)
-    bank = calibrate_serving_bank(params, cfg, make_policy("s2fp8", "plain"),
+    bank = calibrate_serving_bank(params, cfg,
+                                  make_policy("s2fp8", "plain", "payload"),
                                   calib, passes=2)
     prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
                for n in (5, 11, 30, 17)]
     runs = {}
     for engine in ("cuda", "plain"):
-        srv = PayloadLMServer(cfg, params, make_policy("s2fp8", engine),
+        srv = PayloadLMServer(cfg, params,
+                              make_policy("s2fp8", engine, "payload"),
                               bank=bank, slots=4, max_len=64, block=8)
         steps = []
         prefill, decode = srv._prefill, srv._decode
@@ -1444,7 +1490,8 @@ def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
     from repro_torch.training.trainer import make_train_step
 
     params = tlm.init_lm(cfg, seed=1, device=dev)
-    pols = {e: make_policy("s2fp8", e) for e in ("checked", "plain")}
+    pols = {e: make_policy("s2fp8", e, "payload")
+            for e in ("checked", "plain")}
     bank0 = statsbank.init_bank(loss_fn, params, batches[0], pols["plain"],
                                 stats)
     with recorded_routes() as rp0:
@@ -2066,7 +2113,9 @@ def main() -> int:
                     help="build + phase 3 only (no kernels or contract "
                          "line)")
     ap.add_argument("--ptxas", action="store_true",
-                    help="print nvcc -Xptxas -v register/smem reports")
+                    help="print nvcc -Xptxas -v register/smem reports, fail "
+                         "on a register spill, count the flash kernels' "
+                         "tensor-core (HMMA) instructions")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler device time by kernel for "
                          "one admission and five decode ticks of each "

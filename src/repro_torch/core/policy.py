@@ -18,8 +18,9 @@ and, for the s2fp8 modes, the reference's GEMM modes:
             truncated (bidirectionally: the cotangents too) around an f32
             ``torch.matmul`` / ``torch.einsum``; attention takes the
             masked softmax with its two einsums through the chain
-  auto    — payload, on every engine of the port (the reference's
-            ``auto`` takes fig4 on its ``ref`` engine)
+  auto    — as the reference resolves it: fig4 on the ``plain`` engine
+            (the reference's ``ref``), payload on the kernel engines
+            (``cuda`` and ``cuda_fused``, the reference's Pallas ones)
 
 The f32 product of the chain runs as the reference's does outside any
 kernel: ``torch.matmul`` in full f32 (PyTorch's default on CUDA, TF32 off;
@@ -46,7 +47,7 @@ from repro_torch.core import statsbank
 
 MODES = ("fp32", "fp8", "s2fp8", "s2fp8_e4m3")
 S2FP8_MODES = ("s2fp8", "s2fp8_e4m3")
-# "auto" selects the payload GEMM on every engine of the port
+# "auto": fig4 on the plain engine, payload on the kernel engines
 GEMM_MODES = ("auto", "payload", "fig4")
 
 
@@ -98,9 +99,14 @@ class Policy:
 
     @property
     def uses_payload_gemm(self) -> bool:
-        """Whether the s2fp8 GEMMs run payload-domain (``qdot_train``):
-        every gemm_mode but fig4."""
-        return self.mode in S2FP8_MODES and self.gemm_mode != "fig4"
+        """Whether the s2fp8 GEMMs run payload-domain (``qdot_train``).
+        "auto" resolves as the reference's (policy.py:158-171): payload on
+        the kernel engines, fig4 on ``plain``."""
+        if self.mode not in S2FP8_MODES:
+            return False
+        if self.gemm_mode != "auto":
+            return self.gemm_mode == "payload"
+        return isinstance(self.backend_obj, nbackend.CudaBackend)
 
     @property
     def _wrap(self) -> Callable[[torch.Tensor], torch.Tensor]:

@@ -10,19 +10,24 @@ _attn_mask), ``qflash_bwd`` replaces ``qflash_bwd_pallas``
 forward's tile loop instantiated for f32 or bf16 loads, without the
 dequantize, the logsumexp and the Eq. 5 epilogue.
 
-Bound on the card: f32 operations (QK^T and PV forward; five products per
-visible pair backward; halved by a causal mask).  Forward design: one
-block per (query head, 64 query rows); K/V tiles of 64 rows are
-dequantized through per-block tables into shared memory, the score tile
-and the online-softmax state never leave the chip, fully masked tiles are
-skipped, and the fused Eq. 5 epilogue truncates the output before its one
-write.  Backward design: the recompute schedule from the payloads plus
-lse — a dq kernel (one block per 64 query rows, key tiles innermost) and a
-dk/dv kernel (one block per 64 key rows, query tiles innermost) that
-writes per-query-head dk/dv; the sum over a K/V head's G query heads is
-done outside (``dispatch.qflash_bwd_grouped``), so no float atomics.  Head
-dims up to 128 need no padding (the TPU's pad-to-128-lane step is not
-carried over).
+Every product runs on TF32 tensor cores (``mma.sync`` m16n8k8) in
+three passes over a (hi, lo) split of each f32 operand (``ref.split_tf32``;
+payloads take the pair from a per-block table of every code), so the
+kernels keep the f32 tolerances of their plain versions.  Bound on the
+card: operations (QK^T and PV forward; five products per visible pair
+backward; halved by a causal mask), the least time 3x the FLOPs at the
+TF32 rate.  Forward design: one block per (query head, 64 query rows),
+each warp 16 rows; K/V tiles land in shared memory with double-buffered
+``cp.async`` (payloads as bytes), the score tile and the online-softmax
+state stay in registers, fully masked tiles are skipped, and the fused
+Eq. 5 epilogue truncates the output before its one write.  Backward
+design: the recompute schedule from the payloads plus lse — a dq kernel
+(one block per 64 query rows, key tiles innermost) and a dk/dv kernel (one
+block per 64 key rows, query tiles innermost) that writes per-query-head
+dk/dv; the sum over a K/V head's G query heads is done outside
+(``dispatch.qflash_bwd_grouped``), so no float atomics and two launches
+give the same bits.  Head dims 1..128 (zero-padded to a multiple of 16 in
+shared memory, which is exact).
 
 ``flash_fwd_reference`` / ``flash_bwd_reference`` are ports of the
 reference's pure-jnp grouped flash forward and backward; the plain

@@ -39,6 +39,21 @@ def s2fp8_dequant_ref(payload, ab, dtype=torch.float32):
         ab, payload.device)), dtype)
 
 
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """f32 ``x`` rounded to TF32 (10 mantissa bits) as the flash kernels
+    round it: toward zero, the low 13 bits cleared; kept in f32."""
+    return (x.float().contiguous().view(torch.int32) & ~0x1FFF).view(
+        torch.float32)
+
+
+def split_tf32(x: torch.Tensor):
+    """The flash kernels' compensated split: (hi, lo) = (tf32(x), tf32(x -
+    hi)), both TF32, hi + lo = x to within 2^-21 |x|.  A product is then
+    taken as lo_a hi_b + hi_a lo_b + hi_a hi_b ("3xTF32")."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x.float() - hi)
+
+
 def s2fp8_stats_partials_ref(x: torch.Tensor) -> torch.Tensor:
     """Stats reduction oracle: f32 [3] of (sum log2|X|, max log2|X|,
     nonzero count) over the nonzero elements (zeros and NaNs left out),

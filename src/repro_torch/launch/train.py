@@ -59,7 +59,8 @@ def main(argv=None):
     ap.add_argument("--gemm-mode", default="auto", choices=GEMM_MODES,
                     help="s2fp8 GEMMs: 'payload' = qdot_train (payload "
                          "GEMM kernels), 'fig4' = truncation chain around "
-                         "f32 products; 'auto' = payload")
+                         "f32 products; 'auto' = payload on the kernel "
+                         "engines, fig4 on plain (as the reference)")
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=64)

@@ -66,13 +66,31 @@ def test_fig4_policy_flags():
     pol = make_policy("s2fp8", "plain", "fig4")
     assert not pol.uses_payload_gemm
     assert make_policy("s2fp8", "cuda_fused").uses_payload_gemm
-    assert make_policy("s2fp8", "plain", "auto").uses_payload_gemm
+    assert not make_policy("s2fp8", "plain", "auto").uses_payload_gemm
     q = torch.ones(1, 1, 1, 4, 8)
     kv = torch.ones(1, 1, 4, 8)
     with pytest.raises(NotImplementedError):
         pol.flash_attention(q, kv, kv)
     with pytest.raises(ValueError):
         make_policy("s2fp8", "plain", "chain")
+
+
+@pytest.mark.parametrize("mode", ["fp32", "fp8", "s2fp8", "s2fp8_e4m3"])
+@pytest.mark.parametrize("gemm_mode", ["auto", "payload", "fig4"])
+@pytest.mark.parametrize("engine,jax_engine", [
+    ("plain", "ref"), ("cuda", "pallas"), ("cuda_fused", "pallas_fused"),
+    ("auto", "pallas")])
+def test_gemm_mode_resolves_as_the_reference(mode, gemm_mode, engine,
+                                             jax_engine):
+    """Each engine resolves the GEMM mode as its counterpart in the
+    reference does: ``auto`` is fig4 on ``plain`` (the reference's
+    ``ref``) and payload on the kernel engines (its Pallas ones); the
+    port's ``auto`` engine is ``cuda``, the reference's pick on its
+    accelerator."""
+    got = make_policy(mode, engine, gemm_mode).uses_payload_gemm
+    want = jax_policy(mode, backend=jax_engine,
+                      gemm_mode=gemm_mode).uses_payload_gemm
+    assert got == want
 
 
 # (name, call on a policy, operand shapes, operand dtypes)

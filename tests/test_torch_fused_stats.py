@@ -294,7 +294,7 @@ def test_count_reductions_steady_bank_step_counts_as_fp32():
     cfg, loss_fn, batches = _tiny_lm()
 
     def counts(mode, refresh_every):
-        pol = make_policy(mode, "plain")
+        pol = make_policy(mode, "plain", "payload")
         params = tlm.init_lm(cfg, seed=0, device="cpu")
         opt = topt.adamw()
         state = opt.init(params)

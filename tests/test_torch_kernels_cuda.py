@@ -21,7 +21,10 @@ quantize-apply and truncate-apply kernels under the stats kernel's
 another order); the plain flash forward allclose at rtol 2e-4, atol 2e-5
 in f32 (the reference's tolerance for its kernel against the oracle) and
 rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
-that sees no key exactly 0 on both sides.
+that sees no key exactly 0 on both sides.  The flash kernels also give
+the same bits on two launches with the same inputs (no float atomics),
+and hold their tolerances at tile edges (head dims 1, 8 and 72, one query
+row, ragged Sq != Sk) and at d = 128 with grouped K/V heads.
 """
 import pytest
 import torch
@@ -399,3 +402,124 @@ def test_flash_fwd_kernel_refuses(dev):
     with pytest.raises(TypeError):
         flash_attention.flash_attention(q, q.bfloat16(), q)
     assert kernels.counts()["flash_fwd"]["launches"] == 0
+
+
+def _qflash_inputs(dev, seed, bkv, g, sq, sk, d, fmt="e5m2"):
+    """Seeded payload Q/K/V and output cotangent, their stats, and the
+    backward's residuals (lse and delta) from the plain forward."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    q = torch.randn(bkv * g, sq, d, generator=gen, device=dev)
+    k = torch.randn(bkv, sk, d, generator=gen, device=dev)
+    v = torch.randn(bkv, sk, d, generator=gen, device=dev)
+    dout = torch.randn(bkv * g, sq, d, generator=gen, device=dev) * 1e-3
+    sts = [s2fp8.compute_stats(t, s2fp8.FMT_TARGET_MAX[fmt])
+           for t in (q, k, v, dout)]
+    pq, pk, pv, pg = (s2fp8_quant.quant_apply(t, ab, fmt)
+                      for t, ab in zip((q, k, v, dout), sts))
+    return pq, pk, pv, pg, sts
+
+
+def _delta(pg, gab, out, oab, fmt):
+    po = s2fp8_quant.quant_apply(out, oab, fmt)
+    return (s2fp8.dequantize(s2fp8.S2FP8Tensor(pg, gab, fmt))
+            * s2fp8.dequantize(s2fp8.S2FP8Tensor(po, oab, fmt))).sum(-1)
+
+
+@pytest.mark.parametrize("d,sq,sk,causal,window,fmt", [
+    (1, 37, 37, True, None, "e5m2"),       # d = 1: one byte a row
+    (8, 1, 70, True, None, "e5m2"),        # one query row at the end
+    (72, 100, 100, True, 40, "e4m3"),      # d padded to 80; a window
+    (64, 77, 200, True, None, "e5m2"),     # Sq < Sk, END-aligned
+    (32, 200, 77, True, None, "e5m2"),     # Sq > Sk: rows that see no key
+    (72, 130, 129, False, None, "e5m2"),   # not causal, ragged both ways
+])
+def test_qflash_kernels_tile_edges(dev, d, sq, sk, causal, window, fmt):
+    """Head dims 1, 8 and 72, one query row, Sq not a multiple of 16 or
+    64, Sq != Sk under END alignment: the payload forward (output codes,
+    lse) and backward against their plain versions; a query row that sees
+    no key gives 0 on both sides, forward and dq."""
+    pq, pk, pv, pg, sts = _qflash_inputs(dev, 9, 3, 2, sq, sk, d, fmt)
+    kw = dict(g=2, causal=causal, window=window)
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3],
+                                                fmt=fmt, **kw)
+    oab = s2fp8.compute_stats(raw, s2fp8.FMT_TARGET_MAX[fmt])
+    ok, lk = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab,
+                                        fmt=fmt, **kw)
+    op, lp = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3],
+                                              out_ab=oab, fmt=fmt, **kw)
+    dd = _steps(ok, op, oab, fmt)
+    assert dd.max() <= 1 and (dd != 0).float().mean() <= 1e-2
+    assert (lk - lp).abs().max() <= 1e-4
+    args = (pq, pk, pv, pg, *sts, lse, _delta(pg, sts[3], raw, oab, fmt))
+    got = flash_attention.qflash_bwd(*args, **kw)
+    want = flash_attention.qflash_bwd_plain(*args, **kw)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    blind = max(sq - sk, 0) if causal else 0
+    if blind:
+        assert not ok[:, :blind].any() and not op[:, :blind].any()
+        assert not got[0][:, :blind].any() and not want[0][:, :blind].any()
+    assert kernels.counts()["qflash_fwd"]["launches"] == 1
+    assert kernels.counts()["qflash_bwd"]["launches"] == 1
+
+
+@pytest.mark.parametrize("d,sq,sk", [(8, 1, 70), (72, 130, 129),
+                                     (128, 300, 300)])
+def test_flash_fwd_kernel_tile_edges(dev, d, sq, sk):
+    """The plain forward at d = 8 and 72 with one query row or a ragged
+    Sq != Sk, f32 and bf16 from the same values."""
+    gen = torch.Generator(device=dev).manual_seed(10)
+    q = torch.randn(1, 4, sq, d, generator=gen, device=dev)
+    k = torch.randn(1, 4, sk, d, generator=gen, device=dev)
+    v = torch.randn(1, 4, sk, d, generator=gen, device=dev)
+    for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-5),
+                              (torch.bfloat16, 1e-2, 1e-3)):
+        t = [x.to(dtype) for x in (q, k, v)]
+        ok = flash_attention.flash_attention(*t, window=50)
+        op = flash_attention.flash_attention_plain(*t, window=50)
+        torch.testing.assert_close(ok.float(), op.float(), rtol=rtol,
+                                   atol=atol)
+    assert kernels.counts()["flash_fwd"]["launches"] == 2
+
+
+@pytest.mark.parametrize("g,window", [(2, 100), (4, None)])
+def test_qflash_bwd_kernel_head_dim_128_gqa(dev, g, window):
+    """The backward at d = 128 with grouped K/V heads, windowed or not:
+    per-head dk / dv against the plain version."""
+    pq, pk, pv, pg, sts = _qflash_inputs(dev, 11, 2, g, 300, 300, 128)
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], g=g,
+                                                window=window)
+    oab = s2fp8.compute_stats(raw)
+    args = (pq, pk, pv, pg, *sts, lse, _delta(pg, sts[3], raw, oab, "e5m2"))
+    got = flash_attention.qflash_bwd(*args, g=g, window=window)
+    want = flash_attention.qflash_bwd_plain(*args, g=g, window=window)
+    for x, y in zip(got, want):
+        assert x.shape == y.shape
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+
+
+def test_flash_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits: the payload
+    forward (output, lse), the backward (dq, dk, dv; no float atomics) and
+    the plain forward in f32 and bf16."""
+    pq, pk, pv, pg, sts = _qflash_inputs(dev, 12, 2, 2, 333, 333, 64)
+    kw = dict(g=2, window=200)
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], **kw)
+    oab = s2fp8.compute_stats(raw)
+    first = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab, **kw)
+    second = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab,
+                                        **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    args = (pq, pk, pv, pg, *sts, lse, _delta(pg, sts[3], raw, oab, "e5m2"))
+    first = flash_attention.qflash_bwd(*args, **kw)
+    second = flash_attention.qflash_bwd(*args, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    gen = torch.Generator(device=dev).manual_seed(13)
+    q, k, v = (torch.randn(2, 3, 257, 128, generator=gen, device=dev)
+               for _ in range(3))
+    for dtype in (torch.float32, torch.bfloat16):
+        t = [x.to(dtype) for x in (q, k, v)]
+        assert torch.equal(flash_attention.flash_attention(*t),
+                           flash_attention.flash_attention(*t))

@@ -304,7 +304,7 @@ def test_moe_fwd_and_gradients_match_jax(routing, mode):
     tx.requires_grad_(True)
     for v in jax.tree_util.tree_leaves(tp):
         v.requires_grad_(True)
-    tout, taux = tblocks.moe_fwd(tp, tx, tcfg, make_policy(mode, "plain"))
+    tout, taux = tblocks.moe_fwd(tp, tx, tcfg, make_policy(mode, "plain", "payload"))
     assert tout.dtype == tx.dtype and tout.shape == tx.shape
     ((tout.float() * torch.from_numpy(cot)).sum() + taux).backward()
     np.testing.assert_allclose(float(taux), float(jaux), rtol=1e-5)

@@ -196,7 +196,7 @@ def test_planner_rejects_as_the_reference(spec, ash, bsh):
     # while fp32 runs the contraction
     a, b = torch.ones(ash), torch.ones(bsh)
     with pytest.raises(NotImplementedError):
-        make_policy("s2fp8", "plain").einsum(spec, a, b)
+        make_policy("s2fp8", "plain", "payload").einsum(spec, a, b)
     y = make_policy("fp32", "plain").einsum(spec, a, b)
     assert y.shape == torch.einsum(spec, a, b).shape
 
@@ -221,7 +221,7 @@ def test_plan_qdot_general_batched_as_the_reference(a_shape, b_shape, dims,
     rng = np.random.default_rng(1)
     a = torch.from_numpy(rng.standard_normal(a_shape).astype(np.float32))
     b = torch.from_numpy(rng.standard_normal(b_shape).astype(np.float32))
-    y = make_policy("s2fp8", "plain").dot_general(a, b, dims)
+    y = make_policy("s2fp8", "plain", "payload").dot_general(a, b, dims)
     want_y = np.asarray(jax.lax.dot_general(np.asarray(a), np.asarray(b),
                                             dims))
     assert y.shape == want_y.shape

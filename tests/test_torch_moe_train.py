@@ -99,7 +99,7 @@ def curves():
         jl.append(float(m["loss"]))
         ja.append(float(m["aux"]))
 
-    pol = make_policy("s2fp8", "plain")
+    pol = make_policy("s2fp8", "plain", "payload")
     opt = topt.adamw()
     params = params_from_jax(jax.device_get(params0), device="cpu")
     state = opt.init(params)
@@ -140,7 +140,7 @@ def test_init_bank_discovers_the_reference_moe_sites():
     tbank = tsb.init_bank(
         lambda p, b, pol: tlm.loss_fn(p, b, b, TCFG, pol),
         params_from_jax(jax.device_get(params), device="cpu"),
-        torch.from_numpy(tokens).long(), make_policy("s2fp8", "plain"),
+        torch.from_numpy(tokens).long(), make_policy("s2fp8", "plain", "payload"),
         tsb.StatsConfig())
 
     def shapes(bank):
@@ -188,7 +188,7 @@ def test_remat_replays_the_moe_layers_bit_for_bit(routing):
     def run(remat, backward_thread):
         cfg = TCFG.replace(remat=remat, moe=dataclasses.replace(
             TCFG.moe, routing=routing))
-        pol = make_policy("s2fp8", "plain")
+        pol = make_policy("s2fp8", "plain", "payload")
         params = tlm.init_lm(cfg, seed=3, device="cpu")
         chain = tsyn.markov_chain(3, cfg.vocab)
         gen = torch.Generator().manual_seed(3)

@@ -100,7 +100,7 @@ def quickstart():
                                               batches[s], jnp.int32(s))
             jl.append(float(m["loss"]))
         # the port, plain engine on the CPU
-        pol = make_policy(mode, "plain")
+        pol = make_policy(mode, "plain", "payload")
         opt = topt.adamw()
         params = params_from_jax(jax.device_get(params0), device="cpu")
         state, bank, cfg = opt.init(params), None, None
@@ -152,7 +152,7 @@ def test_init_bank_discovers_the_reference_sites():
     tbank = tsb.init_bank(
         lambda p, b, pol: tlm.loss_fn(p, b, b, cfg_t, pol),
         params_from_jax(jax.device_get(params), device="cpu"),
-        torch.from_numpy(tokens).long(), make_policy("s2fp8", "plain"),
+        torch.from_numpy(tokens).long(), make_policy("s2fp8", "plain", "payload"),
         tsb.StatsConfig())
     assert {k: {d: {f: tuple(np.shape(v)) for f, v in st.items()}
                 for d, st in e.items()} for k, e in tbank.items()} == \
@@ -168,7 +168,7 @@ def test_refresh_decision_reads_the_device_only_after_refreshes(monkeypatch):
     steady step."""
     cfg = TCFG.replace(d_model=32, n_heads=2, kv_heads=2, head_dim=16,
                        d_ff=64)
-    pol = make_policy("s2fp8", "plain")
+    pol = make_policy("s2fp8", "plain", "payload")
     params = tlm.init_lm(cfg, seed=0, device="cpu")
     chain = tsyn.markov_chain(0, cfg.vocab)
     gen = torch.Generator().manual_seed(0)
@@ -206,7 +206,7 @@ def test_remat_gives_the_same_loss_grads_and_bank():
     replay must find the forward's session there)."""
     def run(remat, backward_thread):
         cfg = TCFG.replace(remat=remat)
-        pol = make_policy("s2fp8", "plain")
+        pol = make_policy("s2fp8", "plain", "payload")
         params = tlm.init_lm(cfg, seed=3, device="cpu")
         chain = tsyn.markov_chain(3, cfg.vocab)
         gen = torch.Generator().manual_seed(3)
@@ -310,7 +310,7 @@ def test_markov_data_matches_the_reference_chain():
 
 
 def test_eval_step_returns_the_loss_metrics_without_autograd():
-    pol = make_policy("s2fp8", "plain")
+    pol = make_policy("s2fp8", "plain", "payload")
     params = tlm.init_lm(TCFG, seed=1, device="cpu")
     for p in topt.tree_leaves(params):
         p.requires_grad_(True)
