@@ -17,8 +17,10 @@ Phases, each fatal on failure:
              tolerance
              stated beside each check, and times kernel, plain version
              and a library yardstick with CUDA events (the flash kernels
-             also with their TFLOP/s and their bound on TF32 tensor
-             cores at three passes).
+             and the payload GEMMs at large M also with their bound on
+             TF32 tensor cores at three passes; the GEMMs at decode
+             width as device time from torch.profiler, in rows of their
+             own); two launches of each GEMM path give the same bits.
 4. small   — the reduced models on the card through the kernels and
              through the plain versions: minicpm serving (same greedy
              tokens, close logits), and minicpm and deepseek_moe_16b
@@ -156,6 +158,34 @@ OPS_KERNELS = ("quant", "dequant", "truncate_apply", "qmatmul_nn",
 PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "serve_mamba", "ops")
 
+# payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
+# GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
+# 1024); NT / TN: a ragged shape, then the backward GEMMs of the tied head,
+# the attention projections and the MLP; the tied head's NT at decode
+GEMMS_NN = [(8, 2304, 5760), (8, 5760, 2304), (8 * 1024, 2304, 5760),
+            (8 * 1024, 5760, 2304)]
+GEMMS_NT_TN = {
+    "nt": [(333, 130, 77), (2048, 2304, 122753), (2048, 2304, 2304),
+           (2048, 5760, 2304)],
+    "tn": [(333, 130, 77), (122753, 2048, 2304), (2304, 2048, 2304),
+           (2304, 2048, 5760)],
+}
+GEMM_HEAD_DECODE = (8, 2304, 122753)
+# (layout, Ga, Gb, out_batch, M, K, N) of the MoE's expert einsums
+GEMMS_BATCHED = [("nn", 256, 64, None, 64, 2048, 1408),
+                 ("nt", 256, 64, None, 64, 1408, 2048),
+                 ("tn", 256, 256, 64, 2048, 64, 1408),
+                 ("nn", 64, 64, None, 256, 1408, 2048),
+                 ("nt", 64, 64, None, 256, 2048, 1408),
+                 ("tn", 64, 64, None, 1408, 256, 2048),
+                 ("nt", 64, 64, None, 256, 1408, 2048),
+                 ("tn", 64, 64, None, 2048, 256, 1408),
+                 ("nn", 64, 64, None, 256, 2048, 1408)]
+# rows of the kernels line that report one path of a wrapper: row name
+# prefix -> the count that path adds to (see path_counts)
+SMALL_PATH = {"qmatmul_nn decode": "qmatmul_nn/small",
+              "qmatmul_nt decode": "qmatmul_nt/small"}
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -174,6 +204,45 @@ def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+    """Mean device milliseconds per call: the time the card spends in the
+    call's kernels (torch.profiler), without the host's gaps between
+    launches, which outlast a decode GEMM's few microseconds."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if e.device_type != DeviceType.CPU)
+    assert us > 0, "the profiler saw no device time"
+    return us / 1e3 / iters
+
+
+def same_bits(fn, what: str) -> None:
+    """Two launches on the same inputs give the same bits."""
+    assert torch.equal(fn(), fn()), f"{what}: two launches differ"
+
+
+def path_counts() -> dict:
+    """kernels.counts(), plus the launches of the payload GEMM's small
+    (decode) path under "qmatmul_nn/small" and "qmatmul_nt/small"."""
+    from repro_torch import kernels
+    from repro_torch.kernels import s2fp8_matmul
+    counts = kernels.counts()
+    for layout in ("nn", "nt"):
+        counts[f"qmatmul_{layout}/small"] = {
+            "launches": getattr(s2fp8_matmul,
+                                f"qmatmul_{layout}").small_launches,
+            "plain_calls": 0}
+    return counts
 
 
 def code_ordinal(payload: torch.Tensor) -> torch.Tensor:
@@ -237,29 +306,31 @@ def phase_build(ptxas: bool) -> None:
         build.load(name)
     log(f"build: {len(build.SOURCES)} libraries in {dt:.1f} s")
     if ptxas:
-        check_flash_tensor_cores()
+        check_tensor_cores("flash_attention", "HMMA", (
+            "qflash_fwd_kernel", "qflash_dq_kernel", "qflash_dkdv_kernel"))
+        check_tensor_cores("s2fp8_matmul", "HGMMA", ("gemm_large_kernel",))
 
 
-def check_flash_tensor_cores() -> None:
-    """Every instantiation of the three flash kernels holds tensor-core
-    products (HMMA) in its SASS."""
+def check_tensor_cores(library: str, op: str, kernels) -> None:
+    """Every instantiation of each of ``kernels`` in ``library`` holds
+    tensor-core products (``op``: HMMA for mma.sync, HGMMA for wgmma) in
+    its SASS."""
     from repro_torch.kernels import build
     tool = Path(build.nvcc_path()).with_name("cuobjdump")
     sass = subprocess.run(
-        [str(tool), "-sass", str(build.library_path("flash_attention"))],
+        [str(tool), "-sass", str(build.library_path(library))],
         capture_output=True, text=True, check=True).stdout
-    hmma, fn = {}, None
+    count, fn = {}, None
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            hmma[fn] = 0
-        elif fn is not None and "HMMA" in line:
-            hmma[fn] += 1
-    for kernel in ("qflash_fwd_kernel", "qflash_dq_kernel",
-                   "qflash_dkdv_kernel"):
-        found = [n for f, n in hmma.items() if kernel in f]
-        log(f"sass {kernel}: HMMA instructions per instantiation {found}")
+            count[fn] = 0
+        elif fn is not None and re.search(rf"\b{op}\b", line):
+            count[fn] += 1
+    for kernel in kernels:
+        found = [n for f, n in count.items() if kernel in f]
+        log(f"sass {kernel}: {op} instructions per instantiation {found}")
         assert found and all(found), f"{kernel}: no tensor-core products"
 
 
@@ -358,9 +429,7 @@ def phase_kernels(dev) -> dict:
     # epilogue |kernel - plain| <= 1e-5 * (|A| @ |B|) + 1e-30 (f32
     # accumulation order); with it, output codes differ by at most one grid
     # step in at most 1e-3 of the elements.
-    gemms = [(8, 2304, 5760), (8, 5760, 2304), (8 * 1024, 2304, 5760),
-             (8 * 1024, 5760, 2304)]
-    for m, k, n in gemms:
+    for m, k, n in GEMMS_NN:
         a = rnd(m, k, dtype=torch.bfloat16)
         b = rnd(k, n, dtype=torch.bfloat16, scale=k ** -0.5)
         aab = s2fp8.compute_stats(a)
@@ -382,14 +451,21 @@ def phase_kernels(dev) -> dict:
         log(f"qmatmul_nn {m}x{k}x{n}: raw max err {err.max().item():.3e}, "
             f"epilogue flips {f}")
         assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
-        record("qmatmul_nn", (ek - ep).abs().max().item(),
-               cuda_time(lambda: s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab,
-                                                         oab)),
-               cuda_time(lambda: s2fp8_matmul.qmatmul_plain(
+        same_bits(lambda: s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab),
+                  f"qmatmul_nn {m}x{k}x{n}")
+        # a decode GEMM takes microseconds of device time and more of the
+        # host's: its row (kernel, plain and library) is device time
+        decode = s2fp8_matmul.plan_gemm(m, n, k).path == "small"
+        timer = device_ms if decode else cuda_time
+        kernel = lambda: s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab)
+        record(f"qmatmul_nn decode K={k} N={n}" if decode else "qmatmul_nn",
+               (ek - ep).abs().max().item(), timer(kernel),
+               timer(lambda: s2fp8_matmul.qmatmul_plain(
                    qa, aab, qb, bab, oab), iters=3),
-               cuda_time(lambda: torch.matmul(deq_a, deq_b)),
+               timer(lambda: torch.matmul(deq_a, deq_b)),
                m * k + k * n + 4 * m * n, 2.0 * m * k * n,
-               f"M={m} K={k} N={n} epilogue")
+               f"M={m} K={k} N={n} epilogue", tensor_cores=not decode,
+               **({"call_ms": cuda_time(kernel)} if decode else {}))
         del a, b, qa, qb, raw_k, raw_p, deq_a, deq_b, scale, err, ek, ep
 
     # -- qflash_fwd: prefill attention at buckets P = 128 and 512 (8 rows x
@@ -601,13 +677,7 @@ def train_kernel_checks(dev, rnd, record) -> None:
     # |kernel - plain| <= 1e-5 * (|A| @ |B|) + 1e-30 (f32 summation
     # order); with the epilogue, codes at most one grid step apart in at
     # most 1e-3 of the outputs.
-    layouts = {
-        "nt": [(333, 130, 77), (2048, 2304, 122753), (2048, 2304, 2304),
-               (2048, 5760, 2304)],
-        "tn": [(333, 130, 77), (122753, 2048, 2304), (2304, 2048, 2304),
-               (2304, 2048, 5760)],
-    }
-    for layout, shapes in layouts.items():
+    for layout, shapes in GEMMS_NT_TN.items():
         kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
         plain = getattr(s2fp8_matmul, f"qmatmul_{layout}_plain")
         for m, k, n in shapes:
@@ -638,15 +708,18 @@ def train_kernel_checks(dev, rnd, record) -> None:
                    cuda_time(lambda: plain(qa, aab, qb, bab, oab), iters=3),
                    cuda_time(lambda: torch.matmul(lhs, rhs)),
                    m * k + k * n + 4 * m * n, 2.0 * m * k * n,
-                   f"{layout} M={m} K={k} N={n} epilogue")
+                   f"{layout} M={m} K={k} N={n} epilogue",
+                   tensor_cores=True)
             del qa, qb, deq_a, deq_b, lhs, rhs, raw_k, raw_p, err, ek, ep
 
     # -- serving's tied head at decode (8 slots): x E^T as NT over the
-    # stored table's payload, against slice 1's route, NN over a u8
-    # transpose of that payload (the same values; the quantize is common to
-    # both).  Times only, for the serve tick; raw outputs held as above.
-    qx, xab = payload(rnd(8, 2304, dtype=torch.bfloat16))
-    qe, eab = payload(rnd(122753, 2304, dtype=torch.bfloat16, scale=0.05))
+    # stored table's payload (the small path, K unsplit), held and timed,
+    # and against slice 1's route, NN over a u8 transpose of that payload
+    # (the same values; the quantize is common to both).  Raw outputs held
+    # as above, the epilogue as above.
+    m, k, n = GEMM_HEAD_DECODE
+    qx, xab = payload(rnd(m, k, dtype=torch.bfloat16))
+    qe, eab = payload(rnd(n, k, dtype=torch.bfloat16, scale=0.05))
     qet = qe.view(torch.uint8).t().contiguous().view(qe.dtype)
     raw_nt = s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab)
     raw_nn = s2fp8_matmul.qmatmul_nn(qx, xab, qet, eab)
@@ -656,12 +729,27 @@ def train_kernel_checks(dev, rnd, record) -> None:
     assert bool((err <= 1e-5 * (deq_x.abs() @ deq_e.abs().t())
                  + 1e-30).all()), f"head nt vs nn: {err.max().item()}"
     oab = s2fp8.compute_stats(raw_nt)
-    nt_ms = cuda_time(lambda: s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab, oab))
+    ek = s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab, oab)
+    ep = s2fp8_matmul.qmatmul_nt_plain(qx, xab, qe, eab, oab)
+    f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
+    log(f"qmatmul_nt head {m}x{k}x{n}: raw max err vs nn route "
+        f"{err.max().item():.3e}, epilogue flips {f}")
+    assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+    same_bits(lambda: s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab, oab),
+              "qmatmul_nt head")
     nn_ms = cuda_time(lambda: s2fp8_matmul.qmatmul_nn(qx, xab, qet, eab, oab))
     tr_ms = cuda_time(lambda: qe.view(torch.uint8).t().contiguous())
-    log(f"time decode head M=8 K=2304 N=122753 epilogue: nt {nt_ms:.4f} ms;"
-        f" slice 1's route: u8 transpose {tr_ms:.4f} ms + nn {nn_ms:.4f} ms")
-    del qx, qe, qet, raw_nt, raw_nn, deq_x, deq_e, err
+    head = lambda: s2fp8_matmul.qmatmul_nt(qx, xab, qe, eab, oab)
+    record("qmatmul_nt decode head", (ek - ep).abs().max().item(),
+           device_ms(head),
+           device_ms(lambda: s2fp8_matmul.qmatmul_nt_plain(
+               qx, xab, qe, eab, oab), iters=3),
+           device_ms(lambda: torch.matmul(deq_x, deq_e.t())),
+           m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+           f"nt M={m} K={k} N={n} epilogue", call_ms=cuda_time(head))
+    log(f"time decode head: slice 1's route: u8 transpose {tr_ms:.4f} ms + "
+        f"nn {nn_ms:.4f} ms")
+    del qx, qe, qet, raw_nt, raw_nn, deq_x, deq_e, err, ek, ep
 
     # -- qflash_bwd: GQA g = 2 with a window, a ragged head dim,
     # train-moe's attention (4 x 16 heads of 128: 177 KB of shared memory
@@ -746,16 +834,7 @@ def moe_kernel_checks(dev, rnd, record) -> None:
     # most 1e-3 of the outputs.  Library: torch.bmm (f32, no TF32) on the
     # dequantized operands, B broadcast by torch.matmul, the group sum
     # after.
-    cases = [("nn", 256, 64, None, 64, 2048, 1408),
-             ("nt", 256, 64, None, 64, 1408, 2048),
-             ("tn", 256, 256, 64, 2048, 64, 1408),
-             ("nn", 64, 64, None, 256, 1408, 2048),
-             ("nt", 64, 64, None, 256, 2048, 1408),
-             ("tn", 64, 64, None, 1408, 256, 2048),
-             ("nt", 64, 64, None, 256, 1408, 2048),
-             ("tn", 64, 64, None, 2048, 256, 1408),
-             ("nn", 64, 64, None, 256, 2048, 1408)]
-    for layout, ga, gb, ob, m, k, n in cases:
+    for layout, ga, gb, ob, m, k, n in GEMMS_BATCHED:
         a_shape = (ga,) + ((k, m) if layout == "tn" else (m, k))
         b_shape = (gb,) + ((n, k) if layout == "nt" else (k, n))
         qa, aab = payload(rnd(*a_shape, dtype=torch.bfloat16))
@@ -779,6 +858,9 @@ def moe_kernel_checks(dev, rnd, record) -> None:
         log(f"qmatmul_batched {label}: raw max err {err.max().item():.3e}, "
             f"epilogue flips {f}")
         assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+        same_bits(lambda: s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, oab,
+                                                       **kw),
+                  f"qmatmul_batched {label}")
         del raw_k, raw_p, scale, err
         deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
         deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
@@ -799,7 +881,7 @@ def moe_kernel_checks(dev, rnd, record) -> None:
                    qa, aab, qb, bab, oab, **kw), iters=3),
                cuda_time(library),
                ga * m * k + gb * k * n + 4 * (ob or g) * m * n,
-               2.0 * g * m * k * n, label)
+               2.0 * g * m * k * n, label, tensor_cores=True)
         del qa, qb, ek, ep, deq_a, deq_b, lhs, rhs
 
 
@@ -1059,14 +1141,14 @@ def phase_serve(dev) -> dict:
     ticks = server.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.counts()                     # ... and ends here
+    counts = path_counts()                        # ... and ends here
     peak = torch.cuda.max_memory_allocated()
     pool_b, stats_b = server.cache_bytes()
 
     for r in reqs:
         assert len(r.out) == 32, ("request did not complete", len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
-    check_counts(counts, SERVE_KERNELS)
+    check_counts(counts, SERVE_KERNELS + tuple(SMALL_PATH.values()))
     tokens = sum(len(r.out) for r in reqs)
     metrics = {
         "requests": len(reqs), "tokens": tokens, "ticks": ticks,
@@ -1798,7 +1880,7 @@ def _train_run(dev, cfg, label, schedule, n_flop, expected, profile, *,
             f"grad_norm {float(m['grad_norm']):.3f}, refreshed "
             f"{m.get('stats_refreshed', 1.0):.0f}, {step_ms[-1]:.1f} ms, "
             f"peak {step_peak[-1]:.2f} GB")
-    counts = kernels.counts()                     # ... and ends here
+    counts = path_counts()                        # ... and ends here
     compare_ms = None
     if compare is not None:
         cmp_fn = _stepper(make_train_step(loss_fn, opt, sched, compare))
@@ -1912,13 +1994,13 @@ def phase_serve_mamba(dev, profile: bool = False) -> dict:
     ticks = server.run_to_completion()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    counts = kernels.counts()                     # ... and ends here
+    counts = path_counts()                        # ... and ends here
     peak = torch.cuda.max_memory_allocated()
 
     for r in reqs:
         assert len(r.out) == 16, ("request did not complete", len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
-    check_counts(counts, SERVE_MAMBA_KERNELS)
+    check_counts(counts, SERVE_MAMBA_KERNELS + ("qmatmul_nn/small",))
     assert scans_per_prefill and all(
         n == cfg.n_layers for n in scans_per_prefill), scans_per_prefill
     tokens = sum(len(r.out) for r in reqs)
@@ -1975,7 +2057,7 @@ def phase_ops(dev) -> dict:
     y = ops.s2fp8_matmul(px, ax, bx, pw, aw, bw)
     o = ops.flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    counts = kernels.counts()                     # ... and end here
+    counts = path_counts()                        # ... and end here
     check_counts(counts, OPS_KERNELS)
 
     po, ao, bo = ops.s2fp8_quant(x, use_kernel=False)
@@ -2114,8 +2196,9 @@ def main() -> int:
                          "line)")
     ap.add_argument("--ptxas", action="store_true",
                     help="print nvcc -Xptxas -v register/smem reports, fail "
-                         "on a register spill, count the flash kernels' "
-                         "tensor-core (HMMA) instructions")
+                         "on a register spill, count the tensor-core "
+                         "instructions of the flash kernels (HMMA) and the "
+                         "large-M GEMM (HGMMA)")
     ap.add_argument("--profile", action="store_true",
                     help="print torch.profiler device time by kernel for "
                          "one admission and five decode ticks of each "
@@ -2155,10 +2238,13 @@ def main() -> int:
                                  phase_ops(dev))))
     out = []
     for name, row in rows.items():
-        launches = {f"launches_{ph}": r["counts"][name]["launches"]
+        key = next((v for k, v in SMALL_PATH.items()
+                    if name.startswith(k)), name)
+        base = name.split()[0]
+        launches = {f"launches_{ph}": r["counts"][key]["launches"]
                     for ph, r in by_phase.items()}
-        out.append({"name": name, "route": "cuda", "source": SOURCES[name],
-                    "replaces": REPLACES[name],
+        out.append({"name": name, "route": "cuda", "source": SOURCES[base],
+                    "replaces": REPLACES[base],
                     "launches": sum(launches.values()), **launches,
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],

@@ -89,9 +89,14 @@
 #include <initializer_list>
 #include <type_traits>
 
-#include "s2fp8_common.cuh"
+#include "tc_common.cuh"
 
 namespace {
+
+using tc::cp_async;
+using tc::cp_async_commit;
+using tc::cp_async_wait;
+using tc::split;
 
 constexpr int WARPS = 4, THREADS = 32 * WARPS;
 constexpr int FQ = 16 * WARPS;   // query rows (dq, forward) / key rows (dk/dv)
@@ -112,16 +117,8 @@ __host__ __device__ __forceinline__ int row_stride(int dpad) {
 }
 
 // ---------------------------------------------------------------------------
-// tensor-core product and the compensated split
+// tensor-core product (the compensated split is tc::split, tc_common.cuh)
 // ---------------------------------------------------------------------------
-
-// x = hi + lo to within 2^-21 |x|, both halves TF32, each truncated
-// toward zero (its low 13 bits cleared): two logic ops and a subtract,
-// fewer than cvt.rna.tf32.f32 compiles to.
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = __float_as_uint(x) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
-}
 
 // c += a (16 x 8, row) . b (8 x 8, col), TF32 in, f32 accumulate.
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4],
@@ -325,29 +322,6 @@ __device__ __forceinline__ void cols_product(float (&acc)[NT][4],
 // ---------------------------------------------------------------------------
 // copies, tables, masks
 // ---------------------------------------------------------------------------
-
-template <int N>
-__device__ __forceinline__ void cp_async(void* dst, const void* src, bool ok) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  const int n = ok ? N : 0;   // 0 source bytes: the destination is zeroed
-  if constexpr (N == 16)
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-                 "l"(src), "r"(n)
-                 : "memory");
-  else
-    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s),
-                 "l"(src), "n"(N), "r"(n)
-                 : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // Rows [row0, row0 + n) of a row-major matrix with `rows` rows of
 // `row_bytes` bytes into a shared tile whose rows are `stride_bytes` apart;

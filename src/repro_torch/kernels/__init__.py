@@ -74,3 +74,5 @@ def reset_counts() -> None:
     for w, p in registry().values():
         w.launches = 0
         p.calls = 0
+        if hasattr(w, "small_launches"):   # the GEMM's decode-path share
+            w.small_launches = 0

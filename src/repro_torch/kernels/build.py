@@ -4,7 +4,7 @@ Each ``csrc/<name>.cu`` compiles on its own (one ``nvcc`` per source, all
 started together) for ``sm_90a`` into ``<repo>/build/repro_torch_kernels``
 — a directory ``.gitignore`` lists — at first use, from the repository's
 sources only.  The library name carries a digest of the source, the shared
-header and the flags, so an edited source is rebuilt and a stale library
+headers and the flags, so an edited source is rebuilt and a stale library
 is never loaded.  Each library exposes a plain C interface: pointers and
 the stream as ``void*``, and every entry point returns
 ``cudaGetLastError()``, which :func:`check` raises on.
@@ -38,10 +38,10 @@ SIGNATURES = {
                                  _I, _P),
     },
     "s2fp8_matmul": {
-        "s2fp8_qmatmul": (_P, _P, _P, _I, _I, _I, _I, _P, _P, _P, _I, _I, _I,
-                          _I, _P),
-        "s2fp8_qmatmul_batched": (_P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                                  _P, _P, _P, _I, _I, _I, _I, _P),
+        "s2fp8_qmatmul": (_P, _P, _P, _P) + (_I,) * 10 + (_P, _P, _P, _I, _I,
+                                                           _I, _I, _P),
+        "s2fp8_qmatmul_batched": (_P, _P, _P) + (_I,) * 11 + (
+            _P, _P, _P, _I, _I, _I, _I, _P),
     },
     "flash_attention": {
         "s2fp8_qflash_fwd": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P,
@@ -76,7 +76,7 @@ def nvcc_path() -> str:
 
 def library_path(name: str) -> Path:
     h = hashlib.sha256()
-    for part in (CSRC / f"{name}.cu", CSRC / "s2fp8_common.cuh"):
+    for part in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(part.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

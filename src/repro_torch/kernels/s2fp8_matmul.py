@@ -1,23 +1,35 @@
 """Payload GEMM (layouts NN, NT, TN, optional fused Eq. 5 epilogue): CUDA
-kernel + plain versions.
+kernels, the planner that picks one for a shape, and plain versions.
 
 ``qmatmul_nn``, ``qmatmul_nt`` and ``qmatmul_tn`` replace
 ``s2fp8_matmul_pallas`` (_matmul_kernel, layouts "nn", "nt", "tn") of
 ``src/repro/kernels/s2fp8_matmul.py``.  Kernel source:
-``repro_torch/csrc/s2fp8_matmul.cu`` (one kernel templated on the layout).
+``repro_torch/csrc/s2fp8_matmul.cu``.
 
     nn: C[M,N] = deq(A)[M,K]    @ deq(B)[K,N]     forward GEMMs
     nt: C[M,N] = deq(A)[M,K]    @ deq(B)[N,K]^T   dA = g B^T; the tied head
     tn: C[M,N] = deq(A)[K,M]^T  @ deq(B)[K,N]     dB = A^T g
 
-Bound on the card: f32 operations at training and prefill widths, the
-weight payload's bytes at decode.  The inverse map is a power law, so the
-payloads cannot feed fp8 tensor cores: tiles are dequantized through
-per-block 256-entry tables into shared memory and multiplied with f32 FMAs
-(no TF32).  A layout is only the addressing of the tile loads, the
-counterpart of the reference's index-map swaps: no transpose is
-materialized.  Ragged M/N/K edges are masked in the kernel, so nothing is
-padded here.
+The inverse map is a power law, so the payloads cannot feed fp8 tensor
+cores.  :func:`plan_gemm` picks one of two paths from the shape:
+
+* large M (training, prefill, the MoE experts; bound by operations):
+  B's tile is dequantized once a stage into shared memory as TF32 (hi,
+  lo) pairs, A's into the consumers' registers, and the tensor cores
+  (``wgmma``) multiply them in three passes, lo.hi + hi.lo + hi.hi with
+  f32 accumulation ("3xTF32"), which keeps the f32 tolerance (one pass
+  would not);
+* small M (decode, M <= ``SMALL_M`` in NN and NT; bound by the weight's
+  bytes): the weight streams once, each code decoded once and used for
+  every row with exact f32 FMAs, K split so the grid fills the card, the
+  partial sums added in a fixed order by a second kernel.
+
+A layout is only the addressing of the tile loads, the counterpart of the
+reference's index-map swaps: no transpose is materialized.  Ragged M/N/K
+edges are masked in the kernels; a payload whose rows are not a multiple
+of 16 bytes apart (or not 16-byte aligned) is copied here into rows that
+are, padded with code 0 (which decodes to 0), so that every tile moves in
+16-byte pieces.
 
 ``qmatmul_batched`` replaces ``s2fp8_matmul_batched_pallas``
 (_batched_matmul_kernel): C[Go,M,N] from A[Ga,.,.] and B[Gb,.,.] in any
@@ -25,13 +37,15 @@ layout, over the combined batch G = max(Ga, Gb) where step g reads slice
 g % Gx of each operand, with the G / Go groups of steps that share
 g % Go summed into one output slice — every expert einsum of the MoE
 blocks, forward (NN) and backward (NT for dA, TN for dW, ``out_batch`` for
-the dW of a broadcast weight).  Same kernel, with a grid axis over the
-output slices and a loop over the reduction groups inside each block, so
-every output sums in one fixed order without atomics.
+the dW of a broadcast weight).  The large-M kernel, each output slice's
+tiles among its work and a loop over the reduction groups inside each
+tile, so every output sums in one fixed order without atomics.
 """
 from __future__ import annotations
 
-from typing import Optional
+import functools
+from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -40,6 +54,72 @@ from repro_torch.kernels.s2fp8_quant import (FMT_ID, PAYLOAD_FMT,
                                              check_cuda_operand, stats_arg)
 
 LAYOUT_ID = {"nn": 0, "nt": 1, "tn": 2}
+PATH_ID = {"large": 0, "small": 1}
+SMS = 132                # streaming multiprocessors of an H100 SXM
+SMALL_M = 16             # most rows of a 2-D NN / NT GEMM on the small path
+SMALL_COLS = {"nn": 256, "nt": 128}   # output columns a small-path block
+SMALL_KCHUNK_MAX = 2560  # most K a small-path block stages (A's rows)
+LARGE_BN = 128           # output columns a large-path block
+
+
+@dataclass(frozen=True)
+class GemmPlan:
+    """How one payload GEMM runs: ``path`` "large" (tensor cores, blocks of
+    ``bm`` x 128 outputs) or "small" (the decode kernels: K cut into
+    ``splits`` pieces of ``kchunk``, a multiple of 16), and its work:
+    (column tiles, row tiles or K splits, output slices).  The small path
+    launches that grid; the large path's blocks, one a SM, walk the
+    tiles."""
+    path: str
+    bm: int
+    splits: int
+    kchunk: int
+    grid: Tuple[int, int, int]
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def plan_gemm(m: int, n: int, k: int, g: Optional[int] = None,
+              layout: str = "nn", sms: int = SMS) -> GemmPlan:
+    """The path and tiles of C[M,N] over K under ``layout``; ``g`` is the
+    output slice count of a batched GEMM, which always takes the large
+    path.  A 2-D NN or NT GEMM with M <= SMALL_M takes the small path, K
+    split so that the grid covers at least two waves of ``sms`` SMs where
+    K allows (pieces of at least 16, at most SMALL_KCHUNK_MAX).  Every
+    other GEMM takes the large path, in 64-row blocks for M <= 64 and
+    128-row blocks above."""
+    if layout not in LAYOUT_ID:
+        raise ValueError(f"unknown GEMM layout {layout!r}")
+    if g is None and layout in SMALL_COLS and m <= SMALL_M:
+        tiles = max(1, _cdiv(n, SMALL_COLS[layout]))
+        target = max(1, _cdiv(k, SMALL_KCHUNK_MAX), _cdiv(2 * sms, tiles))
+        kchunk = max(16, k // target // 16 * 16)
+        splits = max(1, _cdiv(k, kchunk))
+        return GemmPlan("small", 8, splits, kchunk, (tiles, splits, 1))
+    bm = 64 if m <= 64 else 128
+    return GemmPlan("large", bm, 1, k,
+                    (_cdiv(n, LARGE_BN), _cdiv(m, bm), 1 if g is None else g))
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _aligned(p: torch.Tensor) -> Tuple[torch.Tensor, int]:
+    """``p`` as the kernels read it: rows (the last dimension) a multiple of
+    16 bytes apart at a 16-byte aligned address, padded with code 0; a copy
+    only where ``p`` is not so already.  Returns (bytes, row stride)."""
+    cols = p.shape[-1]
+    ld = _cdiv(cols, 16) * 16
+    if ld == cols and p.data_ptr() % 16 == 0:
+        return p, ld
+    out = torch.zeros(p.shape[:-1] + (ld,), dtype=torch.uint8,
+                      device=p.device)
+    out[..., :cols] = p.view(torch.uint8)
+    return out, ld
 
 
 def _plain(layout: str):
@@ -60,7 +140,8 @@ qmatmul_nt_plain = _plain("nt")
 qmatmul_tn_plain = _plain("tn")
 
 
-def _launch(layout: str, a, a_ab, b, b_ab, out_ab, fmt) -> torch.Tensor:
+def _launch(layout: str, a, a_ab, b, b_ab, out_ab, fmt, wrapper
+            ) -> torch.Tensor:
     check_cuda_operand(a, "a", tuple(PAYLOAD_FMT))
     check_cuda_operand(b, "b", tuple(PAYLOAD_FMT), a.device)
     m, k, n = ref.gemm_dims(layout, a.shape, b.shape)
@@ -68,12 +149,21 @@ def _launch(layout: str, a, a_ab, b, b_ab, out_ab, fmt) -> torch.Tensor:
     bab = stats_arg(b_ab, a.device)
     oab = None if out_ab is None else stats_arg(out_ab, a.device)
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
+    plan = plan_gemm(m, n, k, layout=layout, sms=_sms(a.device.index or 0))
+    pa, lda = _aligned(a)
+    pb, ldb = _aligned(b)
+    scratch = (torch.empty((plan.splits, m, n), dtype=torch.float32,
+                           device=a.device) if plan.splits > 1 else None)
     rc = build.load("s2fp8_matmul").s2fp8_qmatmul(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-        LAYOUT_ID[layout], aab.data_ptr(), bab.data_ptr(), build.ptr(oab),
-        int(oab is not None), FMT_ID[PAYLOAD_FMT[a.dtype]],
+        pa.data_ptr(), pb.data_ptr(), out.data_ptr(), build.ptr(scratch), m,
+        n, k, lda, ldb, LAYOUT_ID[layout], PATH_ID[plan.path], plan.bm,
+        plan.splits, plan.kchunk, aab.data_ptr(), bab.data_ptr(),
+        build.ptr(oab), int(oab is not None), FMT_ID[PAYLOAD_FMT[a.dtype]],
         FMT_ID[PAYLOAD_FMT[b.dtype]], FMT_ID[fmt], build.stream_ptr(a.device))
-    build.check(rc, f"s2fp8_qmatmul ({layout})")
+    build.check(rc, f"s2fp8_qmatmul ({layout}, {plan.path})")
+    wrapper.launches += 1
+    if plan.path == "small":
+        wrapper.small_launches += 1
     return out
 
 
@@ -94,9 +184,7 @@ def qmatmul_nn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     _check("nn", a, b)
     if a.device.type == "cpu":
         return qmatmul_plain(a, a_ab, b, b_ab, out_ab, fmt)
-    out = _launch("nn", a, a_ab, b, b_ab, out_ab, fmt)
-    qmatmul_nn.launches += 1
-    return out
+    return _launch("nn", a, a_ab, b, b_ab, out_ab, fmt, qmatmul_nn)
 
 
 def qmatmul_nt(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
@@ -106,9 +194,7 @@ def qmatmul_nt(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     _check("nt", a, b)
     if a.device.type == "cpu":
         return qmatmul_nt_plain(a, a_ab, b, b_ab, out_ab, fmt)
-    out = _launch("nt", a, a_ab, b, b_ab, out_ab, fmt)
-    qmatmul_nt.launches += 1
-    return out
+    return _launch("nt", a, a_ab, b, b_ab, out_ab, fmt, qmatmul_nt)
 
 
 def qmatmul_tn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
@@ -118,9 +204,7 @@ def qmatmul_tn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     _check("tn", a, b)
     if a.device.type == "cpu":
         return qmatmul_tn_plain(a, a_ab, b, b_ab, out_ab, fmt)
-    out = _launch("tn", a, a_ab, b, b_ab, out_ab, fmt)
-    qmatmul_tn.launches += 1
-    return out
+    return _launch("tn", a, a_ab, b, b_ab, out_ab, fmt, qmatmul_tn)
 
 
 @plain_version
@@ -155,16 +239,17 @@ def qmatmul_batched(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                                      out_batch=out_batch, fmt=fmt)
     check_cuda_operand(a, "a", tuple(PAYLOAD_FMT))
     check_cuda_operand(b, "b", tuple(PAYLOAD_FMT), a.device)
-    if go > 65535:
-        raise ValueError(f"out_batch {go} exceeds the grid's z limit 65535")
     aab = stats_arg(a_ab, a.device)
     bab = stats_arg(b_ab, a.device)
     oab = None if out_ab is None else stats_arg(out_ab, a.device)
     out = torch.empty((go, m, n), dtype=torch.float32, device=a.device)
+    plan = plan_gemm(m, n, k, g=go, layout=layout)
+    pa, lda = _aligned(a)
+    pb, ldb = _aligned(b)
     rc = build.load("s2fp8_matmul").s2fp8_qmatmul_batched(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k, a.shape[0],
-        b.shape[0], go, g // go, LAYOUT_ID[layout], aab.data_ptr(),
-        bab.data_ptr(), build.ptr(oab), int(oab is not None),
+        pa.data_ptr(), pb.data_ptr(), out.data_ptr(), m, n, k, lda, ldb,
+        a.shape[0], b.shape[0], go, g // go, LAYOUT_ID[layout], plan.bm,
+        aab.data_ptr(), bab.data_ptr(), build.ptr(oab), int(oab is not None),
         FMT_ID[PAYLOAD_FMT[a.dtype]], FMT_ID[PAYLOAD_FMT[b.dtype]],
         FMT_ID[fmt], build.stream_ptr(a.device))
     build.check(rc, f"s2fp8_qmatmul_batched ({layout})")
@@ -176,4 +261,7 @@ qmatmul_nn.launches = 0
 qmatmul_nt.launches = 0
 qmatmul_tn.launches = 0
 qmatmul_batched.launches = 0
+# launches that took the small (decode) path, a part of ``launches``
+qmatmul_nn.small_launches = 0
+qmatmul_nt.small_launches = 0
 WRAPPERS = {"nn": qmatmul_nn, "nt": qmatmul_nt, "tn": qmatmul_tn}

@@ -1,0 +1,246 @@
+"""The payload GEMM's arithmetic and its planner, rehearsed on the CPU.
+
+The CUDA payload GEMM (``repro_torch/csrc/s2fp8_matmul.cu``) has two paths,
+chosen by ``kernels.s2fp8_matmul.plan_gemm`` from the shape:
+
+* large M: every dequantized value is split into (hi, lo) = (tf32(x),
+  tf32(x - hi)), truncated, and each 8-deep step of K accumulates
+  lo.hi + hi.lo + hi.hi on TF32 tensor cores ("3xTF32"); the sum of a
+  32-deep stage is added to an f32 accumulator stage by stage;
+* small M (decode): exact f32 FMAs, K cut into S splits, each split's
+  8 K lanes summed in lane order (NN) or its 8 chunk lanes by a fixed
+  butterfly (NT), the S partials summed in index order by a second kernel.
+
+Here, in plain torch / numpy:
+
+* an emulation of the large path at the main path's depths (K = 5760,
+  2304, 2048, 1408, 256) stays within the on-card tolerance, 1e-5 *
+  (|A| @ |B|) of the plain f32 product, and a one-pass emulation does not;
+* an emulation of the split-K path, each split in its kernel's order,
+  covers K once, stays within that tolerance, and gives the same bits
+  whatever order the blocks run in;
+* the planner gives every GEMM shape that ``chip_smoke.py`` checks, and
+  every decode GEMM of the served models, a path, and its decode grids
+  cover at least two waves of an H100's 132 SMs.
+"""
+import importlib.util
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch_threads import one_torch_thread  # noqa: F401
+
+from repro_torch.core import s2fp8
+from repro_torch.kernels import ref
+from repro_torch.kernels import s2fp8_matmul as mm
+
+ROOT = Path(__file__).resolve().parents[1]
+TOL = 1e-5
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke",
+                                                  ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _operands(rng, m, k, n, fmt="e5m2"):
+    """Dequantized payload operands A [m, k], B [k, n] (f32 values on the
+    format's grid) and |A| @ |B|, the tolerance's scale."""
+    a = torch.from_numpy(rng.standard_normal((m, k)).astype(np.float32))
+    b = torch.from_numpy(rng.standard_normal((k, n)).astype(np.float32))
+    ta = s2fp8.quantize(a, fmt=fmt)
+    tb = s2fp8.quantize(b / k ** 0.5, fmt=fmt)
+    da = ref.s2fp8_dequant_ref(ta.payload, ta.ab)
+    db = ref.s2fp8_dequant_ref(tb.payload, tb.ab)
+    return da, db, da.abs() @ db.abs()
+
+
+def large_path_emulated(a, b, passes=3, stage=32):
+    """The large path's arithmetic: per 8-deep step of K, lo.hi, hi.lo and
+    hi.hi (or hi.hi alone for ``passes=1``) added in that order to the
+    stage's sum, each 8-term product in f32; each stage's sum added to the
+    f32 accumulator."""
+    m, k = a.shape
+    pad = -k % stage
+    a = torch.nn.functional.pad(a, (0, pad))
+    b = torch.nn.functional.pad(b, (0, 0, 0, pad))
+    ah, al = ref.split_tf32(a)
+    bh, bl = ref.split_tf32(b)
+
+    def steps(x, y):   # [K/8, m, n]: each 8-deep step's product
+        return torch.bmm(x.reshape(m, -1, 8).transpose(0, 1),
+                         y.reshape(-1, 8, y.shape[1]))
+
+    terms = ([steps(al, bh), steps(ah, bl), steps(ah, bh)] if passes == 3
+             else [steps(ah, bh)])
+    acc = torch.zeros(m, b.shape[1])
+    for s0 in range(0, a.shape[1] // 8, stage // 8):
+        part = torch.zeros_like(acc)
+        for j in range(s0, s0 + stage // 8):
+            for t in terms:
+                part = part + t[j]
+        acc = acc + part
+    return acc
+
+
+@pytest.mark.parametrize("k", [5760, 2304, 2048, 1408, 256])
+def test_three_passes_hold_the_card_tolerance_one_does_not(k):
+    rng = np.random.default_rng(k)
+    a, b, scale = _operands(rng, 32, k, 32)
+    want = a @ b                       # the plain version's f32 product
+    got = large_path_emulated(a, b)
+    assert bool(((got - want).abs() <= TOL * scale + 1e-30).all())
+    worst = ((got - want).abs() / scale).max().item()
+    assert worst < TOL / 10            # with a wide margin
+    one = large_path_emulated(a, b, passes=1)
+    assert not bool(((one - want).abs() <= TOL * scale + 1e-30).all())
+
+
+def nn_small_emulated(a, b, plan, order=None):
+    """The small NN kernel's sums, in f32: split s takes K rows
+    [s * kchunk, (s + 1) * kchunk); K lane y of a split takes rows y, y + 8,
+    ... in order; the 8 lanes are added in lane order, then the partials in
+    split order.  ``order``: the order in which the splits run."""
+    a = a.numpy().astype(np.float32)
+    b = b.numpy().astype(np.float32)
+    m, k = a.shape
+    parts = np.zeros((plan.splits, m, b.shape[1]), np.float32)
+    for s in (order if order is not None else range(plan.splits)):
+        lanes = np.zeros((8, m, b.shape[1]), np.float32)
+        for kk in range(s * plan.kchunk, min(k, (s + 1) * plan.kchunk)):
+            y = (kk - s * plan.kchunk) % 8
+            lanes[y] = lanes[y] + a[:, kk, None] * b[kk][None, :]
+        total = np.zeros_like(lanes[0])
+        for y in range(8):
+            total = total + lanes[y]
+        parts[s] = total
+    out = np.zeros_like(parts[0])
+    for s in range(plan.splits):
+        out = out + parts[s]
+    return torch.from_numpy(out)
+
+
+def nt_small_emulated(a, bt, plan):
+    """The small NT kernel's sums (one split): chunk lane c of a row takes
+    16-deep chunks c, c + 8, ... in order, 16 products each; the 8 lanes
+    meet by a butterfly over xor distances 1, 2, 4; lane 0's sum is the
+    output."""
+    assert plan.splits == 1
+    a = a.numpy().astype(np.float32)
+    bt = bt.numpy().astype(np.float32)
+    m, k = a.shape
+    lanes = np.zeros((8, m, bt.shape[0]), np.float32)
+    for c in range(-(-k // 16)):
+        for kk in range(16 * c, min(k, 16 * c + 16)):
+            lanes[c % 8] = lanes[c % 8] + a[:, kk, None] * bt[None, :, kk]
+    for off in (1, 2, 4):
+        lanes = np.stack([lanes[i] + lanes[i ^ off] for i in range(8)])
+    return torch.from_numpy(lanes[0])
+
+
+@pytest.mark.parametrize("k,n", [(2304, 96), (5760, 40), (300, 200)])
+def test_split_k_partition_and_fixed_order_sum(k, n):
+    plan = mm.plan_gemm(8, n, k)
+    assert plan.path == "small" and plan.splits > 1
+    assert plan.kchunk % 16 == 0 and plan.kchunk <= mm.SMALL_KCHUNK_MAX
+    # every K row lies in exactly one split, and no split is empty
+    assert (plan.splits - 1) * plan.kchunk < k <= plan.splits * plan.kchunk
+    rng = np.random.default_rng(k + n)
+    a, b, scale = _operands(rng, 8, k, n)
+    got = nn_small_emulated(a, b, plan)
+    assert bool(((got - a @ b).abs() <= TOL * scale + 1e-30).all())
+    shuffled = rng.permutation(plan.splits)
+    assert torch.equal(got, nn_small_emulated(a, b, plan, order=shuffled))
+
+
+def test_small_nt_head_order_holds_the_tolerance():
+    k, n = 2304, 300
+    plan = mm.plan_gemm(8, 122753, k, layout="nt")
+    assert plan.path == "small" and plan.splits == 1
+    rng = np.random.default_rng(5)
+    a, b, scale = _operands(rng, 8, k, n)
+    got = nt_small_emulated(a, b.t().contiguous(), plan)
+    assert bool(((got - a @ b).abs() <= TOL * scale + 1e-30).all())
+
+
+def _gemm_shapes():
+    """(layout, m, k, n, g) of every GEMM chip_smoke.py holds on the card;
+    g is the output slice count of a batched GEMM (None for 2-D)."""
+    cs = _chip_smoke()
+    shapes = [("nn", m, k, n, None) for m, k, n in cs.GEMMS_NN]
+    shapes += [(lay, m, k, n, None) for lay, ss in cs.GEMMS_NT_TN.items()
+               for m, k, n in ss]
+    shapes.append(("nt",) + tuple(cs.GEMM_HEAD_DECODE) + (None,))
+    shapes += [(lay, m, k, n, ob or max(ga, gb))
+               for lay, ga, gb, ob, m, k, n in cs.GEMMS_BATCHED]
+    return shapes
+
+
+# decode GEMMs (8 slots) of the served models, (layout, K, N): minicpm_2b's
+# attention projections, MLP and tied head; falcon_mamba_7b's in, x, dt and
+# out projections and its head
+DECODE = [("nn", 2304, 2304), ("nn", 2304, 5760), ("nn", 5760, 2304),
+          ("nt", 2304, 122753), ("nn", 4096, 16384), ("nn", 8192, 288),
+          ("nn", 256, 8192), ("nn", 8192, 4096), ("nn", 4096, 65024),
+          ("nt", 4096, 65024)]
+
+
+def test_planner_covers_every_checked_shape():
+    shapes = _gemm_shapes()
+    assert len(shapes) == 22
+    for layout, m, k, n, g in shapes:
+        plan = mm.plan_gemm(m, n, k, g=g, layout=layout)
+        if g is None and layout != "tn" and m <= mm.SMALL_M:
+            assert plan.path == "small", (layout, m, k, n)
+            assert plan.grid[0] * plan.grid[1] >= 2 * mm.SMS
+            assert (plan.splits - 1) * plan.kchunk < k
+            assert k <= plan.splits * plan.kchunk
+        else:
+            assert plan.path == "large", (layout, m, k, n, g)
+            assert plan.bm == (64 if m <= 64 else 128)
+            assert plan.grid == (-(-n // mm.LARGE_BN), -(-m // plan.bm),
+                                 g or 1)
+    m, k, n = _chip_smoke().GEMM_HEAD_DECODE
+    head = mm.plan_gemm(m, n, k, layout="nt")
+    assert head.splits == 1          # its column tiles fill the card
+
+
+@pytest.mark.parametrize("layout,k,n", DECODE)
+def test_planner_decode_grids_fill_the_card(layout, k, n):
+    plan = mm.plan_gemm(8, n, k, layout=layout)
+    assert plan.path == "small"
+    assert plan.grid[0] * plan.grid[1] >= 2 * mm.SMS
+    assert (plan.splits - 1) * plan.kchunk < k <= plan.splits * plan.kchunk
+    assert plan.kchunk <= mm.SMALL_KCHUNK_MAX
+
+
+def test_planner_edges():
+    assert mm.plan_gemm(16, 200, 300).path == "small"
+    assert mm.plan_gemm(17, 200, 300).path == "large"
+    assert mm.plan_gemm(17, 200, 300).bm == 64
+    assert mm.plan_gemm(65, 200, 300).bm == 128
+    assert mm.plan_gemm(8, 200, 300, layout="tn").path == "large"
+    assert mm.plan_gemm(8, 200, 300, g=4).path == "large"
+    tiny = mm.plan_gemm(1, 1, 1)
+    assert (tiny.splits, tiny.kchunk) == (1, 16)
+    with pytest.raises(ValueError):
+        mm.plan_gemm(8, 8, 8, layout="tt")
+
+
+def test_rows_padded_to_sixteen_bytes():
+    """Payloads whose rows are not 16-byte multiples are copied into rows
+    that are, padded with code 0, which decodes to 0."""
+    p = torch.arange(3 * 77, dtype=torch.int32).remainder(251).to(
+        torch.uint8).reshape(3, 77).view(torch.float8_e5m2)
+    q, ld = mm._aligned(p)
+    assert ld == 80 and q.shape == (3, 80)
+    assert torch.equal(q[:, :77], p.view(torch.uint8))
+    assert not q[:, 77:].any()
+    zero = torch.zeros(1, dtype=torch.uint8).view(torch.float8_e5m2)
+    assert ref.s2fp8_dequant_ref(zero, torch.tensor([0.7, 3.0])).item() == 0
+    same, ld = mm._aligned(torch.zeros(4, 32, dtype=torch.uint8))
+    assert ld == 32 and same.shape == (4, 32)

@@ -24,7 +24,10 @@ rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
 that sees no key exactly 0 on both sides.  The flash kernels also give
 the same bits on two launches with the same inputs (no float atomics),
 and hold their tolerances at tile edges (head dims 1, 8 and 72, one query
-row, ragged Sq != Sk) and at d = 128 with grouped K/V heads.
+row, ragged Sq != Sk) and at d = 128 with grouped K/V heads.  The payload GEMM is held on both
+of its paths (small M split over K, large M on tensor cores in 64- and
+128-row blocks), at ragged and padded shapes, and gives the same bits on
+two launches on each path.
 """
 import pytest
 import torch
@@ -211,6 +214,9 @@ def test_qflash_bwd_kernel(dev, g, d, s, window):
     ("nt", 12, 6, None, (64, 96, 256)),       # its dA
     ("tn", 12, 12, 6, (256, 64, 96)),         # its dW: groups summed
     ("tn", 3, 12, 6, (100, 40, 33)),          # broadcast A + group sum
+    ("nn", 8, 4, None, (64, 200, 96)),        # grouped routing, M = 64
+    ("nt", 8, 4, None, (64, 96, 200)),        # its dA
+    ("tn", 8, 8, 4, (200, 64, 96)),           # its dW over 2 row groups
 ])
 def test_batched_gemm_kernel(dev, layout, ga, gb, out_batch, mkn):
     m, k, n = mkn
@@ -236,6 +242,86 @@ def test_batched_gemm_kernel(dev, layout, ga, gb, out_batch, mkn):
     assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
     assert kernels.counts()["qmatmul_batched"] == {"launches": 2,
                                                    "plain_calls": 3}
+
+
+def _gemm_operands(dev, layout, m, k, n, seed):
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=gen,
+                    device=dev)
+    b = torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=gen,
+                    device=dev) / k ** 0.5
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    qa, qb = s2fp8_quant.quant_apply(a, aab), s2fp8_quant.quant_apply(b, bab)
+    da = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+    db = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+    lhs = da.t() if layout == "tn" else da
+    rhs = db.t() if layout == "nt" else db
+    return qa, aab, qb, bab, lhs.abs() @ rhs.abs()
+
+
+@pytest.mark.parametrize("layout", ["nn", "nt"])
+@pytest.mark.parametrize("m", [8, 16, 17, 63, 64, 65])
+def test_gemm_kernel_paths(dev, layout, m):
+    """Both paths and both block heights at the planner's edges: M <= 16
+    takes the small path (K = 300 split 19 ways), 17-64 the 64-row large
+    blocks, 65 the 128-row ones.  K is not a multiple of the 32-deep
+    stages nor of 16 bytes (rows padded by the wrapper), N is ragged."""
+    k, n = 300, 200
+    qa, aab, qb, bab, scale = _gemm_operands(dev, layout, m, k, n, 8)
+    plan = s2fp8_matmul.plan_gemm(m, n, k, layout=layout)
+    assert plan.path == ("small" if m <= 16 else "large")
+    assert plan.path == "large" or plan.splits > 1
+    kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+    plain = (s2fp8_matmul.qmatmul_plain if layout == "nn"
+             else s2fp8_matmul.qmatmul_nt_plain)
+    raw_k, raw_p = kernel(qa, aab, qb, bab), plain(qa, aab, qb, bab)
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * scale + 1e-30).all())
+    oab = s2fp8.compute_stats(raw_p)
+    d = _steps(kernel(qa, aab, qb, bab, oab), plain(qa, aab, qb, bab, oab),
+               oab)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
+    assert kernel.launches == 2
+    assert kernel.small_launches == (2 if m <= 16 else 0)
+
+
+def test_gemm_tn_odd_row_stride(dev):
+    """TN with A stored [K, M] at an odd row stride (M = 1001 bytes, as the
+    vocabulary's 122,753), K not a multiple of the stage depth."""
+    m, k, n = 1001, 100, 130
+    qa, aab, qb, bab, scale = _gemm_operands(dev, "tn", m, k, n, 9)
+    raw_k = s2fp8_matmul.qmatmul_tn(qa, aab, qb, bab)
+    raw_p = s2fp8_matmul.qmatmul_tn_plain(qa, aab, qb, bab)
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * scale + 1e-30).all())
+    assert kernels.counts()["qmatmul_tn"] == {"launches": 1,
+                                              "plain_calls": 1}
+
+
+def test_gemm_kernels_are_deterministic(dev):
+    """Two launches on the same inputs give the same bits on every path:
+    large (NN, 128-row blocks), small with a split K (NN, S = 12), the small
+    NT head form (S = 1) and batched with a group sum."""
+    cases = [("nn", 300, 1000, 260), ("nn", 8, 2304, 5760),
+             ("nt", 8, 512, 40000)]
+    for layout, m, k, n in cases:
+        qa, aab, qb, bab, _ = _gemm_operands(dev, layout, m, k, n, 10)
+        kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+        oab = s2fp8.compute_stats(kernel(qa, aab, qb, bab))
+        assert torch.equal(kernel(qa, aab, qb, bab),
+                           kernel(qa, aab, qb, bab))
+        assert torch.equal(kernel(qa, aab, qb, bab, oab),
+                           kernel(qa, aab, qb, bab, oab))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    a = torch.randn(8, 300, 64, generator=gen, device=dev)
+    b = torch.randn(8, 300, 96, generator=gen, device=dev)
+    qa, qb = (s2fp8_quant.quant_apply(x, s2fp8.compute_stats(x))
+              for x in (a, b))
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    kw = dict(layout="tn", out_batch=2)
+    assert torch.equal(s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, **kw),
+                       s2fp8_matmul.qmatmul_batched(qa, aab, qb, bab, **kw))
+    assert s2fp8_matmul.qmatmul_nn.small_launches == 5
+    assert s2fp8_matmul.qmatmul_nt.small_launches == 5
+    assert kernels.counts()["qmatmul_batched"]["launches"] == 2
 
 
 def _abs_payload(p):
