@@ -19,8 +19,14 @@ Phases, each fatal on failure:
              and a library yardstick with CUDA events (the flash kernels
              and the payload GEMMs at large M also with their bound on
              TF32 tensor cores at three passes; the GEMMs at decode
-             width as device time from torch.profiler, in rows of their
-             own); two launches of each GEMM path give the same bits.
+             width as device time from torch.profiler; quantize-apply,
+             truncate-apply and the stats kernels also by device time at
+             a shape of their main path, the L2 flushed before each
+             call); two launches of each GEMM path, quantize-apply
+             and the fused truncate give the same bits.  First the code
+             table that quantize-apply and the fused truncate encode by is
+             swept against the direct map over every f32 t (0 mismatches
+             in each format).
 4. small   — the reduced models on the card through the kernels and
              through the plain versions: minicpm serving (same greedy
              tokens, close logits), and minicpm and deepseek_moe_16b
@@ -206,24 +212,54 @@ def cuda_time(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def device_ms(fn, iters: int = 20, warmup: int = 2) -> float:
+L2_FLUSH_BYTES = 128 << 20          # 2.5 x the H100's 50 MB L2
+
+
+def device_ms(fn, iters: int = 20, warmup: int = 2,
+              cold: bool = False) -> float:
     """Mean device milliseconds per call: the time the card spends in the
     call's kernels (torch.profiler), without the host's gaps between
-    launches, which outlast a decode GEMM's few microseconds."""
+    launches, which outlast a decode GEMM's few microseconds.  ``cold``:
+    before each call a 128 MB f32 buffer is zeroed, so the call's inputs
+    come from HBM as on the main path (a tensor under 50 MB would otherwise
+    sit in the L2 from the call before); the zeroing kernel is left out of
+    the sum.  The profiler can miss the first kernel of a window, so each
+    window opens with a primer (an int16 fill, left out); a window whose
+    counts are still not whole multiples of ``iters`` is measured again,
+    up to three times."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
+             else None)
+    primer = torch.empty(1, dtype=torch.int16, device="cuda")
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(getattr(e, "self_device_time_total",
-                     getattr(e, "self_cuda_time_total", 0))
-             for e in prof.key_averages() if e.device_type != DeviceType.CPU)
-    assert us > 0, "the profiler saw no device time"
-    return us / 1e3 / iters
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer.fill_(0)
+            torch.cuda.synchronize()
+            for _ in range(iters):
+                if cold:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        us, launches, flushes = 0.0, 0, 0
+        for e in prof.key_averages():
+            if (e.device_type == DeviceType.CPU
+                    or "FillFunctor<short>" in e.key):
+                continue
+            if cold and "FillFunctor<float>" in e.key:
+                flushes += e.count
+                continue
+            us += getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0))
+            launches += e.count
+        if (us > 0 and launches % iters == 0
+                and flushes == (iters if cold else 0)):
+            return us / 1e3 / iters
+    raise AssertionError(f"the profiler saw {launches} launches and "
+                         f"{flushes} flushes in {iters} calls")
 
 
 def same_bits(fn, what: str) -> None:
@@ -352,42 +388,78 @@ def phase_kernels(dev) -> dict:
                 ).to(dtype)
 
     def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape,
-               keep=True, tensor_cores=False, **extra):
+               keep=True, tensor_cores=False, path_ms=None, on_path=False,
+               **extra):
         """Keep the worst error over every shape checked, and the times and
         bound of the last shape recorded with ``keep`` (each list ends with
         a main-path shape, or marks it).  ``tensor_cores``: the kernel runs
         its f32 products as TC_PASSES TF32 tensor-core passes, so its
-        operations bound is the smaller of the f32-core time and that."""
+        operations bound is the smaller of the f32-core time and that.
+        ``path_ms``: the call's device time with the L2 flushed
+        (``device_ms(cold=True)``); with ``on_path`` (a shape its main
+        path launches often) the row keeps it as ``path_device_ms`` beside
+        ``path_shape`` and ``path_bound_ms``.  No time may beat its
+        bound."""
         tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
         kind = "f32 cores"
         if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
             tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
             kind = f"{TC_PASSES}xTF32 tensor cores"
+        bound = max(tb, tf)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
         bound_by = "bytes" if tb >= tf else "operations"
         if keep or "ms" not in row:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                       bound_ms=max(tb, tf), bound_by=bound_by, shape=shape,
+                       bound_ms=bound, bound_by=bound_by, shape=shape,
                        **extra)
+        if on_path:
+            row.update(path_shape=shape, path_device_ms=path_ms,
+                       path_bound_ms=bound)
+        if path_ms is not None:
+            extra = dict(extra, device_ms_l2_flushed=path_ms)
         rate = (f", {flops / ms / 1e9:.1f} TFLOP/s (f32 work)" if flops
                 else "")
         log(f"time {name} [{shape}]: kernel {ms:.4f} ms{rate}, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms} ms, bound "
-            f"{max(tb, tf):.4f} ms ("
+            f"{plain_ms:.4f} ms, library {lib_ms} ms, bound {bound:.4f} ms ("
             + ("bytes" if bound_by == "bytes" else f"operations, {kind}")
             + ")" + "".join(f", {k} {v:.4f} ms" for k, v in extra.items()))
+        assert ms >= bound, f"{name} [{shape}]: {ms} ms beats its bound"
+        assert path_ms is None or path_ms >= bound, \
+            f"{name} [{shape}]: device {path_ms} ms beats its bound"
 
-    # -- quant_apply / truncate_apply at the path's largest operands: a
-    # prefill activation and the tied head weight (bf16, quantized per
-    # call) for quantize; the prefill K cache (bf16) and the f32 embedding
-    # table (truncated per call) for truncate.  Tolerance: payload codes of
-    # kernel and plain version at most one grid step apart, in at most 1e-4
-    # of the elements (the maps round each step alike; the allowance is for
-    # the math library).
+    # -- the code table that quantize-apply and the fused truncate encode
+    # by: its byte against the direct map's for every f32 t, both signs, in
+    # each format.  Tolerance: 0 mismatches.
+    for fmt in ("e4m3", "e5m2"):
+        bad, first = s2fp8_quant.code_sweep(dev, fmt)
+        log(f"code table {fmt}: {bad} mismatches against the direct map "
+            f"over all 2^32 f32 t x 2 signs"
+            + (f" (least at t bits {first:#010x})" if bad else "")
+            + f"; quant_apply and truncate_fused encode {fmt} by the table")
+        assert bad == 0, (fmt, bad, first)
+    log(f"fused truncate: {s2fp8_quant.fused_capacity(dev)} elements kept "
+        f"in registers at most")
+
+    # -- quant_apply / truncate_apply at the paths' operands: a prefill
+    # activation, a decode tick's MLP weight (2304 x 5760 bf16, quantized
+    # on every tick) and the tied head weight (bf16, quantized per call)
+    # for quantize; the prefill K cache (bf16, the serve path's) and the
+    # f32 embedding table (truncated per call) for truncate.  The row's
+    # ms: CUDA events at its last shape (the table); beside it the device
+    # time with the L2 flushed at the decode weight and the K cache.
+    # Tolerance: payload codes of quantize-apply equal to the plain
+    # version's (the same log2f and rounded multiply-add; the code table
+    # equals exp2f + convert everywhere, swept above), and two launches
+    # give the same bits; truncate-apply's codes at most one grid step
+    # apart, in at most 1e-4 of the elements (the maps round each step
+    # alike; the allowance is for the math library).
+    decode_weight = (2304, 5760)
+    kv_cache = (8 * 36 * 1024, 64)
     quant_shapes = [((8 * 1024, 2304), torch.bfloat16),
+                    (decode_weight, torch.bfloat16),
                     ((122753, 2304), torch.bfloat16)]
-    trunc_shapes = [((8 * 36 * 1024, 64), torch.bfloat16),
+    trunc_shapes = [(kv_cache, torch.bfloat16),
                     ((122753, 2304), torch.float32)]
     for fmt in ("e4m3", "e5m2"):
         for shape, dtype in quant_shapes:
@@ -397,7 +469,9 @@ def phase_kernels(dev) -> dict:
             pp = s2fp8_quant.quant_apply_plain(x, ab, fmt)
             f = flips(code_ordinal(pk), code_ordinal(pp))
             log(f"quant_apply {fmt} {shape} {dtype}: flips {f}")
-            assert f["max_step"] <= 1 and f["frac"] <= 1e-4, f
+            assert f["max_step"] == 0, f
+            same_bits(lambda: s2fp8_quant.quant_apply(x, ab, fmt).view(
+                torch.uint8), f"quant_apply {fmt} {shape}")
             dq = s2fp8.dequantize(s2fp8.S2FP8Tensor(pk, ab, fmt))
             dp = s2fp8.dequantize(s2fp8.S2FP8Tensor(pp, ab, fmt))
             record("quant_apply", (dq - dp).abs().max().item(),
@@ -405,7 +479,10 @@ def phase_kernels(dev) -> dict:
                    cuda_time(lambda: s2fp8_quant.quant_apply_plain(
                        x, ab, fmt), iters=3), None,
                    x.numel() * (x.element_size() + 1), 0,
-                   f"{fmt} {tuple(shape)} {dtype}")
+                   f"{fmt} {tuple(shape)} {dtype}",
+                   path_ms=device_ms(lambda: s2fp8_quant.quant_apply(
+                       x, ab, fmt), cold=True),
+                   on_path=shape == decode_weight)
             del x, pk, pp, dq, dp
         for shape, dtype in trunc_shapes:
             x = rnd(*shape, dtype=dtype, scale=0.05)
@@ -421,7 +498,10 @@ def phase_kernels(dev) -> dict:
                    cuda_time(lambda: s2fp8_quant.truncate_apply_plain(
                        x, ab, fmt), iters=3), None,
                    x.numel() * 2 * x.element_size(), 0,
-                   f"{fmt} {tuple(shape)} {dtype}")
+                   f"{fmt} {tuple(shape)} {dtype}",
+                   path_ms=device_ms(lambda: s2fp8_quant.truncate_apply(
+                       x, ab, fmt), cold=True),
+                   on_path=shape == kv_cache)
             del x, tk, tp
 
     # -- qmatmul_nn at decode (M = 8 slots) and prefill (M = 8 rows x
@@ -899,10 +979,12 @@ def stats_kernel_checks(dev, rnd, record) -> None:
     embedding table (122,753 x 2,304 f32, truncated at the embed site), the
     fig4 head logits (2,048 x 122,753 f32), a bf16 activation (2,048 x
     2,304, a GEMM operand) and a GEMM output (2,048 x 5,760 f32).  Each
-    kernel runs on every shape; the times kept are those of its most
-    frequent call: stats on the GEMM output, quantize-with-stats on the
-    activation, the fused truncate on the embedding table.  Beside the
-    stats kernel, the cuda engine's torch reduction of the same stats
+    kernel runs on every shape; the CUDA-event times kept are stats on the
+    GEMM output, quantize-with-stats on the activation, the fused truncate
+    on the embedding table, and beside them the device time with the L2
+    flushed at each one's most frequent call on its path: the GEMM output,
+    the activation, and (train-fig4) the activation.  Beside the stats
+    kernel, the cuda engine's torch reduction of the same stats
     (``s2fp8.compute_stats``) is timed.
 
     Tolerances: the stats' max and nonzero count equal to the plain
@@ -922,6 +1004,7 @@ def stats_kernel_checks(dev, rnd, record) -> None:
     act = ("bf16 activation", (2048, 2304), torch.bfloat16, 1.0)
     out = ("GEMM output", (2048, 5760), torch.float32, 0.3)
     main = {"stats": out, "quant": act, "truncate_fused": emb}
+    path = {"stats": out, "quant": act, "truncate_fused": act}
     u8 = torch.uint8
     for case in (emb, logits, act, out):
         label, shape, dtype, scale = case
@@ -943,6 +1026,8 @@ def stats_kernel_checks(dev, rnd, record) -> None:
                cuda_time(lambda: sq.stats_partials(x)),
                cuda_time(lambda: sq.stats_partials_plain(x), iters=3), None,
                n * elt + 20, 0, tag, keep=case is main["stats"],
+               path_ms=device_ms(lambda: sq.stats_partials(x), cold=True),
+               on_path=case is path["stats"],
                torch_reduction_ms=cuda_time(lambda: s2fp8.compute_stats(x),
                                             iters=3))
 
@@ -959,13 +1044,18 @@ def stats_kernel_checks(dev, rnd, record) -> None:
         del pp
         record("quant", err.item(), cuda_time(lambda: sq.quant(x)),
                cuda_time(lambda: sq.quant_plain(x), iters=3), None,
-               n * (elt + 1) + 8, 0, tag, keep=case is main["quant"])
+               n * (elt + 1) + 8, 0, tag, keep=case is main["quant"],
+               path_ms=device_ms(lambda: sq.quant(x), cold=True),
+               on_path=case is path["quant"])
         del pk
 
         ok, oab = sq.truncate_fused(x)
         assert ok.dtype == dtype and torch.equal(oab, abk)
         assert torch.equal(ok, sq.truncate_apply(x, abk)), \
             "truncate_fused differs from truncate_apply(x, stats(x))"
+        same_bits(lambda: torch.cat([t.flatten().view(torch.uint8) for t in
+                                     sq.truncate_fused(x)]),
+                  f"truncate_fused {tag}")
         op, _ = sq.truncate_fused_plain(x)
         f = flips(ordinal(ok, abk, "e5m2"), ordinal(op, abk, "e5m2"))
         log(f"truncate_fused {tag}: codes against the plain version {f}; "
@@ -975,7 +1065,9 @@ def stats_kernel_checks(dev, rnd, record) -> None:
         del ok, op
         record("truncate_fused", err, cuda_time(lambda: sq.truncate_fused(x)),
                cuda_time(lambda: sq.truncate_fused_plain(x), iters=3), None,
-               2 * n * elt + 8, 0, tag, keep=case is main["truncate_fused"])
+               2 * n * elt + 8, 0, tag, keep=case is main["truncate_fused"],
+               path_ms=device_ms(lambda: sq.truncate_fused(x), cold=True),
+               on_path=case is path["truncate_fused"])
         del x
 
     z = torch.zeros(4096, 33, device=dev)
@@ -2131,9 +2223,35 @@ def memory_by_stage(loss_fn, opt, pol, stats, state, batch, step) -> None:
         f"{stage} {peak:.2f} / {live:.2f}" for stage, peak, live in marks))
 
 
+# device ms and launches by kernel function, summed over every
+# profile_window of the run
+PROFILED: dict = {}
+
+
+def kernel_function(key: str) -> str:
+    """The function name of a profiler kernel key ("void (anonymous
+    namespace)::quant_apply_kernel<float, 1>(float const*, ...)" ->
+    "quant_apply_kernel")."""
+    head = key.replace("(anonymous namespace)::", "").split("(")[0]
+    return head.split("<")[0].split()[-1].split("::")[-1] if head else key
+
+
+def log_profiled_totals() -> None:
+    """The repo's own kernels (functions defined in src/repro_torch/csrc)
+    by device ms summed over every profiled window of the run."""
+    text = "".join(p.read_text() for p in
+                   (ROOT / "src" / "repro_torch" / "csrc").glob("*.cu"))
+    ours = [(ms, n, fn) for fn, (ms, n) in PROFILED.items()
+            if re.search(rf"\b{re.escape(fn)}\s*\(", text)]
+    for ms, n, fn in sorted(ours, reverse=True):
+        log(f"profiled total {fn}: {ms:.3f} device ms in {n} launches "
+            f"over every profiled window")
+
+
 def profile_window(label: str, fn) -> None:
     """Device time by kernel and the device's idle share while ``fn`` runs,
-    with torch.profiler (CPU + CUDA activities)."""
+    with torch.profiler (CPU + CUDA activities); each kernel function's
+    time and launches are added to PROFILED."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2152,6 +2270,9 @@ def profile_window(label: str, fn) -> None:
                          getattr(e, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us / 1e3, e.count, e.key))
+            ms, n = PROFILED.get(kernel_function(e.key), (0.0, 0))
+            PROFILED[kernel_function(e.key)] = (ms + dev_us / 1e3,
+                                                n + e.count)
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     log(f"profile {label}: wall {wall_ms:.1f} ms, device busy "
@@ -2236,10 +2357,12 @@ def main() -> int:
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba,
                                  phase_ops(dev))))
+    if args.profile:
+        log_profiled_totals()
     out = []
     for name, row in rows.items():
-        key = next((v for k, v in SMALL_PATH.items()
-                    if name.startswith(k)), name)
+        key = next((v for k, v in SMALL_PATH.items() if name.startswith(k)),
+                   name)
         base = name.split()[0]
         launches = {f"launches_{ph}": r["counts"][key]["launches"]
                     for ph, r in by_phase.items()}
@@ -2249,7 +2372,9 @@ def main() -> int:
                     "max_abs_err": row["max_abs_err"], "ms": row["ms"],
                     "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                     "bound_by": row["bound_by"],
-                    "library_ms": row["library_ms"], "shape": row["shape"]})
+                    "library_ms": row["library_ms"], "shape": row["shape"],
+                    **{k: row[k] for k in ("path_shape", "path_device_ms",
+                                           "path_bound_ms") if k in row}})
     print(json.dumps({"kernels": out}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,10 @@
 // kernel's dequant table and epilogue, and the paged-decode dequant table.
 // It is the counterpart of ``_truncate_body`` / ``_dequant`` in
 // src/repro/kernels/s2fp8_quant.py and s2fp8_matmul.py.  Also here: the
-// statistics reduction (Eq. 3-4) that the stats, quantize-with-stats and
-// fused truncate kernels share, and ``stats_from_reduction``.
+// exp2-free encode that quantize-apply and the fused truncate run (the
+// card's code table), their 16-byte vector I/O, and the statistics reduction (Eq. 3-4) with the
+// element map that the stats, quantize-with-stats and fused truncate
+// kernels share, and ``stats_from_reduction``.
 //
 // Numerics contract (kept so the kernels agree with the plain PyTorch
 // versions): full-precision log2f / exp2f (no --use_fast_math); the
@@ -88,6 +90,136 @@ __device__ __forceinline__ void fill_lut(float* lut, const float* ab, int fmt) {
     lut[c] = decode(static_cast<unsigned char>(c), alpha, beta, fmt);
 }
 
+// ---------------------------------------------------------------------------
+// The exp2-free encode.  The payload byte's magnitude is a non-decreasing
+// step function of t = alpha * log2|x| + beta: exp2f, the clamp at the
+// format's max finite and the RNE convert with SATFINITE.  Its steps
+// depend on the format alone, not on (alpha, beta) or the input dtype.  So
+// a table built once per card and format (build_code_table_kernel, with
+// the very exp2f and to_fp8 of ``encode``) replaces them per element:
+// ``thr[k]`` is the least t whose magnitude code is >= k (k = 1..127; NaN
+// past the format's max code, so no t reaches it), and ``base[b]`` the
+// code at the start of bucket b, t in [b / 16 - 32, (b + 1) / 16 - 32)
+// (the first and last buckets open-ended).  Neighbouring thresholds are at
+// least 0.096 apart in t for both formats, so a 1/16-wide bucket holds at
+// most one: the code is base[b], plus one if t >= thr[base[b] + 1].  That
+// equals the direct map wherever exp2f is non-decreasing; the sweep
+// kernel checks every f32 t against ``encode``'s arithmetic.
+// ---------------------------------------------------------------------------
+
+constexpr int kBucketsPerUnit = 16;
+constexpr int kBucketT0 = -32;                       // buckets cover [-32, 32)
+constexpr int kBuckets = 64 * kBucketsPerUnit;
+
+struct alignas(16) CodeTable {
+  float thr[128];
+  unsigned char base[kBuckets];
+};
+
+template <int F>
+__host__ __device__ constexpr unsigned int max_code() {
+  return F == kE5M2 ? 0x7Bu : 0x7Eu;   // 57344 and 448
+}
+
+// The magnitude code of t by the direct map (exp2f, clamp, convert).
+__device__ __forceinline__ unsigned int direct_mag(float t, int fmt) {
+  return to_fp8(exp2f(t), fmt) & 0x7Fu;
+}
+
+// ``encode``'s byte for a nonzero x with t = alpha * log2|x| + beta, by the
+// table: the sign bit of x, and for a NaN t (which only non-finite stats
+// give) the byte ``to_fp8`` makes of NaN, the negative max finite.
+template <int F>
+__device__ __forceinline__ unsigned int code_from_t(float t, bool neg,
+                                                    const CodeTable& tab) {
+  constexpr int kLo = kBucketT0 * kBucketsPerUnit;
+  // floor(16 t), saturated by the convert for |t| past 2^27 (NaN gives 0)
+  int b = __float2int_rd(t * static_cast<float>(kBucketsPerUnit));
+  b = min(max(b, kLo), kLo + kBuckets - 1) - kLo;
+  unsigned int c = tab.base[b];
+  c += t >= tab.thr[c + 1] ? 1u : 0u;
+  c |= neg ? 0x80u : 0u;
+  return t == t ? c : (0x80u | max_code<F>());
+}
+
+// The payload byte of x (``encode``) from l = log2f(|x|): zeros and NaNs
+// give 0; the multiply and add round as ``forward_map``'s.
+template <int F>
+__device__ __forceinline__ unsigned int encode_log(float x, float l,
+                                                   float alpha, float beta,
+                                                   const CodeTable& tab) {
+  unsigned int c = code_from_t<F>(__fadd_rn(__fmul_rn(alpha, l), beta),
+                                  x < 0.0f, tab);
+  return fabsf(x) > 0.0f ? c : 0u;
+}
+
+template <int F>
+__device__ __forceinline__ unsigned int encode_table(float x, float alpha,
+                                                     float beta,
+                                                     const CodeTable& tab) {
+  return encode_log<F>(x, log2f(fabsf(x)), alpha, beta, tab);
+}
+
+// Copies the table into shared memory: every thread of the block calls
+// it, then the block syncs.
+__device__ __forceinline__ void load_code_table(CodeTable& dst,
+                                                const CodeTable* src) {
+  constexpr int kWords = sizeof(CodeTable) / 16;
+  for (int i = threadIdx.x; i < kWords; i += blockDim.x)
+    reinterpret_cast<uint4*>(&dst)[i] =
+        __ldg(reinterpret_cast<const uint4*>(src) + i);
+}
+
+// ---------------------------------------------------------------------------
+// Vector I/O: 16 bytes a thread a step (4 f32 or 8 bf16).  An element of a
+// 16-byte word as f32, and the element type's raw bits packed back.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+constexpr int kVec = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ unsigned int word_of(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+template <typename T>
+__device__ __forceinline__ float vec_elem(const uint4& v, int e) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word_of(v, e));
+  } else {
+    unsigned int w = word_of(v, e >> 1);
+    return __uint_as_float((e & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ float scalar_as_f32(const T* p, long long i) {
+  if constexpr (sizeof(T) == 4) return p[i];
+  else return __bfloat162float(p[i]);
+}
+
+// The split of a flat tensor of n elements at x into the head (elements
+// before x's first 16-byte boundary, fewer than kVec), nvec whole 16-byte
+// vectors, and the tail.  Head and tail are the "edge" elements, numbered
+// head first.
+template <typename T>
+struct VecSplit {
+  long long head, nvec, n;
+  __device__ __forceinline__ VecSplit(const T* x, long long n_) : n(n_) {
+    head = static_cast<long long>(
+        ((16u - (reinterpret_cast<unsigned long long>(x) & 15u)) & 15u) /
+        sizeof(T));
+    if (head > n) head = n;
+    nvec = (n - head) / kVec<T>;
+  }
+  __device__ __forceinline__ long long edges() const {
+    return n - nvec * kVec<T>;
+  }
+  __device__ __forceinline__ long long edge_index(long long e) const {
+    return e < head ? e : e + nvec * kVec<T>;
+  }
+};
+
 __device__ __forceinline__ float load_as_f32(const void* p, long long i,
                                              int dtype) {
   if (dtype == kBF16)
@@ -129,24 +261,79 @@ __device__ __forceinline__ StatsPartial stats_combine(StatsPartial a,
   return StatsPartial{a.sum + b.sum, fmaxf(a.max, b.max), a.count + b.count};
 }
 
-// This thread's share of x under the grid-stride map (element i goes to
-// thread i mod (gridDim.x * blockDim.x)): the map the stats kernel and the
-// fused truncate kernel's phase 0 both use.
-__device__ __forceinline__ StatsPartial stats_thread_partial(const void* x,
-                                                             int dtype,
-                                                             long long n) {
-  StatsPartial p = stats_identity();
-  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride) {
-    float a = fabsf(load_as_f32(x, i, dtype));
-    if (a > 0.0f) {
+__device__ __forceinline__ void stats_add(StatsPartial& p, float a, float l) {
+  if (a > 0.0f) {
+    p.sum += static_cast<double>(l);
+    p.max = fmaxf(p.max, l);
+    p.count += 1;
+  }
+}
+
+// The element map the stats kernel and the fused truncate kernel's phase 0
+// share (so the two give equal partials for equal inputs).  With G threads
+// in the grid (VecSplit above): whole vector j goes to thread j mod G, in
+// round j / G; edge element e to thread e.  A thread sums in round order,
+// each vector's elements in order, the edge element last; the fused
+// truncate keeps its first kKeepVecs rounds (kKeepElems elements) and each
+// element's log2 in registers.
+constexpr int kKeepElems = 16;
+template <typename T>
+constexpr int kKeepVecs = kKeepElems / kVec<T>;
+
+template <typename T>
+struct Kept {
+  uint4 v[kKeepVecs<T>];
+  float logs[kKeepVecs<T>][kVec<T>];
+};
+
+// Past the kept batch, a thread loads kStreamVecs rounds at a time (fewer
+// registers live beside the kept ones).
+constexpr int kStreamVecs = 2;
+
+// Loads NV rounds of this thread from vector j0 on and adds them to p; with
+// ``kKeep`` (the first batch, NV = kKeepVecs), also stores the vectors and
+// their log2 in ``keep``.
+template <typename T, int NV, bool kKeep>
+__device__ __forceinline__ void stats_batch(const uint4* xv, long long nvec,
+                                            long long j0, long long grid,
+                                            StatsPartial& p, Kept<T>& keep) {
+  constexpr int V = kVec<T>;
+  uint4 v[NV];
+#pragma unroll
+  for (int k = 0; k < NV; ++k)
+    if (j0 + k * grid < nvec) v[k] = xv[j0 + k * grid];
+#pragma unroll
+  for (int k = 0; k < NV; ++k) {
+    if (j0 + k * grid >= nvec) break;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      float a = fabsf(vec_elem<T>(v[k], e));
       float l = log2f(a);
-      p.sum += static_cast<double>(l);
-      p.max = fmaxf(p.max, l);
-      p.count += 1;
+      stats_add(p, a, l);
+      if constexpr (kKeep) keep.logs[k][e] = l;
     }
+    if constexpr (kKeep) keep.v[k] = v[k];
+  }
+}
+
+// This thread's partial of x under the map above.
+template <typename T, bool kKeep>
+__device__ __forceinline__ StatsPartial stats_thread_partial(const T* x,
+                                                             long long n,
+                                                             Kept<T>& keep) {
+  const VecSplit<T> s(x, n);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
+  const long long grid = static_cast<long long>(gridDim.x) * blockDim.x;
+  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
+                      threadIdx.x;
+  StatsPartial p = stats_identity();
+  stats_batch<T, kKeepVecs<T>, kKeep>(xv, s.nvec, g, grid, p, keep);
+  for (long long j0 = g + kKeepVecs<T> * grid; j0 < s.nvec;
+       j0 += kStreamVecs * grid)
+    stats_batch<T, kStreamVecs, false>(xv, s.nvec, j0, grid, p, keep);
+  if (g < s.edges()) {
+    float a = fabsf(scalar_as_f32(x, s.edge_index(g)));
+    stats_add(p, a, log2f(a));
   }
   return p;
 }

@@ -13,14 +13,19 @@ in s2fp8_common.cuh).
 
 Bound on the card: bytes — one read of the input (f32 or bf16, or the
 1-byte payload) and one write of the output per element; the stats read
-the input once, quantize-with-stats and the fused truncate twice.  Design:
-a grid-stride elementwise loop, (alpha, beta) read through a device
-pointer (no host sync); dequantize looks each byte up in a per-block
-256-entry table of the Eq. 4 inverse map.  The stats are a deterministic
-two-stage reduction (per-block partials with the sum in f64 and the count
-in 64-bit integers, then one block sums them in a fixed order; no
-atomics), and the fused truncate is one cooperative launch whose phase 0
-is that reduction: it equals ``truncate_apply(x, stats(x))`` bit for bit.
+the input once, quantize-with-stats twice, and the fused truncate once up
+to its register capacity (:func:`fused_capacity`), twice above it.
+Design: (alpha, beta) read through a device pointer (no host sync);
+quantize-apply and the fused truncate move 16 bytes a thread a step and
+encode through the card's code table (:func:`code_table`: exp2f, clamp and
+convert replaced by a bucket of t and one threshold compare, held to the
+direct map over every f32 t by :func:`code_sweep`); dequantize and the
+fused truncate's output look each byte up in a per-block 256-entry table
+of the Eq. 4 inverse map.  The stats are a deterministic two-stage
+reduction (per-block partials with the sum in f64 and the count in 64-bit
+integers, then one block sums them in a fixed order; no atomics), and the
+fused truncate is one cooperative launch whose phase 0 is that reduction:
+it equals ``truncate_apply(x, stats(x))`` bit for bit.
 
 The stats wrappers return the triplet (sum log2|x|, max log2|x|, nonzero
 count) as f32 [3] and (alpha, beta) as f32 [2], both on x's device.
@@ -112,6 +117,71 @@ def truncate_fused_plain(x: torch.Tensor, fmt: str = "e5m2"):
 # per-block partials of the stats kernels (24 B each; the card's grid rule
 # stays under 4096 blocks, and the library checks it)
 _STATS_SCRATCH_BYTES = 24 * 4096
+_CODE_TABLES = {}
+_LAYOUT = []
+
+
+def _code_table_layout():
+    """(bytes, byte offset of the thresholds, their count) of the code
+    table (``CodeTable`` in csrc/s2fp8_common.cuh), asked of the library."""
+    if not _LAYOUT:
+        out = torch.zeros(3, dtype=torch.int64)
+        build.check(build.load("s2fp8_quant").s2fp8_code_table_layout(
+            out.data_ptr()), "s2fp8_code_table_layout")
+        _LAYOUT.extend(int(v) for v in out)
+    return _LAYOUT
+
+
+def code_table(device: torch.device, fmt: str) -> torch.Tensor:
+    """The card's code table of ``fmt`` (raw bytes, laid out as the
+    library's ``CodeTable``), built by one small kernel at first use on
+    ``device`` and kept: the thresholds of t = alpha log2|x| + beta where
+    the payload code steps up depend on the format alone.  The build is
+    waited for once, so any stream may read the table afterwards."""
+    key = (device.index if device.index is not None
+           else torch.cuda.current_device(), fmt)
+    table = _CODE_TABLES.get(key)
+    if table is None:
+        table = torch.empty(_code_table_layout()[0], dtype=torch.uint8,
+                            device=device)
+        rc = build.load("s2fp8_quant").s2fp8_code_table(
+            table.data_ptr(), FMT_ID[fmt], build.stream_ptr(device))
+        build.check(rc, "s2fp8_code_table")
+        torch.cuda.current_stream(device).synchronize()
+        _CODE_TABLES[key] = table
+    return table
+
+
+def code_thresholds(device: torch.device, fmt: str) -> torch.Tensor:
+    """f32 [128] of the code table: entry k the least t whose magnitude
+    code is >= k (NaN past the format's max code)."""
+    _, at, count = _code_table_layout()
+    return code_table(device, fmt)[at:at + 4 * count].view(torch.float32)
+
+
+def code_sweep(device: torch.device, fmt: str):
+    """(mismatches, least mismatching f32 pattern or None): the code
+    table's byte against the direct map's (to_fp8 of +-exp2f(t)) for every
+    one of the 2^32 f32 bit patterns t, both signs, on the card."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    first = torch.full((1,), -1, dtype=torch.int32, device=device)
+    rc = build.load("s2fp8_quant").s2fp8_code_sweep(
+        code_table(device, fmt).data_ptr(), FMT_ID[fmt], bad.data_ptr(),
+        first.data_ptr(), build.stream_ptr(device))
+    build.check(rc, "s2fp8_code_sweep")
+    n = int(bad.item())
+    return n, (int(first.item()) & 0xFFFFFFFF if n else None)
+
+
+def fused_capacity(device: torch.device) -> int:
+    """The most elements the fused truncate keeps in registers across its
+    grid barrier on ``device``'s card (read once, one log2 each); a larger
+    tensor is read a second time past that many."""
+    out = torch.zeros(1, dtype=torch.int64)
+    with torch.cuda.device(device):
+        rc = build.load("s2fp8_quant").s2fp8_fused_capacity(out.data_ptr())
+    build.check(rc, "s2fp8_fused_capacity")
+    return int(out.item())
 
 
 def _stats_outputs(x: torch.Tensor):
@@ -153,7 +223,7 @@ def quant(x: torch.Tensor, fmt: str = "e5m2"):
         x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
         scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
         ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
-        build.stream_ptr(x.device))
+        code_table(x.device, fmt).data_ptr(), build.stream_ptr(x.device))
     build.check(rc, "s2fp8_quant")
     quant.launches += 1
     return out.view(s2fp8.FMT_QDTYPE[fmt]), ab
@@ -161,7 +231,7 @@ def quant(x: torch.Tensor, fmt: str = "e5m2"):
 
 def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     """(out, ab): the Eq. 5 round trip of ``x`` with its own exact stats,
-    out in ``x``'s dtype — one cooperative launch (stats, grid barrier,
+    out in ``x``'s dtype — one cooperative launch (stats, grid barriers,
     apply).  CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return truncate_fused_plain(x, fmt)
@@ -169,10 +239,10 @@ def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     scratch, triplet, ab = _stats_outputs(x)
     out = torch.empty_like(x)
     rc = build.load("s2fp8_quant").s2fp8_truncate_fused(
-        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), DTYPE_ID[x.dtype],
-        x.numel(), scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
+        scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
         ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
-        build.stream_ptr(x.device))
+        code_table(x.device, fmt).data_ptr(), build.stream_ptr(x.device))
     build.check(rc, "s2fp8_truncate_fused")
     truncate_fused.launches += 1
     return out, ab
@@ -188,7 +258,8 @@ def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     rc = build.load("s2fp8_quant").s2fp8_quant_apply(
         x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
-        ab.data_ptr(), FMT_ID[fmt], build.stream_ptr(x.device))
+        ab.data_ptr(), FMT_ID[fmt], code_table(x.device, fmt).data_ptr(),
+        build.stream_ptr(x.device))
     build.check(rc, "s2fp8_quant_apply")
     quant_apply.launches += 1
     return out.view(s2fp8.FMT_QDTYPE[fmt])

@@ -609,3 +609,128 @@ def test_flash_kernels_are_deterministic(dev):
         t = [x.to(dtype) for x in (q, k, v)]
         assert torch.equal(flash_attention.flash_attention(*t),
                            flash_attention.flash_attention(*t))
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_code_table_matches_direct_map_everywhere(dev, fmt):
+    """The code table's byte equals the direct map's (to_fp8 of +-exp2f(t))
+    for every one of the 2^32 f32 bit patterns t, both signs: 0
+    mismatches, so quantize-apply and the fused truncate may encode by
+    the table."""
+    bad, first = s2fp8_quant.code_sweep(dev, fmt)
+    assert bad == 0, f"{bad} mismatches, the least at t bits {first:#010x}"
+
+
+# ragged sizes: every edge of the vector split (1, 7, a vector of f32 or
+# bf16 and one either side), the fused truncate's register capacity and
+# one either side (("cap", d): read per card inside the test), the empty
+# tensor, and 20 M elements (80 MB in f32, 40 MB in bf16 plus the output:
+# past the 50 MB L2)
+EDGE_SIZES = [0, 1, 3, 4, 5, 7, 8, 9, ("cap", -1), ("cap", 0), ("cap", 1),
+              20_000_000]
+
+
+def _edge_input(dev, size, dtype, offset):
+    n = (s2fp8_quant.fused_capacity(dev) + size[1]
+         if isinstance(size, tuple) else size)
+    gen = torch.Generator(device=dev).manual_seed(n % 1000 + offset)
+    x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
+    x[::97] = 0.0
+    return x[offset:]             # offset 1: not on a 16-byte boundary
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("size", EDGE_SIZES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_quant_apply_and_fused_truncate_edges(dev, fmt, dtype, size, offset):
+    """Quantize-apply and the fused truncate at the edges of their element
+    maps: codes within the quantize tolerance of the plain version and, bit
+    for bit, the codes whose dequantized values truncate-apply gives (its
+    kernel keeps the direct map); the fused truncate bit for bit
+    truncate_apply(x, stats(x)) with the stats kernel's (alpha, beta); two
+    launches of each give the same bits."""
+    x = _edge_input(dev, size, dtype, offset)
+    target = s2fp8.FMT_TARGET_MAX[fmt]
+    _, abk = s2fp8_quant.stats_partials(x, target)
+    pk = s2fp8_quant.quant_apply(x, abk, fmt)
+    assert pk.shape == x.shape and pk.dtype == s2fp8.FMT_QDTYPE[fmt]
+    assert torch.equal(pk.view(torch.uint8),
+                       s2fp8_quant.quant_apply(x, abk, fmt).view(torch.uint8))
+    pp = s2fp8_quant.quant_apply_plain(x, abk, fmt)
+    d = (_ordinal(pk) - _ordinal(pp)).abs()
+    assert d.numel() == 0 or (d.max() <= 1 and (d != 0).float().mean() <= 1e-4)
+    assert torch.equal(s2fp8_quant.dequant(pk, abk),
+                       s2fp8_quant.truncate_apply(x.float(), abk, fmt))
+
+    ok, oab = s2fp8_quant.truncate_fused(x, fmt)
+    assert ok.dtype == dtype and ok.shape == x.shape
+    assert torch.equal(oab, abk)
+    assert torch.equal(ok, s2fp8_quant.truncate_apply(x, abk, fmt))
+    ok2, oab2 = s2fp8_quant.truncate_fused(x, fmt)
+    assert torch.equal(ok, ok2) and torch.equal(oab, oab2)
+    c = kernels.counts()
+    assert c["quant_apply"]["launches"] == 2
+    assert c["truncate_fused"]["launches"] == 2
+
+
+def _near_thresholds(thr, fmt, alpha, beta, ulps=48):
+    """f32 x of both signs whose t = alpha log2|x| + beta lies within a few
+    ulp of every code threshold of ``fmt``: the inputs where a bucket or
+    threshold of the code table off by one would show."""
+    m = {"e5m2": 0x7B, "e4m3": 0x7E}[fmt]
+    t = thr[1:m + 1].double().cpu()
+    x = torch.exp2((t - beta) / alpha).float()
+    bits = x.view(torch.int32)[:, None] + torch.arange(
+        -ulps, ulps + 1, dtype=torch.int32)
+    x = bits.flatten().view(torch.float32)
+    return torch.cat([x, -x])
+
+
+@pytest.mark.parametrize("ab", [(1.0, 15.0), (0.37, 2.1), (2.5, -7.25)],
+                         ids=str)
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_quant_apply_near_code_thresholds(dev, fmt, ab):
+    """Inputs within 48 ulp of every code threshold: quantize-apply's
+    codes are the direct map's (truncate-apply's kernel), bit for bit.  The
+    decoded values ascend with the code, so equal values mean equal
+    codes."""
+    alpha, beta = ab
+    m = {"e5m2": 0x7B, "e4m3": 0x7E}[fmt]
+    thr = s2fp8_quant.code_thresholds(dev, fmt)
+    assert bool((thr[2:m + 1] > thr[1:m]).all())
+    x = _near_thresholds(thr, fmt, alpha, beta).to(dev)
+    abt = torch.tensor([alpha, beta], device=dev)
+    pk = s2fp8_quant.quant_apply(x, abt, fmt)
+    codes = torch.arange(128, dtype=torch.uint8, device=dev)
+    lut = s2fp8_quant.dequant(codes.view(s2fp8.FMT_QDTYPE[fmt]), abt)
+    assert bool((lut[1:m + 1] > lut[:m]).all())
+    assert torch.equal(s2fp8_quant.dequant(pk, abt),
+                       s2fp8_quant.truncate_apply(x, abt, fmt))
+    for dtype in (torch.float32, torch.bfloat16):
+        xd = x.to(dtype)
+        assert torch.equal(s2fp8_quant.dequant(
+            s2fp8_quant.quant_apply(xd, abt, fmt), abt),
+            s2fp8_quant.truncate_apply(xd.float(), abt, fmt))
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_fused_truncate_near_code_thresholds(dev, fmt):
+    """A tensor past the fused truncate's register capacity whose last
+    elements (re-read in phase 1 and encoded there) lie within a
+    few ulp of the code thresholds under the tensor's own stats:
+    truncate_fused(x) is truncate_apply(x, stats(x)) bit for bit."""
+    gen = torch.Generator(device=dev).manual_seed(31)
+    n = 2 * s2fp8_quant.fused_capacity(dev)
+    x = torch.randn(n, generator=gen, device=dev)
+    target = s2fp8.FMT_TARGET_MAX[fmt]
+    thr = s2fp8_quant.code_thresholds(dev, fmt)
+    for _ in range(2):   # the tail moves the stats by ulps only
+        _, ab = s2fp8_quant.stats_partials(x, target)
+        tail = _near_thresholds(thr, fmt, float(ab[0]), float(ab[1]), 8)
+        tail = tail[torch.isfinite(tail) & (tail != 0)].to(dev)
+        x[-tail.numel():] = tail
+    _, ab = s2fp8_quant.stats_partials(x, target)
+    out, oab = s2fp8_quant.truncate_fused(x, fmt)
+    assert torch.equal(oab, ab)
+    assert torch.equal(out, s2fp8_quant.truncate_apply(x, ab, fmt))

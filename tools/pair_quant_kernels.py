@@ -1,0 +1,103 @@
+"""Times the S2FP8 quantize, truncate and stats kernels of one source tree,
+so that two trees can be compared on one card in one run.
+
+    python3 tools/pair_quant_kernels.py --src OTHER_TREE/src --label parent
+    python3 tools/pair_quant_kernels.py --src src --label change
+
+Imports ``repro_torch`` from ``--src`` (its kernels are built into that
+tree's ``build/``) and times each wrapper with chip_smoke.py's harnesses at
+the shapes chip_smoke.py phase 3 checks: device ms with the L2 flushed
+before each call (torch.profiler, ``device_ms(cold=True)``) and CUDA-event
+ms per call (host gaps included).  For a paired comparison run the trees
+as A, B, B, A in one command.  Needs a CUDA card; prints one line per
+shape and, last, one JSON object {"label": ..., "rows": [...]}.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+import chip_smoke  # noqa: E402  (its timing harnesses)
+
+SHAPES = {
+    "quant_apply": [((8 * 1024, 2304), torch.bfloat16),
+                    ((2304, 5760), torch.bfloat16),
+                    ((122753, 2304), torch.bfloat16)],
+    "truncate_apply": [((8 * 36 * 1024, 64), torch.bfloat16),
+                       ((122753, 2304), torch.float32)],
+    # the exact-stats path's tensors: (shape, dtype, scale)
+    "stats": [((122753, 2304), torch.float32, 0.05),
+              ((2048, 122753), torch.float32, 3.0),
+              ((2048, 2304), torch.bfloat16, 1.0),
+              ((2048, 5760), torch.float32, 0.3)],
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--src", required=True,
+                    help="the tree's src directory (holds repro_torch)")
+    ap.add_argument("--label", required=True)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(Path(args.src).resolve()))
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import s2fp8_quant as sq
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rows = []
+
+    def timed(name, shape, dtype, fn, nbytes):
+        fn()
+        row = {"kernel": name, "shape": list(shape),
+               "dtype": str(dtype)[6:],
+               "device_ms": chip_smoke.device_ms(fn, cold=True),
+               "events_ms": chip_smoke.cuda_time(fn),
+               "bound_ms": nbytes / chip_smoke.H100_BYTES_PER_S * 1e3}
+        rows.append(row)
+        print(f"{args.label} {name} {tuple(shape)} {row['dtype']}: device "
+              f"{row['device_ms']:.4f} ms (L2 flushed), events "
+              f"{row['events_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms",
+              flush=True)
+
+    def rnd(shape, dtype, scale):
+        return (torch.randn(*shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    for shape, dtype in SHAPES["quant_apply"]:
+        x = rnd(shape, dtype, 0.05)
+        ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX["e5m2"])
+        timed("quant_apply", shape, dtype,
+              lambda: sq.quant_apply(x, ab, "e5m2"),
+              x.numel() * (x.element_size() + 1))
+    for shape, dtype in SHAPES["truncate_apply"]:
+        x = rnd(shape, dtype, 0.05)
+        ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX["e5m2"])
+        timed("truncate_apply", shape, dtype,
+              lambda: sq.truncate_apply(x, ab, "e5m2"),
+              x.numel() * 2 * x.element_size())
+    for shape, dtype, scale in SHAPES["stats"]:
+        x = rnd(shape, dtype, scale)
+        n, elt = x.numel(), x.element_size()
+        timed("stats", shape, dtype, lambda: sq.stats_partials(x),
+              n * elt + 20)
+        timed("quant", shape, dtype, lambda: sq.quant(x), n * (elt + 1) + 8)
+        timed("truncate_fused", shape, dtype, lambda: sq.truncate_fused(x),
+              2 * n * elt + 8)
+        del x
+    print(json.dumps({"label": args.label,
+                      "card": torch.cuda.get_device_name(0), "rows": rows}),
+          flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
