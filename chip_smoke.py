@@ -20,13 +20,15 @@ Phases, each fatal on failure:
              and the payload GEMMs at large M also with their bound on
              TF32 tensor cores at three passes; the GEMMs at decode
              width as device time from torch.profiler; quantize-apply,
-             truncate-apply and the stats kernels also by device time at
-             a shape of their main path, the L2 flushed before each
-             call); two launches of each GEMM path, quantize-apply
-             and the fused truncate give the same bits.  First the code
-             table that quantize-apply and the fused truncate encode by is
-             swept against the direct map over every f32 t (0 mismatches
-             in each format).
+             truncate-apply, the stats kernels and the paged decode also
+             by device time at a shape of their main path, the L2 flushed
+             before each call); two launches of each GEMM path,
+             quantize-apply, truncate-apply, the fused truncate and the
+             paged decode give the same bits, and truncate-apply equals
+             dequant(quant_apply(x)) bit for bit.  First the code table
+             that quantize-apply and both truncates encode by is swept
+             against the direct map over every f32 t (0 mismatches in
+             each format).
 4. small   — the reduced models on the card through the kernels and
              through the plain versions: minicpm serving (same greedy
              tokens, close logits), and minicpm and deepseek_moe_16b
@@ -428,7 +430,7 @@ def phase_kernels(dev) -> dict:
         assert path_ms is None or path_ms >= bound, \
             f"{name} [{shape}]: device {path_ms} ms beats its bound"
 
-    # -- the code table that quantize-apply and the fused truncate encode
+    # -- the code table that quantize-apply and both truncates encode
     # by: its byte against the direct map's for every f32 t, both signs, in
     # each format.  Tolerance: 0 mismatches.
     for fmt in ("e4m3", "e5m2"):
@@ -436,7 +438,8 @@ def phase_kernels(dev) -> dict:
         log(f"code table {fmt}: {bad} mismatches against the direct map "
             f"over all 2^32 f32 t x 2 signs"
             + (f" (least at t bits {first:#010x})" if bad else "")
-            + f"; quant_apply and truncate_fused encode {fmt} by the table")
+            + f"; quant_apply, truncate_apply and truncate_fused encode "
+            f"{fmt} by the table")
         assert bad == 0, (fmt, bad, first)
     log(f"fused truncate: {s2fp8_quant.fused_capacity(dev)} elements kept "
         f"in registers at most")
@@ -453,7 +456,9 @@ def phase_kernels(dev) -> dict:
     # equals exp2f + convert everywhere, swept above), and two launches
     # give the same bits; truncate-apply's codes at most one grid step
     # apart, in at most 1e-4 of the elements (the maps round each step
-    # alike; the allowance is for the math library).
+    # alike; the allowance is for the math library), its values bit for bit
+    # dequant(quant_apply(x)) in x's dtype (the same encode; Eq. 5 as
+    # lut[code]), and two launches give the same bits.
     decode_weight = (2304, 5760)
     kv_cache = (8 * 36 * 1024, 64)
     quant_shapes = [((8 * 1024, 2304), torch.bfloat16),
@@ -490,8 +495,16 @@ def phase_kernels(dev) -> dict:
             tk = s2fp8_quant.truncate_apply(x, ab, fmt)
             tp = s2fp8_quant.truncate_apply_plain(x, ab, fmt)
             f = flips(ordinal(tk, ab, fmt), ordinal(tp, ab, fmt))
-            log(f"truncate_apply {fmt} {shape} {dtype}: flips {f}")
+            ints = torch.int32 if dtype == torch.float32 else torch.int16
+            dq = s2fp8_quant.dequant(s2fp8_quant.quant_apply(x, ab, fmt), ab)
+            same = torch.equal(tk.view(ints), dq.to(dtype).view(ints))
+            log(f"truncate_apply {fmt} {shape} {dtype}: flips {f}; "
+                f"bit-equal to dequant(quant_apply(x)): {same}")
             assert f["max_step"] <= 1 and f["frac"] <= 1e-4, f
+            assert same, "truncate_apply differs from dequant(quant_apply)"
+            same_bits(lambda: s2fp8_quant.truncate_apply(x, ab, fmt).view(
+                ints), f"truncate_apply {fmt} {shape}")
+            del dq
             record("truncate_apply",
                    (tk.float() - tp.float()).abs().max().item(),
                    cuda_time(lambda: s2fp8_quant.truncate_apply(x, ab, fmt)),
@@ -591,9 +604,20 @@ def phase_kernels(dev) -> dict:
                tensor_cores=True)
 
     # -- paged_decode: 8 slots x 36 KV heads, head dim 64, block 16, 64
-    # blocks per slot, positions across the whole context, both formats.
-    # Tolerance: |kernel - plain| <= 1e-4 * |plain| + 1e-5 (f32 softmax
-    # order; no truncation on this path).
+    # blocks per slot, both formats, at three sets of positions: across the
+    # whole context; on both sides of the kernel's split boundaries; and
+    # the serve run's (phase 5) first 8 prompts at their 16th decode token,
+    # the row's main-path shape.  Tolerance: |kernel - plain| <= 1e-4 *
+    # |plain| + 1e-5 (f32 softmax order; no truncation on this path), and
+    # two launches give the same bits.
+    split = paged_attention.SPLIT
+    _, _, serve_lens = serve_prompts(122753)
+    position_sets = {
+        "spread": [0, 15, 16, 100, 511, 700, 1000, 1023],
+        "split edges": [0, split - 1, split, 2 * split - 1, 2 * split,
+                        3 * split - 1, 3 * split, 1023],
+        "serve": [int(n) + 15 for n in serve_lens[:8]],
+    }
     for fmt in ("e4m3", "e5m2"):
         b, kvh, g, hd, blk, max_b = 8, 36, 1, 64, 16, 64
         nb = b * max_b + 1
@@ -605,26 +629,32 @@ def phase_kernels(dev) -> dict:
         vp = s2fp8_quant.quant_apply(vf, vab, fmt)
         perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
         table = perm.reshape(b, max_b).to(torch.int32)
-        pos = torch.tensor([0, 15, 16, 100, 511, 700, 1000, 1023],
-                           dtype=torch.int32, device=dev)
-        ok = paged_attention.paged_decode_attention(q, kp, vp, kab, vab,
+        for label, positions in position_sets.items():
+            pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+            kernel = (lambda: paged_attention.paged_decode_attention(
+                q, kp, vp, kab, vab, table, pos, fmt))
+            ok = kernel()
+            op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab,
                                                     table, pos, fmt)
-        op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab, table,
-                                                pos, fmt)
-        err = (ok - op).abs()
-        log(f"paged_decode {fmt}: max err {err.max().item():.3e}")
-        assert bool((err <= 1e-4 * op.abs() + 1e-5).all()), err.max().item()
-        live = int((pos.long() + 1).sum().item())
-        record("paged_decode", err.max().item(),
-               cuda_time(lambda: paged_attention.paged_decode_attention(
-                   q, kp, vp, kab, vab, table, pos, fmt)),
-               cuda_time(lambda: paged_attention.paged_decode_plain(
-                   q, kp, vp, kab, vab, table, pos, fmt), iters=3),
-               None,
-               2 * live * kvh * hd + 2 * b * kvh * g * hd * 4
-               + table.numel() * 4 + b * 4,
-               4.0 * live * kvh * g * hd,
-               f"{fmt} B={b} KV={kvh} hd={hd} block={blk} live={live}")
+            err = (ok - op).abs()
+            log(f"paged_decode {fmt} {label} {positions}: max err "
+                f"{err.max().item():.3e}")
+            assert bool((err <= 1e-4 * op.abs() + 1e-5).all()), \
+                err.max().item()
+            same_bits(kernel, f"paged_decode {fmt} {label}")
+            live = int((pos.long() + 1).sum().item())
+            record("paged_decode", err.max().item(), cuda_time(kernel),
+                   cuda_time(lambda: paged_attention.paged_decode_plain(
+                       q, kp, vp, kab, vab, table, pos, fmt), iters=3),
+                   None,
+                   2 * live * kvh * hd + 2 * b * kvh * g * hd * 4
+                   + table.numel() * 4 + b * 4,
+                   4.0 * live * kvh * g * hd,
+                   f"{fmt} B={b} KV={kvh} hd={hd} block={blk} {label} "
+                   f"live={live}",
+                   keep=label == "spread",
+                   path_ms=device_ms(kernel, cold=True),
+                   on_path=label == "serve")
     train_kernel_checks(dev, rnd, record)
     moe_kernel_checks(dev, rnd, record)
     stats_kernel_checks(dev, rnd, record)
@@ -1176,6 +1206,16 @@ def phase_small_reference(dev) -> None:
 # phase 5: the main path at full width
 # ---------------------------------------------------------------------------
 
+def serve_prompts(vocab: int):
+    """(rng, calibration tokens [2, 64], 16 prompt lengths in 64..700) of
+    phase 5's serve run, from seed 0; the rng goes on to draw the
+    prompts."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    calib = rng.integers(0, vocab, (2, 64))
+    return rng, calib, rng.integers(64, 701, 16)
+
+
 def phase_serve(dev) -> dict:
     """Full-width minicpm_2b through the port's entry points: seeded
     params, calibrate_serving_bank, PayloadLMServer.  Returns the kernel
@@ -1196,9 +1236,8 @@ def phase_serve(dev) -> dict:
     log(f"serve: minicpm_2b {cfg.n_layers} layers, d={cfg.d_model}, "
         f"vocab {cfg.vocab}, {cfg.n_params() / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s")
-    rng = np.random.default_rng(0)
-    calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 64)), device=dev)
-    prompt_lens = rng.integers(64, 701, 16)
+    rng, calib_tokens, prompt_lens = serve_prompts(cfg.vocab)
+    calib = torch.as_tensor(calib_tokens, device=dev)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(n),
                                         dtype=np.int32), max_new_tokens=32)
             for n in prompt_lens]

@@ -5,10 +5,11 @@
 // kernel's dequant table and epilogue, and the paged-decode dequant table.
 // It is the counterpart of ``_truncate_body`` / ``_dequant`` in
 // src/repro/kernels/s2fp8_quant.py and s2fp8_matmul.py.  Also here: the
-// exp2-free encode that quantize-apply and the fused truncate run (the
-// card's code table), their 16-byte vector I/O, and the statistics reduction (Eq. 3-4) with the
-// element map that the stats, quantize-with-stats and fused truncate
-// kernels share, and ``stats_from_reduction``.
+// exp2-free encode that quantize-apply, truncate-apply and the fused
+// truncate run (the card's code table), their 16-byte vector I/O, and the
+// statistics reduction (Eq. 3-4) with the element map that the stats,
+// quantize-with-stats and fused truncate kernels share, and
+// ``stats_from_reduction``.
 //
 // Numerics contract (kept so the kernels agree with the plain PyTorch
 // versions): full-precision log2f / exp2f (no --use_fast_math); the
@@ -219,21 +220,6 @@ struct VecSplit {
     return e < head ? e : e + nvec * kVec<T>;
   }
 };
-
-__device__ __forceinline__ float load_as_f32(const void* p, long long i,
-                                             int dtype) {
-  if (dtype == kBF16)
-    return __bfloat162float(static_cast<const __nv_bfloat16*>(p)[i]);
-  return static_cast<const float*>(p)[i];
-}
-
-__device__ __forceinline__ void store_from_f32(void* p, long long i, float v,
-                                               int dtype) {
-  if (dtype == kBF16)
-    static_cast<__nv_bfloat16*>(p)[i] = __float2bfloat16_rn(v);
-  else
-    static_cast<float*>(p)[i] = v;
-}
 
 // ---------------------------------------------------------------------------
 // Statistics (Eq. 3-4): (sum log2|x|, max log2|x|, nonzero count) over the

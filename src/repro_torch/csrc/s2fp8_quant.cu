@@ -3,8 +3,8 @@
 // quantize-with-stats and the fused truncate.
 //
 // Replaces src/repro/kernels/s2fp8_quant.py: quant_apply_pallas
-// (_apply_kernel), truncate_apply_pallas (_truncate_kernel, whose body
-// _truncate_body is s2fp8::truncate here), dequant_pallas
+// (_apply_kernel), truncate_apply_pallas (_truncate_kernel and its body
+// _truncate_body: here the code-table encode and lut[code]), dequant_pallas
 // (_dequant_kernel), stats_pallas (_stats_kernel), quant_pallas (stats, then
 // apply) and truncate_fused_pallas (_truncate_fused_kernel).
 //
@@ -17,21 +17,25 @@
 // allows for bf16 (0.72 ms for 283 M elements on an H100; 132 SMs x 128
 // lanes x 1.98 GHz).
 //
-// Quantize-apply (quant_apply_kernel<T, F>): the input dtype and the format
-// are template parameters; each thread moves 16 bytes a step (4 f32 or 8
-// bf16, 4 or 8 code bytes stored packed), the ragged edges (a head before
-// x's first 16-byte boundary, a tail after its last whole vector) as
-// scalars in the same kernel; the grid is one wave of the blocks the card
-// holds at once, filled down to a 2304 x 2304 weight.  The encode keeps
-// log2f and the rounded multiply-add of the forward map and replaces
-// exp2f, the clamp and the convert by the card's code table
-// (s2fp8_common.cuh: a bucket of t and one threshold compare; built once
-// per card and format by build_code_table_kernel from the same exp2f and
-// convert, held to the direct map over every f32 t by code_sweep_kernel).
-// log2f, a polynomial of about 30 instructions (no MUFU in its SASS), is
-// what is left of the encode's cost.  The truncate-apply and dequantize
-// kernels keep the direct maps (their own redesign is later work);
-// dequantize looks each byte up in a per-block table of s2fp8::decode.
+// Quantize-apply (quant_apply_kernel<T, F>) and truncate-apply
+// (truncate_apply_kernel<T, F>): the input dtype and the format are
+// template parameters; each thread moves 16 bytes a step (4 f32 or 8 bf16
+// in; 4 or 8 code bytes stored packed, or one 16-byte word of truncated
+// values), the ragged edges (a head before x's first 16-byte boundary, a
+// tail after its last whole vector) as scalars in the same kernel; the
+// grid is one wave of the blocks the card holds at once, filled down to a
+// 2304 x 2304 weight.  The encode keeps log2f and the rounded multiply-add
+// of the forward map and replaces exp2f, the clamp and the convert by the
+// card's code table (s2fp8_common.cuh: a bucket of t and one threshold
+// compare; built once per card and format by build_code_table_kernel from
+// the same exp2f and convert, held to the direct map over every f32 t by
+// code_sweep_kernel).  log2f, a polynomial of about 30 instructions (no
+// MUFU in its SASS), is what is left of the encode's cost.  Truncate-apply
+// writes Eq. 5 as lut[code]: a 256-entry table of decode(c) in x's dtype,
+// built once per block from (alpha, beta) (``fill_value_lut``, shared with
+// the fused truncate), so truncate_apply(x) equals
+// dequant(quant_apply(x)) in x's dtype bit for bit.  Dequantize looks each
+// byte up in a per-block table of s2fp8::decode.
 //
 // Statistics: bound by bytes (one read of x; the f64 adds are far under
 // the card's f64 rate).  A TPU grid runs in order and carries the sums
@@ -244,22 +248,110 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// Truncate-apply and dequantize (direct maps).
+// Truncate-apply and dequantize.
 // ---------------------------------------------------------------------------
 
-__global__ void truncate_apply_kernel(const void* __restrict__ x,
-                                      int x_dtype, void* __restrict__ out,
-                                      int out_dtype, long long n,
-                                      const float* __restrict__ ab, int fmt) {
+// Raw bits of v in T (f32, or bf16 rounded to nearest even).
+template <typename T>
+__device__ __forceinline__ unsigned int bits_in(float v) {
+  if constexpr (sizeof(T) == 4) return __float_as_uint(v);
+  else return __bfloat16_as_ushort(__float2bfloat16_rn(v));
+}
+
+template <typename T>
+__device__ __forceinline__ void store_bits(T* out, long long i,
+                                           unsigned int bits) {
+  if constexpr (sizeof(T) == 4)
+    reinterpret_cast<unsigned int*>(out)[i] = bits;
+  else
+    reinterpret_cast<unsigned short*>(out)[i] =
+        static_cast<unsigned short>(bits);
+}
+
+// Eq. 5 of one vector's elements as table lookups (the codes given),
+// stored as one 16-byte word where the output is aligned for it.
+template <typename T>
+__device__ __forceinline__ void store_truncated(
+    const unsigned int (&c)[kVec<T>], const unsigned int* lut, T* o,
+    bool aligned) {
+  constexpr int V = kVec<T>;
+  unsigned int b[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) b[e] = lut[c[e]];
+  if (aligned) {
+    uint4 w;
+    if constexpr (V == 4)
+      w = make_uint4(b[0], b[1], b[2], b[3]);
+    else
+      w = make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16),
+                     b[4] | (b[5] << 16), b[6] | (b[7] << 16));
+    *reinterpret_cast<uint4*>(o) = w;
+  } else {
+#pragma unroll
+    for (int e = 0; e < V; ++e) store_bits<T>(o, e, b[e]);
+  }
+}
+
+// Eq. 4 of every code as raw bits in T: lut[c] = decode(c) rounded to T.
+// Every thread of the block calls it, then the block syncs.
+template <typename T, int F>
+__device__ __forceinline__ void fill_value_lut(unsigned int* lut, float alpha,
+                                               float beta) {
+  for (int c = threadIdx.x; c < 256; c += blockDim.x)
+    lut[c] = bits_in<T>(
+        s2fp8::decode(static_cast<unsigned char>(c), alpha, beta, F));
+}
+
+// Eq. 5 of this thread's kKeepVecs rounds from vector j0 on (vectors j0,
+// j0 + grid, ...): loads them, encodes through the code table and stores
+// lut[code].
+template <typename T, int F>
+__device__ __forceinline__ void truncate_rounds(
+    const uint4* __restrict__ xv, long long nvec, long long j0,
+    long long grid, float alpha, float beta, const CodeTable& tab,
+    const unsigned int* lut, T* o, bool aligned) {
+  constexpr int V = kVec<T>, U = kKeepVecs<T>;
+  uint4 v[U];
+#pragma unroll
+  for (int k = 0; k < U; ++k)
+    if (j0 + k * grid < nvec) v[k] = xv[j0 + k * grid];
+#pragma unroll
+  for (int k = 0; k < U; ++k) {
+    const long long j = j0 + k * grid;
+    if (j >= nvec) break;
+    unsigned int c[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      c[e] = s2fp8::encode_table<F>(s2fp8::vec_elem<T>(v[k], e), alpha, beta,
+                                    tab);
+    store_truncated<T>(c, lut, o + j * V, aligned);
+  }
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(256)
+    truncate_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
+                          long long n, const float* __restrict__ ab,
+                          const CodeTable* __restrict__ table) {
+  __shared__ CodeTable tab;
+  __shared__ unsigned int lut[256];
+  s2fp8::load_code_table(tab, table);
   const float alpha = ab[0], beta = ab[1];
-  long long stride = static_cast<long long>(gridDim.x) * blockDim.x;
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x +
-                     threadIdx.x;
-       i < n; i += stride)
-    s2fp8::store_from_f32(
-        out, i,
-        s2fp8::truncate(s2fp8::load_as_f32(x, i, x_dtype), alpha, beta, fmt),
-        out_dtype);
+  fill_value_lut<T, F>(lut, alpha, beta);
+  __syncthreads();
+  const VecSplit<T> s(x, n);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
+  T* o = out + s.head;
+  const bool aligned = reinterpret_cast<unsigned long long>(o) % 16 == 0;
+  const long long grid = grid_threads(), g = thread_index();
+  for (long long j0 = g; j0 < s.nvec; j0 += kKeepVecs<T> * grid)
+    truncate_rounds<T, F>(xv, s.nvec, j0, grid, alpha, beta, tab, lut, o,
+                          aligned);
+  if (g < s.edges()) {
+    const long long i = s.edge_index(g);
+    store_bits<T>(out, i, lut[s2fp8::encode_table<F>(
+                              s2fp8::scalar_as_f32(x, i), alpha, beta, tab)]);
+  }
 }
 
 __global__ void dequant_kernel(const unsigned char* __restrict__ p,
@@ -303,48 +395,6 @@ __global__ void __launch_bounds__(s2fp8::kStatsThreads)
 // so the grid keeps 4 x 132 x 256 x kKeepElems elements in registers.
 constexpr int kFusedBlocksPerSm = 4;
 
-// Raw bits of v in T (f32, or bf16 rounded to nearest even).
-template <typename T>
-__device__ __forceinline__ unsigned int bits_in(float v) {
-  if constexpr (sizeof(T) == 4) return __float_as_uint(v);
-  else return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-
-template <typename T>
-__device__ __forceinline__ void store_bits(T* out, long long i,
-                                           unsigned int bits) {
-  if constexpr (sizeof(T) == 4)
-    reinterpret_cast<unsigned int*>(out)[i] = bits;
-  else
-    reinterpret_cast<unsigned short*>(out)[i] =
-        static_cast<unsigned short>(bits);
-}
-
-// Phase 1 on one vector: Eq. 5 of its elements as table lookups (the
-// codes given), stored as one 16-byte word where the output is aligned for
-// it.
-template <typename T>
-__device__ __forceinline__ void store_truncated(
-    const unsigned int (&c)[kVec<T>], const unsigned int* lut, T* o,
-    bool aligned) {
-  constexpr int V = kVec<T>;
-  unsigned int b[V];
-#pragma unroll
-  for (int e = 0; e < V; ++e) b[e] = lut[c[e]];
-  if (aligned) {
-    uint4 w;
-    if constexpr (V == 4)
-      w = make_uint4(b[0], b[1], b[2], b[3]);
-    else
-      w = make_uint4(b[0] | (b[1] << 16), b[2] | (b[3] << 16),
-                     b[4] | (b[5] << 16), b[6] | (b[7] << 16));
-    *reinterpret_cast<uint4*>(o) = w;
-  } else {
-#pragma unroll
-    for (int e = 0; e < V; ++e) store_bits<T>(o, e, b[e]);
-  }
-}
-
 template <typename T, int F>
 __global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
     truncate_fused_kernel(const T* __restrict__ x, T* __restrict__ out,
@@ -378,9 +428,7 @@ __global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
   }
   grid_sync.sync();
   const float alpha = __ldcg(&ab_out[0]), beta = __ldcg(&ab_out[1]);
-  for (int c = threadIdx.x; c < 256; c += blockDim.x)
-    lut[c] = bits_in<T>(
-        s2fp8::decode(static_cast<unsigned char>(c), alpha, beta, F));
+  fill_value_lut<T, F>(lut, alpha, beta);
   __syncthreads();
   // phase 1: Eq. 5 with those stats; the kept batch first, then the rest
   // re-read, last round first
@@ -403,23 +451,9 @@ __global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
   const long long step = KV * grid;
   if (g + step < s.nvec) {
     for (long long j0 = g + (s.nvec - 1 - g) / step * step; j0 > g;
-         j0 -= step) {
-      uint4 v[KV];
-#pragma unroll
-      for (int k = 0; k < KV; ++k)
-        if (j0 + k * grid < s.nvec) v[k] = xv[j0 + k * grid];
-#pragma unroll
-      for (int k = 0; k < KV; ++k) {
-        const long long j = j0 + k * grid;
-        if (j >= s.nvec) break;
-        unsigned int c[V];
-#pragma unroll
-        for (int e = 0; e < V; ++e)
-          c[e] = s2fp8::encode_table<F>(s2fp8::vec_elem<T>(v[k], e), alpha,
-                                        beta, tab);
-        store_truncated<T>(c, lut, o + j * V, aligned);
-      }
-    }
+         j0 -= step)
+      truncate_rounds<T, F>(xv, s.nvec, j0, grid, alpha, beta, tab, lut, o,
+                            aligned);
   }
   if (g < s.edges()) {
     const long long i = s.edge_index(g);
@@ -455,10 +489,10 @@ cudaError_t sm_count(int* sms) {
   return cudaSuccess;
 }
 
-// Quantize-apply's grid: one block of 256 threads per 256 vectors, at most
-// the blocks the card holds at once (one wave; a 2304 x 2304 bf16 weight
-// fills it).
-template <typename T, int F>
+// The grid of quantize-apply (kTruncate false) or truncate-apply: one
+// block of 256 threads per 256 vectors, at most the blocks the card holds
+// at once (one wave; a 2304 x 2304 bf16 weight fills it).
+template <typename T, int F, bool kTruncate>
 cudaError_t apply_grid(long long n, int* grid) {
   static int per_sm[kMaxDevices] = {0};
   int sms = 0, dev = 0;
@@ -466,8 +500,12 @@ cudaError_t apply_grid(long long n, int* grid) {
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (per_sm[dev] == 0) {
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm[dev], quant_apply_kernel<T, F>, 256, 0);
+    if constexpr (kTruncate)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[dev], truncate_apply_kernel<T, F>, 256, 0);
+    else
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm[dev], quant_apply_kernel<T, F>, 256, 0);
     if (err != cudaSuccess) return err;
     if (per_sm[dev] <= 0) return cudaErrorInvalidConfiguration;
   }
@@ -558,7 +596,7 @@ cudaError_t launch_quant_apply(const void* x, int x_dtype, void* out,
     using T = typename decltype(kind)::type;
     constexpr int F = decltype(kind)::fmt;
     int grid = 0;
-    cudaError_t err = apply_grid<T, F>(n, &grid);
+    cudaError_t err = apply_grid<T, F, false>(n, &grid);
     if (err != cudaSuccess) return err;
     quant_apply_kernel<T, F><<<grid, 256, 0, stream>>>(
         static_cast<const T*>(x), static_cast<unsigned char*>(out), n,
@@ -676,12 +714,21 @@ extern "C" int s2fp8_quant_apply(const void* x, int x_dtype, void* out,
 }
 
 extern "C" int s2fp8_truncate_apply(const void* x, int x_dtype, void* out,
-                                    int out_dtype, long long n, const void* ab,
-                                    int fmt, void* stream) {
-  truncate_apply_kernel<<<grid_for(n), 256, 0,
-                          static_cast<cudaStream_t>(stream)>>>(
-      x, x_dtype, out, out_dtype, n, static_cast<const float*>(ab), fmt);
-  return static_cast<int>(cudaGetLastError());
+                                    long long n, const void* ab, int fmt,
+                                    const void* table, void* stream) {
+  return static_cast<int>(with_kind(x_dtype, fmt, [&](auto kind) {
+    using T = typename decltype(kind)::type;
+    constexpr int F = decltype(kind)::fmt;
+    int grid = 0;
+    cudaError_t err = apply_grid<T, F, true>(n, &grid);
+    if (err != cudaSuccess) return err;
+    truncate_apply_kernel<T, F>
+        <<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+            static_cast<const T*>(x), static_cast<T*>(out), n,
+            static_cast<const float*>(ab),
+            static_cast<const CodeTable*>(table));
+    return cudaGetLastError();
+  }));
 }
 
 extern "C" int s2fp8_dequant(const void* payload, void* out, long long n,

@@ -30,7 +30,7 @@ _P, _I, _LL, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_flo
 SIGNATURES = {
     "s2fp8_quant": {
         "s2fp8_quant_apply": (_P, _I, _P, _LL, _P, _I, _P, _P),
-        "s2fp8_truncate_apply": (_P, _I, _P, _I, _LL, _P, _I, _P),
+        "s2fp8_truncate_apply": (_P, _I, _P, _LL, _P, _I, _P, _P),
         "s2fp8_dequant": (_P, _P, _LL, _P, _I, _P),
         "s2fp8_stats": (_P, _I, _LL, _P, _LL, _P, _P, _F, _P),
         "s2fp8_quant": (_P, _I, _P, _LL, _P, _LL, _P, _P, _F, _I, _P, _P),
@@ -55,8 +55,8 @@ SIGNATURES = {
         "flash_fwd": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     },
     "paged_attention": {
-        "s2fp8_paged_decode": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                               _I, _P, _P, _F, _I, _P),
+        "s2fp8_paged_decode": (_P, _P, _P, _P, _P, _P, _P, _LL, _P, _LL, _I,
+                               _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P),
     },
     "selective_scan": {
         "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,

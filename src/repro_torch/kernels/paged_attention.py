@@ -4,11 +4,18 @@
 (_paged_kernel) in ``src/repro/kernels/paged_attention.py``.  Kernel
 source: ``repro_torch/csrc/paged_attention.cu``.
 
-Bound on the card: bytes — each slot's live K/V payload blocks, read
-once.  Design: one block per (KV head, slot) reads its own
-``table[slot, j]`` (Hopper has no scalar prefetch), walks only the blocks
-up to ``positions[slot]``, dequantizes each payload block through
-256-entry tables into shared memory and runs the online softmax there.
+Bound on the card: bytes — each slot's live K/V payload rows, read once.
+Design: a split-KV decode in one launch, one block per (KV head, slot,
+split of :data:`SPLIT` cache positions); a split past the slot's position
+exits at once, and a block reads its own ``table[slot, j]`` (Hopper has no
+scalar prefetch).  Lane groups read payload rows as 16-byte loads,
+dequantize through 256-entry tables in shared memory, share each K/V row
+among the KV head's query rows (up to 4 a block) and keep an online
+softmax in registers; warps merge in a fixed order, each split writes
+(m, l, acc) to a scratch tensor, and the slot's last split to finish
+(an integer ticket) merges the splits in split order.  No float atomics,
+and the split is a constant of the kernel, so the bits do not depend on
+the card.
 
 The math is the reference kernel's: a plain f32 softmax over dequantized
 K/V, with no truncation of q, logits, probabilities or output (the JAX
@@ -16,6 +23,7 @@ K/V, with no truncation of q, logits, probabilities or output (the JAX
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -26,6 +34,10 @@ from repro_torch.kernels.s2fp8_quant import (FMT_ID, check_cuda_operand,
                                              stats_arg)
 
 _MASK_VALUE = -1e30
+# cache positions one block of the kernel covers (kSplit in the source,
+# which refuses any other value)
+SPLIT = 256
+HEAD_DIMS = (32, 64, 128)        # the kernel's template head dims
 
 
 def _check_shapes(q, kp, vp, table, positions):
@@ -69,6 +81,28 @@ def paged_decode_plain(q, kp, vp, k_ab, v_ab, table, positions,
     return torch.einsum("bkgs,bksd->bkgd", p, vf)
 
 
+_TICKETS = {}
+
+
+def _tickets(device: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` zeroed int32 tickets (the kernel takes one per slot,
+    KV head and chunk of query rows), one buffer per device and stream,
+    kept: the kernel leaves every ticket it takes at zero, so launches in
+    one stream's order can share it."""
+    key = (device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None or t.numel() < n:
+        t = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
+
+
+@functools.lru_cache(maxsize=None)
+def _inv_sqrt(hd: int) -> float:
+    """1 / sqrt(hd) rounded to f32, as the kernel's score scale."""
+    return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+
+
 def paged_decode_attention(q, kp, vp, k_ab, v_ab, table, positions,
                            fmt: str = "e5m2"):
     """q: [B, KV, G, hd] f32; kp/vp: [n_blocks, KV, block, hd] float8 pools;
@@ -85,15 +119,26 @@ def paged_decode_attention(q, kp, vp, k_ab, v_ab, table, positions,
     check_cuda_operand(table, "table", (torch.int32,), dev)
     check_cuda_operand(positions, "positions", (torch.int32,), dev)
     b, kvh, g, hd = q.shape
-    blk = kp.shape[2]
+    blk, max_b = kp.shape[2], table.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"paged decode kernel takes head dim {HEAD_DIMS}, "
+                         f"got {hd}")
+    for name, t in (("kp", kp), ("vp", vp)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name} must start on a 16-byte boundary")
     kab, vab = stats_arg(k_ab, dev), stats_arg(v_ab, dev)
     out = torch.empty_like(q)
-    inv_sqrt_d = float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
+    nsplit = -(-max_b * blk // SPLIT)
+    scratch = torch.empty(b * kvh * nsplit * g * (hd + 2),
+                          dtype=torch.float32, device=dev)
+    stream = build.stream_ptr(dev)
+    tickets = _tickets(dev, stream, b * kvh * g)
     rc = build.load("paged_attention").s2fp8_paged_decode(
         q.data_ptr(), kp.data_ptr(), vp.data_ptr(), table.data_ptr(),
-        positions.data_ptr(), out.data_ptr(), b, kvh, g, hd, blk,
-        table.shape[1], kab.data_ptr(), vab.data_ptr(), inv_sqrt_d,
-        FMT_ID[fmt], build.stream_ptr(dev))
+        positions.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+        scratch.numel(), tickets.data_ptr(), tickets.numel(), b, kvh, g, hd,
+        blk, max_b, kab.data_ptr(), vab.data_ptr(), _inv_sqrt(hd),
+        FMT_ID[fmt], SPLIT, stream)
     build.check(rc, "s2fp8_paged_decode")
     paged_decode_attention.launches += 1
     return out

@@ -16,12 +16,14 @@ Bound on the card: bytes — one read of the input (f32 or bf16, or the
 the input once, quantize-with-stats twice, and the fused truncate once up
 to its register capacity (:func:`fused_capacity`), twice above it.
 Design: (alpha, beta) read through a device pointer (no host sync);
-quantize-apply and the fused truncate move 16 bytes a thread a step and
-encode through the card's code table (:func:`code_table`: exp2f, clamp and
-convert replaced by a bucket of t and one threshold compare, held to the
-direct map over every f32 t by :func:`code_sweep`); dequantize and the
-fused truncate's output look each byte up in a per-block 256-entry table
-of the Eq. 4 inverse map.  The stats are a deterministic two-stage
+quantize-apply, truncate-apply and the fused truncate move 16 bytes a
+thread a step and encode through the card's code table
+(:func:`code_table`: exp2f, clamp and convert replaced by a bucket of t and
+one threshold compare, held to the direct map over every f32 t by
+:func:`code_sweep`); dequantize and the truncates' output look each byte
+up in a per-block 256-entry table of the Eq. 4 inverse map, so
+``truncate_apply(x, ab)`` equals ``dequant(quant_apply(x, ab), ab)`` in
+x's dtype bit for bit.  The stats are a deterministic two-stage
 reduction (per-block partials with the sum in f64 and the count in 64-bit
 integers, then one block sums them in a fixed order; no atomics), and the
 fused truncate is one cooperative launch whose phase 0 is that reduction:
@@ -274,8 +276,9 @@ def truncate_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     ab = stats_arg(stats, x.device)
     out = torch.empty_like(x)
     rc = build.load("s2fp8_quant").s2fp8_truncate_apply(
-        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), DTYPE_ID[x.dtype],
-        x.numel(), ab.data_ptr(), FMT_ID[fmt], build.stream_ptr(x.device))
+        x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
+        ab.data_ptr(), FMT_ID[fmt], code_table(x.device, fmt).data_ptr(),
+        build.stream_ptr(x.device))
     build.check(rc, "s2fp8_truncate_apply")
     truncate_apply.launches += 1
     return out

@@ -10,7 +10,11 @@ the math library); dequantize within 1e-6 relative; GEMM raw output (NN,
 NT, TN) within 1e-5 * (|A| @ |B|), epilogue and flash outputs at most one
 grid step apart in at most 1e-3 / 1e-2 of the elements; flash backward
 dq / dk / dv within 1e-4 * max|plain|; paged decode allclose 1e-4
-relative + 1e-5 absolute; the batched GEMM as the 2-D one, raw within
+relative + 1e-5 absolute (at serve's shape with positions on both sides of
+the kernel's split boundaries, at G = 3 and 5 with hd 128, beside dead
+slots, and the same bits on a second launch); truncate-apply bit for bit
+dequant(quant_apply(x)) in x's dtype (ragged sizes, views off a 16-byte
+boundary); the batched GEMM as the 2-D one, raw within
 1e-5 * (|A| @ |B|) summed over each output's groups; the stats kernel's
 max and count equal to the plain version's, its sum within 1e-6 relative
 (f64 sums in another order), (alpha, beta) within 4 ulp, and the
@@ -646,8 +650,8 @@ def _edge_input(dev, size, dtype, offset):
 def test_quant_apply_and_fused_truncate_edges(dev, fmt, dtype, size, offset):
     """Quantize-apply and the fused truncate at the edges of their element
     maps: codes within the quantize tolerance of the plain version and, bit
-    for bit, the codes whose dequantized values truncate-apply gives (its
-    kernel keeps the direct map); the fused truncate bit for bit
+    for bit, the codes whose dequantized values truncate-apply gives (the
+    same encode, Eq. 5 as lut[code]); the fused truncate bit for bit
     truncate_apply(x, stats(x)) with the stats kernel's (alpha, beta); two
     launches of each give the same bits."""
     x = _edge_input(dev, size, dtype, offset)
@@ -692,8 +696,9 @@ def _near_thresholds(thr, fmt, alpha, beta, ulps=48):
 @pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
 def test_quant_apply_near_code_thresholds(dev, fmt, ab):
     """Inputs within 48 ulp of every code threshold: quantize-apply's
-    codes are the direct map's (truncate-apply's kernel), bit for bit.  The
-    decoded values ascend with the code, so equal values mean equal
+    codes are the plain version's (torch's log2, exp2 and cast on the
+    card), and truncate-apply's values their decoded values, bit for bit.
+    The decoded values ascend with the code, so equal values mean equal
     codes."""
     alpha, beta = ab
     m = {"e5m2": 0x7B, "e4m3": 0x7E}[fmt]
@@ -702,6 +707,8 @@ def test_quant_apply_near_code_thresholds(dev, fmt, ab):
     x = _near_thresholds(thr, fmt, alpha, beta).to(dev)
     abt = torch.tensor([alpha, beta], device=dev)
     pk = s2fp8_quant.quant_apply(x, abt, fmt)
+    assert torch.equal(pk.view(torch.uint8), s2fp8_quant.quant_apply_plain(
+        x, abt, fmt).view(torch.uint8))
     codes = torch.arange(128, dtype=torch.uint8, device=dev)
     lut = s2fp8_quant.dequant(codes.view(s2fp8.FMT_QDTYPE[fmt]), abt)
     assert bool((lut[1:m + 1] > lut[:m]).all())
@@ -734,3 +741,114 @@ def test_fused_truncate_near_code_thresholds(dev, fmt):
     out, oab = s2fp8_quant.truncate_fused(x, fmt)
     assert torch.equal(oab, ab)
     assert torch.equal(out, s2fp8_quant.truncate_apply(x, ab, fmt))
+
+
+def _bits(t):
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+# ragged sizes around truncate-apply's 16-byte vectors, and 20 M elements
+# (several rounds of its one-wave grid)
+TRUNC_SIZES = [1, 3, 7, 8, 9, 4099, 1_000_003, 20_000_003]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("size", TRUNC_SIZES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_truncate_apply_is_dequant_of_quant_apply(dev, fmt, dtype, size,
+                                                  offset):
+    """Truncate-apply (code-table encode, Eq. 5 as lut[code] in x's dtype)
+    equals dequant(quant_apply(x)) rounded to x's dtype bit for bit, on
+    ragged sizes and on a view one element past a 16-byte boundary
+    (``x.view(-1)[1:]``); it stays within the truncate tolerance of the
+    plain version, and two launches give the same bits."""
+    gen = torch.Generator(device=dev).manual_seed(size % 1000 + offset)
+    x = (torch.randn(size + offset, generator=gen, device=dev) * torch.exp2(
+        torch.rand(size + offset, generator=gen, device=dev) * 40 - 20)
+         ).to(dtype)
+    x[::97] = 0.0
+    x = x.view(-1)[offset:]
+    ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+    tk = s2fp8_quant.truncate_apply(x, ab, fmt)
+    assert tk.dtype == dtype and tk.shape == x.shape
+    want = s2fp8_quant.dequant(s2fp8_quant.quant_apply(x, ab, fmt), ab)
+    assert torch.equal(_bits(tk), _bits(want.to(dtype)))
+    assert torch.equal(_bits(tk), _bits(s2fp8_quant.truncate_apply(x, ab,
+                                                                   fmt)))
+    d = _steps(tk, s2fp8_quant.truncate_apply_plain(x, ab, fmt), ab, fmt)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
+    assert kernels.counts()["truncate_apply"]["launches"] == 2
+
+
+def _paged_case(dev, fmt, b, kvh, g, hd, blk, max_b, seed):
+    """Seeded q, K / V pools quantized at their own stats, and a table of
+    distinct live blocks per slot (block 0, the trash block, unused)."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    nb = b * max_b + 1
+    q = torch.randn(b, kvh, g, hd, generator=gen, device=dev)
+    kf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    vf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    kab = s2fp8.compute_stats(kf, s2fp8.FMT_TARGET_MAX[fmt])
+    vab = s2fp8.compute_stats(vf, s2fp8.FMT_TARGET_MAX[fmt])
+    kp = s2fp8_quant.quant_apply(kf, kab, fmt)
+    vp = s2fp8_quant.quant_apply(vf, vab, fmt)
+    perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+    table = perm.reshape(b, max_b).to(torch.int32)
+    return q, kp, vp, kab, vab, table
+
+
+def _paged_check(q, kp, vp, kab, vab, table, pos, fmt):
+    """The kernel against the plain version (|kernel - plain| <= 1e-4 *
+    |plain| + 1e-5), finite, and the same bits on a second launch."""
+    ok = paged_attention.paged_decode_attention(q, kp, vp, kab, vab, table,
+                                                pos, fmt)
+    op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab, table, pos,
+                                            fmt)
+    assert torch.isfinite(ok).all()
+    err = (ok - op).abs()
+    assert bool((err <= 1e-4 * op.abs() + 1e-5).all()), err.max().item()
+    assert torch.equal(ok, paged_attention.paged_decode_attention(
+        q, kp, vp, kab, vab, table, pos, fmt))
+    return ok, op
+
+
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_paged_kernel_serve_shape_split_edges(dev, fmt):
+    """Serve's shape (8 slots x 36 KV heads, hd 64, block 16, 64 blocks a
+    slot) with positions on both sides of the kernel's split boundaries,
+    the first and last block edges and the table's last position."""
+    s = paged_attention.SPLIT
+    case = _paged_case(dev, fmt, 8, 36, 1, 64, 16, 64, 21)
+    pos = torch.tensor([0, 15, 16, s - 1, s, 2 * s - 1, 2 * s + 1, 1023],
+                       dtype=torch.int32, device=dev)
+    _paged_check(*case, pos, fmt)
+    assert kernels.counts()["paged_decode"]["launches"] == 2
+
+
+@pytest.mark.parametrize("g", [3, 5])
+def test_paged_kernel_gqa_head_dim_128(dev, g):
+    """G query rows per KV head at hd 128 (G = 5: two row chunks of the
+    grid), block 32, split edges and the table's last position."""
+    s = paged_attention.SPLIT
+    case = _paged_case(dev, "e5m2", 5, 2, g, 128, 32, 3 * s // 32, 22 + g)
+    pos = torch.tensor([s - 1, s, 3 * s - 1, 5, 2 * s + 7], dtype=torch.int32,
+                       device=dev)
+    _paged_check(*case, pos, "e5m2")
+
+
+@pytest.mark.parametrize("hd,blk", [(64, 16), (32, 8), (128, 32)])
+def test_paged_kernel_dead_slots(dev, hd, blk):
+    """Dead slots (table rows of trash block 0, position 0) beside live
+    ones: each dead slot attends row 0 of block 0 alone, so its output is
+    that row's dequantized V, finite."""
+    q, kp, vp, kab, vab, table = _paged_case(dev, "e4m3", 4, 3, 2, hd, blk,
+                                             16, 23)
+    table[1] = 0
+    table[3] = 0
+    pos = torch.tensor([200, 0, 130, 0], dtype=torch.int32, device=dev)
+    ok, _ = _paged_check(q, kp, vp, kab, vab, table, pos, "e4m3")
+    trash = s2fp8_quant.dequant(vp[0, :, 0].contiguous(), vab)   # [KV, hd]
+    for slot in (1, 3):
+        assert torch.allclose(ok[slot], trash[:, None].expand_as(ok[slot]),
+                              rtol=1e-6, atol=0)

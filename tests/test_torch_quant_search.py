@@ -1,19 +1,22 @@
-"""The exp2-free encode of quantize-apply and the fused truncate, emulated
-in torch on the CPU (no GPU needed).
+"""The exp2-free encode of quantize-apply, truncate-apply and the fused
+truncate, emulated in torch on the CPU (no GPU needed).
 
 The CUDA kernels (``csrc/s2fp8_common.cuh``: ``code_from_t``,
-``encode_log``; ``csrc/s2fp8_quant.cu``) replace exp2f, the clamp and the
-fp8 convert of the forward map by a table built once per format: the
+``encode_log``; ``csrc/s2fp8_quant.cu``) replace exp2f, the clamp and
+the fp8 convert of the forward map by a table built once per format: the
 least t = alpha log2|x| + beta at which the magnitude code reaches each
 value (by bisection over f32 bit patterns), and the code at the start of
-each 1/16-wide bucket of t.  The fused truncate then writes Eq. 5 as a
-256-entry table of decoded codes indexed by that encode.  Here the same
-tables are built from ``torch.exp2`` and the plain cast (as the kernel
-builds them from exp2f and its convert), and the emulated maps are held
-bit for bit against the port's plain versions ``quant_apply_plain`` /
-``truncate_apply_plain``: over all 65,536 bf16 bit patterns and a dense
-f32 sweep (subnormals, zeros of both signs, NaN, +-inf, values past
-saturation), both formats, at several (alpha, beta).  Tolerance: none —
+each 1/16-wide bucket of t. Truncate-apply and the fused truncate then
+write Eq. 5 as a 256-entry table of decoded codes indexed by that
+encode. Here the same tables are built from ``torch.exp2`` and the plain
+cast (as the kernel builds them from exp2f and its convert), and the
+emulated maps are held bit for bit against the port's plain versions
+``quant_apply_plain`` / ``truncate_apply_plain``: over all 65,536 bf16
+bit patterns, a dense f32 sweep (subnormals, zeros of both signs, NaN,
++-inf, values past saturation) and f32 and bf16 tensors of ragged length
+one element past a 16-byte boundary (through truncate-apply's element
+map: scalar head and tail, 16-byte vectors, lut[code]), both formats, at
+several (alpha, beta).  Tolerance: none —
 the emulation must equal the plain version exactly, as the kernel must
 equal the direct map (the on-card sweep in tests/test_torch_kernels_cuda.py).
 Also inputs within 48 ulp of every code threshold, where a bucket or
@@ -151,6 +154,37 @@ ALL_BF16 = torch.arange(-2 ** 15, 2 ** 15, dtype=torch.int32).to(
     torch.int16).view(torch.bfloat16)
 
 
+def _ragged(dtype) -> torch.Tensor:
+    """100,003 elements one past a 16-byte boundary (a view from element
+    1), magnitudes over 2^-40 .. 2^40 with zeros: a head, whole vectors and
+    a tail for truncate-apply's element map."""
+    rng = np.random.default_rng(11)
+    x = (rng.standard_normal(100_004) * np.exp2(
+        rng.uniform(-40, 40, 100_004))).astype(np.float32)
+    x[::89] = 0.0
+    return torch.from_numpy(x).to(dtype)[1:]
+
+
+def truncate_apply_emulation(x: torch.Tensor, ab, fmt: str, tabs,
+                             offset: int) -> torch.Tensor:
+    """Truncate-apply's element map, x starting ``offset`` elements past a
+    16-byte boundary: the head before the first boundary and the tail after
+    the last whole 16-byte vector as scalars, the vectors between, each
+    element through lut[encode(x)] exactly once."""
+    n, elt = x.numel(), x.element_size()
+    vec = 16 // elt
+    head = min((16 - offset * elt % 16) % 16 // elt, n)
+    nvec = (n - head) // vec
+    body = slice(head, head + nvec * vec)
+    out = torch.empty_like(x)
+    writes = torch.zeros(n, dtype=torch.int64)
+    for part in (slice(0, head), body, slice(head + nvec * vec, n)):
+        out[part] = table_truncate(x[part], ab, fmt, tabs)
+        writes[part] += 1
+    assert bool((writes == 1).all())
+    return out
+
+
 def test_tables_have_one_threshold_per_bucket(tables):
     """The thresholds ascend, the format's codes 1..max are each reached,
     and no bucket of t holds two thresholds (the premise of the single
@@ -168,16 +202,24 @@ def test_tables_have_one_threshold_per_bucket(tables):
 
 @pytest.mark.parametrize("ab", STATS, ids=str)
 @pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
-@pytest.mark.parametrize("inputs", ["bf16_all", "f32_sweep"])
+@pytest.mark.parametrize("inputs", ["bf16_all", "f32_sweep", "f32_ragged",
+                                    "bf16_ragged"])
 def test_table_encode_and_truncate_equal_plain(tables, fmt, ab, inputs):
-    x = ALL_BF16 if inputs == "bf16_all" else _f32_sweep()
+    """The table encode and lut[encode] truncate against the plain
+    versions; the ragged inputs go through truncate-apply's element map
+    (scalar head and tail, 16-byte vectors)."""
+    x = {"bf16_all": lambda: ALL_BF16, "f32_sweep": _f32_sweep,
+         "f32_ragged": lambda: _ragged(torch.float32),
+         "bf16_ragged": lambda: _ragged(torch.bfloat16)}[inputs]()
     want = s2fp8_quant.quant_apply_plain(x, ab, fmt).view(torch.uint8)
     got = table_encode(x, ab, fmt, tables[fmt])
     bad = (got != want).nonzero().flatten()
     assert bad.numel() == 0, (bad.numel(), x[bad[:5]], got[bad[:5]],
                               want[bad[:5]])
     tw = s2fp8_quant.truncate_apply_plain(x, ab, fmt)
-    tg = table_truncate(x, ab, fmt, tables[fmt])
+    tg = (truncate_apply_emulation(x, ab, fmt, tables[fmt], 1)
+          if inputs.endswith("ragged")
+          else table_truncate(x, ab, fmt, tables[fmt]))
     assert tg.dtype == x.dtype
     ints = torch.int32 if x.dtype == torch.float32 else torch.int16
     assert torch.equal(tg.view(ints), tw.view(ints))   # bit for bit

@@ -1,5 +1,6 @@
-"""Times the S2FP8 quantize, truncate and stats kernels of one source tree,
-so that two trees can be compared on one card in one run.
+"""Times the S2FP8 quantize, truncate and stats kernels and the paged
+decode of one source tree, so that two trees can be compared on one card
+in one run.
 
     python3 tools/pair_quant_kernels.py --src OTHER_TREE/src --label parent
     python3 tools/pair_quant_kernels.py --src src --label change
@@ -30,6 +31,14 @@ SHAPES = {
                     ((122753, 2304), torch.bfloat16)],
     "truncate_apply": [((8 * 36 * 1024, 64), torch.bfloat16),
                        ((122753, 2304), torch.float32)],
+    # (slots, KV heads, head dim, block, blocks a slot) and the positions:
+    # serve's pool (phase 5) across the context and at the serve run's
+    # first 8 prompts' 16th decode token (chip_smoke.serve_prompts)
+    "paged_decode": [((8, 36, 64, 16, 64),
+                      [0, 15, 16, 100, 511, 700, 1000, 1023]),
+                     ((8, 36, 64, 16, 64),
+                      [int(n) + 15
+                       for n in chip_smoke.serve_prompts(122753)[2][:8]])],
     # the exact-stats path's tensors: (shape, dtype, scale)
     "stats": [((122753, 2304), torch.float32, 0.05),
               ((2048, 122753), torch.float32, 3.0),
@@ -49,6 +58,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(Path(args.src).resolve()))
     from repro_torch.core import s2fp8
+    from repro_torch.kernels import paged_attention
     from repro_torch.kernels import s2fp8_quant as sq
 
     dev = torch.device("cuda", 0)
@@ -93,6 +103,21 @@ def main() -> int:
         timed("truncate_fused", shape, dtype, lambda: sq.truncate_fused(x),
               2 * n * elt + 8)
         del x
+    for (b, kvh, hd, blk, max_b), positions in SHAPES["paged_decode"]:
+        nb = b * max_b + 1
+        q = rnd((b, kvh, 1, hd), torch.float32, 1.0)
+        ab = torch.tensor([1.0, 0.0], device=dev)
+        kp = sq.quant_apply(rnd((nb, kvh, blk, hd), torch.float32, 1.0), ab)
+        vp = sq.quant_apply(rnd((nb, kvh, blk, hd), torch.float32, 1.0), ab)
+        perm = torch.randperm(nb - 1, generator=gen, device=dev) + 1
+        table = perm.reshape(b, max_b).to(torch.int32)
+        pos = torch.tensor(positions, dtype=torch.int32, device=dev)
+        live = sum(positions) + len(positions)
+        timed("paged_decode", (b, kvh, hd, blk, live), torch.float8_e5m2,
+              lambda: paged_attention.paged_decode_attention(
+                  q, kp, vp, ab, ab, table, pos),
+              2 * live * kvh * hd + 8 * b * kvh * hd + table.numel() * 4
+              + b * 4)
     print(json.dumps({"label": args.label,
                       "card": torch.cuda.get_device_name(0), "rows": rows}),
           flush=True)
