@@ -25,7 +25,9 @@ Phases, each fatal on failure:
              before each call); two launches of each GEMM path,
              quantize-apply, truncate-apply, the fused truncate and the
              paged decode give the same bits, and truncate-apply equals
-             dequant(quant_apply(x)) bit for bit.  First the code table
+             dequant(quant_apply(x)) bit for bit; one call of the stats
+             kernel, quantize-with-stats and the fused truncate launches
+             one kernel each (torch.profiler).  First the code table
              that quantize-apply and both truncates encode by is swept
              against the direct map over every f32 t (0 mismatches in
              each format).
@@ -264,6 +266,26 @@ def device_ms(fn, iters: int = 20, warmup: int = 2,
                          f"{flushes} flushes in {iters} calls")
 
 
+def kernels_per_call(fn, calls: int = 3) -> dict:
+    """Kernel function -> launches per call of ``fn`` (torch.profiler over
+    ``calls`` calls; the window opens with a primer, left out)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    primer = torch.empty(1, dtype=torch.int16, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        primer.fill_(0)
+        torch.cuda.synchronize()
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    return {kernel_function(e.key): e.count / calls
+            for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU
+            and "FillFunctor<short>" not in e.key}
+
+
 def same_bits(fn, what: str) -> None:
     """Two launches on the same inputs give the same bits."""
     assert torch.equal(fn(), fn()), f"{what}: two launches differ"
@@ -441,8 +463,12 @@ def phase_kernels(dev) -> dict:
             + f"; quant_apply, truncate_apply and truncate_fused encode "
             f"{fmt} by the table")
         assert bad == 0, (fmt, bad, first)
-    log(f"fused truncate: {s2fp8_quant.fused_capacity(dev)} elements kept "
-        f"in registers at most")
+    log("quantize-with-stats and the fused truncate keep, across their grid "
+        "barrier, at most " + ", ".join(
+            f"{s2fp8_quant.fused_capacity(dev, dt)} {str(dt)[6:]} elements"
+            for dt in (torch.float32, torch.bfloat16))
+        + f" ({s2fp8_quant.fused_capacity(dev, registers=True)} of them in "
+        f"registers, the rest in shared memory)")
 
     # -- quant_apply / truncate_apply at the paths' operands: a prefill
     # activation, a decode tick's MLP weight (2304 x 5760 bf16, quantized
@@ -1024,8 +1050,9 @@ def stats_kernel_checks(dev, rnd, record) -> None:
     step alike; the allowance is for an ulp of the stats); the stats
     kernel gives the same bits twice; quantize-with-stats and the fused
     truncate equal quantize-apply and truncate-apply under the stats
-    kernel's (alpha, beta), bit for bit.  Then the all-zero, constant and
-    NaN-bearing cases."""
+    kernel's (alpha, beta), bit for bit; on the GEMM output one call of
+    each launches one kernel (torch.profiler).  Then the all-zero, constant
+    and NaN-bearing cases."""
     from repro_torch.core import s2fp8
     from repro_torch.kernels import s2fp8_quant as sq
 
@@ -1060,6 +1087,18 @@ def stats_kernel_checks(dev, rnd, record) -> None:
                on_path=case is path["stats"],
                torch_reduction_ms=cuda_time(lambda: s2fp8.compute_stats(x),
                                             iters=3))
+
+        if case is path["stats"]:
+            # one launch a call each: the stats kernel, and quantize-with-
+            # stats and the fused truncate one cooperative kernel each
+            for name, fn, want in (
+                    ("stats", lambda: sq.stats_partials(x), "stats_kernel"),
+                    ("quant", lambda: sq.quant(x), "quant_fused_kernel"),
+                    ("truncate_fused", lambda: sq.truncate_fused(x),
+                     "truncate_fused_kernel")):
+                got = kernels_per_call(fn)
+                log(f"{name} {tag}: kernels per call {got}")
+                assert got == {want: 1.0}, (name, got)
 
         pk, qab = sq.quant(x)
         assert torch.equal(qab, abk)

@@ -5,10 +5,10 @@
 // kernel's dequant table and epilogue, and the paged-decode dequant table.
 // It is the counterpart of ``_truncate_body`` / ``_dequant`` in
 // src/repro/kernels/s2fp8_quant.py and s2fp8_matmul.py.  Also here: the
-// exp2-free encode that quantize-apply, truncate-apply and the fused
-// truncate run (the card's code table), their 16-byte vector I/O, and the
-// statistics reduction (Eq. 3-4) with the element map that the stats,
-// quantize-with-stats and fused truncate kernels share, and
+// exp2-free encode that quantize-apply, truncate-apply, quantize-with-stats
+// and the fused truncate run (the card's code table), their 16-byte vector
+// I/O, and the statistics reduction (Eq. 3-4) with the element map that the
+// stats kernel and the two fused kernels share, and
 // ``stats_from_reduction``.
 //
 // Numerics contract (kept so the kernels agree with the plain PyTorch
@@ -23,6 +23,8 @@
 #include <cuda_fp16.h>
 #include <cuda_fp8.h>
 #include <cuda_runtime.h>
+
+#include <cuda/atomic>
 
 namespace s2fp8 {
 
@@ -143,22 +145,24 @@ __device__ __forceinline__ unsigned int code_from_t(float t, bool neg,
   return t == t ? c : (0x80u | max_code<F>());
 }
 
-// The payload byte of x (``encode``) from l = log2f(|x|): zeros and NaNs
-// give 0; the multiply and add round as ``forward_map``'s.
+// The payload byte of x (``encode``) from l = log2f(|x|) and x's sign bit:
+// zeros (l = -inf) and NaNs (l NaN) give 0, whatever the sign bit; the
+// multiply and add round as ``forward_map``'s.
 template <int F>
-__device__ __forceinline__ unsigned int encode_log(float x, float l,
+__device__ __forceinline__ unsigned int encode_log(float l, bool neg,
                                                    float alpha, float beta,
                                                    const CodeTable& tab) {
-  unsigned int c = code_from_t<F>(__fadd_rn(__fmul_rn(alpha, l), beta),
-                                  x < 0.0f, tab);
-  return fabsf(x) > 0.0f ? c : 0u;
+  unsigned int c = code_from_t<F>(__fadd_rn(__fmul_rn(alpha, l), beta), neg,
+                                  tab);
+  return l > __int_as_float(0xff800000) ? c : 0u;
 }
 
 template <int F>
 __device__ __forceinline__ unsigned int encode_table(float x, float alpha,
                                                      float beta,
                                                      const CodeTable& tab) {
-  return encode_log<F>(x, log2f(fabsf(x)), alpha, beta, tab);
+  return encode_log<F>(log2f(fabsf(x)), __float_as_uint(x) >> 31, alpha, beta,
+                        tab);
 }
 
 // Copies the table into shared memory: every thread of the block calls
@@ -223,11 +227,13 @@ struct VecSplit {
 
 // ---------------------------------------------------------------------------
 // Statistics (Eq. 3-4): (sum log2|x|, max log2|x|, nonzero count) over the
-// nonzero elements.  Zeros and NaNs are left out (NaN > 0 is false), as in
-// the reference.  The sum is kept in f64 and the count in 64-bit integers,
-// so the result does not depend on the grid beyond f64 rounding; every
-// reduction below runs in a fixed order (no atomics), so a tensor gives the
-// same bits on every run with the same grid.
+// nonzero elements.  Zeros and NaNs are left out (their log2 is -inf or
+// NaN, never above -inf), as in the reference.  The sum is kept in f64 and
+// the count in 64-bit integers past the thread (32 bits in it: a thread
+// sees far fewer than 2^32 elements), so the result does not depend on the
+// grid beyond f64 rounding; every reduction below runs in a fixed order (no
+// float atomics), so a tensor gives the same bits on every run with the
+// same grid.
 // ---------------------------------------------------------------------------
 
 constexpr int kStatsThreads = 256;   // block size of every stats kernel
@@ -247,81 +253,136 @@ __device__ __forceinline__ StatsPartial stats_combine(StatsPartial a,
   return StatsPartial{a.sum + b.sum, fmaxf(a.max, b.max), a.count + b.count};
 }
 
-__device__ __forceinline__ void stats_add(StatsPartial& p, float a, float l) {
-  if (a > 0.0f) {
+// A thread's running share.
+struct ThreadStats {
+  double sum;
+  float max;
+  unsigned int count;
+};
+
+// Adds l = log2f(|x|) of one element.
+__device__ __forceinline__ void stats_add(ThreadStats& p, float l) {
+  if (l > __int_as_float(0xff800000)) {
     p.sum += static_cast<double>(l);
     p.max = fmaxf(p.max, l);
     p.count += 1;
   }
 }
 
-// The element map the stats kernel and the fused truncate kernel's phase 0
-// share (so the two give equal partials for equal inputs).  With G threads
-// in the grid (VecSplit above): whole vector j goes to thread j mod G, in
-// round j / G; edge element e to thread e.  A thread sums in round order,
-// each vector's elements in order, the edge element last; the fused
-// truncate keeps its first kKeepVecs rounds (kKeepElems elements) and each
-// element's log2 in registers.
-constexpr int kKeepElems = 16;
+// The sign bit of element e of a 16-byte vector.
+template <typename T>
+__device__ __forceinline__ unsigned int vec_sign(const uint4& v, int e) {
+  if constexpr (sizeof(T) == 4)
+    return word_of(v, e) >> 31;
+  else
+    return (word_of(v, e >> 1) >> ((e & 1) ? 31 : 15)) & 1u;
+}
+
+// The element map the stats kernel and the fused kernels' phase 0 share (so
+// they give equal partials for equal inputs).  With G threads in the grid
+// (VecSplit above): whole vector j goes to thread j mod G, in round j / G;
+// edge element e to thread e.  A thread sums in round order, each vector's
+// elements in order, the edge element last.  The grid has one block per
+// kStatsThreads x kGridElems elements, up to what the card holds.  The
+// fused kernels keep what they need to encode a thread's elements after
+// their grid barrier without reading x or taking a log2 again: the log2
+// and the sign bit of its first kKeepElems elements (kKeepVecs<T> rounds)
+// in registers (``Kept``), and of the next ``SharedKeep::rounds`` rounds in
+// shared memory.  (The edge elements, fewer than two vectors' worth in
+// all, are read again.)
+constexpr int kGridElems = 16;
+constexpr int kKeepElems = 8;
 template <typename T>
 constexpr int kKeepVecs = kKeepElems / kVec<T>;
 
-template <typename T>
 struct Kept {
-  uint4 v[kKeepVecs<T>];
-  float logs[kKeepVecs<T>][kVec<T>];
+  float logs[kKeepElems];   // round k, element e at k * kVec<T> + e
+  unsigned int neg;         // their sign bits
 };
 
-// Past the kept batch, a thread loads kStreamVecs rounds at a time (fewer
-// registers live beside the kept ones).
-constexpr int kStreamVecs = 2;
+// Round kKeepVecs<T> + q of thread t (q < rounds) keeps element e's log2 at
+// logs[(q * kVec<T> + e) * blockDim.x + t] and its sign bits at
+// neg[q * blockDim.x + t] (bit e): a warp reads and writes consecutive
+// words.  The wrapper sizes the dynamic shared memory to ``rounds``.
+struct SharedKeep {
+  float* logs;
+  unsigned char* neg;
+  int rounds;
+};
 
-// Loads NV rounds of this thread from vector j0 on and adds them to p; with
-// ``kKeep`` (the first batch, NV = kKeepVecs), also stores the vectors and
-// their log2 in ``keep``.
-template <typename T, int NV, bool kKeep>
-__device__ __forceinline__ void stats_batch(const uint4* xv, long long nvec,
-                                            long long j0, long long grid,
-                                            StatsPartial& p, Kept<T>& keep) {
-  constexpr int V = kVec<T>;
-  uint4 v[NV];
+// Loads NV rounds of this thread from vector v on (v, v + grid, ...; none
+// at or past end).
+template <int NV>
+__device__ __forceinline__ void load_rounds(const uint4* v, const uint4* end,
+                                            int grid, uint4 (&r)[NV]) {
 #pragma unroll
   for (int k = 0; k < NV; ++k)
-    if (j0 + k * grid < nvec) v[k] = xv[j0 + k * grid];
-#pragma unroll
-  for (int k = 0; k < NV; ++k) {
-    if (j0 + k * grid >= nvec) break;
-#pragma unroll
-    for (int e = 0; e < V; ++e) {
-      float a = fabsf(vec_elem<T>(v[k], e));
-      float l = log2f(a);
-      stats_add(p, a, l);
-      if constexpr (kKeep) keep.logs[k][e] = l;
-    }
-    if constexpr (kKeep) keep.v[k] = v[k];
-  }
+    if (v + k * grid < end) r[k] = v[k * grid];
 }
 
-// This thread's partial of x under the map above.
-template <typename T, bool kKeep>
-__device__ __forceinline__ StatsPartial stats_thread_partial(const T* x,
-                                                             long long n,
-                                                             Kept<T>& keep) {
+// This thread's partial of x under the map above.  Past the register batch
+// the rounds stream NS at a time, the next NS's loads issued before this
+// batch's log2 are taken.  NS changes when x is loaded, not the order of
+// the sums, so the stats kernel (deeper) and the fused kernels (fewer
+// registers beside the kept ones) give the same bits.  Vectors are walked
+// by pointer (fewer registers than 64-bit indices).
+template <typename T, int NS, bool kKeep>
+__device__ __forceinline__ StatsPartial stats_thread_partial(
+    const T* x, long long n, Kept& keep, const SharedKeep& sk) {
+  constexpr int V = kVec<T>, KV = kKeepVecs<T>;
   const VecSplit<T> s(x, n);
-  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
-  const long long grid = static_cast<long long>(gridDim.x) * blockDim.x;
-  const long long g = static_cast<long long>(blockIdx.x) * blockDim.x +
-                      threadIdx.x;
-  StatsPartial p = stats_identity();
-  stats_batch<T, kKeepVecs<T>, kKeep>(xv, s.nvec, g, grid, p, keep);
-  for (long long j0 = g + kKeepVecs<T> * grid; j0 < s.nvec;
-       j0 += kStreamVecs * grid)
-    stats_batch<T, kStreamVecs, false>(xv, s.nvec, j0, grid, p, keep);
-  if (g < s.edges()) {
-    float a = fabsf(scalar_as_f32(x, s.edge_index(g)));
-    stats_add(p, a, log2f(a));
+  const uint4* const xv = reinterpret_cast<const uint4*>(x + s.head);
+  const uint4* const end = xv + s.nvec;
+  const int grid = gridDim.x * blockDim.x;
+  const int g = blockIdx.x * blockDim.x + threadIdx.x;
+  const uint4* v = xv + g;                          // this thread's round 0
+  ThreadStats p{0.0, __int_as_float(0xff800000), 0u};
+  if constexpr (kKeep) {
+    uint4 r[KV];
+    load_rounds<KV>(v, end, grid, r);
+    keep.neg = 0u;
+#pragma unroll
+    for (int k = 0; k < KV; ++k) {
+      if (v + k * grid >= end) break;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float l = log2f(fabsf(vec_elem<T>(r[k], e)));
+        stats_add(p, l);
+        keep.logs[k * V + e] = l;
+        keep.neg |= vec_sign<T>(r[k], e) << (k * V + e);
+      }
+    }
+    v += KV * grid;
   }
-  return p;
+  uint4 cur[NS];
+  load_rounds<NS>(v, end, grid, cur);
+  for (int q = 0; v < end; v += NS * grid, q += NS) {
+    uint4 next[NS];
+    load_rounds<NS>(v + NS * grid, end, grid, next);
+#pragma unroll
+    for (int k = 0; k < NS; ++k) {
+      if (v + k * grid >= end) break;
+      const bool shared = kKeep && q + k < sk.rounds;
+      unsigned int neg = 0u;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float l = log2f(fabsf(vec_elem<T>(cur[k], e)));
+        stats_add(p, l);
+        if (shared) {
+          sk.logs[((q + k) * V + e) * blockDim.x + threadIdx.x] = l;
+          neg |= vec_sign<T>(cur[k], e) << e;
+        }
+      }
+      if (shared)
+        sk.neg[(q + k) * blockDim.x + threadIdx.x] =
+            static_cast<unsigned char>(neg);
+    }
+#pragma unroll
+    for (int k = 0; k < NS; ++k) cur[k] = next[k];
+  }
+  if (g < s.edges())
+    stats_add(p, log2f(fabsf(scalar_as_f32(x, s.edge_index(g)))));
+  return StatsPartial{p.sum, p.max, static_cast<long long>(p.count)};
 }
 
 __device__ __forceinline__ StatsPartial stats_warp_reduce(StatsPartial p) {
@@ -352,17 +413,38 @@ __device__ __forceinline__ StatsPartial stats_block_reduce(StatsPartial p,
   return p;
 }
 
-// Total over the per-block partials, in a fixed order, valid in thread 0.
-// The partials are read through L2 (__ldcg): the fused kernel reads them in
-// the launch that wrote them.
+// Total over the per-block partials, valid in thread 0: thread t combines
+// partials t, t + blockDim.x, ... in index order (four loads in flight),
+// then the block reduces, so every block that calls it on the same
+// partials gets the same bits.  The partials are read through L2
+// (__ldcg): the kernels read them in the launch that wrote them.
 __device__ __forceinline__ StatsPartial stats_reduce_partials(
     const StatsPartial* parts, int nparts, StatsPartial* smem) {
+  constexpr int kBatch = 4;   // loads in flight a thread
   StatsPartial p = stats_identity();
-  for (int i = threadIdx.x; i < nparts; i += blockDim.x)
-    p = stats_combine(p, StatsPartial{__ldcg(&parts[i].sum),
-                                      __ldcg(&parts[i].max),
-                                      __ldcg(&parts[i].count)});
+  for (int i0 = threadIdx.x; i0 < nparts; i0 += kBatch * blockDim.x) {
+    StatsPartial q[kBatch];
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k) {
+      const int i = i0 + k * blockDim.x;
+      if (i < nparts)
+        q[k] = StatsPartial{__ldcg(&parts[i].sum), __ldcg(&parts[i].max),
+                            __ldcg(&parts[i].count)};
+    }
+#pragma unroll
+    for (int k = 0; k < kBatch; ++k)
+      if (i0 + k * static_cast<int>(blockDim.x) < nparts)
+        p = stats_combine(p, q[k]);
+  }
   return stats_block_reduce(p, smem);
+}
+
+// Counts a block in on the launch's ticket (acquire-release at device
+// scope: what the block wrote before is visible to the block that sees
+// the count of the others, which acquires it) and returns the count before.
+__device__ __forceinline__ unsigned int arrive(unsigned int* ticket) {
+  return cuda::atomic_ref<unsigned int, cuda::thread_scope_device>(*ticket)
+      .fetch_add(1u, cuda::memory_order_acq_rel);
 }
 
 // (sum, max, count) -> (alpha, beta), op for op as core/s2fp8.py

@@ -37,45 +37,51 @@
 // dequant(quant_apply(x)) in x's dtype bit for bit.  Dequantize looks each
 // byte up in a per-block table of s2fp8::decode.
 //
-// Statistics: bound by bytes (one read of x; the f64 adds are far under
-// the card's f64 rate).  A TPU grid runs in order and carries the sums
-// from one step to the next; here blocks run in no order, so the reduction
-// is two-stage: each block reduces its threads' shares (the element map of
-// s2fp8_common.cuh: 16-byte vectors, round-robin over the grid's threads;
-// warp shuffles, then the block, in a fixed order) to one partial, and the
-// partials are summed once, in index order.  No float atomics: the same
-// tensor gives the same bits on every run.  The grid is a function of n
-// and the card alone (``stats_grid``: one block per 4,096 elements, at
-// most the fused truncate's blocks that fit on the card at once), so the
-// stats kernel and the fused truncate's phase 0 give equal partials, and
-// truncate_fused(x) equals truncate_apply(x, stats(x)) bit for bit.
-// Quantize-with-stats is the stats launches followed by quant_apply_kernel
-// reading (alpha, beta) from device memory.
+// Statistics (stats_kernel<T>, one launch): bound by bytes on f32 (one
+// read of x) and by log2f on bf16 (about 36 issue slots an element with
+// the f64 add, the max and the count).  A TPU grid runs in order and
+// carries the sums from one step to the next; here blocks run in no order,
+// so each block reduces its threads' shares (the element map of
+// s2fp8_common.cuh: 16-byte vectors, round-robin over the grid's threads,
+// four rounds a thread in flight; warp shuffles, then the block, in a fixed
+// order) to one partial, and the last block to finish (an integer ticket,
+// which it sets back to 0 for the stream's next launch) sums the partials
+// in index order and writes the triplet and (alpha, beta).  No float
+// atomics: the same tensor gives the same bits on every run.  The grid is a
+// function of n and the card alone (``stats_grid``: one block per 4,096
+// elements, at most the fused kernels' blocks that fit on the card at
+// once), so the stats kernel and the fused kernels' phase 0 give equal
+// partials.
 //
-// The fused truncate (truncate_fused_kernel<T, F>) is one cooperative
-// launch: phase 0 computes the block's partial and keeps each thread's
-// first 16 elements and their log2 in registers; after a grid barrier,
-// block 0 alone sums the partials and publishes (alpha, beta); after a
-// second barrier every block builds the 256-entry table of decode(c) in
-// x's dtype and writes Eq. 5 as table[encode(x)], equal to
-// decode(encode(x)) bit for bit (the kept elements encoded from their kept
-// log2).  Up to the grid's threads x
-// 16 elements (2.16 M at 4 blocks of 256 a SM) nothing is read twice and
-// no log2f runs twice; larger tensors re-read the rest, last round first,
-// so the reads phase 0 left in the 50 MB L2 are the first ones taken
-// again.
+// Quantize-with-stats (quant_fused_kernel<T, F>) and the fused truncate
+// (truncate_fused_kernel<T, F>) share one body, a cooperative launch that
+// reads x once and takes each element's log2f once wherever the card can
+// keep it: phase 0 is the stats kernel's partial, keeping each thread's
+// log2 and sign bits, its first 8 elements in registers and its next
+// rounds in dynamic shared memory (as many as leave 4 blocks of 256 on a
+// SM: 40 elements a thread on the H100, 6.49 M elements in all); the last
+// block to arrive sums the partials as the stats kernel does and
+// publishes them before the launch's one grid barrier (no second barrier
+// and no serial finish after it); then the kept elements are encoded from
+// their kept log2 (``encode_log``), the rest re-read last round first
+// (the reads phase 0 left in the 50 MB L2 are the first taken again) and
+// encoded as quantize-apply encodes.  The payload is stored as
+// quantize-apply stores it, the truncate writes lut[code], so quant(x)
+// equals quant_apply(x, stats(x)) and truncate_fused(x) equals
+// truncate_apply(x, stats(x)), bit for bit.
 #include <cooperative_groups.h>
 
 #include <algorithm>
 #include <cstddef>
+#include <type_traits>
 
 #include "s2fp8_common.cuh"
 
 namespace {
 
 using s2fp8::CodeTable;
-using s2fp8::kKeepVecs;
 using s2fp8::kVec;
+using s2fp8::SharedKeep;
 using s2fp8::StatsPartial;
 using s2fp8::VecSplit;
 
@@ -183,7 +189,7 @@ __global__ void __launch_bounds__(256)
 }
 
 // ---------------------------------------------------------------------------
-// Quantize-apply.
+// Encoded output: payload codes (quantize) or Eq. 5 in x's dtype (truncate).
 // ---------------------------------------------------------------------------
 
 // V code bytes to p: one 4- or 8-byte store where p is aligned for it.
@@ -206,50 +212,6 @@ __device__ __forceinline__ void store_codes(unsigned char* p,
     for (int e = 0; e < V; ++e) p[e] = static_cast<unsigned char>(c[e]);
   }
 }
-
-template <typename T, int F>
-__global__ void __launch_bounds__(256)
-    quant_apply_kernel(const T* __restrict__ x,
-                       unsigned char* __restrict__ out, long long n,
-                       const float* __restrict__ ab,
-                       const CodeTable* __restrict__ table) {
-  constexpr int V = kVec<T>, U = kKeepVecs<T>;
-  __shared__ CodeTable tab;
-  s2fp8::load_code_table(tab, table);
-  const float alpha = ab[0], beta = ab[1];
-  __syncthreads();
-  const VecSplit<T> s(x, n);
-  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
-  unsigned char* o = out + s.head;
-  const bool packed = reinterpret_cast<unsigned long long>(o) % V == 0;
-  const long long grid = grid_threads(), g = thread_index();
-  for (long long j0 = g; j0 < s.nvec; j0 += U * grid) {
-    uint4 v[U];
-#pragma unroll
-    for (int k = 0; k < U; ++k)
-      if (j0 + k * grid < s.nvec) v[k] = xv[j0 + k * grid];
-#pragma unroll
-    for (int k = 0; k < U; ++k) {
-      const long long j = j0 + k * grid;
-      if (j >= s.nvec) break;
-      unsigned int c[V];
-#pragma unroll
-      for (int e = 0; e < V; ++e)
-        c[e] = s2fp8::encode_table<F>(s2fp8::vec_elem<T>(v[k], e), alpha,
-                                      beta, tab);
-      store_codes<V>(o + j * V, c, packed);
-    }
-  }
-  if (g < s.edges()) {
-    const long long i = s.edge_index(g);
-    out[i] = static_cast<unsigned char>(s2fp8::encode_table<F>(
-        s2fp8::scalar_as_f32(x, i), alpha, beta, tab));
-  }
-}
-
-// ---------------------------------------------------------------------------
-// Truncate-apply and dequantize.
-// ---------------------------------------------------------------------------
 
 // Raw bits of v in T (f32, or bf16 rounded to nearest even).
 template <typename T>
@@ -302,21 +264,63 @@ __device__ __forceinline__ void fill_value_lut(unsigned int* lut, float alpha,
         s2fp8::decode(static_cast<unsigned char>(c), alpha, beta, F));
 }
 
-// Eq. 5 of this thread's kKeepVecs rounds from vector j0 on (vectors j0,
-// j0 + grid, ...): loads them, encodes through the code table and stores
-// lut[code].
-template <typename T, int F>
-__device__ __forceinline__ void truncate_rounds(
-    const uint4* __restrict__ xv, long long nvec, long long j0,
-    long long grid, float alpha, float beta, const CodeTable& tab,
-    const unsigned int* lut, T* o, bool aligned) {
-  constexpr int V = kVec<T>, U = kKeepVecs<T>;
-  uint4 v[U];
+// Where the codes of x's elements go: with kTruncate, Eq. 5 as lut[code]
+// in x's dtype (16-byte stores where aligned), else the payload bytes
+// (4- or 8-byte stores where aligned).  Vector j is x's whole vector j
+// (after the head), element i is x's element i.
+template <typename T, bool kTruncate>
+struct Emit {
+  using Out = std::conditional_t<kTruncate, T, unsigned char>;
+  Out* out;
+  long long head;
+  const unsigned int* lut;
+  bool aligned;
+  __device__ __forceinline__ Emit(Out* o, long long h, const unsigned int* l)
+      : out(o), head(h), lut(l) {
+    aligned = reinterpret_cast<unsigned long long>(o + h) %
+                  (kTruncate ? 16 : kVec<T>) == 0;
+  }
+  __device__ __forceinline__ void vec(long long j,
+                                      const unsigned int (&c)[kVec<T>]) const {
+    if constexpr (kTruncate)
+      store_truncated<T>(c, lut, out + head + j * kVec<T>, aligned);
+    else
+      store_codes<kVec<T>>(out + head + j * kVec<T>, c, aligned);
+  }
+  __device__ __forceinline__ void scalar(long long i, unsigned int c) const {
+    if constexpr (kTruncate)
+      store_bits<T>(out, i, lut[c]);
+    else
+      out[i] = static_cast<unsigned char>(c);
+  }
+};
+
+// Rounds a thread of the apply kernels (and of the fused kernels' re-read)
+// loads at a time: 64 bytes.
+template <typename T>
+constexpr int kApplyVecs = 16 / kVec<T>;
+
+// Vectors j0, j0 + grid, ... (NV of them, none at or past nvec).
+template <int NV>
+__device__ __forceinline__ void load_at(const uint4* __restrict__ xv,
+                                        long long nvec, long long j0,
+                                        long long grid, uint4 (&v)[NV]) {
 #pragma unroll
-  for (int k = 0; k < U; ++k)
+  for (int k = 0; k < NV; ++k)
     if (j0 + k * grid < nvec) v[k] = xv[j0 + k * grid];
+}
+
+// Encodes the NV loaded vectors j0, j0 + grid, ... through the code table
+// and emits them.
+template <typename T, int F, bool kTruncate, int NV>
+__device__ __forceinline__ void encode_rounds(const uint4 (&v)[NV],
+                                              long long nvec, long long j0,
+                                              long long grid, float alpha,
+                                              float beta, const CodeTable& tab,
+                                              const Emit<T, kTruncate>& w) {
+  constexpr int V = kVec<T>;
 #pragma unroll
-  for (int k = 0; k < U; ++k) {
+  for (int k = 0; k < NV; ++k) {
     const long long j = j0 + k * grid;
     if (j >= nvec) break;
     unsigned int c[V];
@@ -324,8 +328,50 @@ __device__ __forceinline__ void truncate_rounds(
     for (int e = 0; e < V; ++e)
       c[e] = s2fp8::encode_table<F>(s2fp8::vec_elem<T>(v[k], e), alpha, beta,
                                     tab);
-    store_truncated<T>(c, lut, o + j * V, aligned);
+    w.vec(j, c);
   }
+}
+
+// ---------------------------------------------------------------------------
+// Quantize-apply, truncate-apply and dequantize.
+// ---------------------------------------------------------------------------
+
+// The body of quantize-apply (kTruncate false) and truncate-apply: every
+// round of the grid's threads, then the edge elements.
+template <typename T, int F, bool kTruncate>
+__device__ __forceinline__ void apply_body(
+    const T* __restrict__ x, typename Emit<T, kTruncate>::Out* out,
+    long long n, const float* __restrict__ ab,
+    const CodeTable* __restrict__ table) {
+  __shared__ CodeTable tab;
+  __shared__ unsigned int lut[kTruncate ? 256 : 1];
+  s2fp8::load_code_table(tab, table);
+  const float alpha = ab[0], beta = ab[1];
+  if constexpr (kTruncate) fill_value_lut<T, F>(lut, alpha, beta);
+  __syncthreads();
+  const VecSplit<T> s(x, n);
+  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
+  const Emit<T, kTruncate> w(out, s.head, lut);
+  const long long grid = grid_threads(), g = thread_index();
+  for (long long j0 = g; j0 < s.nvec; j0 += kApplyVecs<T> * grid) {
+    uint4 v[kApplyVecs<T>];
+    load_at(xv, s.nvec, j0, grid, v);
+    encode_rounds<T, F, kTruncate>(v, s.nvec, j0, grid, alpha, beta, tab, w);
+  }
+  if (g < s.edges()) {
+    const long long i = s.edge_index(g);
+    w.scalar(i, s2fp8::encode_table<F>(s2fp8::scalar_as_f32(x, i), alpha,
+                                       beta, tab));
+  }
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(256)
+    quant_apply_kernel(const T* __restrict__ x,
+                       unsigned char* __restrict__ out, long long n,
+                       const float* __restrict__ ab,
+                       const CodeTable* __restrict__ table) {
+  apply_body<T, F, false>(x, out, n, ab, table);
 }
 
 template <typename T, int F>
@@ -333,25 +379,7 @@ __global__ void __launch_bounds__(256)
     truncate_apply_kernel(const T* __restrict__ x, T* __restrict__ out,
                           long long n, const float* __restrict__ ab,
                           const CodeTable* __restrict__ table) {
-  __shared__ CodeTable tab;
-  __shared__ unsigned int lut[256];
-  s2fp8::load_code_table(tab, table);
-  const float alpha = ab[0], beta = ab[1];
-  fill_value_lut<T, F>(lut, alpha, beta);
-  __syncthreads();
-  const VecSplit<T> s(x, n);
-  const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
-  T* o = out + s.head;
-  const bool aligned = reinterpret_cast<unsigned long long>(o) % 16 == 0;
-  const long long grid = grid_threads(), g = thread_index();
-  for (long long j0 = g; j0 < s.nvec; j0 += kKeepVecs<T> * grid)
-    truncate_rounds<T, F>(xv, s.nvec, j0, grid, alpha, beta, tab, lut, o,
-                          aligned);
-  if (g < s.edges()) {
-    const long long i = s.edge_index(g);
-    store_bits<T>(out, i, lut[s2fp8::encode_table<F>(
-                              s2fp8::scalar_as_f32(x, i), alpha, beta, tab)]);
-  }
+  apply_body<T, F, true>(x, out, n, ab, table);
 }
 
 __global__ void dequant_kernel(const unsigned char* __restrict__ p,
@@ -368,74 +396,134 @@ __global__ void dequant_kernel(const unsigned char* __restrict__ p,
 }
 
 // ---------------------------------------------------------------------------
-// Statistics and the fused truncate.
+// Statistics, quantize-with-stats and the fused truncate.
 // ---------------------------------------------------------------------------
 
-template <typename T>
-__global__ void __launch_bounds__(s2fp8::kStatsThreads)
-    stats_partials_kernel(const T* __restrict__ x, long long n,
-                          StatsPartial* parts) {
-  __shared__ StatsPartial smem[32];
-  s2fp8::Kept<T> unused;
-  StatsPartial p = s2fp8::stats_block_reduce(
-      s2fp8::stats_thread_partial<T, false>(x, n, unused), smem);
-  if (threadIdx.x == 0) parts[blockIdx.x] = p;
-}
-
-__global__ void __launch_bounds__(s2fp8::kStatsThreads)
-    stats_finish_kernel(const StatsPartial* parts, int nparts,
-                        float* __restrict__ triplet, float* __restrict__ ab,
-                        float target_max) {
-  __shared__ StatsPartial smem[32];
-  StatsPartial t = s2fp8::stats_reduce_partials(parts, nparts, smem);
-  if (threadIdx.x == 0) s2fp8::stats_finish(t, target_max, triplet, ab);
-}
-
-// Blocks of the fused truncate a SM holds at once: 64 registers a thread,
-// so the grid keeps 4 x 132 x 256 x kKeepElems elements in registers.
+// Blocks of the fused kernels a SM holds at once: 64 registers a thread.
 constexpr int kFusedBlocksPerSm = 4;
+// Rounds a thread streams at a time past its register batch (and as many
+// loads again in flight): the stats kernel keeps nothing, so it has the
+// registers for four; the fused kernels, beside their kept log2, one; and
+// two when they read x again.
+constexpr int kStatsStreamVecs = 4;
+constexpr int kFusedStreamVecs = 1;
+constexpr int kRereadVecs = 2;
 
-template <typename T, int F>
-__global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
-    truncate_fused_kernel(const T* __restrict__ x, T* __restrict__ out,
-                          long long n, StatsPartial* parts,
-                          float* __restrict__ triplet, float* ab_out,
-                          float target_max,
-                          const CodeTable* __restrict__ table) {
-  constexpr int V = kVec<T>, KV = kKeepVecs<T>;
-  __shared__ StatsPartial smem[32];
-  __shared__ CodeTable tab;
-  __shared__ unsigned int lut[256];
-  s2fp8::load_code_table(tab, table);
-  // phase 0: this block's partial, as stats_partials_kernel computes it,
-  // keeping the thread's first batch and its log2 in registers
-  s2fp8::Kept<T> kept;
-  StatsPartial p = s2fp8::stats_block_reduce(
-      s2fp8::stats_thread_partial<T, true>(x, n, kept), smem);
+// The most blocks of a stats grid (the wrapper's partials scratch).
+constexpr int kMaxStatsBlocks = 4096;
+// Up to this many blocks every block of a fused launch sums the partials.
+constexpr int kSmallGrid = 64;
+
+// Each block's partial to parts; the last block of the launch to arrive
+// (an integer ticket, kept per stream by the wrapper and set back to 0 for
+// the stream's next launch) sums the partials in index order and writes
+// the triplet and (alpha, beta).  Every thread of the block calls it.
+__device__ __forceinline__ void reduce_last(StatsPartial p,
+                                            StatsPartial* parts,
+                                            unsigned int* ticket,
+                                            float* __restrict__ triplet,
+                                            float* __restrict__ ab,
+                                            float target_max,
+                                            StatsPartial* smem) {
+  __shared__ bool last;
   if (threadIdx.x == 0) {
     parts[blockIdx.x] = p;
-    __threadfence();
+    last = s2fp8::arrive(ticket) == gridDim.x - 1;
   }
-  cooperative_groups::grid_group grid_sync = cooperative_groups::this_grid();
-  grid_sync.sync();
-  // block 0 sums the partials once, in index order, and publishes
-  if (blockIdx.x == 0) {
-    StatsPartial t = s2fp8::stats_reduce_partials(parts, gridDim.x, smem);
+  __syncthreads();
+  if (!last) return;
+  StatsPartial t = s2fp8::stats_reduce_partials(parts, gridDim.x, smem);
+  if (threadIdx.x == 0) {
+    s2fp8::stats_finish(t, target_max, triplet, ab);
+    *ticket = 0u;
+  }
+}
+
+// The stats in one launch (``reduce_last``).
+template <typename T>
+__global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
+    stats_kernel(const T* __restrict__ x, long long n, StatsPartial* parts,
+                 unsigned int* ticket, float* __restrict__ triplet,
+                 float* __restrict__ ab, float target_max) {
+  __shared__ StatsPartial smem[32];
+  s2fp8::Kept unused;
+  reduce_last(s2fp8::stats_block_reduce(
+                  s2fp8::stats_thread_partial<T, kStatsStreamVecs, false>(
+                      x, n, unused, SharedKeep{}),
+                  smem),
+              parts, ticket, triplet, ab, target_max, smem);
+}
+
+// Quantize-with-stats (kTruncate false) and the fused truncate, one
+// cooperative launch.  Phase 0 is the stats kernel's partial, keeping each
+// thread's log2 and sign bits (registers, then ``smem_rounds`` rounds in
+// dynamic shared memory).  The last block to arrive sums the partials as
+// the stats kernel does and publishes them before the launch's one grid
+// barrier, after which every block reads (alpha, beta): no block sums the
+// partials but one, and none waits for a second barrier.  (With every
+// block reading all 528 partials after the barrier, the reads of the same
+// lines queued in the L2 for longer than the barrier itself; up to
+// kSmallGrid blocks, where that costs less than the ticket's round trip,
+// every block sums them after the barrier, with the same bits.)  Then the
+// kept elements are encoded from their kept log2, and the rest re-read,
+// last batch first (what phase 0 read last is the likeliest to be in the
+// L2), the next batch's loads in flight while one is encoded.
+template <typename T, int F, bool kTruncate>
+__device__ __forceinline__ void fused_body(
+    const T* __restrict__ x, typename Emit<T, kTruncate>::Out* out,
+    long long n, StatsPartial* parts, unsigned int* ticket,
+    float* __restrict__ triplet, float* __restrict__ ab_out,
+    float target_max, const CodeTable* __restrict__ table, int smem_rounds) {
+  constexpr int V = kVec<T>, KV = s2fp8::kKeepVecs<T>;
+  __shared__ StatsPartial smem[32];
+  __shared__ CodeTable tab;
+  __shared__ unsigned int lut[kTruncate ? 256 : 1];
+  __shared__ float ab[2];
+  extern __shared__ float4 keep_words[];
+  float* keep_logs = reinterpret_cast<float*>(keep_words);
+  const SharedKeep sk{
+      keep_logs,
+      reinterpret_cast<unsigned char*>(keep_logs +
+                                       smem_rounds * V * blockDim.x),
+      smem_rounds};
+  s2fp8::load_code_table(tab, table);
+  s2fp8::Kept kept;
+  const StatsPartial p = s2fp8::stats_block_reduce(
+      s2fp8::stats_thread_partial<T, kFusedStreamVecs, true>(x, n, kept, sk),
+      smem);
+  if (gridDim.x > kSmallGrid) {
+    reduce_last(p, parts, ticket, triplet, ab_out, target_max, smem);
+    cooperative_groups::this_grid().sync();
     if (threadIdx.x == 0) {
-      s2fp8::stats_finish(t, target_max, triplet, ab_out);
-      __threadfence();
+      ab[0] = __ldcg(&ab_out[0]);
+      ab[1] = __ldcg(&ab_out[1]);
+    }
+  } else {
+    if (threadIdx.x == 0) parts[blockIdx.x] = p;
+    cooperative_groups::this_grid().sync();
+    const StatsPartial t =
+        s2fp8::stats_reduce_partials(parts, gridDim.x, smem);
+    if (threadIdx.x == 0) {
+      float tri[3];
+      s2fp8::stats_finish(t, target_max, tri, ab);
+      if (blockIdx.x == 0) {
+        triplet[0] = tri[0];
+        triplet[1] = tri[1];
+        triplet[2] = tri[2];
+        ab_out[0] = ab[0];
+        ab_out[1] = ab[1];
+      }
     }
   }
-  grid_sync.sync();
-  const float alpha = __ldcg(&ab_out[0]), beta = __ldcg(&ab_out[1]);
-  fill_value_lut<T, F>(lut, alpha, beta);
   __syncthreads();
-  // phase 1: Eq. 5 with those stats; the kept batch first, then the rest
-  // re-read, last round first
+  const float alpha = ab[0], beta = ab[1];
+  if constexpr (kTruncate) {
+    fill_value_lut<T, F>(lut, alpha, beta);
+    __syncthreads();
+  }
   const VecSplit<T> s(x, n);
   const uint4* xv = reinterpret_cast<const uint4*>(x + s.head);
-  T* o = out + s.head;
-  const bool aligned = reinterpret_cast<unsigned long long>(o) % 16 == 0;
+  const Emit<T, kTruncate> w(out, s.head, lut);
   const long long grid = grid_threads(), g = thread_index();
 #pragma unroll
   for (int k = 0; k < KV; ++k) {
@@ -444,22 +532,67 @@ __global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
     unsigned int c[V];
 #pragma unroll
     for (int e = 0; e < V; ++e)
-      c[e] = s2fp8::encode_log<F>(s2fp8::vec_elem<T>(kept.v[k], e),
-                                  kept.logs[k][e], alpha, beta, tab);
-    store_truncated<T>(c, lut, o + j * V, aligned);
+      c[e] = s2fp8::encode_log<F>(kept.logs[k * V + e],
+                                  (kept.neg >> (k * V + e)) & 1u, alpha, beta,
+                                  tab);
+    w.vec(j, c);
   }
-  const long long step = KV * grid;
-  if (g + step < s.nvec) {
-    for (long long j0 = g + (s.nvec - 1 - g) / step * step; j0 > g;
-         j0 -= step)
-      truncate_rounds<T, F>(xv, s.nvec, j0, grid, alpha, beta, tab, lut, o,
-                            aligned);
+  for (int q = 0; q < smem_rounds; ++q) {
+    const long long j = g + (KV + q) * grid;
+    if (j >= s.nvec) break;
+    const unsigned int neg = sk.neg[q * blockDim.x + threadIdx.x];
+    unsigned int c[V];
+#pragma unroll
+    for (int e = 0; e < V; ++e)
+      c[e] = s2fp8::encode_log<F>(
+          sk.logs[(q * V + e) * blockDim.x + threadIdx.x], (neg >> e) & 1u,
+          alpha, beta, tab);
+    w.vec(j, c);
+  }
+  const long long first = g + (KV + smem_rounds) * grid,
+                  step = kRereadVecs * grid;
+  if (first < s.nvec) {
+    long long j0 = first + (s.nvec - 1 - first) / step * step;
+    uint4 cur[kRereadVecs];
+    load_at(xv, s.nvec, j0, grid, cur);
+    for (; j0 >= first; j0 -= step) {
+      uint4 next[kRereadVecs];
+      if (j0 - step >= first) load_at(xv, s.nvec, j0 - step, grid, next);
+      encode_rounds<T, F, kTruncate>(cur, s.nvec, j0, grid, alpha, beta, tab,
+                                     w);
+#pragma unroll
+      for (int k = 0; k < kRereadVecs; ++k) cur[k] = next[k];
+    }
   }
   if (g < s.edges()) {
     const long long i = s.edge_index(g);
-    store_bits<T>(out, i, lut[s2fp8::encode_table<F>(
-                              s2fp8::scalar_as_f32(x, i), alpha, beta, tab)]);
+    w.scalar(i, s2fp8::encode_table<F>(s2fp8::scalar_as_f32(x, i), alpha,
+                                       beta, tab));
   }
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
+    quant_fused_kernel(const T* __restrict__ x,
+                       unsigned char* __restrict__ out, long long n,
+                       StatsPartial* parts, unsigned int* ticket,
+                       float* __restrict__ triplet, float* __restrict__ ab,
+                       float target_max, const CodeTable* __restrict__ table,
+                       int smem_rounds) {
+  fused_body<T, F, false>(x, out, n, parts, ticket, triplet, ab, target_max,
+                          table, smem_rounds);
+}
+
+template <typename T, int F>
+__global__ void __launch_bounds__(s2fp8::kStatsThreads, kFusedBlocksPerSm)
+    truncate_fused_kernel(const T* __restrict__ x, T* __restrict__ out,
+                          long long n, StatsPartial* parts,
+                          unsigned int* ticket, float* __restrict__ triplet,
+                          float* __restrict__ ab, float target_max,
+                          const CodeTable* __restrict__ table,
+                          int smem_rounds) {
+  fused_body<T, F, true>(x, out, n, parts, ticket, triplet, ab, target_max,
+                         table, smem_rounds);
 }
 
 // ---------------------------------------------------------------------------
@@ -516,91 +649,213 @@ cudaError_t apply_grid(long long n, int* grid) {
   return cudaSuccess;
 }
 
-template <typename T, int F>
-cudaError_t fused_blocks_per_sm(int* per_sm) {
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      per_sm, truncate_fused_kernel<T, F>, s2fp8::kStatsThreads, 0);
+// What the fused kernels may take on one card: ``cap`` blocks in all (SMs
+// x the least of their resident blocks a SM, over dtypes, formats and both
+// kernels: the cooperative launch's limit), and with that many resident,
+// ``rounds[dtype]`` rounds a thread kept in dynamic shared memory.
+struct FusedPlan {
+  int cap;
+  int rounds[2];   // by s2fp8::DType
+};
+
+// Dynamic shared memory of ``rounds`` kept rounds of 256 threads: V f32
+// log2 and one byte of sign bits a round.
+constexpr long long keep_bytes(int dtype, int rounds) {
+  return static_cast<long long>(rounds) * s2fp8::kStatsThreads *
+         (4 * (dtype == s2fp8::kF32 ? 4 : 8) + 1);
 }
 
-// The stats grid for n elements: one block per kStatsThreads x kKeepElems
-// elements (so the fused truncate keeps a whole small tensor in registers
-// with as few blocks as that takes), at most the fused truncate's blocks
-// that fit on the card at once (the cooperative launch's limit; the least
-// over its dtypes and formats).  A function of n and the card alone.
-// Returns 0 after an error.
-int stats_grid(long long n, cudaError_t* err) {
-  static int cap[kMaxDevices] = {0};
+template <typename T, int F>
+void fused_kernels(const void** out) {
+  out[0] = reinterpret_cast<const void*>(quant_fused_kernel<T, F>);
+  out[1] = reinterpret_cast<const void*>(truncate_fused_kernel<T, F>);
+}
+
+cudaError_t fused_plan(const FusedPlan** out) {
+  static FusedPlan plans[kMaxDevices] = {};
   int dev = 0;
-  *err = cudaGetDevice(&dev);
-  if (*err != cudaSuccess) return 0;
-  if (dev < 0 || dev >= kMaxDevices) {
-    *err = cudaErrorInvalidDevice;
-    return 0;
-  }
-  if (cap[dev] == 0) {
-    int sms = 0, per_sm[4] = {0, 0, 0, 0};
-    if ((*err = sm_count(&sms)) != cudaSuccess ||
-        (*err = fused_blocks_per_sm<float, s2fp8::kE5M2>(&per_sm[0])) !=
-            cudaSuccess ||
-        (*err = fused_blocks_per_sm<float, s2fp8::kE4M3>(&per_sm[1])) !=
-            cudaSuccess ||
-        (*err = fused_blocks_per_sm<__nv_bfloat16, s2fp8::kE5M2>(
-             &per_sm[2])) != cudaSuccess ||
-        (*err = fused_blocks_per_sm<__nv_bfloat16, s2fp8::kE4M3>(
-             &per_sm[3])) != cudaSuccess)
-      return 0;
-    int least = std::min(std::min(per_sm[0], per_sm[1]),
-                         std::min(per_sm[2], per_sm[3]));
-    if (sms * least <= 0) {
-      *err = cudaErrorInvalidConfiguration;
-      return 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  FusedPlan& fp = plans[dev];
+  if (fp.cap == 0) {
+    const void* fns[8];   // f32 e5m2, e4m3, then bf16: quant, truncate each
+    fused_kernels<float, s2fp8::kE5M2>(fns);
+    fused_kernels<float, s2fp8::kE4M3>(fns + 2);
+    fused_kernels<__nv_bfloat16, s2fp8::kE5M2>(fns + 4);
+    fused_kernels<__nv_bfloat16, s2fp8::kE4M3>(fns + 6);
+    int sms = 0, least = 1 << 30;
+    if ((err = sm_count(&sms)) != cudaSuccess) return err;
+    for (const void* fn : fns) {
+      int per_sm = 0;
+      if ((err = cudaFuncSetAttribute(
+               fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+               cudaSharedmemCarveoutMaxShared)) != cudaSuccess ||
+          (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+               &per_sm, fn, s2fp8::kStatsThreads, 0)) != cudaSuccess)
+        return err;
+      least = std::min(least, per_sm);
     }
-    cap[dev] = sms * least;
+    if (sms * least <= 0) return cudaErrorInvalidConfiguration;
+    size_t avail = ~size_t{0};
+    for (const void* fn : fns) {
+      size_t bytes = 0;
+      if ((err = cudaOccupancyAvailableDynamicSMemPerBlock(
+               &bytes, fn, least, s2fp8::kStatsThreads)) != cudaSuccess)
+        return err;
+      avail = std::min(avail, bytes);
+    }
+    int rounds[2];
+    for (int dtype = 0; dtype < 2; ++dtype) {
+      rounds[dtype] = static_cast<int>(avail / keep_bytes(dtype, 1));
+      // as many rounds as keep `least` blocks resident in every kernel
+      for (; rounds[dtype] > 0; --rounds[dtype]) {
+        const int bytes = static_cast<int>(keep_bytes(dtype, rounds[dtype]));
+        bool fits = true;
+        for (int i = 4 * dtype; i < 4 * dtype + 4 && fits; ++i) {
+          int per_sm = 0;
+          if ((err = cudaFuncSetAttribute(
+                   fns[i], cudaFuncAttributeMaxDynamicSharedMemorySize,
+                   bytes)) != cudaSuccess ||
+              (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                   &per_sm, fns[i], s2fp8::kStatsThreads, bytes)) !=
+                  cudaSuccess)
+            return err;
+          fits = per_sm >= least;
+        }
+        if (fits) break;
+      }
+    }
+    fp.rounds[0] = rounds[0];
+    fp.rounds[1] = rounds[1];
+    fp.cap = sms * least;
   }
+  *out = &fp;
+  return cudaSuccess;
+}
+
+// The stats grid for n elements: one block per kStatsThreads x kGridElems
+// elements (so the fused kernels keep a small tensor in registers with as
+// few blocks as that takes), at most the fused kernels' cap.  A function
+// of n and the card alone, so the stats kernel and the fused kernels give
+// the same partials.  Returns 0 after an error.
+int stats_grid(long long n, cudaError_t* err) {
+  const FusedPlan* fp = nullptr;
+  if ((*err = fused_plan(&fp)) != cudaSuccess) return 0;
   const long long per_block =
-      static_cast<long long>(s2fp8::kStatsThreads) * s2fp8::kKeepElems;
+      static_cast<long long>(s2fp8::kStatsThreads) * s2fp8::kGridElems;
   long long blocks = (n + per_block - 1) / per_block;
   if (blocks < 1) blocks = 1;
-  return static_cast<int>(blocks < cap[dev] ? blocks : cap[dev]);
+  return static_cast<int>(blocks < fp->cap ? blocks : fp->cap);
 }
 
-// Launches the two stats stages; scratch holds the per-block partials.
+// The shared-memory rounds a fused launch over n elements at x keeps: the
+// rounds past the register batch of the thread with the most (thread 0),
+// at most the plan's.
+int fused_rounds(const void* x, int x_dtype, long long n, int grid,
+                 const FusedPlan& fp) {
+  const int v = x_dtype == s2fp8::kF32 ? 4 : 8, elt = 16 / v;
+  long long head =
+      static_cast<long long>((16 - reinterpret_cast<unsigned long long>(x) %
+                                       16) % 16) / elt;
+  if (head > n) head = n;
+  const long long nvec = (n - head) / v;
+  const long long threads =
+      static_cast<long long>(grid) * s2fp8::kStatsThreads;
+  const long long past =
+      (nvec + threads - 1) / threads - s2fp8::kKeepElems / v;
+  return static_cast<int>(
+      std::max(0LL, std::min(past, static_cast<long long>(
+                                       fp.rounds[x_dtype]))));
+}
+
+// The stats kernel; scratch holds the per-block partials, ticket the
+// stream's one unsigned int (``reduce_last``: 0 before the launch and 0
+// after it).
 cudaError_t launch_stats(const void* x, int x_dtype, long long n,
-                         void* scratch, long long scratch_bytes,
+                         void* scratch, long long scratch_bytes, void* ticket,
                          float* triplet, float* ab, float target_max,
                          cudaStream_t stream) {
   cudaError_t err;
   int grid = stats_grid(n, &err);
   if (grid == 0) return err;
-  if (static_cast<long long>(grid) * sizeof(StatsPartial) > scratch_bytes)
+  if (grid > kMaxStatsBlocks ||
+      static_cast<long long>(grid) * sizeof(StatsPartial) > scratch_bytes)
     return cudaErrorInvalidValue;
   auto* parts = static_cast<StatsPartial*>(scratch);
+  auto* t = static_cast<unsigned int*>(ticket);
   if (x_dtype == s2fp8::kF32)
-    stats_partials_kernel<float><<<grid, s2fp8::kStatsThreads, 0, stream>>>(
-        static_cast<const float*>(x), n, parts);
+    stats_kernel<float><<<grid, s2fp8::kStatsThreads, 0, stream>>>(
+        static_cast<const float*>(x), n, parts, t, triplet, ab, target_max);
   else
-    stats_partials_kernel<__nv_bfloat16>
-        <<<grid, s2fp8::kStatsThreads, 0, stream>>>(
-            static_cast<const __nv_bfloat16*>(x), n, parts);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  stats_finish_kernel<<<1, s2fp8::kStatsThreads, 0, stream>>>(
-      parts, grid, triplet, ab, target_max);
+    stats_kernel<__nv_bfloat16><<<grid, s2fp8::kStatsThreads, 0, stream>>>(
+        static_cast<const __nv_bfloat16*>(x), n, parts, t, triplet, ab,
+        target_max);
   return cudaGetLastError();
 }
 
-cudaError_t launch_quant_apply(const void* x, int x_dtype, void* out,
-                               long long n, const void* ab, int fmt,
-                               const void* table, cudaStream_t stream) {
+// One cooperative launch of quantize-with-stats (kTruncate false) or the
+// fused truncate.  A launch the card refuses returns its error.
+template <bool kTruncate>
+cudaError_t launch_fused(const void* x, int x_dtype, void* out, long long n,
+                         void* scratch, long long scratch_bytes, void* ticket,
+                         void* triplet, void* ab, float target_max, int fmt,
+                         const void* table, cudaStream_t stream) {
+  const FusedPlan* fp = nullptr;
+  cudaError_t err = fused_plan(&fp);
+  if (err != cudaSuccess) return err;
+  int grid = stats_grid(n, &err);
+  if (grid == 0) return err;
+  if (grid > kMaxStatsBlocks ||
+      static_cast<long long>(grid) * sizeof(StatsPartial) > scratch_bytes)
+    return cudaErrorInvalidValue;
+  int rounds = fused_rounds(x, x_dtype, n, grid, *fp);
+  auto* parts = static_cast<StatsPartial*>(scratch);
+  auto* tk = static_cast<unsigned int*>(ticket);
+  auto* tri = static_cast<float*>(triplet);
+  auto* abp = static_cast<float*>(ab);
+  auto* tab = static_cast<const CodeTable*>(table);
   return with_kind(x_dtype, fmt, [&](auto kind) {
     using T = typename decltype(kind)::type;
     constexpr int F = decltype(kind)::fmt;
+    using Out = typename Emit<T, kTruncate>::Out;
+    auto* xt = static_cast<const T*>(x);
+    auto* ot = static_cast<Out*>(out);
+    const void* fn;
+    if constexpr (kTruncate)
+      fn = reinterpret_cast<const void*>(truncate_fused_kernel<T, F>);
+    else
+      fn = reinterpret_cast<const void*>(quant_fused_kernel<T, F>);
+    void* args[] = {&xt,  &ot,  &n,          &parts, &tk,
+                    &tri, &abp, &target_max, &tab,   &rounds};
+    cudaError_t e = cudaLaunchCooperativeKernel(
+        fn, dim3(grid), dim3(s2fp8::kStatsThreads), args,
+        static_cast<size_t>(keep_bytes(x_dtype, rounds)), stream);
+    return e != cudaSuccess ? e : cudaGetLastError();
+  });
+}
+
+// Quantize-apply (kTruncate false) or truncate-apply.
+template <bool kTruncate>
+cudaError_t launch_apply(const void* x, int x_dtype, void* out, long long n,
+                         const void* ab, int fmt, const void* table,
+                         cudaStream_t stream) {
+  return with_kind(x_dtype, fmt, [&](auto kind) {
+    using T = typename decltype(kind)::type;
+    constexpr int F = decltype(kind)::fmt;
+    using Out = typename Emit<T, kTruncate>::Out;
     int grid = 0;
-    cudaError_t err = apply_grid<T, F, false>(n, &grid);
+    cudaError_t err = apply_grid<T, F, kTruncate>(n, &grid);
     if (err != cudaSuccess) return err;
-    quant_apply_kernel<T, F><<<grid, 256, 0, stream>>>(
-        static_cast<const T*>(x), static_cast<unsigned char*>(out), n,
-        static_cast<const float*>(ab), static_cast<const CodeTable*>(table));
+    auto* xt = static_cast<const T*>(x);
+    auto* ot = static_cast<Out*>(out);
+    auto* abp = static_cast<const float*>(ab);
+    auto* tab = static_cast<const CodeTable*>(table);
+    if constexpr (kTruncate)
+      truncate_apply_kernel<T, F><<<grid, 256, 0, stream>>>(xt, ot, n, abp,
+                                                            tab);
+    else
+      quant_apply_kernel<T, F><<<grid, 256, 0, stream>>>(xt, ot, n, abp, tab);
     return cudaGetLastError();
   });
 }
@@ -643,92 +898,64 @@ extern "C" int s2fp8_code_sweep(const void* table, int fmt, void* bad,
   return static_cast<int>(cudaGetLastError());
 }
 
-// *out: the most elements the fused truncate keeps in registers across
-// its grid barrier on the current card.
-extern "C" int s2fp8_fused_capacity(long long* out) {
-  cudaError_t err;
-  int grid = stats_grid(1LL << 40, &err);
-  if (grid == 0) return static_cast<int>(err);
-  *out = static_cast<long long>(grid) * s2fp8::kStatsThreads *
-         s2fp8::kKeepElems;
+// The elements a fused launch keeps across its grid barrier on the
+// current card, for x of ``dtype``: out[0] in all (a tensor up to that many
+// is read once and takes one log2f an element), out[1] in registers.
+extern "C" int s2fp8_fused_capacity(long long* out, int dtype) {
+  const FusedPlan* fp = nullptr;
+  cudaError_t err = fused_plan(&fp);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long threads =
+      static_cast<long long>(fp->cap) * s2fp8::kStatsThreads;
+  const int v = dtype == s2fp8::kF32 ? 4 : 8;
+  out[0] = threads * (s2fp8::kKeepElems + fp->rounds[dtype] * v);
+  out[1] = threads * s2fp8::kKeepElems;
   return 0;
 }
 
 extern "C" int s2fp8_stats(const void* x, int x_dtype, long long n,
                            void* scratch, long long scratch_bytes,
-                           void* triplet, void* ab, float target_max,
-                           void* stream) {
+                           void* ticket, void* triplet, void* ab,
+                           float target_max, void* stream) {
   return static_cast<int>(launch_stats(
-      x, x_dtype, n, scratch, scratch_bytes, static_cast<float*>(triplet),
-      static_cast<float*>(ab), target_max,
+      x, x_dtype, n, scratch, scratch_bytes, ticket,
+      static_cast<float*>(triplet), static_cast<float*>(ab), target_max,
       static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int s2fp8_quant(const void* x, int x_dtype, void* out, long long n,
                            void* scratch, long long scratch_bytes,
-                           void* triplet, void* ab, float target_max, int fmt,
-                           const void* table, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = launch_stats(x, x_dtype, n, scratch, scratch_bytes,
-                                 static_cast<float*>(triplet),
-                                 static_cast<float*>(ab), target_max, s);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(
-      launch_quant_apply(x, x_dtype, out, n, ab, fmt, table, s));
+                           void* ticket, void* triplet, void* ab,
+                           float target_max, int fmt, const void* table,
+                           void* stream) {
+  return static_cast<int>(launch_fused<false>(
+      x, x_dtype, out, n, scratch, scratch_bytes, ticket, triplet, ab,
+      target_max, fmt, table, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int s2fp8_truncate_fused(const void* x, int x_dtype, void* out,
                                     long long n, void* scratch,
-                                    long long scratch_bytes, void* triplet,
-                                    void* ab, float target_max, int fmt,
-                                    const void* table, void* stream) {
-  cudaError_t err;
-  int grid = stats_grid(n, &err);
-  if (grid == 0) return static_cast<int>(err);
-  if (static_cast<long long>(grid) * sizeof(StatsPartial) > scratch_bytes)
-    return static_cast<int>(cudaErrorInvalidValue);
-  auto* parts = static_cast<StatsPartial*>(scratch);
-  auto* tri = static_cast<float*>(triplet);
-  auto* abp = static_cast<float*>(ab);
-  auto* tab = static_cast<const CodeTable*>(table);
-  return static_cast<int>(with_kind(x_dtype, fmt, [&](auto kind) {
-    using T = typename decltype(kind)::type;
-    auto* xt = static_cast<const T*>(x);
-    auto* ot = static_cast<T*>(out);
-    void* args[] = {&xt, &ot, &n, &parts, &tri, &abp, &target_max, &tab};
-    cudaError_t e = cudaLaunchCooperativeKernel(
-        reinterpret_cast<void*>(
-            truncate_fused_kernel<T, decltype(kind)::fmt>),
-        dim3(grid), dim3(s2fp8::kStatsThreads), args, 0,
-        static_cast<cudaStream_t>(stream));
-    return e != cudaSuccess ? e : cudaGetLastError();
-  }));
+                                    long long scratch_bytes, void* ticket,
+                                    void* triplet, void* ab, float target_max,
+                                    int fmt, const void* table,
+                                    void* stream) {
+  return static_cast<int>(launch_fused<true>(
+      x, x_dtype, out, n, scratch, scratch_bytes, ticket, triplet, ab,
+      target_max, fmt, table, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int s2fp8_quant_apply(const void* x, int x_dtype, void* out,
                                  long long n, const void* ab, int fmt,
                                  const void* table, void* stream) {
-  return static_cast<int>(launch_quant_apply(
-      x, x_dtype, out, n, ab, fmt, table,
-      static_cast<cudaStream_t>(stream)));
+  return static_cast<int>(launch_apply<false>(
+      x, x_dtype, out, n, ab, fmt, table, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int s2fp8_truncate_apply(const void* x, int x_dtype, void* out,
                                     long long n, const void* ab, int fmt,
                                     const void* table, void* stream) {
-  return static_cast<int>(with_kind(x_dtype, fmt, [&](auto kind) {
-    using T = typename decltype(kind)::type;
-    constexpr int F = decltype(kind)::fmt;
-    int grid = 0;
-    cudaError_t err = apply_grid<T, F, true>(n, &grid);
-    if (err != cudaSuccess) return err;
-    truncate_apply_kernel<T, F>
-        <<<grid, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-            static_cast<const T*>(x), static_cast<T*>(out), n,
-            static_cast<const float*>(ab),
-            static_cast<const CodeTable*>(table));
-    return cudaGetLastError();
-  }));
+  return static_cast<int>(launch_apply<true>(
+      x, x_dtype, out, n, ab, fmt, table, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int s2fp8_dequant(const void* payload, void* out, long long n,

@@ -32,14 +32,15 @@ SIGNATURES = {
         "s2fp8_quant_apply": (_P, _I, _P, _LL, _P, _I, _P, _P),
         "s2fp8_truncate_apply": (_P, _I, _P, _LL, _P, _I, _P, _P),
         "s2fp8_dequant": (_P, _P, _LL, _P, _I, _P),
-        "s2fp8_stats": (_P, _I, _LL, _P, _LL, _P, _P, _F, _P),
-        "s2fp8_quant": (_P, _I, _P, _LL, _P, _LL, _P, _P, _F, _I, _P, _P),
-        "s2fp8_truncate_fused": (_P, _I, _P, _LL, _P, _LL, _P, _P, _F, _I,
-                                 _P, _P),
+        "s2fp8_stats": (_P, _I, _LL, _P, _LL, _P, _P, _P, _F, _P),
+        "s2fp8_quant": (_P, _I, _P, _LL, _P, _LL, _P, _P, _P, _F, _I, _P,
+                        _P),
+        "s2fp8_truncate_fused": (_P, _I, _P, _LL, _P, _LL, _P, _P, _P, _F,
+                                 _I, _P, _P),
         "s2fp8_code_table": (_P, _I, _P),
         "s2fp8_code_sweep": (_P, _I, _P, _P, _P),
         "s2fp8_code_table_layout": (_P,),
-        "s2fp8_fused_capacity": (_P,),
+        "s2fp8_fused_capacity": (_P, _I),
     },
     "s2fp8_matmul": {
         "s2fp8_qmatmul": (_P, _P, _P, _P) + (_I,) * 10 + (_P, _P, _P, _I, _I,

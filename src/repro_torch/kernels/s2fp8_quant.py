@@ -12,22 +12,27 @@ replaces ``stats_pallas`` (_stats_kernel), ``quant`` replaces
 in s2fp8_common.cuh).
 
 Bound on the card: bytes — one read of the input (f32 or bf16, or the
-1-byte payload) and one write of the output per element; the stats read
-the input once, quantize-with-stats twice, and the fused truncate once up
-to its register capacity (:func:`fused_capacity`), twice above it.
+1-byte payload) and one write of the output per element; the stats and,
+up to their capacity (:func:`fused_capacity`), quantize-with-stats and
+the fused truncate read the input once, larger tensors twice.
 Design: (alpha, beta) read through a device pointer (no host sync);
-quantize-apply, truncate-apply and the fused truncate move 16 bytes a
+quantize-apply, truncate-apply and the fused kernels move 16 bytes a
 thread a step and encode through the card's code table
 (:func:`code_table`: exp2f, clamp and convert replaced by a bucket of t and
 one threshold compare, held to the direct map over every f32 t by
 :func:`code_sweep`); dequantize and the truncates' output look each byte
 up in a per-block 256-entry table of the Eq. 4 inverse map, so
 ``truncate_apply(x, ab)`` equals ``dequant(quant_apply(x, ab), ab)`` in
-x's dtype bit for bit.  The stats are a deterministic two-stage
+x's dtype bit for bit.  The stats are one launch of a deterministic
 reduction (per-block partials with the sum in f64 and the count in 64-bit
-integers, then one block sums them in a fixed order; no atomics), and the
-fused truncate is one cooperative launch whose phase 0 is that reduction:
-it equals ``truncate_apply(x, stats(x))`` bit for bit.
+integers; the last block to finish, by an integer ticket kept per stream
+(:func:`ticket`), sums them in a fixed order; no float atomics).
+Quantize-with-stats and the fused truncate are one cooperative launch
+each whose phase 0 is that reduction, keeping each element's log2 in
+registers or shared memory across one grid barrier, before which the last
+block has summed the partials, so ``quant(x)`` equals
+``(quant_apply(x, stats(x)), stats(x))`` and ``truncate_fused(x)`` equals
+``truncate_apply(x, stats(x))`` bit for bit.
 
 The stats wrappers return the triplet (sum log2|x|, max log2|x|, nonzero
 count) as f32 [3] and (alpha, beta) as f32 [2], both on x's device.
@@ -175,15 +180,37 @@ def code_sweep(device: torch.device, fmt: str):
     return n, (int(first.item()) & 0xFFFFFFFF if n else None)
 
 
-def fused_capacity(device: torch.device) -> int:
-    """The most elements the fused truncate keeps in registers across its
-    grid barrier on ``device``'s card (read once, one log2 each); a larger
-    tensor is read a second time past that many."""
-    out = torch.zeros(1, dtype=torch.int64)
+def fused_capacity(device: torch.device, dtype=torch.float32,
+                   registers: bool = False) -> int:
+    """The most elements of ``dtype`` that quantize-with-stats and the
+    fused truncate keep across their grid barrier on ``device``'s card (a
+    tensor up to that size is read once and takes one log2 an element, bar
+    its edge elements; a larger one is read a second time past that many);
+    with ``registers``, the part kept in registers, the rest being in
+    shared memory."""
+    out = torch.zeros(2, dtype=torch.int64)
     with torch.cuda.device(device):
-        rc = build.load("s2fp8_quant").s2fp8_fused_capacity(out.data_ptr())
+        rc = build.load("s2fp8_quant").s2fp8_fused_capacity(
+            out.data_ptr(), DTYPE_ID[dtype])
     build.check(rc, "s2fp8_fused_capacity")
-    return int(out.item())
+    return int(out[1 if registers else 0])
+
+
+_TICKETS = {}
+
+
+def ticket(device: torch.device) -> torch.Tensor:
+    """The int32 ticket on which the stats kernel and the fused kernels
+    count their blocks in, on ``device``'s current stream: one zeroed word
+    per device and stream, kept.  The last block of a launch sets it back
+    to 0, so launches in one stream's order share it and no launch clears
+    it."""
+    key = (device.index, build.stream_ptr(device))
+    t = _TICKETS.get(key)
+    if t is None:
+        t = torch.zeros(1, dtype=torch.int32, device=device)
+        _TICKETS[key] = t
+    return t
 
 
 def _stats_outputs(x: torch.Tensor):
@@ -198,14 +225,15 @@ def stats_partials(x: torch.Tensor,
                    target_max: float = s2fp8.TARGET_MAX_LOG2):
     """(triplet f32 [3], ab f32 [2]) of ``x`` (f32 or bf16, any shape):
     the Eq. 3-4 reduction and the (alpha, beta) it gives for a range of
-    2^target_max.  CPU tensors take the plain version."""
+    2^target_max, in one launch.  CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return stats_partials_plain(x, target_max)
     check_cuda_operand(x, "x", tuple(DTYPE_ID))
     scratch, triplet, ab = _stats_outputs(x)
     rc = build.load("s2fp8_quant").s2fp8_stats(
         x.data_ptr(), DTYPE_ID[x.dtype], x.numel(), scratch.data_ptr(),
-        scratch.numel(), triplet.data_ptr(), ab.data_ptr(), target_max,
+        scratch.numel(), ticket(x.device).data_ptr(),
+        triplet.data_ptr(), ab.data_ptr(), target_max,
         build.stream_ptr(x.device))
     build.check(rc, "s2fp8_stats")
     stats_partials.launches += 1
@@ -214,8 +242,8 @@ def stats_partials(x: torch.Tensor,
 
 def quant(x: torch.Tensor, fmt: str = "e5m2"):
     """(payload, ab): ``x`` quantized with its own exact stats for
-    ``fmt`` — the stats kernel, then quantize-apply with (alpha, beta)
-    read on the device.  CPU tensors take the plain version."""
+    ``fmt`` — one cooperative launch (the stats, one grid barrier, the
+    encode of the kept log2).  CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return quant_plain(x, fmt)
     check_cuda_operand(x, "x", tuple(DTYPE_ID))
@@ -223,8 +251,9 @@ def quant(x: torch.Tensor, fmt: str = "e5m2"):
     out = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
     rc = build.load("s2fp8_quant").s2fp8_quant(
         x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
-        scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
-        ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
+        scratch.data_ptr(), scratch.numel(),
+        ticket(x.device).data_ptr(), triplet.data_ptr(), ab.data_ptr(),
+        s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
         code_table(x.device, fmt).data_ptr(), build.stream_ptr(x.device))
     build.check(rc, "s2fp8_quant")
     quant.launches += 1
@@ -233,8 +262,8 @@ def quant(x: torch.Tensor, fmt: str = "e5m2"):
 
 def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     """(out, ab): the Eq. 5 round trip of ``x`` with its own exact stats,
-    out in ``x``'s dtype — one cooperative launch (stats, grid barriers,
-    apply).  CPU tensors take the plain version."""
+    out in ``x``'s dtype — one cooperative launch (the stats, one grid
+    barrier, Eq. 5 of the kept log2).  CPU tensors take the plain version."""
     if x.device.type == "cpu":
         return truncate_fused_plain(x, fmt)
     check_cuda_operand(x, "x", tuple(DTYPE_ID))
@@ -242,8 +271,9 @@ def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     out = torch.empty_like(x)
     rc = build.load("s2fp8_quant").s2fp8_truncate_fused(
         x.data_ptr(), DTYPE_ID[x.dtype], out.data_ptr(), x.numel(),
-        scratch.data_ptr(), scratch.numel(), triplet.data_ptr(),
-        ab.data_ptr(), s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
+        scratch.data_ptr(), scratch.numel(),
+        ticket(x.device).data_ptr(), triplet.data_ptr(), ab.data_ptr(),
+        s2fp8.FMT_TARGET_MAX[fmt], FMT_ID[fmt],
         code_table(x.device, fmt).data_ptr(), build.stream_ptr(x.device))
     build.check(rc, "s2fp8_truncate_fused")
     truncate_fused.launches += 1

@@ -20,7 +20,9 @@ max and count equal to the plain version's, its sum within 1e-6 relative
 (f64 sums in another order), (alpha, beta) within 4 ulp, and the
 quantize-with-stats and fused truncate kernels bit for bit the
 quantize-apply and truncate-apply kernels under the stats kernel's
-(alpha, beta); the selective scan's y and final h within 1e-5 * max
+(alpha, beta), on both sides of what they keep across their grid barrier
+and at unaligned offsets; the stats kernel's ticket back at 0 after every
+launch, on two streams; the selective scan's y and final h within 1e-5 * max
 |plain| (the same rounded ops on both sides, the sum over the states in
 another order); the plain flash forward allclose at rtol 2e-4, atol 2e-5
 in f32 (the reference's tolerance for its kernel against the oracle) and
@@ -626,7 +628,7 @@ def test_code_table_matches_direct_map_everywhere(dev, fmt):
 
 
 # ragged sizes: every edge of the vector split (1, 7, a vector of f32 or
-# bf16 and one either side), the fused truncate's register capacity and
+# bf16 and one either side), the fused kernels' capacity in x's dtype and
 # one either side (("cap", d): read per card inside the test), the empty
 # tensor, and 20 M elements (80 MB in f32, 40 MB in bf16 plus the output:
 # past the 50 MB L2)
@@ -635,7 +637,7 @@ EDGE_SIZES = [0, 1, 3, 4, 5, 7, 8, 9, ("cap", -1), ("cap", 0), ("cap", 1),
 
 
 def _edge_input(dev, size, dtype, offset):
-    n = (s2fp8_quant.fused_capacity(dev) + size[1]
+    n = (s2fp8_quant.fused_capacity(dev, dtype) + size[1]
          if isinstance(size, tuple) else size)
     gen = torch.Generator(device=dev).manual_seed(n % 1000 + offset)
     x = torch.randn(n + offset, generator=gen, device=dev).to(dtype)
@@ -852,3 +854,82 @@ def test_paged_kernel_dead_slots(dev, hd, blk):
     for slot in (1, 3):
         assert torch.allclose(ok[slot], trash[:, None].expand_as(ok[slot]),
                               rtol=1e-6, atol=0)
+
+
+def test_stats_ticket_resets_across_calls_and_streams(dev):
+    """The stats kernel's and the fused kernels' last block sets the
+    stream's ticket back to 0: stats, quantize-with-stats and fused
+    truncate calls of different sizes and dtypes back to back on one
+    stream, then on a second stream, give the bits of fresh calls (each
+    with a new ticket), and every ticket is 0 afterwards."""
+    gen = torch.Generator(device=dev).manual_seed(41)
+    xs = [(torch.randn(n, generator=gen, device=dev) * scale).to(dtype)
+          for n, scale, dtype in [
+              (1, 1.0, torch.float32), (5000, 3.0, torch.bfloat16),
+              (3_000_001, 0.1, torch.float32), (70_001, 1e-3, torch.float32),
+              (4096 * 600 + 3, 2.0, torch.bfloat16), (17, 0.5, torch.float32)]]
+
+    def calls(x):
+        q, qab = s2fp8_quant.quant(x)
+        t, tab = s2fp8_quant.truncate_fused(x)
+        return torch.cat([*s2fp8_quant.stats_partials(x), qab, tab,
+                          q.view(torch.uint8).float(), t.float()])
+
+    fresh = []
+    for x in xs:
+        s2fp8_quant._TICKETS.clear()
+        fresh.append(calls(x))
+        torch.cuda.synchronize()
+    got = [calls(x) for x in xs + xs]
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        got += [calls(x) for x in xs]
+    torch.cuda.current_stream(dev).wait_stream(side)
+    torch.cuda.synchronize()
+    for i, g in enumerate(got):
+        assert torch.equal(g, fresh[i % len(xs)]), i
+    assert len(s2fp8_quant._TICKETS) == 2
+    assert not any(t.any() for t in s2fp8_quant._TICKETS.values())
+    assert kernels.counts()["stats"]["launches"] == 4 * len(xs)
+
+
+# sizes around the fused kernels' keep: 1, 7 and 9 elements, the register
+# capacity and the whole capacity in x's dtype (("reg" / "cap", d), read
+# per card inside the test) and one either side, a million past the
+# capacity, and 20 M elements (mostly re-read)
+FUSED_SIZES = [1, 7, 9, ("reg", -1), ("reg", 1), ("cap", -1), ("cap", 0),
+               ("cap", 1), ("cap", 1_000_003), 20_000_000]
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("size", FUSED_SIZES, ids=str)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
+def test_quant_fused_is_quant_apply_of_stats(dev, fmt, dtype, size, offset):
+    """Quantize-with-stats (one cooperative launch) on both sides of what
+    it keeps in registers and in shared memory, at unaligned offsets:
+    (payload, ab) equal to (quant_apply(x, stats(x)), stats(x)) bit for
+    bit, twice the same bits, one launch a call."""
+    if isinstance(size, tuple):
+        n = s2fp8_quant.fused_capacity(dev, dtype,
+                                       registers=size[0] == "reg") + size[1]
+    else:
+        n = size
+    gen = torch.Generator(device=dev).manual_seed(n % 1000 + offset)
+    x = (torch.randn(n + offset, generator=gen, device=dev) * torch.exp2(
+        torch.rand(n + offset, generator=gen, device=dev) * 30 - 15)
+         ).to(dtype)
+    x[::97] = 0.0
+    x = x[offset:]
+    target = s2fp8.FMT_TARGET_MAX[fmt]
+    _, abk = s2fp8_quant.stats_partials(x, target)
+    pk, qab = s2fp8_quant.quant(x, fmt)
+    assert pk.shape == x.shape and pk.dtype == s2fp8.FMT_QDTYPE[fmt]
+    assert torch.equal(qab, abk)
+    assert torch.equal(pk.view(torch.uint8),
+                       s2fp8_quant.quant_apply(x, abk, fmt).view(torch.uint8))
+    pk2, qab2 = s2fp8_quant.quant(x, fmt)
+    assert torch.equal(pk.view(torch.uint8), pk2.view(torch.uint8))
+    assert torch.equal(qab, qab2)
+    assert kernels.counts()["quant"]["launches"] == 2

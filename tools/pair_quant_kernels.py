@@ -39,11 +39,16 @@ SHAPES = {
                      ((8, 36, 64, 16, 64),
                       [int(n) + 15
                        for n in chip_smoke.serve_prompts(122753)[2][:8]])],
-    # the exact-stats path's tensors: (shape, dtype, scale)
+    # the exact-stats path's tensors: (shape, dtype, scale); minicpm's
+    # (phases 8-9: table, fig4 logits, bf16 activation, GEMM output), then
+    # serve-mamba's (phase 10): a decode activation and the in_proj weight,
+    # bf16 as the payload GEMM quantizes them
     "stats": [((122753, 2304), torch.float32, 0.05),
               ((2048, 122753), torch.float32, 3.0),
               ((2048, 2304), torch.bfloat16, 1.0),
-              ((2048, 5760), torch.float32, 0.3)],
+              ((2048, 5760), torch.float32, 0.3),
+              ((8, 4096), torch.bfloat16, 1.0),
+              ((4096, 16384), torch.bfloat16, 0.02)],
 }
 
 
