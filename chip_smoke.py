@@ -20,11 +20,14 @@ Phases, each fatal on failure:
              and the payload GEMMs at large M also with their bound on
              TF32 tensor cores at three passes; the GEMMs at decode
              width as device time from torch.profiler; quantize-apply,
-             truncate-apply, the stats kernels and the paged decode also
-             by device time at a shape of their main path, the L2 flushed
-             before each call); two launches of each GEMM path,
-             quantize-apply, truncate-apply, the fused truncate and the
-             paged decode give the same bits, and truncate-apply equals
+             truncate-apply, the stats kernels, the paged decode and the
+             selective scan also by device time at a shape of their main
+             path, the L2 flushed before each call; the scan at all three
+             of serve-mamba's prefill buckets, with its bound the larger
+             of its bytes and its exps on the SFUs); two launches of each
+             GEMM path, quantize-apply, truncate-apply, the fused
+             truncate, the paged decode and the scan give the same bits,
+             and truncate-apply equals
              dequant(quant_apply(x)) bit for bit; one call of the stats
              kernel, quantize-with-stats and the fused truncate launches
              one kernel each (torch.profiler).  First the code table
@@ -112,6 +115,7 @@ sys.path.insert(0, str(ROOT / "src"))
 H100_BYTES_PER_S = 3.35e12           # HBM3, SXM data sheet
 H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12             # TF32 tensor cores, dense
+H100_SFU_PER_S = 132 * 16 * 1.98e9   # MUFU ops (ex2): 16 a clock an SM
 TC_PASSES = 3                        # the flash kernels' compensated TF32
 
 # TPU kernel each port replaces (src/repro/... file:line of the Pallas entry)
@@ -413,7 +417,7 @@ def phase_kernels(dev) -> dict:
 
     def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape,
                keep=True, tensor_cores=False, path_ms=None, on_path=False,
-               **extra):
+               sfu_ops=0, **extra):
         """Keep the worst error over every shape checked, and the times and
         bound of the last shape recorded with ``keep`` (each list ends with
         a main-path shape, or marks it).  ``tensor_cores``: the kernel runs
@@ -422,13 +426,17 @@ def phase_kernels(dev) -> dict:
         ``path_ms``: the call's device time with the L2 flushed
         (``device_ms(cold=True)``); with ``on_path`` (a shape its main
         path launches often) the row keeps it as ``path_device_ms`` beside
-        ``path_shape`` and ``path_bound_ms``.  No time may beat its
-        bound."""
+        ``path_shape`` and ``path_bound_ms``.  ``sfu_ops``: MUFU
+        operations (the scan's exps), whose time on the SFUs joins the
+        operations bound.  No time may beat its bound."""
         tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
         kind = "f32 cores"
         if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
             tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
             kind = f"{TC_PASSES}xTF32 tensor cores"
+        if sfu_ops / H100_SFU_PER_S * 1e3 > tf:
+            tf = sfu_ops / H100_SFU_PER_S * 1e3
+            kind = "exps on the SFUs"
         bound = max(tb, tf)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
@@ -684,46 +692,81 @@ def phase_kernels(dev) -> dict:
     train_kernel_checks(dev, rnd, record)
     moe_kernel_checks(dev, rnd, record)
     stats_kernel_checks(dev, rnd, record)
-    mamba_ops_kernel_checks(dev, rnd, record)
+    mamba_ops_kernel_checks(dev, gen, rnd, record)
     return rows
 
 
-def mamba_ops_kernel_checks(dev, rnd, record) -> None:
-    """The selective scan at serve-mamba's largest prefill (8 rows x bucket
-    512, di 8192, 16 states, f32, the model's A = -(1..16) per channel)
-    and the plain flash forward of ``kernels.ops`` at 4 x 32 heads x 2048
+def scan_inputs(dev, gen, b, s, di, n):
+    """The selective scan's inputs as serve-mamba's prefill feeds them:
+    x, dt [b, s, di] (dt through softplus), B, C [b, s, n], the model's
+    A = -(1..n) per channel, D = 1; f32, from ``gen``."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    x = rnd(b, s, di, scale=0.5)
+    dt = torch.nn.functional.softplus(rnd(b, s, di) - 1.0)
+    bm, cm = rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5)
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di, 1)
+    return x, dt, bm, cm, a, torch.ones(di, device=dev)
+
+
+def scan_bound_ms(b, s, di, n):
+    """(bound ms, bound_by, bytes, f32 operations) of the selective scan:
+    the larger of its bytes (x, dt and y once, B and C once, A, D and the
+    final h once) over HBM, its f32 operations (7 a state and step, 3 a
+    channel and step) over the f32 cores, and its exps (one a state and
+    step, each one MUFU.EX2) over the SFUs."""
+    nbytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + di + b * di * n)
+    flops = float(b * s * di * (7 * n + 3))
+    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
+             "operations": max(flops / H100_F32_FLOPS,
+                               b * s * di * n / H100_SFU_PER_S) * 1e3}
+    by = max(terms, key=terms.get)
+    return terms[by], by, nbytes, flops
+
+
+def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
+    """The selective scan at serve-mamba's prefill buckets (8 rows x 128,
+    256 and 512, di 8192, 16 states, f32, the model's A = -(1..16) per
+    channel) and the plain flash forward of ``kernels.ops`` at 4 x 32 heads x 2048
     x d 128 causal (the time kept), 4 x 32 heads x 512 queries over 2048
     keys with a window of 1024, and a ragged bf16 non-causal case."""
     from repro_torch.kernels import flash_attention
     from repro_torch.kernels import selective_scan as ss
 
-    # -- selective_scan.  Tolerance: y and the final h each within 1e-5 *
-    # max |plain| (the state update rounds the same ops in the same order
-    # on both sides, so h should agree bit for bit but for the math
-    # library's exp; y's 16-term sum over the states runs in another
-    # order).  No single PyTorch call computes the scan: library none.
-    b, s, di, n = 8, 512, 8192, 16
-    x = rnd(b, s, di, scale=0.5)
-    dt = torch.nn.functional.softplus(rnd(b, s, di) - 1.0)
-    bm, cm = rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5)
-    a = -torch.arange(1, n + 1, dtype=torch.float32, device=dev).repeat(di, 1)
-    d_skip = torch.ones(di, device=dev)
-    args = (x, dt, bm, cm, a, d_skip)
-    yk, hk = ss.selective_scan(*args)
-    yp, hp = ss.selective_scan_plain(*args)
-    ey, eh = (yk - yp).abs().max().item(), (hk - hp).abs().max().item()
-    ty, th = yp.abs().max().item(), hp.abs().max().item()
-    log(f"selective_scan B={b} S={s} di={di} n={n}: y err {ey:.3e} (max "
-        f"{ty:.3e}), h err {eh:.3e} (max {th:.3e}), h equal "
-        f"{bool(torch.equal(hk, hp))}")
-    assert ey <= 1e-5 * ty and eh <= 1e-5 * th, (ey, ty, eh, th)
-    record("selective_scan", max(ey, eh),
-           cuda_time(lambda: ss.selective_scan(*args)),
-           cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
-                     warmup=1), None,
-           4 * (3 * b * s * di + 2 * b * s * n + di * n + di + b * di * n),
-           float(b * s * di * (7 * n + 3)), f"B={b} S={s} di={di} n={n} f32")
-    del args, x, dt, bm, cm, a, d_skip, yk, hk, yp, hp
+    # -- selective_scan at serve-mamba's three prefill buckets (8 slots x
+    # S 128, 256, 512), S 512's times kept.  Tolerance: y and the final h
+    # each within 1e-5 * max |plain| (the state update rounds the same ops
+    # in the same order on both sides, so h should agree bit for bit but
+    # for the math library's exp; y's 16-term sum over the states runs in
+    # another order), and two launches give the same bits.  No single
+    # PyTorch call computes the scan: library none.
+    blocks, threads = ss.occupancy(dev)
+    log(f"selective_scan: {blocks} blocks of {threads} threads resident an "
+        f"SM ({blocks * threads // 32} warps)")
+    for b, s, di, n in ((8, 128, 8192, 16), (8, 256, 8192, 16),
+                        (8, 512, 8192, 16)):
+        args = scan_inputs(dev, gen, b, s, di, n)
+        yk, hk = ss.selective_scan(*args)
+        yp, hp = ss.selective_scan_plain(*args)
+        ey, eh = (yk - yp).abs().max().item(), (hk - hp).abs().max().item()
+        ty, th = yp.abs().max().item(), hp.abs().max().item()
+        log(f"selective_scan B={b} S={s} di={di} n={n}: y err {ey:.3e} (max "
+            f"{ty:.3e}), h err {eh:.3e} (max {th:.3e}), h equal "
+            f"{bool(torch.equal(hk, hp))}")
+        assert ey <= 1e-5 * ty and eh <= 1e-5 * th, (ey, ty, eh, th)
+        same_bits(lambda: torch.cat([t.flatten() for t in
+                                     ss.selective_scan(*args)]),
+                  f"selective_scan S={s}")
+        _, _, nbytes, flops = scan_bound_ms(b, s, di, n)
+        record("selective_scan", max(ey, eh),
+               cuda_time(lambda: ss.selective_scan(*args)),
+               cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
+                         warmup=1), None, nbytes, flops,
+               f"B={b} S={s} di={di} n={n} f32", keep=s == 512,
+               sfu_ops=b * s * di * n,
+               path_ms=device_ms(lambda: ss.selective_scan(*args), cold=True),
+               on_path=s == 256)
+        del args, yk, hk, yp, hp
 
     # -- flash_fwd.  Tolerance: f32 allclose at rtol 2e-4, atol 2e-5, the
     # reference's own tolerance for its kernel against the oracle (the

@@ -24,7 +24,8 @@ quantize-apply and truncate-apply kernels under the stats kernel's
 and at unaligned offsets; the stats kernel's ticket back at 0 after every
 launch, on two streams; the selective scan's y and final h within 1e-5 * max
 |plain| (the same rounded ops on both sides, the sum over the states in
-another order); the plain flash forward allclose at rtol 2e-4, atol 2e-5
+another order), and the same bits on a second launch; the plain flash
+forward allclose at rtol 2e-4, atol 2e-5
 in f32 (the reference's tolerance for its kernel against the oracle) and
 rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
 that sees no key exactly 0 on both sides.  The flash kernels also give
@@ -440,24 +441,39 @@ def test_stats_kernels_degenerate_inputs(dev):
     assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
 
 
-@pytest.mark.parametrize("b,s,di,n", [(2, 100, 300, 16), (1, 64, 128, 8),
-                                      (3, 7, 33, 1)])
-def test_selective_scan_kernel(dev, b, s, di, n):
+@pytest.mark.parametrize("b,s,di,n,offset", [
+    (2, 100, 300, 16, 0), (1, 64, 128, 8, 0), (3, 7, 33, 1, 0),
+    (8, 128, 8192, 16, 0), (2, 37, 136, 5, 0), (2, 37, 136, 16, 1),
+    (1, 50, 100, 5, 0)])
+def test_selective_scan_kernel(dev, b, s, di, n, offset):
+    """Serve-mamba's smallest prefill (8 x 128 x 8192 x 16), n = 5, di not
+    a multiple of a block's 64 channels (and 33 and 100 not of 4: the
+    4-byte path), S not a multiple of the 16-step chunk, and x, dt 4 bytes
+    off a 16-byte boundary (``offset``, also the 4-byte path); two
+    launches give the same bits."""
     g = torch.Generator(device=dev).manual_seed(5)
 
     def rnd(*shape, scale=1.0):
         return torch.randn(*shape, generator=g, device=dev) * scale
 
-    args = (rnd(b, s, di, scale=0.5),
-            torch.nn.functional.softplus(rnd(b, s, di) - 1.0),
+    def shifted(t):   # the same values, ``offset`` floats past an aligned
+        buf = t.new_empty(offset + t.numel())      # allocation
+        buf[offset:] = t.flatten()
+        return buf[offset:].view(t.shape)
+
+    args = (shifted(rnd(b, s, di, scale=0.5)),
+            shifted(torch.nn.functional.softplus(rnd(b, s, di) - 1.0)),
             rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5),
             -torch.exp(rnd(di, n, scale=0.3)), rnd(di))
+    assert all(t.data_ptr() % 16 == 4 * offset for t in args[:2])
     yk, hk = selective_scan.selective_scan(*args)
     yp, hp = selective_scan.selective_scan_plain(*args)
     assert yk.shape == (b, s, di) and hk.shape == (b, di, n)
     assert (yk - yp).abs().max() <= 1e-5 * yp.abs().max()
     assert (hk - hp).abs().max() <= 1e-5 * hp.abs().max()
     assert kernels.counts()["selective_scan"]["launches"] == 1
+    yk2, hk2 = selective_scan.selective_scan(*args)
+    assert torch.equal(yk, yk2) and torch.equal(hk, hk2)
     with pytest.raises(ValueError, match="states"):
         selective_scan.selective_scan(*args[:2], rnd(b, s, 17), rnd(b, s, 17),
                                       rnd(di, 17), args[5])

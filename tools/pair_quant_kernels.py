@@ -1,9 +1,11 @@
-"""Times the S2FP8 quantize, truncate and stats kernels and the paged
-decode of one source tree, so that two trees can be compared on one card
-in one run.
+"""Times the S2FP8 quantize, truncate, stats and dequantize kernels, the
+paged decode and the selective scan of one source tree, so that two trees
+can be compared on one card in one run.
 
     python3 tools/pair_quant_kernels.py --src OTHER_TREE/src --label parent
     python3 tools/pair_quant_kernels.py --src src --label change
+    python3 tools/pair_quant_kernels.py --src src --label change \
+        --only selective_scan,dequant
 
 Imports ``repro_torch`` from ``--src`` (its kernels are built into that
 tree's ``build/``) and times each wrapper with chip_smoke.py's harnesses at
@@ -49,6 +51,12 @@ SHAPES = {
               ((2048, 5760), torch.float32, 0.3),
               ((8, 4096), torch.bfloat16, 1.0),
               ((4096, 16384), torch.bfloat16, 0.02)],
+    # the flash delta's e5m2 g / o payloads (core/qdot.py _flash_delta):
+    # train's 4 x 36 heads x 512 x 64 and train-moe's 4 x 16 x 512 x 128
+    "dequant": [((4 * 36 * 512, 64), "e5m2"), ((4 * 16 * 512, 128), "e5m2")],
+    # (B, S, di, n): serve-mamba's three prefill buckets (8 slots)
+    "selective_scan": [(8, 128, 8192, 16), (8, 256, 8192, 16),
+                       (8, 512, 8192, 16)],
 }
 
 
@@ -57,7 +65,12 @@ def main() -> int:
     ap.add_argument("--src", required=True,
                     help="the tree's src directory (holds repro_torch)")
     ap.add_argument("--label", required=True)
+    ap.add_argument("--only", default=",".join(SHAPES),
+                    help="comma-separated kernels to time (default: all)")
     args = ap.parse_args()
+    only = set(args.only.split(","))
+    if only - set(SHAPES):
+        ap.error(f"unknown kernels {sorted(only - set(SHAPES))}")
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
         return 1
@@ -65,18 +78,23 @@ def main() -> int:
     from repro_torch.core import s2fp8
     from repro_torch.kernels import paged_attention
     from repro_torch.kernels import s2fp8_quant as sq
+    from repro_torch.kernels import selective_scan as ss
+
+    def shapes(name):
+        return SHAPES[name] if name in only else []
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
     rows = []
 
-    def timed(name, shape, dtype, fn, nbytes):
+    def timed(name, shape, dtype, fn, nbytes, bound_ms=None):
         fn()
         row = {"kernel": name, "shape": list(shape),
                "dtype": str(dtype)[6:],
                "device_ms": chip_smoke.device_ms(fn, cold=True),
                "events_ms": chip_smoke.cuda_time(fn),
-               "bound_ms": nbytes / chip_smoke.H100_BYTES_PER_S * 1e3}
+               "bound_ms": (bound_ms if bound_ms is not None else
+                            nbytes / chip_smoke.H100_BYTES_PER_S * 1e3)}
         rows.append(row)
         print(f"{args.label} {name} {tuple(shape)} {row['dtype']}: device "
               f"{row['device_ms']:.4f} ms (L2 flushed), events "
@@ -87,19 +105,19 @@ def main() -> int:
         return (torch.randn(*shape, generator=gen, device=dev) * scale
                 ).to(dtype)
 
-    for shape, dtype in SHAPES["quant_apply"]:
+    for shape, dtype in shapes("quant_apply"):
         x = rnd(shape, dtype, 0.05)
         ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX["e5m2"])
         timed("quant_apply", shape, dtype,
               lambda: sq.quant_apply(x, ab, "e5m2"),
               x.numel() * (x.element_size() + 1))
-    for shape, dtype in SHAPES["truncate_apply"]:
+    for shape, dtype in shapes("truncate_apply"):
         x = rnd(shape, dtype, 0.05)
         ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX["e5m2"])
         timed("truncate_apply", shape, dtype,
               lambda: sq.truncate_apply(x, ab, "e5m2"),
               x.numel() * 2 * x.element_size())
-    for shape, dtype, scale in SHAPES["stats"]:
+    for shape, dtype, scale in shapes("stats"):
         x = rnd(shape, dtype, scale)
         n, elt = x.numel(), x.element_size()
         timed("stats", shape, dtype, lambda: sq.stats_partials(x),
@@ -108,7 +126,7 @@ def main() -> int:
         timed("truncate_fused", shape, dtype, lambda: sq.truncate_fused(x),
               2 * n * elt + 8)
         del x
-    for (b, kvh, hd, blk, max_b), positions in SHAPES["paged_decode"]:
+    for (b, kvh, hd, blk, max_b), positions in shapes("paged_decode"):
         nb = b * max_b + 1
         q = rnd((b, kvh, 1, hd), torch.float32, 1.0)
         ab = torch.tensor([1.0, 0.0], device=dev)
@@ -123,6 +141,20 @@ def main() -> int:
                   q, kp, vp, ab, ab, table, pos),
               2 * live * kvh * hd + 8 * b * kvh * hd + table.numel() * 4
               + b * 4)
+    for shape, fmt in shapes("dequant"):
+        x = rnd(shape, torch.float32, 0.05)
+        ab = s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
+        p = sq.quant_apply(x, ab, fmt)
+        del x
+        timed("dequant", shape, p.dtype, lambda: sq.dequant(p, ab),
+              p.numel() * 5 + 8)
+        del p
+    for b, s, di, n in shapes("selective_scan"):
+        scan_args = chip_smoke.scan_inputs(dev, gen, b, s, di, n)
+        timed("selective_scan", (b, s, di, n), torch.float32,
+              lambda: ss.selective_scan(*scan_args), 0,
+              bound_ms=chip_smoke.scan_bound_ms(b, s, di, n)[0])
+        del scan_args
     print(json.dumps({"label": args.label,
                       "card": torch.cuda.get_device_name(0), "rows": rows}),
           flush=True)
