@@ -23,8 +23,8 @@ Phases, each fatal on failure:
              truncate-apply, the stats kernels, the paged decode and the
              selective scan also by device time at a shape of their main
              path, the L2 flushed before each call; the scan at all three
-             of serve-mamba's prefill buckets, with its bound the larger
-             of its bytes and its exps on the SFUs); two launches of each
+             of serve-mamba's prefill buckets, beside its exps' time
+             were they all on the SFUs); two launches of each
              GEMM path, quantize-apply, truncate-apply, the fused
              truncate, the paged decode and the scan give the same bits,
              and truncate-apply equals
@@ -117,6 +117,20 @@ H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
 H100_TF32_FLOPS = 495e12             # TF32 tensor cores, dense
 H100_SFU_PER_S = 132 * 16 * 1.98e9   # MUFU ops (ex2): 16 a clock an SM
 TC_PASSES = 3                        # the flash kernels' compensated TF32
+
+
+def bound_ms(nbytes, flops, tensor_cores=False):
+    """(bound ms, bound_by, kind of operations) of a call that moves
+    ``nbytes`` and does ``flops`` f32 operations: the larger of the bytes
+    over HBM and the operations over the f32 cores (with
+    ``tensor_cores``, the smaller of that and TC_PASSES TF32 tensor-core
+    passes)."""
+    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
+    kind = "f32 cores"
+    if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
+        tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
+        kind = f"{TC_PASSES}xTF32 tensor cores"
+    return max(tb, tf), ("bytes" if tb >= tf else "operations"), kind
 
 # TPU kernel each port replaces (src/repro/... file:line of the Pallas entry)
 REPLACES = {
@@ -417,7 +431,7 @@ def phase_kernels(dev) -> dict:
 
     def record(name, err, ms, plain_ms, lib_ms, nbytes, flops, shape,
                keep=True, tensor_cores=False, path_ms=None, on_path=False,
-               sfu_ops=0, **extra):
+               **extra):
         """Keep the worst error over every shape checked, and the times and
         bound of the last shape recorded with ``keep`` (each list ends with
         a main-path shape, or marks it).  ``tensor_cores``: the kernel runs
@@ -426,21 +440,11 @@ def phase_kernels(dev) -> dict:
         ``path_ms``: the call's device time with the L2 flushed
         (``device_ms(cold=True)``); with ``on_path`` (a shape its main
         path launches often) the row keeps it as ``path_device_ms`` beside
-        ``path_shape`` and ``path_bound_ms``.  ``sfu_ops``: MUFU
-        operations (the scan's exps), whose time on the SFUs joins the
-        operations bound.  No time may beat its bound."""
-        tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
-        kind = "f32 cores"
-        if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
-            tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
-            kind = f"{TC_PASSES}xTF32 tensor cores"
-        if sfu_ops / H100_SFU_PER_S * 1e3 > tf:
-            tf = sfu_ops / H100_SFU_PER_S * 1e3
-            kind = "exps on the SFUs"
-        bound = max(tb, tf)
+        ``path_shape`` and ``path_bound_ms``.  The bound is
+        ``bound_ms``'s; no time may beat it."""
+        bound, bound_by, kind = bound_ms(nbytes, flops, tensor_cores)
         row = rows.setdefault(name, {"max_abs_err": 0.0})
         row["max_abs_err"] = max(row["max_abs_err"], float(err))
-        bound_by = "bytes" if tb >= tf else "operations"
         if keep or "ms" not in row:
             row.update(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                        bound_ms=bound, bound_by=bound_by, shape=shape,
@@ -710,18 +714,17 @@ def scan_inputs(dev, gen, b, s, di, n):
 
 
 def scan_bound_ms(b, s, di, n):
-    """(bound ms, bound_by, bytes, f32 operations) of the selective scan:
-    the larger of its bytes (x, dt and y once, B and C once, A, D and the
-    final h once) over HBM, its f32 operations (7 a state and step, 3 a
-    channel and step) over the f32 cores, and its exps (one a state and
-    step, each one MUFU.EX2) over the SFUs."""
+    """(bound ms, bound_by, bytes, f32 operations) of the selective scan,
+    by ``bound_ms``: its bytes (x, dt and y once, B and C once, A, D and
+    the final h once) over HBM, and its f32 operations (7 a state and
+    step, 3 a channel and step, the exp counted as one) over the f32
+    cores.  The exps are no term of their own: an exp2 runs on the SFUs
+    or as a polynomial on the FMA pipes, and the two together take them
+    in less time than the bytes."""
     nbytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + di + b * di * n)
     flops = float(b * s * di * (7 * n + 3))
-    terms = {"bytes": nbytes / H100_BYTES_PER_S * 1e3,
-             "operations": max(flops / H100_F32_FLOPS,
-                               b * s * di * n / H100_SFU_PER_S) * 1e3}
-    by = max(terms, key=terms.get)
-    return terms[by], by, nbytes, flops
+    bound, by, _ = bound_ms(nbytes, flops)
+    return bound, by, nbytes, flops
 
 
 def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
@@ -740,9 +743,6 @@ def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
     # for the math library's exp; y's 16-term sum over the states runs in
     # another order), and two launches give the same bits.  No single
     # PyTorch call computes the scan: library none.
-    blocks, threads = ss.occupancy(dev)
-    log(f"selective_scan: {blocks} blocks of {threads} threads resident an "
-        f"SM ({blocks * threads // 32} warps)")
     for b, s, di, n in ((8, 128, 8192, 16), (8, 256, 8192, 16),
                         (8, 512, 8192, 16)):
         args = scan_inputs(dev, gen, b, s, di, n)
@@ -758,13 +758,14 @@ def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
                                      ss.selective_scan(*args)]),
                   f"selective_scan S={s}")
         _, _, nbytes, flops = scan_bound_ms(b, s, di, n)
+        # Not a bound: the exps' time were each one MUFU.EX2 on the SFUs.
+        sfu_ms = b * s * di * n / H100_SFU_PER_S * 1e3
         record("selective_scan", max(ey, eh),
                cuda_time(lambda: ss.selective_scan(*args)),
                cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
                          warmup=1), None, nbytes, flops,
                f"B={b} S={s} di={di} n={n} f32", keep=s == 512,
-               sfu_ops=b * s * di * n,
-               path_ms=device_ms(lambda: ss.selective_scan(*args), cold=True),
+               exps_on_sfus_alone_ms=sfu_ms, path_ms=device_ms(lambda: ss.selective_scan(*args), cold=True),
                on_path=s == 256)
         del args, yk, hk, yp, hp
 

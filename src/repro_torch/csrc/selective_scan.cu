@@ -5,12 +5,11 @@
 // src/repro/kernels/selective_scan.py: selective_scan_pallas (_scan_kernel).
 //
 // Bound on the card: x, dt and y stream once ([B, S, di] f32 each), B and
-// C once ([B, S, n]); the state never leaves the chip.  At n = 16 the exps
-// bound it a little above the bytes: one a state and step, each one
-// MUFU.EX2, and an SM's SFUs take 16 a clock (B S di n / (132 x 16 x 1.98
-// GHz)).  Instruction slots lie above both: the state update is 14 a
-// state and step (the accurate expf is 8 of them), plus the step's loads,
-// the shuffle tree and y.
+// C once ([B, S, n]); the state never leaves the chip.  The exps (one a
+// state and step) are no tighter bound: an exp2 runs on the SFUs or as a
+// polynomial on the FMA pipes.  Instruction slots lie above the bytes:
+// the state update is 14 a state and step (the accurate expf is 8 of
+// them, one MUFU.EX2), plus the step's loads, the shuffle tree and y.
 //
 // Design: the TPU kernel's grid walks (batch row, block of channels) and
 // keeps a [bd, n] state slab in VMEM across a sequential loop over S.
@@ -36,7 +35,7 @@
 // thread, no spill) hold the SM at 4 blocks, 32 warps (50%).  Blocks of
 // 32 channels, other unrolls and 5 or 8 blocks an SM (8 spill) measured
 // slower, chunks of 32 steps (at the 48 KB static shared-memory limit)
-// under 2% faster (tools/scan_variants.py).  The state update
+// under 2% faster.  The state update
 // rounds each multiply and add on its own (__fmul_rn / __fadd_rn, no FMA
 // contraction), as PyTorch's separate elementwise ops do, and exp is the
 // accurate expf (no --use_fast_math), so h is the plain version's bit for
@@ -219,12 +218,4 @@ extern "C" int selective_scan(const void* x, const void* dt, const void* bm,
       static_cast<const float*>(a), static_cast<const float*>(dskip),
       static_cast<float*>(y), static_cast<float*>(hout), s, di, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// Blocks of the 16-byte kernel resident on one SM, and its threads a block
-// (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-extern "C" int selective_scan_occupancy(int* blocks, int* threads) {
-  *threads = THREADS;
-  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      blocks, selective_scan_kernel<true>, THREADS, 0));
 }

@@ -62,7 +62,6 @@ SIGNATURES = {
     "selective_scan": {
         "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                            _P),
-        "selective_scan_occupancy": (_P, _P),
     },
 }
 

@@ -9,7 +9,7 @@ D [di], all f32.  Per step ``h = h * exp(dt A) + (dt x) B`` and ``y = h.C
 + D x``; returns (y [B, S, di], the final h [B, di, n]).
 
 Bound on the card: bytes (x, dt and y stream once; the state stays on
-chip) and, about as tightly at n = 16, the exps on the SFUs.  Design: a
+chip).  Design: a
 channel's n <= 16 states split over 4 lanes of a warp (4 states each in
 registers, the lanes' shares of h.C summed by a fixed shuffle tree),
 blocks of 64 channels of one row, chunks of 16 timesteps staged in shared
@@ -80,14 +80,3 @@ def selective_scan(x, dt, bmat, cmat, a, d_skip
 
 
 selective_scan.launches = 0
-
-
-def occupancy(device: torch.device) -> Tuple[int, int]:
-    """(blocks resident on one SM, threads a block) of the scan kernel on
-    ``device``'s card (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
-    out = torch.zeros(2, dtype=torch.int32)
-    with torch.cuda.device(device):
-        rc = build.load("selective_scan").selective_scan_occupancy(
-            out.data_ptr(), out[1:].data_ptr())
-    build.check(rc, "selective_scan_occupancy")
-    return int(out[0]), int(out[1])

@@ -94,7 +94,7 @@ def main() -> int:
                "device_ms": chip_smoke.device_ms(fn, cold=True),
                "events_ms": chip_smoke.cuda_time(fn),
                "bound_ms": (bound_ms if bound_ms is not None else
-                            nbytes / chip_smoke.H100_BYTES_PER_S * 1e3)}
+                            chip_smoke.bound_ms(nbytes, 0)[0])}
         rows.append(row)
         print(f"{args.label} {name} {tuple(shape)} {row['dtype']}: device "
               f"{row['device_ms']:.4f} ms (L2 flushed), events "
