@@ -62,6 +62,10 @@ class ArchConfig:
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True               # rematerialize each layer in training
+    # attention above 2048 tokens: "naive" (chunked online softmax) or
+    # "flash" (Policy.flash_attention: the payload flash node, or the
+    # chunked flash attention with a recompute backward)
+    attn_impl: str = "naive"
     # SSM scan schedule; the port's prefill runs every schedule as its
     # selective-scan kernel, so the field is carried for the configs only
     ssm_impl: str = "step"

@@ -24,7 +24,9 @@ travel as f32 [2] tensors (core/s2fp8.py ``as_stats``).  ``quantize`` and
 the tensor, reduced the engine's way.
 
 Also here, as in the reference: ``bidir_truncate`` (the exact-stats
-differentiable truncation per engine), and ``plan_qdot_general`` and
+differentiable truncation per engine), ``truncate_delayed`` and the
+deprecated ``DelayedStatsCache`` (delayed stats for eager callers), and
+``plan_qdot_general`` and
 ``plan_einsum`` (how a contraction maps onto the 2-D or batched payload
 GEMM layouts).
 """
@@ -224,6 +226,58 @@ def bidir_truncate(backend: Optional[str] = None, fmt: str = "e5m2"):
             return trunc(g)
 
     return _Bidir.apply
+
+
+# ---------------------------------------------------------------------------
+# delayed stats (reference backend.py:580-634)
+# ---------------------------------------------------------------------------
+
+def truncate_delayed(x: torch.Tensor, stats, *, refresh: bool = False,
+                     backend: Optional[str] = None, fmt: str = "e5m2"):
+    """Functional delayed-stats truncation -> ``(truncated, stats_used)``.
+    The caller threads ``stats_used`` into its next step and passes
+    ``refresh=True`` every k steps to recompute them; ``stats=None``
+    always refreshes."""
+    be = get_backend(backend)
+    if refresh or stats is None:
+        stats = be.compute_stats(x, fmt=fmt)
+    return be.truncate(x, stats=stats, fmt=fmt), stats
+
+
+class DelayedStatsCache:
+    """Deprecated shim over :class:`repro_torch.core.statsbank.
+    HostStatsBank` (the same semantics): the old constructor, ``truncate``,
+    ``clear`` and the ``_stats`` / ``_last_refresh`` views, with a
+    ``DeprecationWarning`` on construction."""
+
+    def __init__(self, backend: Optional[str] = None,
+                 refresh_every: int = 16, fmt: str = "e5m2"):
+        import warnings
+        warnings.warn(
+            "DelayedStatsCache is deprecated; use "
+            "repro_torch.core.statsbank.HostStatsBank (same semantics, "
+            "shared with the carried StatsBank)", DeprecationWarning,
+            stacklevel=2)
+        from repro_torch.core import statsbank
+        self._impl = statsbank.HostStatsBank(
+            backend=backend, refresh_every=refresh_every, fmt=fmt)
+        self.backend = backend
+        self.refresh_every = refresh_every
+        self.fmt = fmt
+
+    def truncate(self, x: torch.Tensor, key: str, step: int) -> torch.Tensor:
+        return self._impl.truncate(x, key, step)
+
+    def clear(self) -> None:
+        self._impl.clear()
+
+    @property
+    def _stats(self) -> Dict[str, Tuple[torch.Tensor, torch.Tensor]]:
+        return {k: (e["alpha"], e["beta"]) for k, e in self._impl.bank.items()}
+
+    @property
+    def _last_refresh(self) -> Dict[str, int]:
+        return {k: int(e["last"]) for k, e in self._impl.bank.items()}
 
 
 # ---------------------------------------------------------------------------

@@ -1,36 +1,54 @@
 """Numeric policy of the port: how every GEMM and truncation site runs.
 
-Port of ``repro.core.policy`` for the modes the port has:
+Port of ``repro.core.policy``:
 
   fp32       — baseline, nothing inserted
+  bf16       — operands cast to bf16, f32 accumulation, f32 result
   fp8        — raw e5m2 truncation around GEMMs (the diverging baseline):
                operands and output through ``fp8_truncate_bidir``
+  fp8_ls     — the same truncations; the trainer scales the loss by
+               ``loss_scale`` (paper Eq. 6)
   s2fp8      — the paper's format
   s2fp8_e4m3 — the same on the e4m3 grid
 
 and, for the s2fp8 modes, the reference's GEMM modes:
 
-  payload — every GEMM runs payload-domain (``qdot_train``), attention
-            runs as one payload flash node, and each result rounds to f32
-            and then to the caller's dtype at the GEMM boundary
-            (``_qdot_out``); a contraction the planner rejects raises
+  payload — a GEMM runs payload-domain (``qdot_train``) where the planner
+            maps it, attention runs as one payload flash node, and each
+            result rounds to f32 and then to the caller's dtype at the
+            GEMM boundary (``_qdot_out``); a contraction the planner
+            rejects, and a ``dot`` whose ``b`` is not 2-D, take the Fig. 4
+            chain, as in the reference
   fig4    — the paper's Fig. 4 chain: every operand and the output
             truncated (bidirectionally: the cotangents too) around an f32
-            ``torch.matmul`` / ``torch.einsum``; attention takes the
-            masked softmax with its two einsums through the chain
+            product; attention takes the masked softmax with its two
+            einsums through the chain (above 2048 tokens the chunked or
+            the flash path, with the q/k/v/out sites truncated)
   auto    — as the reference resolves it: fig4 on the ``plain`` engine
             (the reference's ``ref``), payload on the kernel engines
             (``cuda`` and ``cuda_fused``, the reference's Pallas ones)
 
-The f32 product of the chain runs as the reference's does outside any
-kernel: ``torch.matmul`` in full f32 (PyTorch's default on CUDA, TF32 off;
-the launchers print the setting), bf16 operands promoted to f32 as
-``jnp.dot`` with ``preferred_element_type=f32`` promotes them.
+``truncate_output=False`` leaves the chain's output untruncated (refused
+with ``gemm_mode="payload"``, whose kernels fuse that truncation);
+``output_dtype="bfloat16"`` rounds each GEMM's f32 result to bf16 at the
+GEMM boundary, on both GEMM paths.
+
+The products of the chain run as the reference's do outside any kernel:
+``torch.matmul`` / ``torch.einsum`` / ``torch.tensordot`` in full f32
+(PyTorch's default on CUDA, TF32 off; the launchers print the setting) on
+operands promoted to f32, as ``jnp.dot`` with ``preferred_element_type``
+f32 promotes them.  The bf16 mode's product is that f32 product of the
+exactly upcast bf16 operands: a bf16 x bf16 product has at most 16
+significant bits, so every product is exact in f32 and only the order of
+the f32 sums can differ from the reference's.  A cuBLAS bf16 GEMM would
+round its result to bf16 (another function), and a bf16 GEMM with an f32
+result needs an ``out_dtype`` argument that not every PyTorch release
+has; the f32 product gives the reference's function on every build and on
+the CPU.
 
 Truncation sites (``truncate``, and the chain's operands and outputs)
 follow the active StatsBank session (bank stats) or, outside one, exact
-per-call stats through ``bidir_truncate``.  The bf16 and fp8_ls modes
-(with the fp8_ls trainer's ``loss_scale``) come with later slices.
+per-call stats through ``bidir_truncate``.
 """
 from __future__ import annotations
 
@@ -45,10 +63,13 @@ from repro_torch.core import qdot as qdot_mod
 from repro_torch.core import s2fp8
 from repro_torch.core import statsbank
 
-MODES = ("fp32", "fp8", "s2fp8", "s2fp8_e4m3")
+MODES = ("fp32", "bf16", "fp8", "fp8_ls", "s2fp8", "s2fp8_e4m3")
 S2FP8_MODES = ("s2fp8", "s2fp8_e4m3")
+# the modes whose GEMM outputs are truncated (with ``truncate_output``)
+TRUNCATING_MODES = S2FP8_MODES + ("fp8", "fp8_ls")
 # "auto": fig4 on the plain engine, payload on the kernel engines
 GEMM_MODES = ("auto", "payload", "fig4")
+OUTPUT_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
 
 
 @functools.lru_cache(maxsize=None)
@@ -67,9 +88,17 @@ def _s2fp8_wrap(backend: Optional[str], fmt: str) -> Callable:
     return wrap
 
 
+def _bf16_cast(x):
+    """bf16 operand storage; the product accumulates in f32."""
+    return x.to(torch.bfloat16)
+
+
 @dataclasses.dataclass(frozen=True)
 class Policy:
     mode: str = "fp32"                 # the reference's default
+    truncate_output: bool = True       # truncate GEMM outputs too
+    loss_scale: float = 1.0            # read by the trainer under fp8_ls
+    output_dtype: Optional[str] = None  # None: f32; "bfloat16"
     backend: str = "auto"
     gemm_mode: str = "auto"
 
@@ -84,6 +113,15 @@ class Policy:
         if self.gemm_mode not in GEMM_MODES:
             raise ValueError(f"gemm_mode {self.gemm_mode!r} is not ported; "
                              f"want one of {GEMM_MODES}")
+        if self.output_dtype not in OUTPUT_DTYPES:
+            raise ValueError(f"output_dtype {self.output_dtype!r}; want one "
+                             f"of {tuple(OUTPUT_DTYPES)}")
+        if self.gemm_mode == "payload" and not self.truncate_output:
+            # the payload kernels fuse the output truncation into the GEMM
+            # epilogue, so they cannot leave the output untruncated
+            raise ValueError(
+                "gemm_mode='payload' requires truncate_output=True; "
+                "use gemm_mode='auto' or 'fig4'")
 
     @property
     def backend_obj(self) -> nbackend.NumericsBackend:
@@ -95,26 +133,43 @@ class Policy:
 
     @property
     def accum_dtype(self):
-        return torch.float32
+        return OUTPUT_DTYPES[self.output_dtype]
 
     @property
     def uses_payload_gemm(self) -> bool:
-        """Whether the s2fp8 GEMMs run payload-domain (``qdot_train``).
-        "auto" resolves as the reference's (policy.py:158-171): payload on
-        the kernel engines, fig4 on ``plain``."""
-        if self.mode not in S2FP8_MODES:
+        """Whether the s2fp8 GEMMs run payload-domain (``qdot_train``); never
+        without ``truncate_output``.  "auto" resolves as the reference's
+        (policy.py:158-171): payload on the kernel engines, fig4 on
+        ``plain``."""
+        if self.mode not in S2FP8_MODES or not self.truncate_output:
             return False
         if self.gemm_mode != "auto":
             return self.gemm_mode == "payload"
         return isinstance(self.backend_obj, nbackend.CudaBackend)
 
+    def _qdot_routable(self, a: torch.Tensor, b: torch.Tensor) -> bool:
+        return (self.uses_payload_gemm and b.dim() == 2 and a.dim() >= 1
+                and a.shape[-1] == b.shape[0])
+
     @property
     def _wrap(self) -> Callable[[torch.Tensor], torch.Tensor]:
-        """Operand / output truncation of the chain, and the truncation of
-        every site, bidirectional, in the tensor's dtype."""
+        """Operand truncation of the chain, and the truncation of every
+        site: bidirectional, in the tensor's dtype (bf16: the cast)."""
         if self.mode in S2FP8_MODES:
             return _s2fp8_wrap(self.backend, self._fmt)
-        return s2fp8.fp8_truncate_bidir if self.mode == "fp8" else _identity
+        if self.mode in ("fp8", "fp8_ls"):
+            return s2fp8.fp8_truncate_bidir
+        if self.mode == "bf16":
+            return _bf16_cast
+        return _identity
+
+    def _wrap_out(self, y: torch.Tensor) -> torch.Tensor:
+        """The chain's output truncation: only under ``truncate_output``
+        and only in the truncating modes (bf16 and fp32 keep the f32
+        result)."""
+        if self.truncate_output and self.mode in TRUNCATING_MODES:
+            return self._wrap(y)
+        return y
 
     def truncate(self, x: torch.Tensor) -> torch.Tensor:
         """Tensor-level truncation at op boundaries (site kind ``t``),
@@ -127,31 +182,35 @@ class Policy:
         return y.to(self.accum_dtype).to(dtype)
 
     def _dense(self, fn, *operands) -> torch.Tensor:
-        """The chain of fp32, fp8 and fig4: truncated operands, an f32
-        contraction, truncated output, the operands' promoted dtype."""
-        y = fn(*[self._wrap(o).to(self.accum_dtype) for o in operands])
-        return self._wrap(y).to(_promoted(operands))
+        """The chain: truncated operands, an f32 contraction rounded to
+        ``accum_dtype``, the output truncation, the operands' promoted
+        dtype.  With a bf16 ``accum_dtype`` the backward's contractions
+        run as JAX transposes the reference's (``_NarrowAccum``)."""
+        xs = [self._wrap(o).float() for o in operands]
+        y = (fn(*xs) if self.accum_dtype == torch.float32
+             else _NarrowAccum.apply(fn, self.accum_dtype, *xs))
+        return self._wrap_out(y).to(_promoted(operands))
 
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-        if self.uses_payload_gemm:
+        """``jnp.dot`` semantics (a's last axis against b's second to last,
+        or b's only axis).  Payload-domain when ``b`` is a 2-D ``[K, N]``
+        on the payload path, else the chain."""
+        if self._qdot_routable(a, b):
             y = qdot_mod.qdot_train(a, b, backend=self.backend, fmt=self._fmt)
             return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
-        return self._dense(torch.matmul, a, b)
+        return self._dense(_jnp_dot, a, b)
 
     def dot_general(self, a: torch.Tensor, b: torch.Tensor,
                     dimension_numbers) -> torch.Tensor:
         """``lax.dot_general`` semantics (output ``batch + a_free +
         b_free``).  On the payload path every contraction the planner maps
         (``backend.plan_qdot_general``: dense, NT/TN, batched) runs
-        payload-domain and the rest raise; fig4, fp32 and fp8 run the
-        chain."""
-        if self.uses_payload_gemm:
-            plan = nbackend.plan_qdot_general(a.shape, b.shape,
-                                              dimension_numbers)
-            if plan is None:
-                raise NotImplementedError(
-                    f"no payload GEMM layout for {tuple(a.shape)} x "
-                    f"{tuple(b.shape)} contracting {dimension_numbers}")
+        payload-domain; the rest, and fig4, fp32, bf16 and the fp8 modes,
+        run the chain."""
+        plan = (nbackend.plan_qdot_general(a.shape, b.shape,
+                                           dimension_numbers)
+                if self.uses_payload_gemm else None)
+        if plan is not None:
             y = qdot_mod.qdot_train(a, b, plan=plan, backend=self.backend,
                                     fmt=self._fmt)
             return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
@@ -162,39 +221,84 @@ class Policy:
         """Two-operand contractions the planner maps (``backend.
         plan_einsum``: dense, batched ``ecd,edf->ecf``, broadcast
         ``becd,edf->becf``, attention) run payload-domain on the payload
-        path, and the others raise there; fig4, fp32 and fp8 run the
-        chain, any contraction."""
-        if self.uses_payload_gemm:
-            plan = (nbackend.plan_einsum(spec, operands[0].shape,
-                                         operands[1].shape)
-                    if len(operands) == 2 else None)
-            if plan is None:
-                raise NotImplementedError(
-                    f"no payload GEMM layout for einsum {spec!r} over "
-                    f"{[tuple(o.shape) for o in operands]}")
-            y = qdot_mod.qdot_train(*operands, plan=plan,
-                                    backend=self.backend, fmt=self._fmt)
-            return self._qdot_out(y, _promoted(operands))
+        path; every other contraction runs the chain."""
+        if len(operands) == 2 and self.uses_payload_gemm:
+            plan = nbackend.plan_einsum(spec, operands[0].shape,
+                                        operands[1].shape)
+            if plan is not None:
+                y = qdot_mod.qdot_train(*operands, plan=plan,
+                                        backend=self.backend, fmt=self._fmt)
+                return self._qdot_out(y, _promoted(operands))
         return self._dense(lambda *xs: torch.einsum(spec, *xs), *operands)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
                         window=None) -> torch.Tensor:
-        """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]`` — the payload
-        flash node (the payload path only)."""
-        if not self.uses_payload_gemm:
-            raise NotImplementedError(
-                f"flash attention under mode {self.mode!r}, gemm_mode "
-                f"{self.gemm_mode!r} is not ported; models take the "
-                f"masked-softmax path")
-        y = qdot_mod.qflash_attention(q, k, v, causal=causal, window=window,
-                                      backend=self.backend, fmt=self._fmt)
-        dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
-                                 v.dtype)
-        return self._qdot_out(y, dt)
+        """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]``.  The payload
+        path runs the payload flash node (``qdot.qflash_attention``: the
+        flash kernels); every other policy truncates q, k and v at their
+        sites, runs the chunked flash attention of ``models/flash.py``
+        (plain torch, as the reference's is plain JAX) and truncates the
+        output, so under a session it visits the chunked path's sites in
+        the same order."""
+        if self.uses_payload_gemm:
+            y = qdot_mod.qflash_attention(q, k, v, causal=causal,
+                                          window=window,
+                                          backend=self.backend,
+                                          fmt=self._fmt)
+            dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
+                                     v.dtype)
+            return self._qdot_out(y, dt)
+        from repro_torch.models.flash import flash_attention as _fa
+        q, k, v = self.truncate(q), self.truncate(k), self.truncate(v)
+        window = None if window is None else int(window)
+        return self.truncate(_fa(q, k, v, causal, window))
+
+    def qdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+        """Forward-only payload GEMM of 2-D ``a [M, K]`` and ``b [K, N]``
+        (reference policy.py:366-390): both operands quantized (the
+        quantize kernels) and multiplied payload-domain (the payload GEMM
+        kernel), no autograd node.  Under a session the operands take the
+        read-only stats of their ``q`` sites (``Session.operand_stats``),
+        else their exact stats.  Non-s2fp8 modes run ``dot``."""
+        if self.mode not in S2FP8_MODES:
+            return self.dot(a, b)
+        fmt, be = self._fmt, self.backend_obj
+        sess = statsbank.current_session()
+        if sess is not None:
+            sa = sess.operand_stats(a, fmt=fmt)
+            sb = sess.operand_stats(b, fmt=fmt)
+            y = be.qmatmul(be.quantize(a, stats=sa, fmt=fmt),
+                           be.quantize(b, stats=sb, fmt=fmt))
+        else:
+            y = be.qmatmul(be.quantize(a, fmt=fmt), be.quantize(b, fmt=fmt))
+        return self._wrap_out(y).to(a.dtype)
 
 
 def _identity(x):
     return x
+
+
+class _NarrowAccum(torch.autograd.Function):
+    """``fn``'s f32 contraction rounded to ``dtype``.  Its backward is JAX's
+    transpose of a dot with a narrow ``preferred_element_type``: each
+    operand's gradient is the contraction of the cotangent with the other
+    operands, all in ``dtype``, summed in f32 and rounded to ``dtype``."""
+
+    @staticmethod
+    def forward(ctx, fn, dtype, *xs):
+        ctx.fn, ctx.dtype = fn, dtype
+        ctx.save_for_backward(*xs)
+        return fn(*xs).to(dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        xs = ctx.saved_tensors
+        narrow = [x.to(ctx.dtype).float().requires_grad_() for x in xs]
+        with torch.enable_grad():
+            y = ctx.fn(*narrow)
+        grads = torch.autograd.grad(y, narrow, g.to(ctx.dtype).float())
+        return (None, None) + tuple(d.to(ctx.dtype).to(x.dtype)
+                                    for d, x in zip(grads, xs))
 
 
 def _promoted(operands) -> torch.dtype:
@@ -203,6 +307,15 @@ def _promoted(operands) -> torch.dtype:
     for o in operands[1:]:
         dtype = torch.promote_types(dtype, o.dtype)
     return dtype
+
+
+def _jnp_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot``: a's last axis against b's second to last (its only one
+    when 1-D); ``torch.matmul`` would batch over b's leading axes
+    instead."""
+    if b.dim() <= 2:
+        return torch.matmul(a, b)
+    return torch.tensordot(a, b, dims=([a.dim() - 1], [b.dim() - 2]))
 
 
 def _dot_general_spec(a_rank: int, b_rank: int, dimension_numbers) -> str:
@@ -220,6 +333,11 @@ def _dot_general_spec(a_rank: int, b_rank: int, dimension_numbers) -> str:
 
 
 def make_policy(mode: str, backend: Optional[str] = None,
-                gemm_mode: Optional[str] = None) -> Policy:
-    return Policy(mode=mode, backend=backend or "auto",
-                  gemm_mode=gemm_mode or "auto")
+                gemm_mode: Optional[str] = None, *,
+                loss_scale: Optional[float] = None) -> Policy:
+    """The port's positional order is ``(mode, backend, gemm_mode)``; the
+    reference's is ``(mode, loss_scale, backend, gemm_mode)``.  Calls by
+    keyword agree on both."""
+    return Policy(mode=mode,
+                  loss_scale=loss_scale if loss_scale is not None else 1.0,
+                  backend=backend or "auto", gemm_mode=gemm_mode or "auto")

@@ -48,6 +48,11 @@ Four sessions exist here:
     created on first visit.  Cotangent ("bwd") states are never refreshed
     here — nothing in serving reads them.
 
+``force_refresh`` makes every cotangent-carrying site bootstrap again on
+its next use, and :class:`HostStatsBank` is the eager keyed bank for
+callers outside a train step (the refresh decision on the host, the
+refresh numerics shared with the carried bank).
+
 :class:`count_reductions` counts the aten reductions a step executes: a
 steady banked step runs as many as an fp32 step, and so does an exact
 step on the ``cuda_fused`` engine, whose stats run in kernels.
@@ -285,6 +290,17 @@ class Session:
                  backend: Optional[str] = None) -> torch.Tensor:
         raise NotImplementedError
 
+    def operand_stats(self, x: torch.Tensor, *, fmt: str = "e5m2"
+                      ) -> torch.Tensor:
+        """Read-only (alpha, beta) of a ``Policy.qdot`` operand (site kind
+        ``q``, direction "fwd" only), re-derived from the site's carried
+        moments for ``fmt`` (``frozen_stats``); a never-refreshed site
+        gives identity stats.  No session refreshes such a site: eager
+        callers keep their stats warm with :class:`HostStatsBank`, as in
+        the reference."""
+        alpha, beta = frozen_stats(self.state(self.site("q"), "fwd"), fmt)
+        return torch.stack([alpha, beta])
+
 
 class FrozenSession(Session):
     """Read-only serving session: frozen stats at every site, no reductions."""
@@ -300,7 +316,8 @@ class FrozenSession(Session):
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
 
 
-_KIND_DIRS = {"t": TRUNC_DIRS, "qt": GEMM_DIRS, "qf": FLASH_DIRS}
+_KIND_DIRS = {"t": TRUNC_DIRS, "qt": GEMM_DIRS, "qf": FLASH_DIRS,
+              "q": ("fwd",)}
 
 
 class CalibratingSession(Session):
@@ -447,6 +464,10 @@ class DiscoverySession(Session):
         self.site("t")
         return x
 
+    def operand_stats(self, x, *, fmt="e5m2"):
+        self.site("q")
+        return torch.tensor([1.0, 0.0], dtype=torch.float32, device=x.device)
+
 
 # ---------------------------------------------------------------------------
 # the active session (a thread-local, as in the reference)
@@ -565,6 +586,18 @@ def merge_updates(bank: Dict[str, Any], updates: Dict[str, Any]
             for k, entry in bank.items()}
 
 
+def force_refresh(bank: Dict[str, Any]) -> Dict[str, Any]:
+    """``bank`` with ``last = -1`` on every cotangent-carrying site, so each
+    bootstrap-refreshes (its EMA re-seeded) on its next use: the reset
+    after numeric distress.  Read-only operand sites (``q``, "fwd" only)
+    keep their entries: nothing refreshes them in a train step, so a -1
+    there would stay cold for good."""
+    return {k: ({d: dict(st, last=torch.full_like(st["last"], -1.0))
+                 for d, st in e.items()}
+                if any("bwd" in d for d in e) else e)
+            for k, e in bank.items()}
+
+
 def bookkeeping_last(bank: Dict[str, Any]) -> torch.Tensor:
     """Every site-direction's last-refresh step, concatenated."""
     return torch.cat([st["last"].reshape(-1)
@@ -627,3 +660,61 @@ def cold_sites(bank: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
             out[k][d] = cold[i:i + n].reshape(st["last"].shape)
             i += n
     return out
+
+
+# ---------------------------------------------------------------------------
+# host-side bank (reference statsbank.py:690-737; absorbs DelayedStatsCache)
+# ---------------------------------------------------------------------------
+
+class HostStatsBank:
+    """Eager keyed bank for callers outside a train step (serving loops,
+    checkpoint compression): the same per-site state and refresh numerics
+    as the carried bank (``refresh_state``), with the refresh decision on
+    the host.  ``truncate(x, key, step)`` refreshes when the key is new or
+    ``step - last >= refresh_every``, else it is one elementwise pass with
+    the stored (alpha, beta)."""
+
+    def __init__(self, backend: Optional[str] = None,
+                 refresh_every: int = 16, ema_decay: float = 0.0,
+                 fmt: str = "e5m2"):
+        if refresh_every < 1:
+            raise ValueError("refresh_every must be >= 1")
+        self.backend = backend
+        self.refresh_every = refresh_every
+        self.ema_decay = ema_decay
+        self.fmt = fmt
+        self.bank: Dict[str, Dict[str, torch.Tensor]] = {}
+
+    def stats(self, key: str) -> Optional[Tuple[torch.Tensor, torch.Tensor]]:
+        st = self.bank.get(key)
+        return None if st is None else (st["alpha"], st["beta"])
+
+    def _site(self, x: torch.Tensor, key: str, step: int):
+        """The site's state, refreshed when the key is new or stale (one
+        host read of ``last``)."""
+        st = self.bank.get(key)
+        if st is None or step - float(st["last"]) >= self.refresh_every:
+            st = refresh_state(
+                x, st if st is not None else init_site_state(
+                    device=x.device), float(step),
+                ema_decay=self.ema_decay,
+                target_max=s2fp8.FMT_TARGET_MAX[self.fmt],
+                backend=self.backend)
+            self.bank[key] = st
+        return st
+
+    def _ab(self, x: torch.Tensor, key: str, step: int) -> torch.Tensor:
+        st = self._site(x, key, step)
+        return torch.stack([st["alpha"], st["beta"]])
+
+    def truncate(self, x: torch.Tensor, key: str, step: int) -> torch.Tensor:
+        return nbackend.get_backend(self.backend).truncate(
+            x, stats=self._ab(x, key, step), fmt=self.fmt)
+
+    def quantize(self, x: torch.Tensor, key: str, step: int):
+        """Bank-stats quantization to S2FP8 storage (compression callers)."""
+        return nbackend.get_backend(self.backend).quantize(
+            x, stats=self._ab(x, key, step), fmt=self.fmt)
+
+    def clear(self) -> None:
+        self.bank.clear()

@@ -1,5 +1,5 @@
 """Serving launcher of the port: the paged-payload engine (attention
-models) and the dense-cache engine (mamba1 models).
+models) and the dense-cache engine (attention and mamba1 models).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --requests 16 --slots 8 --max-len 1024            # on the GPU

@@ -9,6 +9,10 @@
         --stats-refresh-every 8      # full width, depth cut to 4 layers
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --backend cuda_fused --gemm-mode fig4 --steps 3 --batch 4 --seq 512
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+        --policy fp8_ls --loss-scale 100 --track-stats --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+        --batch 1 --seq 4096 --attn-impl flash --stats-refresh-every 8
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
@@ -16,9 +20,14 @@ reference's launcher.  ``--stats-refresh-every k`` trains with the
 StatsBank (refresh every k steps); 0 trains s2fp8 with exact per-call
 stats.  ``--backend`` picks the numerics engine (``cuda_fused``: the
 exact stats in the stats kernels) and ``--gemm-mode`` the s2fp8 GEMM path
-(``payload``, or ``fig4``: the truncation chain around f32 products); the
-header line prints both as resolved, and whether f32 products may use
-TF32.  ``--n-layers N`` cuts the depth to the first N layers of the
+(``payload``, or ``fig4``: the truncation chain around f32 products).
+``--policy`` also takes the baselines ``bf16`` (bf16 operands, f32
+products) and ``fp8_ls`` (raw e5m2 with the loss scaled by
+``--loss-scale``, paper Eq. 6); ``--track-stats`` adds the last gradient
+leaf's (mu, m, alpha, beta) to each step's line; ``--attn-impl`` picks the
+attention of sequences above 2048 tokens (``naive``: chunked, ``flash``:
+the flash path).  The header line prints the resolved mode, loss scale,
+attention, engine and GEMM path, and whether f32 products may use TF32.  ``--n-layers N`` cuts the depth to the first N layers of the
 config's pattern (widths unchanged) and says so.  Prints one JSON line per
 step: loss, the MoE aux loss, step ms, tokens/s.
 """
@@ -50,7 +59,15 @@ def main(argv=None):
                     help="cut the depth to the pattern's first N layers")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--policy", default="s2fp8",
-                    choices=("fp32", "fp8", "s2fp8"))
+                    choices=("fp32", "bf16", "fp8", "fp8_ls", "s2fp8"))
+    ap.add_argument("--loss-scale", type=float, default=100.0,
+                    help="the loss scale of --policy fp8_ls (Eq. 6)")
+    ap.add_argument("--track-stats", action="store_true",
+                    help="report (mu, m, alpha, beta) of the last gradient "
+                         "leaf each step")
+    ap.add_argument("--attn-impl", default=None, choices=("naive", "flash"),
+                    help="attention above 2048 tokens (default: the "
+                         "config's)")
     ap.add_argument("--backend", default="auto",
                     choices=("auto",) + tuple(nbackend.BACKENDS),
                     help="numerics engine: 'cuda' (kernels, torch stats "
@@ -73,7 +90,10 @@ def main(argv=None):
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.n_layers:
         cfg = cut_depth(cfg, args.n_layers)
-    pol = make_policy(args.policy, args.backend, args.gemm_mode)
+    if args.attn_impl:
+        cfg = cfg.replace(attn_impl=args.attn_impl)
+    pol = make_policy(args.policy, args.backend, args.gemm_mode,
+                      loss_scale=args.loss_scale)
     opt = optimizers.adamw(weight_decay=0.01)
     sched = schedules.make_schedule(
         cfg.schedule if cfg.schedule == "wsd" else "cosine", args.lr,
@@ -93,14 +113,18 @@ def main(argv=None):
 
     params = tlm.init_lm(cfg, seed=args.seed, device=dev)
     opt_state = opt.init(params)
-    step_fn = make_train_step(loss_fn, opt, sched, pol, stats=stats_cfg)
+    step_fn = make_train_step(loss_fn, opt, sched, pol,
+                              track_stats=args.track_stats, stats=stats_cfg)
     bank = None
     if stats_cfg is not None:
         bank = statsbank.init_bank(loss_fn, params, data(0), pol, stats_cfg)
     gemm = ("-" if pol.mode not in S2FP8_MODES
             else "payload" if pol.uses_payload_gemm else "fig4")
     print(f"[train] {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_params() / 1e6:.1f} M params, policy {args.policy}, "
+          f"{cfg.n_params() / 1e6:.1f} M params, policy {pol.mode}, "
+          f"loss scale "
+          f"{pol.loss_scale if pol.mode == 'fp8_ls' else 1.0}, attention "
+          f"{cfg.attn_impl}, "
           f"backend {args.backend} -> {pol.backend_obj.name}, gemm {gemm}, "
           f"tf32 {torch.backends.cuda.matmul.allow_tf32}, "
           f"bank {'off' if bank is None else f'{len(bank)} sites'}, on {dev}",
@@ -117,10 +141,13 @@ def main(argv=None):
                                                  batch, s)
         loss = float(m["loss"])            # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
-        print(json.dumps({"step": s, "loss": loss, "aux": float(m["aux"]),
-                          "step_ms": ms,
-                          "tokens_per_s": args.batch * args.seq / ms * 1e3}),
-              flush=True)
+        line = {"step": s, "loss": loss, "aux": float(m["aux"]),
+                "step_ms": ms,
+                "tokens_per_s": args.batch * args.seq / ms * 1e3}
+        if args.track_stats:
+            line["probe_stats"] = {k: float(v)
+                                   for k, v in m["probe_stats"].items()}
+        print(json.dumps(line), flush=True)
 
 
 def cut_depth(cfg, n_layers: int):

@@ -4,13 +4,20 @@
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
 goes through the policy.  Ported: RMS norm, SiLU-GLU, RoPE (scalar and
 per-slot positions), ``full_attention`` (the payload flash fast path for
-the s2fp8 modes, the masked softmax through ``policy.einsum`` for fp32 and
-fp8), the MLP, the MoE (token-choice top-k routing with capacity, global
-or grouped per batch row, shared experts, the load-balance aux loss), and
-``attn_block_apply``'s train, prefill and paged-decode branches for the
-``dense``, ``dense_first`` and ``moe`` block types.  The dense-cache
-decode and the chunked path wait for later slices, so sequences must stay
-<= 2048 (the reference switches to chunked attention above that).
+payload policies, the masked softmax through ``policy.einsum`` for the
+others), ``chunked_attention`` (the doubly chunked online softmax in f32,
+differentiated op by op) and ``decode_attention`` (one token against a
+dense cache), the MLP, the MoE (token-choice top-k routing with capacity,
+global or grouped per batch row, shared experts, the load-balance aux
+loss), and ``attn_block_apply``'s train, prefill, dense-cache decode and
+paged decode for the ``dense``, ``dense_first`` and ``moe`` block types.
+Above 2048 tokens a block attends through ``Policy.flash_attention`` when
+``cfg.attn_impl == "flash"`` (on the payload path the payload flash
+node, else ``models/flash.py``) and through ``chunked_attention``
+otherwise, as the reference does.  The sliding window of the reference's
+``local`` blocks (window masks, the ring-buffer decode cache, the window
+prefill cache) is here behind ``attn_block_apply``'s ``window``; the port
+has no ``local`` block type yet, so only tests pass one.
 
 Mamba-1 (``mamba1``): ``init_mamba1`` and ``mamba1_apply`` in prefill and
 single-token decode over a dense {conv, ssm} cache.  Prefill runs the
@@ -33,9 +40,11 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import statsbank
 from repro_torch.core.policy import Policy
+from repro_torch.kernels.flash_attention import flash_fwd_reference
 from repro_torch.kernels.selective_scan import selective_scan
+from repro_torch.models.flash import check_chunks
 
-MAX_FULL_ATTENTION_SEQ = 2048
+LONG_SEQ = 2048        # above this, chunked or flash attention
 _MASK = -1e30
 
 
@@ -83,16 +92,25 @@ def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return q.reshape(b, kv_heads, h // kv_heads, s, d)
 
 
-def full_attention(q, k, v, *, causal=True, window=None, policy: Policy):
+def _attn_einsum(policy: Optional[Policy], spec: str, a, b):
+    """An attention contraction through the policy (its result in f32),
+    or an f32 einsum without one (reference ``_attn_einsum``)."""
+    if policy is None:
+        return torch.einsum(spec, a.float(), b.float())
+    return policy.einsum(spec, a, b).float()
+
+
+def full_attention(q, k, v, *, causal=True, window=None,
+                   policy: Optional[Policy] = None):
     """q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d].  Payload policies run the fused
     payload flash node; the others a plain masked softmax whose two
     contractions go through ``policy.einsum`` (reference blocks.py:117)."""
-    if policy.uses_payload_gemm:
+    if policy is not None and policy.uses_payload_gemm:
         return policy.flash_attention(q, k, v, causal=causal,
                                       window=window).to(q.dtype)
     d = q.shape[-1]
     sq, sk = q.shape[3], k.shape[2]
-    logits = policy.einsum("bkgqd,bksd->bkgqs", q, k).float() / math.sqrt(d)
+    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k) / math.sqrt(d)
     qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -101,7 +119,46 @@ def full_attention(q, k, v, *, causal=True, window=None, policy: Policy):
     if window:
         mask &= kpos > qpos - window
     probs = torch.softmax(torch.where(mask, logits, _MASK), dim=-1)
-    out = policy.einsum("bkgqs,bksd->bkgqd", probs, v).float()
+    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v)
+    return out.to(q.dtype)
+
+
+def chunked_attention(q, k, v, *, causal=True, window=None, q_chunk=1024,
+                      kv_chunk=1024, policy: Optional[Policy] = None):
+    """Doubly chunked (q x kv) attention with an f32 online softmax
+    (reference blocks.py:144-202), differentiated op by op (the "naive"
+    ``attn_impl``).  q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d].  The policy
+    truncates q, k and v once at their sites and the output after; the
+    contractions inside are f32 products, as in the reference.  The loop is
+    ``flash_fwd_reference``'s, which is the reference's; its logsumexp is
+    not used here."""
+    q_chunk, kv_chunk = check_chunks(q.shape[3], k.shape[2], q_chunk,
+                                     kv_chunk)
+    if policy is not None:
+        q, k, v = policy.truncate(q), policy.truncate(k), policy.truncate(v)
+    out, _ = flash_fwd_reference(q, k, v, causal=causal, window=window,
+                                 q_chunk=q_chunk, kv_chunk=kv_chunk)
+    out = out.to(q.dtype)
+    if policy is not None:
+        out = policy.truncate(out)
+    return out
+
+
+def decode_attention(q, k_cache, v_cache, valid, *,
+                     policy: Optional[Policy] = None):
+    """One token's attention over a dense cache (reference
+    blocks.py:205-222).  q: [B,KV,G,1,d]; caches [B,KV,Smax,d]; ``valid``:
+    bool [Smax] of live cache slots, or [B, Smax] when the rows sit at
+    their own positions (serving).  A sliding window is in ``valid`` (the
+    caller's ring occupancy or window mask).  Both contractions go through
+    ``policy.einsum``: on the payload path the batched payload GEMM with
+    one query row a (slot, head) group."""
+    d = q.shape[-1]
+    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k_cache) \
+        / math.sqrt(d)
+    vmask = valid[:, None, None, None, :] if valid.dim() == 2 else valid
+    probs = torch.softmax(torch.where(vmask, logits, _MASK), dim=-1)
+    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v_cache)
     return out.to(q.dtype)
 
 
@@ -294,14 +351,18 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None,
 def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
                      positions: torch.Tensor, cache, cache_index, mode: str,
                      block_type: str = "dense",
-                     cache_fmt: Optional[str] = None):
+                     cache_fmt: Optional[str] = None,
+                     window: Optional[int] = None):
     """One attention block.  ``mode="train"`` attends over the sequence and
     keeps no cache; ``mode="prefill"`` also fills the dense cache ``cache``
-    ({"k","v"} [B, KV, Smax, hd], written in place) with the kv_cache-site
-    truncated K/V; ``mode="decode"`` writes into and attends over the paged
-    payload cache (serving/paged_cache.py).  A ``moe`` block runs its MoE
-    under the ``moe`` StatsBank scope.  Returns (x, cache, aux): aux is the
-    MoE's load-balance loss, 0 for the other block types."""
+    ({"k","v"} [B, KV, Smax, hd], written in place) with K/V (truncated at
+    the kv_cache sites under a session; with ``window``, the last Smax
+    positions); ``mode="decode"`` writes one token into and attends over
+    the paged payload cache (serving/paged_cache.py), or the dense cache
+    (``cache_index`` a scalar or per-slot [B] positions; with ``window``
+    the cache is a ring buffer when Smax <= window).  A ``moe`` block runs
+    its MoE under the ``moe`` StatsBank scope.  Returns (x, cache, aux):
+    aux is the MoE's load-balance loss, 0 for the other block types."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.kv_heads
@@ -315,27 +376,33 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     k = rope(k, positions, cfg.rope_theta)
     qg = _grouped(q, kvh)
 
-    if mode == "decode":
+    if mode == "decode" and cache is not None and "kp" in cache:
         from repro_torch.serving import paged_cache as _paged
-        if s != 1 or cache is None or "kp" not in cache:
+        if s != 1:
             raise ValueError("decode runs one token against a paged cache")
         attn, cache = _paged.update_and_attend(
             qg, k, v, cache, cache_index, policy=pol, cache_fmt=cache_fmt)
+    elif mode == "decode":
+        if s != 1 or cache is None:
+            raise ValueError("decode runs one token against a cache")
+        attn = _dense_decode(qg, k, v, cache, cache_index, pol, window)
     elif mode in ("train", "prefill"):
-        if s > MAX_FULL_ATTENTION_SEQ:
-            raise NotImplementedError(
-                f"{mode} over {s} > {MAX_FULL_ATTENTION_SEQ} tokens needs "
-                f"the chunked attention path, which is not ported")
-        attn = full_attention(qg, k, v, causal=True, policy=pol)
+        if s > LONG_SEQ:
+            if cfg.attn_impl == "flash":
+                attn = pol.flash_attention(qg, k, v, causal=True,
+                                           window=window).to(qg.dtype)
+            else:
+                attn = chunked_attention(qg, k, v, causal=True,
+                                         window=window, policy=pol)
+        else:
+            attn = full_attention(qg, k, v, causal=True, window=window,
+                                  policy=pol)
         if mode == "prefill" and cache is not None:
-            # kv_cache/t{0,1} sites: the cache holds grid-snapped values, so
-            # the payload re-encode at pack time is lossless
-            with statsbank.scope("kv_cache"):
-                k_store = pol.truncate(k)
-                v_store = pol.truncate(v)
+            k_store, v_store = _kv_store(k, v, pol)
+            keep = min(cache["k"].shape[2], s) if window else s
             for key, val in (("k", k_store), ("v", v_store)):
-                cache[key][:, :, :s] = val
-                cache[key][:, :, s:] = 0.0
+                cache[key][:, :, :keep] = val[:, :, s - keep:]
+                cache[key][:, :, keep:] = 0.0
     else:
         raise ValueError(f"mode {mode!r} is not ported "
                          f"(train/prefill/decode)")
@@ -351,6 +418,60 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
         y = mlp_fwd(p["mlp"], xn2, cfg, pol)
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, cache, aux
+
+
+def _kv_store(k, v, pol: Policy):
+    """The K/V a dense cache stores: under a session truncated at the
+    block's kv_cache/t{0,1} sites, so the cache holds grid-snapped values
+    (a payload re-encode is lossless) and calibration learns their stats;
+    without one, K/V as computed (reference blocks.py:439-447, 502-511)."""
+    if statsbank.current_session() is None:
+        return k, v
+    with statsbank.scope("kv_cache"):
+        return pol.truncate(k), pol.truncate(v)
+
+
+def _dense_decode(qg, k, v, cache, cache_index, pol: Policy,
+                  window: Optional[int]):
+    """The dense-cache decode of reference blocks.py:431-481: write the
+    token's (kv_cache-site truncated) K/V at its slot, in place, then
+    ``decode_attention`` over the cache.  ``cache_index``: a scalar
+    position for every row, or [B] per-slot positions.  With ``window``
+    and Smax <= window the cache is a ring buffer (slot = position mod
+    Smax, every written slot live); otherwise the slot is the position and
+    the window masks older keys."""
+    b = qg.shape[0]
+    smax = cache["k"].shape[2]
+    kpos = torch.arange(smax, device=qg.device)
+    ci = torch.as_tensor(cache_index, device=qg.device).long()
+    ring = bool(window) and smax <= window
+    k_store, v_store = _kv_store(k, v, pol)
+    if ci.dim() == 1:
+        if ring:
+            slot = ci % smax
+            valid = kpos[None, :] < torch.clamp(ci + 1, max=smax)[:, None]
+        else:
+            slot = ci
+            valid = kpos[None, :] <= ci[:, None]
+            if window:
+                valid &= kpos[None, :] > ci[:, None] - window
+        bi = torch.arange(b, device=qg.device)
+        for key, val in (("k", k_store), ("v", v_store)):
+            cache[key][bi, :, slot] = val[:, :, 0].to(cache[key].dtype)
+    else:
+        c = int(ci)
+        if ring:
+            slot = c % smax
+            valid = kpos < min(c + 1, smax)
+        else:
+            slot = c
+            valid = kpos <= c
+            if window:
+                valid &= kpos > c - window
+        slot = min(max(slot, 0), smax - 1)    # dynamic_update_slice clamps
+        for key, val in (("k", k_store), ("v", v_store)):
+            cache[key][:, :, slot:slot + 1] = val.to(cache[key].dtype)
+    return decode_attention(qg, cache["k"], cache["v"], valid, policy=pol)
 
 
 # =========================================================================

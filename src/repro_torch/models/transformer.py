@@ -27,7 +27,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import statsbank
-from repro_torch.core.policy import Policy
+from repro_torch.core.policy import TRUNCATING_MODES, Policy
 from repro_torch.models import blocks
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -95,10 +95,11 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
 
 
 def embed_tokens(params, tokens, cfg: ArchConfig, pol: Policy):
-    """Truncates the whole embedding table at the ``embed`` site (as the
-    reference does on every call; fp32 has no site), then gathers rows."""
+    """Truncates the whole embedding table at the ``embed`` site in the
+    truncating modes (as the reference does on every call; fp32 and bf16
+    have no site), then gathers rows."""
     table = params["embed"]
-    if pol.mode != "fp32":
+    if pol.mode in TRUNCATING_MODES:
         with statsbank.scope("embed"):
             table = pol.truncate(table)
     return table[tokens].to(DTYPES[cfg.activation_dtype])

@@ -2,17 +2,19 @@
 ``LMServer`` and the paged-payload ``PayloadLMServer``.
 
 ``LMServer`` serves over one dense cache tree at width ``slots`` (f32
-leaves; the mamba1 blocks' conv windows and SSM states).  Per tick it
+leaves: the attention blocks' K/V [L, slots, KV, max_len, hd], the mamba1
+blocks' conv windows and SSM states).  Per tick it
 fills every free slot FCFS, runs one prefill per power-of-two prompt
 bucket at width ``slots`` (prompts right-padded in their own slot rows,
 logits read at each row's true last index) into a fresh cache tree,
 copies only the admitted columns into the server's tree, then runs one
-decode step for all slots with a per-slot position vector.  Prefill and
-decode use exact per-call stats (no bank session), as the reference's
-engine does.  Its dense-cache decode covers mamba1 blocks only: the
-reference's attention decode over a dense cache (``decode_attention``)
-is not ported, so attention patterns are served by ``PayloadLMServer``.
-As in the reference, a padded prompt's mamba1 scan and conv window run on
+decode step for all slots with a per-slot position vector: an attention
+block writes each slot's token at its own position and attends over its
+cache row (``blocks.decode_attention``, whose two einsums run on the
+batched payload GEMM on the payload path).  Prefill and decode use exact
+per-call stats (no bank session), as the reference's engine does, so the
+caches hold K/V as computed.  As in the reference, a padded prompt's
+mamba1 scan and conv window run on
 through the pad tokens, so a prompt shorter than its bucket decodes from a
 state that includes the pads.
 
@@ -82,8 +84,6 @@ class LMServer:
         self.queue: List[Request] = []
         self.prefill_shapes: set = set()                # (A, P) pairs run
         self._last_token = np.zeros((slots, 1), np.int32)
-        self._no_dense_decode = sorted(
-            {b for b in cfg.resolved_pattern if b != "mamba1"})
 
     # -- device work ------------------------------------------------------
     def _prefill(self, params, tokens, last_index):
@@ -94,11 +94,6 @@ class LMServer:
                                last_index=last_index)
 
     def _decode(self, params, token, caches, pos):
-        if self._no_dense_decode:
-            raise NotImplementedError(
-                f"dense-cache decode of {self._no_dense_decode} blocks needs "
-                f"the reference's decode_attention (blocks.py:205), which is "
-                f"not ported; serve attention models with PayloadLMServer")
         with torch.no_grad():
             return tlm.decode_step(params, token, self.cfg, self.pol, caches,
                                    pos)

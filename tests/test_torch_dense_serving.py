@@ -175,18 +175,27 @@ def test_padding_reaches_the_mamba_state_as_in_the_reference(runs):
 
 
 def test_attention_blocks_are_refused_in_dense_decode():
-    """The dense-cache decode of attention blocks needs the reference's
-    decode_attention, which is not ported: the server prefills, then
-    refuses to decode.  The paged engine refuses mamba1 blocks, as the
+    """The dense-cache decode of attention blocks (the reference's
+    decode_attention) runs: one reduced minicpm layer served by LMServer
+    decodes every request with the JAX LMServer's greedy tokens (fp32,
+    the same params).  The paged engine refuses mamba1 blocks, as the
     reference's does."""
+    cfg_j = jax_reduced_config("minicpm_2b").replace(n_layers=1)
     cfg = get_reduced_config("minicpm_2b").replace(n_layers=1)
-    params = tlm.init_lm(cfg, seed=0, device="cpu")
-    srv = LMServer(cfg, params, make_policy("fp32"), slots=2, max_len=16)
-    req = Request(prompt=np.arange(1, 6, dtype=np.int32), max_new_tokens=3)
-    srv.submit(req)
-    with pytest.raises(NotImplementedError, match="decode_attention"):
-        srv.run_to_completion()
-    assert len(req.out) == 1
+    params_j = api.init_params(cfg_j, jax.random.PRNGKey(0))
+    params = params_from_jax(jax.device_get(params_j), device="cpu")
+    outs = []
+    for server, req_cls in (
+            (LMServer(cfg, params, make_policy("fp32"), slots=2,
+                      max_len=16), Request),
+            (JaxLMServer(cfg_j, params_j, jax_policy("fp32"), slots=2,
+                         max_len=16), JaxRequest)):
+        req = req_cls(prompt=np.arange(1, 6, dtype=np.int32),
+                      max_new_tokens=3)
+        server.submit(req)
+        server.run_to_completion()
+        outs.append(req.out)
+    assert len(outs[0]) == 3 and outs[0] == outs[1]
     mcfg = get_reduced_config(ARCH).replace(n_layers=1, pattern=("mamba1",))
     mparams = tlm.init_lm(mcfg, seed=0, device="cpu")
     with pytest.raises(ValueError, match="global-attention"):

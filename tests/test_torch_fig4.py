@@ -67,10 +67,17 @@ def test_fig4_policy_flags():
     assert not pol.uses_payload_gemm
     assert make_policy("s2fp8", "cuda_fused").uses_payload_gemm
     assert not make_policy("s2fp8", "plain", "auto").uses_payload_gemm
-    q = torch.ones(1, 1, 1, 4, 8)
-    kv = torch.ones(1, 1, 4, 8)
-    with pytest.raises(NotImplementedError):
-        pol.flash_attention(q, kv, kv)
+    # fig4's flash attention is the reference's: q, k, v truncated, the
+    # chunked flash attention, the output truncated (per-op forward budget)
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((1, 1, 1, 4, 8)).astype(np.float32)
+    kv = rng.standard_normal((1, 1, 4, 8)).astype(np.float32)
+    want = jax_policy("s2fp8", backend="ref", gemm_mode="fig4"
+                      ).flash_attention(jnp.asarray(q), jnp.asarray(kv),
+                                        jnp.asarray(kv))
+    got = pol.flash_attention(torch.from_numpy(q), torch.from_numpy(kv),
+                              torch.from_numpy(kv))
+    _assert_close(got.numpy(), np.asarray(want), *FWD)
     with pytest.raises(ValueError):
         make_policy("s2fp8", "plain", "chain")
 
