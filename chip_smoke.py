@@ -56,7 +56,9 @@ Phases, each fatal on failure:
              (above 2048: the long-sequence attention) with the bank at
              k = 2, attn_impl flash (the payload flash kernels) and naive
              (the chunked attention between truncate kernels), and in fig4
-             with attn_impl flash on cuda_fused, every kernel call held.
+             with attn_impl flash on cuda_fused, every kernel call held;
+             and "small-paper": transformer_tiny, ResNet-20 and NCF, 2
+             steps each on cuda and on cuda_fused, every kernel call held.
 5. serve   — full-width minicpm_2b (40 layers, d=2304, vocab 122,753) from
              a seeded generator: calibrate the frozen bank, then serve 16
              requests through PayloadLMServer (8 slots, max_len 1024,
@@ -112,6 +114,24 @@ Phases, each fatal on failure:
              on cuda_fused: the prefill's payload flash and the decode's
              attention on the batched payload GEMM must launch, with every
              other kernel of the path, and no plain version may run.
+15. train-encdec — full-width, full-depth whisper_medium (24 + 24
+             layers, d 1024, vocab 51,865) trained 4 steps at batch 4 x
+             1,500 audio-stub frames and 448 tokens with the bank at k = 8
+             (AdamW, remat): every training kernel must launch, no plain
+             version run, every loss finite.
+16. serve-encdec — whisper_medium's serve_prefill and 16 greedy
+             serve_decode ticks for 4 requests, exact stats on cuda_fused:
+             the stats kernels, the decode path's GEMMs, the batched GEMM
+             (self-attention) and the payload flash (encoder and
+             cross-attention) must launch, no plain version run.
+17. train-paper — ResNet-20 (batch 128), NCF at MovieLens-1M's sizes
+             (batch 1,024) and transformer_tiny (batch 64 x 32) in s2fp8
+             payload on cuda (every training kernel launched between them)
+             and in fp32, fp8 and fp8_ls(100) (no kernel); losses finite.
+
+Phase 3 also holds #7, #8, #10 and #11 at the shapes these phases give
+them (the convs' im2col GEMMs, N = 1 and 10, whisper's head and
+attention).
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -211,9 +231,19 @@ SERVE_MAMBA_KERNELS = STATS_KERNELS + ("truncate_apply", "qmatmul_nn",
                                        "selective_scan")
 OPS_KERNELS = ("quant", "dequant", "truncate_apply", "qmatmul_nn",
                "flash_fwd")
+# the paper's workloads: whisper_medium trained with the bank on cuda (the
+# training kernels) and served with exact stats on cuda_fused (the stats
+# kernels, the decode's small-path GEMMs and batched self-attention GEMM,
+# the payload flash at the encoder and the cross-attention); ResNet-20,
+# NCF and transformer_tiny trained in s2fp8 payload on cuda
+TRAIN_ENCDEC_KERNELS = TRAIN_KERNELS
+SERVE_ENCDEC_KERNELS = ("stats", "quant", "truncate_apply", "qmatmul_nn",
+                        "qmatmul_nn/small", "qmatmul_batched", "qflash_fwd")
+TRAIN_PAPER_KERNELS = TRAIN_KERNELS
 PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "serve_mamba", "ops", "train_modes", "train_long_flash",
-          "train_long_naive", "serve_dense")
+          "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
+          "train_paper")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -595,43 +625,9 @@ def phase_kernels(dev) -> dict:
     # accumulation order); with it, output codes differ by at most one grid
     # step in at most 1e-3 of the elements.
     for m, k, n in GEMMS_NN:
-        a = rnd(m, k, dtype=torch.bfloat16)
-        b = rnd(k, n, dtype=torch.bfloat16, scale=k ** -0.5)
-        aab = s2fp8.compute_stats(a)
-        bab = s2fp8.compute_stats(b)
-        qa = s2fp8_quant.quant_apply(a, aab)
-        qb = s2fp8_quant.quant_apply(b, bab)
-        raw_k = s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab)
-        raw_p = s2fp8_matmul.qmatmul_plain(qa, aab, qb, bab)
-        deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
-        deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
-        scale = deq_a.abs() @ deq_b.abs()
-        err = (raw_k - raw_p).abs()
-        assert bool((err <= 1e-5 * scale + 1e-30).all()), \
-            f"qmatmul raw {m}x{k}x{n}: max err {err.max().item()}"
-        oab = s2fp8.compute_stats(raw_p)
-        ek = s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab)
-        ep = s2fp8_matmul.qmatmul_plain(qa, aab, qb, bab, oab)
-        f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
-        log(f"qmatmul_nn {m}x{k}x{n}: raw max err {err.max().item():.3e}, "
-            f"epilogue flips {f}")
-        assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
-        same_bits(lambda: s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab),
-                  f"qmatmul_nn {m}x{k}x{n}")
-        # a decode GEMM takes microseconds of device time and more of the
-        # host's: its row (kernel, plain and library) is device time
         decode = s2fp8_matmul.plan_gemm(m, n, k).path == "small"
-        timer = device_ms if decode else cuda_time
-        kernel = lambda: s2fp8_matmul.qmatmul_nn(qa, aab, qb, bab, oab)
-        record(f"qmatmul_nn decode K={k} N={n}" if decode else "qmatmul_nn",
-               (ek - ep).abs().max().item(), timer(kernel),
-               timer(lambda: s2fp8_matmul.qmatmul_plain(
-                   qa, aab, qb, bab, oab), iters=3),
-               timer(lambda: torch.matmul(deq_a, deq_b)),
-               m * k + k * n + 4 * m * n, 2.0 * m * k * n,
-               f"M={m} K={k} N={n} epilogue", tensor_cores=not decode,
-               **({"call_ms": cuda_time(kernel)} if decode else {}))
-        del a, b, qa, qb, raw_k, raw_p, deq_a, deq_b, scale, err, ek, ep
+        gemm_case(rnd, record, f"qmatmul_nn decode K={k} N={n}" if decode
+                  else "qmatmul_nn", "nn", m, k, n, torch.bfloat16)
 
     # -- qflash_fwd: prefill attention at buckets P = 128 and 512 (8 rows x
     # 36 heads, head dim 64, causal), plus head dims 32 and 80 and the
@@ -732,6 +728,7 @@ def phase_kernels(dev) -> dict:
     stats_kernel_checks(dev, rnd, record)
     mamba_ops_kernel_checks(dev, gen, rnd, record)
     long_kernel_checks(dev, rnd, record)
+    paper_kernel_checks(dev, rnd, record)
     return rows
 
 
@@ -893,39 +890,9 @@ def train_kernel_checks(dev, rnd, record) -> None:
     # order); with the epilogue, codes at most one grid step apart in at
     # most 1e-3 of the outputs.
     for layout, shapes in GEMMS_NT_TN.items():
-        kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
-        plain = getattr(s2fp8_matmul, f"qmatmul_{layout}_plain")
         for m, k, n in shapes:
-            a_shape = (m, k) if layout == "nt" else (k, m)
-            b_shape = (n, k) if layout == "nt" else (k, n)
-            qa, aab = payload(rnd(*a_shape, dtype=torch.bfloat16))
-            qb, bab = payload(rnd(*b_shape, dtype=torch.bfloat16,
-                                  scale=k ** -0.5))
-            deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
-            deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
-            lhs = deq_a if layout == "nt" else deq_a.t()
-            rhs = deq_b.t() if layout == "nt" else deq_b
-            raw_k = kernel(qa, aab, qb, bab)
-            raw_p = plain(qa, aab, qb, bab)
-            err = (raw_k - raw_p).abs()
-            ok = bool((err <= 1e-5 * (lhs.abs() @ rhs.abs()) + 1e-30).all())
-            assert ok, f"qmatmul_{layout} raw {m}x{k}x{n}: max err " \
-                f"{err.max().item()}"
-            oab = s2fp8.compute_stats(raw_p)
-            ek = kernel(qa, aab, qb, bab, oab)
-            ep = plain(qa, aab, qb, bab, oab)
-            f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
-            log(f"qmatmul_{layout} {m}x{k}x{n}: raw max err "
-                f"{err.max().item():.3e}, epilogue flips {f}")
-            assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
-            record(f"qmatmul_{layout}", (ek - ep).abs().max().item(),
-                   cuda_time(lambda: kernel(qa, aab, qb, bab, oab)),
-                   cuda_time(lambda: plain(qa, aab, qb, bab, oab), iters=3),
-                   cuda_time(lambda: torch.matmul(lhs, rhs)),
-                   m * k + k * n + 4 * m * n, 2.0 * m * k * n,
-                   f"{layout} M={m} K={k} N={n} epilogue",
-                   tensor_cores=True)
-            del qa, qb, deq_a, deq_b, lhs, rhs, raw_k, raw_p, err, ek, ep
+            gemm_case(rnd, record, f"qmatmul_{layout}", layout, m, k, n,
+                      torch.bfloat16)
 
     # -- serving's tied head at decode (8 slots): x E^T as NT over the
     # stored table's payload (the small path, K unsplit), held and timed,
@@ -1191,6 +1158,243 @@ def long_kernel_checks(dev, rnd, record) -> None:
     for layout, ga, gb, ob, m, k, n in GEMMS_BATCHED_DECODE:
         batched_case(rnd, record, f"qmatmul_batched decode {layout}", layout,
                      ga, gb, ob, m, k, n)
+
+
+# (row, layout, M, K, N, operand dtype) of the paper workloads' payload
+# GEMMs, each list's last case the row's kept shape: ResNet-20's convs at
+# batch 128 (the im2col patches [B*OH*OW, KH*KW*C] f32; the stem K = 27,
+# stage 1's 3x3 K = 144 at M = 131,072, stages 2 and 3), their dA (NT over
+# the kernel) and dW (TN, K = M); NCF's tower at batch 1,024 (N = 8, and
+# the output GEMM's N = 1 with its NT dA at K = 1 and TN dW); ResNet's
+# head (N = 10); whisper's head in training (4 x 448 rows, N = 51,865) and
+# at decode (M = 4 slots: the small path)
+GEMMS_PAPER = [
+    ("qmatmul_nn conv", "nn", [(131072, 27, 16), (32768, 288, 32),
+                               (8192, 576, 64), (131072, 144, 16)],
+     torch.float32),
+    ("qmatmul_nt conv", "nt", [(131072, 16, 27), (131072, 16, 144)],
+     torch.float32),
+    ("qmatmul_tn conv", "tn", [(27, 131072, 16), (144, 131072, 16)],
+     torch.float32),
+    ("qmatmul_nn ncf", "nn", [(1024, 16, 8), (1024, 16, 1)], torch.float32),
+    ("qmatmul_nt ncf", "nt", [(1024, 1, 16)], torch.float32),
+    ("qmatmul_tn ncf", "tn", [(16, 1024, 1)], torch.float32),
+    ("qmatmul_nn head N=10", "nn", [(128, 64, 10)], torch.float32),
+    ("qmatmul_nt head N=10", "nt", [(128, 10, 64)], torch.float32),
+    ("qmatmul_tn head N=10", "tn", [(64, 128, 10)], torch.float32),
+    ("qmatmul_nn whisper head", "nn", [(4 * 448, 1024, 51865)],
+     torch.bfloat16),
+    ("qmatmul_nn decode whisper head", "nn", [(4, 1024, 51865)],
+     torch.bfloat16),
+]
+# whisper's decode self-attention on the batched GEMM: 4 slots x 16 heads,
+# one query row each, over the 448-position cache of head dim 64
+GEMMS_BATCHED_WHISPER = [("nt", 64, 64, None, 1, 64, 448),
+                         ("nn", 64, 64, None, 1, 448, 64)]
+# (row, BH, Sq, Sk, causal) of whisper's attention at batch 4 x 16 heads
+# of 64: the encoder (1,500 frames, non-causal), the decoder's causal 448,
+# the cross-attention in training (448 x 1,500) and at decode (1 x 1,500)
+FLASH_WHISPER = [("enc S1500", 64, 1500, 1500, False),
+                 ("dec S448", 64, 448, 448, True),
+                 ("cross 448x1500", 64, 448, 1500, False),
+                 ("cross 1x1500", 64, 1, 1500, False)]
+
+
+def gemm_case(rnd, record, row, layout, m, k, n, dtype, keep=True) -> None:
+    """One 2-D payload GEMM (logical C[M,N] over K under ``layout``) held
+    against its plain version: raw |kernel - plain| <= 1e-5 * (|A| @ |B|)
+    + 1e-30 (f32 summation order), epilogue codes at most one grid step
+    apart in at most 1e-3 of the outputs, two launches the same bits; timed
+    (device time on the small path) beside its bound and the library's
+    ``torch.matmul`` on the dequantized operands into ``row``."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import s2fp8_matmul, s2fp8_quant
+
+    def payload(x):
+        ab = s2fp8.compute_stats(x)
+        return s2fp8_quant.quant_apply(x, ab), ab
+
+    kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+    plain = (s2fp8_matmul.qmatmul_plain if layout == "nn"
+             else getattr(s2fp8_matmul, f"qmatmul_{layout}_plain"))
+    a_shape = (k, m) if layout == "tn" else (m, k)
+    b_shape = (n, k) if layout == "nt" else (k, n)
+    qa, aab = payload(rnd(*a_shape, dtype=dtype))
+    qb, bab = payload(rnd(*b_shape, dtype=dtype, scale=k ** -0.5))
+    deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+    deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+    lhs = deq_a.t() if layout == "tn" else deq_a
+    rhs = deq_b.t() if layout == "nt" else deq_b
+    raw_k = kernel(qa, aab, qb, bab)
+    raw_p = plain(qa, aab, qb, bab)
+    err = (raw_k - raw_p).abs()
+    assert bool((err <= 1e-5 * (lhs.abs() @ rhs.abs()) + 1e-30).all()), \
+        f"{row} raw {m}x{k}x{n}: max err {err.max().item()}"
+    oab = s2fp8.compute_stats(raw_p)
+    ek = kernel(qa, aab, qb, bab, oab)
+    ep = plain(qa, aab, qb, bab, oab)
+    f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
+    log(f"{row} {layout} {m}x{k}x{n} {str(dtype)[6:]}: raw max err "
+        f"{err.max().item():.3e}, epilogue flips {f}")
+    assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+    call = lambda: kernel(qa, aab, qb, bab, oab)
+    same_bits(call, f"{row} {m}x{k}x{n}")
+    small = layout != "tn" and s2fp8_matmul.plan_gemm(
+        m, n, k, layout=layout).path == "small"
+    timer = device_ms if small else cuda_time
+    record(row, (ek - ep).abs().max().item(), timer(call),
+           timer(lambda: plain(qa, aab, qb, bab, oab), iters=3),
+           timer(lambda: torch.matmul(lhs, rhs)),
+           m * k + k * n + 4 * m * n, 2.0 * m * k * n,
+           f"{layout} M={m} K={k} N={n} epilogue", keep=keep,
+           tensor_cores=not small,
+           **({"call_ms": cuda_time(call)} if small else {}))
+
+
+def paper_kernel_checks(dev, rnd, record) -> None:
+    """The kernels at the shapes the paper workloads give them (whisper at
+    batch 4 x 1,500 frames and 448 tokens, ResNet-20 at batch 128, NCF at
+    batch 1,024), in rows of their own: the payload GEMMs of
+    ``GEMMS_PAPER`` (``gemm_case``), whisper's decode self-attention on
+    the batched GEMM (``batched_case``), and the payload flash forward and
+    backward at whisper's four attention shapes, non-causal ones and Sq !=
+    Sk included, the plain versions in chunks that divide the sequences
+    (500 at 1,500 frames) (the tolerances of the other flash rows: output codes at
+    most one step apart in at most 1% of the elements, |lse| within 1e-4,
+    dq, dk, dv within 1e-4 * max|plain|; two launches the same bits;
+    library SDPA on the dequantized f32 tensors, TF32 off).  Checked and
+    logged without rows of their own: quantize-apply on the stem's im2col
+    patches ([128*32*32, 27] f32: codes equal to the plain version's),
+    truncate-apply on NCF's tables at ML-1M's sizes (one step in at most
+    1e-4), and the stats and quantize-with-stats kernels on whisper's
+    activations ([4*1500, 1024] bf16; max and count equal, sum within
+    1e-6 relative, (alpha, beta) within 4 ulp, codes one step apart in at
+    most 1e-4)."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import flash_attention, s2fp8_quant
+
+    def payload(x):
+        ab = s2fp8.compute_stats(x)
+        return s2fp8_quant.quant_apply(x, ab), ab
+
+    for row, layout, shapes, dtype in GEMMS_PAPER:
+        for i, (m, k, n) in enumerate(shapes):
+            gemm_case(rnd, record, row, layout, m, k, n, dtype,
+                      keep=i == len(shapes) - 1)
+    for layout, ga, gb, ob, m, k, n in GEMMS_BATCHED_WHISPER:
+        batched_case(rnd, record, f"qmatmul_batched decode whisper {layout}",
+                     layout, ga, gb, ob, m, k, n)
+
+    def chunk(n):
+        """The largest divisor of ``n`` up to 512: the plain flash loop
+        takes gcd(512, n) otherwise, 4 at 1,500 (140,625 chunk pairs)."""
+        return max(c for c in range(1, min(n, 512) + 1) if n % c == 0)
+
+    d = 64
+    for label, bh, sq, sk, causal in FLASH_WHISPER:
+        ck = dict(q_chunk=chunk(sq), kv_chunk=chunk(sk))
+        (qq, qab) = payload(rnd(bh, sq, d))
+        (qk, kab), (qv, vab) = (payload(rnd(bh, sk, d)) for _ in range(2))
+        sts = (qab, kab, vab)
+        raw, lse = flash_attention.qflash_fwd_plain(qq, qk, qv, *sts, g=1,
+                                                    causal=causal, **ck)
+        oab = s2fp8.compute_stats(raw)
+        call = lambda: flash_attention.qflash_fwd(
+            qq, qk, qv, *sts, g=1, causal=causal, out_ab=oab)
+        ok, lk = call()
+        op, lp = flash_attention.qflash_fwd_plain(
+            qq, qk, qv, *sts, g=1, causal=causal, out_ab=oab, **ck)
+        f = flips(ordinal(ok, oab, "e5m2"), ordinal(op, oab, "e5m2"))
+        lerr = (lk - lp).abs().max().item()
+        log(f"qflash_fwd whisper {label} (BH={bh}, causal {causal}): flips "
+            f"{f}, lse err {lerr:.2e}")
+        assert f["max_step"] <= 1 and f["frac"] <= 1e-2 and lerr <= 1e-4, \
+            (label, f, lerr)
+        assert torch.equal(call()[0], ok), f"qflash_fwd {label}: two launches"
+        deq = [s2fp8.dequantize(s2fp8.S2FP8Tensor(t, ab)).requires_grad_()
+               for t, ab in ((qq, qab), (qk, kab), (qv, vab))]
+        pairs = (sum(min(r + 1 + sk - sq, sk) for r in range(sq)) if causal
+                 else sq * sk)
+        shape = f"BH={bh} Sq={sq} Sk={sk} d={d} " + (
+            "causal" if causal else "non-causal")
+        record(f"qflash_fwd {label}", (ok - op).abs().max().item(),
+               cuda_time(call),
+               cuda_time(lambda: flash_attention.qflash_fwd_plain(
+                   qq, qk, qv, *sts, g=1, causal=causal, out_ab=oab, **ck),
+                   iters=3),
+               cuda_time(lambda: torch.nn.functional
+                         .scaled_dot_product_attention(
+                             *(t.detach()[None] for t in deq),
+                             is_causal=causal)),
+               bh * (sq + 2 * sk) * d + bh * sq * d * 4 + bh * sq * 4,
+               4.0 * bh * pairs * d, shape, tensor_cores=True)
+        if sq == 1:
+            continue
+        qg, gab = payload(rnd(bh, sq, d, scale=1e-3))
+        qo, oab2 = payload(raw)
+        delta = (s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))
+                 * s2fp8.dequantize(s2fp8.S2FP8Tensor(qo, oab2))).sum(-1)
+        args = (qq, qk, qv, qg, qab, kab, vab, gab, lse, delta)
+        got = flash_attention.qflash_bwd(*args, g=1, causal=causal)
+        want = flash_attention.qflash_bwd_plain(*args, g=1, causal=causal,
+                                                **ck)
+        errs = []
+        for name, x, y in zip(("dq", "dk", "dv"), got, want):
+            e = (x - y).abs().max().item()
+            errs.append(e)
+            assert bool(torch.isfinite(x).all()), (label, name)
+            assert e <= 1e-4 * y.abs().max().item(), (label, name, e)
+        again = flash_attention.qflash_bwd(*args, g=1, causal=causal)
+        assert all(torch.equal(x, y) for x, y in zip(got, again)), \
+            f"qflash_bwd {label}: two launches differ"
+        log(f"qflash_bwd whisper {label}: max err dq/dk/dv "
+            + " ".join(f"{e:.2e}" for e in errs) + " of max |plain| "
+            + " ".join(f"{y.abs().max().item():.2e}" for y in want))
+        lib_out = torch.nn.functional.scaled_dot_product_attention(
+            *(t[None] for t in deq), is_causal=causal)
+        dout = s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))[None]
+        record(f"qflash_bwd {label}", max(errs),
+               cuda_time(lambda: flash_attention.qflash_bwd(
+                   *args, g=1, causal=causal)),
+               cuda_time(lambda: flash_attention.qflash_bwd_plain(
+                   *args, g=1, causal=causal, **ck), iters=3),
+               cuda_time(lambda: torch.autograd.grad(lib_out, deq, dout,
+                                                     retain_graph=True)),
+               2 * bh * sq * d + 2 * bh * sk * d + 8 * bh * sq
+               + 4 * bh * (sq + 2 * sk) * d,
+               10.0 * bh * pairs * d, shape, tensor_cores=True)
+        del got, want, again, lib_out, dout, args, deq
+
+    # -- the element-wise kernels at the paper paths' new operands
+    x = rnd(128 * 32 * 32, 27)
+    ab = s2fp8.compute_stats(x)
+    f = flips(code_ordinal(s2fp8_quant.quant_apply(x, ab)),
+              code_ordinal(s2fp8_quant.quant_apply_plain(x, ab)))
+    log(f"quant_apply im2col patches {tuple(x.shape)} f32: flips {f}")
+    assert f["max_step"] == 0, f
+    for shape in ((6040, 32), (3706, 8)):
+        x = rnd(*shape, scale=0.01)
+        ab = s2fp8.compute_stats(x)
+        tk = s2fp8_quant.truncate_apply(x, ab)
+        tp = s2fp8_quant.truncate_apply_plain(x, ab)
+        f = flips(ordinal(tk, ab, "e5m2"), ordinal(tp, ab, "e5m2"))
+        log(f"truncate_apply ncf table {shape} f32: flips {f}")
+        assert f["max_step"] <= 1 and f["frac"] <= 1e-4, f
+    x = rnd(4 * 1500, 1024, dtype=torch.bfloat16)
+    tk, abk = s2fp8_quant.stats_partials(x)
+    tp, abp = s2fp8_quant.stats_partials_plain(x)
+    rel = ((tk[0] - tp[0]).abs() / tp[0].abs()).item()
+    u = ulps(abk, abp)
+    log(f"stats whisper activation {tuple(x.shape)} bf16: max/count equal "
+        f"{bool(torch.equal(tk[1:], tp[1:]))}, sum rel err {rel:.2e}, "
+        f"(alpha, beta) {u} ulp apart")
+    assert torch.equal(tk[1:], tp[1:]) and rel <= 1e-6 and u <= 4
+    pk, qab = s2fp8_quant.quant(x)
+    pp, qabp = s2fp8_quant.quant_plain(x)
+    f = flips(code_ordinal(pk), code_ordinal(pp))
+    log(f"quant whisper activation: flips {f}, (alpha, beta) "
+        f"{ulps(qab, qabp)} ulp apart")
+    assert f["max_step"] <= 1 and f["frac"] <= 1e-4 and ulps(qab, qabp) <= 4
 
 
 def ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1559,13 +1763,14 @@ def checked_engine(stats_mode: str = "exact"):
     * max|plain|) in at most 1e-2 and |lse| within 1e-4, and each of the
     flash backward's dq, dk, dv within 1e-4 * max|plain|; on the fused
     engine the stats kernel's max and count equal to the plain version's,
-    its sum within 1e-6 relative and (alpha, beta) within 4 ulp, the
-    quantize-with-stats kernel's (alpha, beta) within 4 ulp too, and the
-    fused truncate's (alpha, beta) within 4 ulp with its codes held under
-    the kernel's own stats (one step apart in at most 1e-4 of the
-    elements): under the plain version's stats a 1-ulp alpha moves every
-    copy of a bf16 value that sits on a code boundary at once (43 equal
-    elements of a 32,768-element bf16 weight gradient at S 3072).  Yields
+    its sum within 1e-6 relative and (alpha, beta) within 4 ulp, and the
+    quantize-with-stats kernel's and the fused truncate's (alpha, beta)
+    within 4 ulp with their codes held under the kernel's own stats (one
+    step apart in at most 1e-4 of the elements): under the plain version's
+    stats a 1-ulp alpha moves every copy of a bf16 value that sits on a
+    code boundary at once (43 equal elements of a 32,768-element bf16
+    weight gradient at S 3072; one of 8,192 cotangent elements of
+    ResNet-20 at batch 4).  Yields
     the tally by kernel: calls checked, and output elements that differ
     from the plain version's (codes or values)."""
     from repro_torch.core import backend as nb
@@ -1614,8 +1819,12 @@ def checked_engine(stats_mode: str = "exact"):
         def quantize(self, x, *, stats=None, fmt="e5m2"):
             t = super().quantize(x, stats=stats, fmt=fmt)
             if stats is None and self.fused:
-                pp, abp = sq.quant_plain(x, fmt)
-                ck, cp = code_ordinal(t.payload), code_ordinal(pp)
+                # the kernel's stats, and its encode under them, each held
+                # to its own tolerance, as the fused truncate's below
+                _, abp = sq.quant_plain(x, fmt)
+                ck = code_ordinal(t.payload)
+                cp = code_ordinal(plain.quantize(x, stats=t.ab,
+                                                 fmt=fmt).payload)
                 f, u = flips(ck, cp), ulps(t.ab, abp)
                 held("quant", f["max_step"] <= 1 and f["frac"] <= 1e-4
                      and u <= 4, (f, u), (ck, cp))
@@ -2153,6 +2362,342 @@ def phase_small_long(dev) -> None:
     log("small long: fig4 + flash on cuda_fused")
     _small_train_exact(dev, base.replace(attn_impl="flash"), "fig4",
                        TRAIN_FIG4_KERNELS, batches, 0.02)
+
+
+# ---------------------------------------------------------------------------
+# the paper's workloads: the encoder-decoder, ResNet-20, NCF
+# ---------------------------------------------------------------------------
+
+def _paper_family(dev, family: str, mode: str = "s2fp8", batch_size=None):
+    """(params, step(params, opt_state, batch, i) -> (params, opt_state,
+    metrics), optimizer, batches(n), units a batch) of one paper workload
+    through ``make_train_step``, as ``examples/train_*.py`` recipe it:
+    ``tiny`` transformer_tiny (vocab 256 as the example) on seq2seq
+    batches, AdamW on a cosine schedule; ``resnet`` ResNet-20 on CIFAR
+    blobs, SGD momentum 0.9 with weight decay 1e-4 and the step decay, the
+    batch-norm state carried beside the step; ``ncf`` NCF at ML-1M's
+    sizes (6,040 users x 3,706 items, 8 factors), AdamW at a constant
+    2e-3."""
+    from repro_torch.configs import get_config, ncf_ml1m, resnet20_cifar
+    from repro_torch.data import synthetic
+    from repro_torch.models import encdec, ncf, resnet
+    from repro_torch.optim import optimizers, schedules
+
+    gen = torch.Generator().manual_seed(1)
+    if family == "tiny":
+        cfg = get_config("transformer_tiny").replace(vocab=256)
+        b, s = batch_size or (64, 32)
+        params = encdec.init_encdec(cfg, seed=1, device=dev)
+
+        def loss_fn(p, batch, pol):
+            return encdec.loss_fn(p, batch["enc_tokens"],
+                                  batch["dec_tokens"], batch["dec_labels"],
+                                  cfg, pol)
+
+        def batches(n):
+            return [synthetic.seq2seq_batch(gen, b, s, s, cfg.vocab, dev)
+                    for _ in range(n)]
+        return (params, loss_fn, optimizers.adamw(),
+                schedules.cosine(2e-3, 1, 10), batches, b * s, None)
+    if family == "resnet":
+        b = batch_size or 128
+        params, state = resnet.init_resnet(resnet20_cifar.DEPTH,
+                                           resnet20_cifar.N_CLASSES, seed=1,
+                                           device=dev)
+        carry = {"bn": state}
+        centers = synthetic.cifar_centers(1)
+
+        def loss_fn(p, batch, pol):
+            loss, (metrics, new_bn) = resnet.loss_fn(p, carry["bn"], batch,
+                                                     pol)
+            carry["new"] = new_bn
+            return loss, metrics
+
+        def batches(n):
+            return [synthetic.cifar_batch(centers, gen, b, dev)
+                    for _ in range(n)]
+        return (params, loss_fn,
+                optimizers.sgd_momentum(momentum=0.9, weight_decay=1e-4),
+                schedules.step_decay(0.05, [48, 68]), batches, b, carry)
+    b = batch_size or 1024
+    params = ncf.init_ncf(ncf_ml1m.N_USERS, ncf_ml1m.N_ITEMS,
+                          ncf_ml1m.FACTORS, seed=1, device=dev)
+    prefs = synthetic.ncf_preferences(1, ncf_ml1m.N_USERS, ncf_ml1m.N_ITEMS)
+
+    def batches(n):
+        return [synthetic.ncf_batch(prefs, gen, b, dev) for _ in range(n)]
+    return (params, ncf.loss_fn, optimizers.adamw(),
+            schedules.constant(2e-3), batches, b, None)
+
+
+def _paper_steps(dev, family, pol, steps, batch_size=None, timed=False):
+    """``steps`` train steps of a paper workload under ``pol`` -> (losses,
+    step ms, units a step)."""
+    from repro_torch.training.trainer import make_train_step
+    params, loss_fn, opt, sched, batches, units, carry = _paper_family(
+        dev, family, batch_size=batch_size)
+    step = make_train_step(loss_fn, opt, sched, pol)
+    opt_state = opt.init(params)
+    losses, ms = [], []
+    for i, batch in enumerate(batches(steps)):
+        if timed:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt_state, m = step(params, opt_state, batch, i)
+        losses.append(float(m["loss"]))
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if carry is not None:
+            carry["bn"] = carry["new"]
+    return losses, ms, units
+
+
+def phase_small_paper(dev) -> None:
+    """The paper's three workloads, small, on the card through the kernels
+    and through the plain versions from the same seeded params and
+    batches: transformer_tiny (vocab 256, batch 2 x 16), ResNet-20 at
+    batch 4 and NCF at ML-1M's sizes at batch 64, 2 steps each in s2fp8
+    payload with exact per-call stats, on the cuda engine and on the
+    cuda_fused engine, each as the ``checked_engine``: every kernel call,
+    forward and backward, held against its plain version on the same
+    inputs (phase 3's tolerances; the stats kernels too on cuda_fused),
+    every training kernel checked, every loss finite and the two engines'
+    within 0.1 of each other (a smoke bound: the per-call checks hold the
+    kernels)."""
+    from repro_torch.core.policy import make_policy
+    sizes = {"tiny": (2, 16), "resnet": 4, "ncf": 64}
+    for stats_mode, expected in (("exact", TRAIN_KERNELS),
+                                 ("fused", TRAIN_EXACT_KERNELS)):
+        with checked_engine(stats_mode) as tally:
+            for family, size in sizes.items():
+                losses = {}
+                for engine in ("checked", "plain"):
+                    pol = make_policy("s2fp8", engine, "payload")
+                    losses[engine], _, _ = _paper_steps(dev, family, pol, 2,
+                                                        size)
+                log(f"small paper {family} ({stats_mode} stats): losses "
+                    f"kernels {losses['checked']} plain {losses['plain']}")
+                for a, b in zip(losses["checked"], losses["plain"]):
+                    assert math.isfinite(a) and math.isfinite(b), losses
+                    assert abs(a - b) <= 0.1, (family, losses)
+        log(f"small paper ({stats_mode} stats): kernel calls held against "
+            f"their plain versions: {tally}")
+        missing = set(expected) - set(tally)
+        assert not missing, f"never checked on the paper paths: {missing}"
+
+
+def _whisper_flop(cfg, frames: int, tokens: int) -> float:
+    """Model FLOPs of one training step, 6 x (weights x the rows they
+    multiply): the encoder's blocks and each decoder layer's cross K/V over
+    the frames, the decoder's self-attention, cross Q/O, MLP and the head
+    over the tokens.  Attention's score and value products, and the remat
+    replay, are not counted."""
+    d, ff, v = cfg.d_model, cfg.d_ff, cfg.vocab
+    enc = cfg.n_enc_layers * (4 * d * d + 2 * d * ff)
+    xkv = cfg.n_layers * 2 * d * d
+    dec = cfg.n_layers * (6 * d * d + 2 * d * ff) + d * v
+    return 6.0 * ((enc + xkv) * frames + dec * tokens)
+
+
+def phase_train_encdec(dev, profile: bool = False, b: int = 4,
+                       frames: int = 1500) -> dict:
+    """Full-width, full-depth whisper_medium (24 + 24 layers, d 1024, 16
+    heads of 64, d_ff 4096, vocab 51,865; remat) trained through
+    ``encdec.loss_fn`` and ``make_train_step``: seeded params, batch 4 x
+    1,500 audio-stub frames (seeded N(0, 1) frame embeddings) and 448
+    decoder tokens of seeded seq2seq batches, s2fp8 payload on the cuda
+    engine with the bank at k = 8 (``statsbank.init_bank``, then 4 steps:
+    step 0 bootstraps every site), AdamW.  Every training kernel must
+    launch, no plain version run, every loss finite.  Reports step ms,
+    step 0 ms, frames/s, tokens/s, model TFLOP/s (``_whisper_flop``) and
+    peak memory."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, whisper_medium
+    from repro_torch.core import statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import synthetic
+    from repro_torch.models import encdec
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    cfg = get_config("whisper_medium")
+    tokens, steps = whisper_medium.DEC_LEN, 4
+    t0 = time.perf_counter()
+    params = encdec.init_encdec(cfg, seed=0, device=dev)
+    opt = optimizers.adamw(weight_decay=0.01)
+    opt_state = opt.init(params)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    tgen = torch.Generator().manual_seed(0)
+    batches = []
+    for _ in range(steps + 1):
+        s2s = synthetic.seq2seq_batch(tgen, b, tokens, tokens, cfg.vocab,
+                                      dev)
+        batches.append({"frames": torch.randn(
+            (b, frames, cfg.d_model), generator=gen, device=dev),
+            "dec": s2s["dec_tokens"], "lab": s2s["dec_labels"]})
+    torch.cuda.synchronize()
+    log(f"train-encdec: {cfg.name} {cfg.n_enc_layers} + {cfg.n_layers} "
+        f"layers, d={cfg.d_model}, {cfg.n_params() / 1e9:.3f} B params, "
+        f"batch {b} x {frames} frames / {tokens} tokens, remat {cfg.remat}, "
+        f"set-up {time.perf_counter() - t0:.1f} s, "
+        f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated")
+
+    def loss_fn(p, batch, pol):
+        return encdec.loss_fn(p, batch["frames"], batch["dec"], batch["lab"],
+                              cfg, pol)
+
+    pol = make_policy("s2fp8", "cuda", "payload")
+    stats = statsbank.StatsConfig(refresh_every=8)
+    step_fn = make_train_step(loss_fn, opt, schedules.cosine(3e-4, 1, steps),
+                              pol, stats=stats)
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # the main path starts here
+    bank = statsbank.init_bank(loss_fn, params, batches[0], pol, stats)
+    losses, step_ms = [], []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        params, opt_state, bank, m = step_fn(params, opt_state, bank,
+                                             batches[i + 1], i)
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3)
+        log(f"train-encdec step {i}: loss {losses[-1]:.4f}, nll "
+            f"{float(m['nll']):.4f}, grad_norm {float(m['grad_norm']):.3f}, "
+            f"refreshed {m['stats_refreshed']:.0f}, {step_ms[-1]:.1f} ms")
+    counts = path_counts()                        # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    if profile:
+        state = {"p": params, "o": opt_state, "b": bank}
+
+        def one_step():
+            state["p"], state["o"], state["b"], _ = step_fn(
+                state["p"], state["o"], state["b"], batches[-1], steps)
+        profile_window("train-encdec: 1 steady train step", one_step)
+    assert all(math.isfinite(x) for x in losses), losses
+    check_counts(counts, TRAIN_ENCDEC_KERNELS)
+    steady = float(np.mean(step_ms[1:]))
+    flop = _whisper_flop(cfg, b * frames, b * tokens)
+    metrics = {
+        "steps": steps, "losses": losses, "step_ms": step_ms,
+        "step0_ms": step_ms[0], "steady_step_ms_mean": steady,
+        "frames_per_s": b * frames / steady * 1e3,
+        "tokens_per_s": b * tokens / steady * 1e3,
+        "model_flop_per_step": flop,
+        "model_tflop_per_s": flop / steady / 1e9,
+        "bank_sites": len(bank), "max_memory_allocated_gb": peak / 1e9,
+    }
+    log("train-encdec metrics: " + json.dumps(metrics))
+    log("train-encdec launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
+def phase_serve_encdec(dev, b: int = 4, frames: int = 1500) -> dict:
+    """Full-width, full-depth whisper_medium served through the port's
+    entry points: ``serve_prefill`` of 4 requests of 1,500 seeded audio-stub
+    frames (encode, the cross K/V of every decoder layer, BOS through the
+    decoder at index 0), then 16 greedy ``serve_decode`` ticks, s2fp8 with
+    exact per-call stats on the cuda_fused engine and payload GEMMs.  The
+    encoder attends through the payload flash forward (non-causal 1,500),
+    each tick's self-attention runs ``decode_attention`` on the batched
+    GEMM (64 groups of one query row over the 448-slot cache), its
+    cross-attention the payload flash forward (1 x 1,500), and its GEMMs
+    the small path.  Every kernel of the path must launch, no plain
+    version run, every logit finite.  Reports prefill ms, decode ms per
+    tick and peak memory."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.configs import get_config, whisper_medium
+    from repro_torch.core.policy import make_policy
+    from repro_torch.models import encdec
+
+    cfg = get_config("whisper_medium")
+    ticks = 16
+    params = encdec.init_encdec(cfg, seed=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    frames_in = torch.randn((b, frames, cfg.d_model), generator=gen,
+                            device=dev)
+    bos = torch.ones((b, 1), dtype=torch.long, device=dev)
+    pol = make_policy("s2fp8", "cuda_fused", "payload")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels.reset_counts()                        # the main path starts here
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, state = encdec.serve_prefill(params, frames_in, bos, cfg,
+                                             pol,
+                                             max_dec_len=whisper_medium.DEC_LEN)
+        assert bool(torch.isfinite(logits).all())
+        torch.cuda.synchronize()
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        toks, tick_ms = [], []
+        for i in range(1, ticks + 1):
+            tok = logits.float().argmax(-1)
+            toks.append(tok[:, 0].tolist())
+            t0 = time.perf_counter()
+            logits, state = encdec.serve_decode(params, tok, state, i, cfg,
+                                                pol)
+            assert bool(torch.isfinite(logits).all()), i
+            torch.cuda.synchronize()
+            tick_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = path_counts()                        # ... and ends here
+    peak = torch.cuda.max_memory_allocated()
+    check_counts(counts, SERVE_ENCDEC_KERNELS)
+    metrics = {"batch": b, "frames": frames, "ticks": ticks,
+               "prefill_ms": prefill_ms, "decode_ms_per_tick": tick_ms,
+               "decode_ms_per_tick_mean": float(np.mean(tick_ms[1:])),
+               "tokens_per_s": b / float(np.mean(tick_ms[1:])) * 1e3,
+               "max_memory_allocated_gb": peak / 1e9,
+               "greedy_tokens_first_slot": [t[0] for t in toks]}
+    log("serve-encdec metrics: " + json.dumps(metrics))
+    log("serve-encdec launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
+def phase_train_paper(dev) -> dict:
+    """The paper's three workloads at their recipes' sizes, trained
+    through ``make_train_step``: ResNet-20 at batch 128, NCF at ML-1M's
+    sizes at batch 1,024 and transformer_tiny at batch 64 x 32 tokens
+    (``_paper_family``), each 3 steps in s2fp8 payload on the cuda engine
+    (exact per-call stats) and 2 steps each in fp32, fp8 and fp8_ls (loss
+    scale 100), as ``examples/train_*.py`` run them.  Every loss finite;
+    the s2fp8 runs must launch every training kernel between them, the
+    other modes (casts and f32 torch products) none, and no plain version
+    may run.  Reports step ms (the mean after step 0) and images, samples
+    or tokens per second."""
+    import numpy as np
+    from repro_torch import kernels
+    from repro_torch.core.policy import make_policy
+
+    unit = {"resnet": "images", "ncf": "samples", "tiny": "tokens"}
+    metrics = {}
+    kernels.reset_counts()                        # the main path starts here
+    for family in ("resnet", "ncf", "tiny"):
+        for mode in ("s2fp8", "fp32", "fp8", "fp8_ls"):
+            before = kernels.counts()
+            pol = make_policy(mode, "cuda",
+                              "payload" if mode == "s2fp8" else None,
+                              loss_scale=100.0)
+            losses, ms, units = _paper_steps(dev, family, pol,
+                                             3 if mode == "s2fp8" else 2,
+                                             timed=True)
+            launched = {k: c["launches"] - before[k]["launches"]
+                        for k, c in kernels.counts().items()
+                        if c["launches"] > before[k]["launches"]}
+            steady = float(np.mean(ms[1:]))
+            metrics[f"{family} {mode}"] = {
+                "losses": losses, "step_ms": ms, "steady_step_ms": steady,
+                f"{unit[family]}_per_s": units / steady * 1e3,
+                "launches": launched}
+            log(f"train-paper {family} {mode}: losses {losses}, step ms "
+                f"{[round(x, 2) for x in ms]}, {units / steady * 1e3:.0f} "
+                f"{unit[family]}/s, launches {launched}")
+            assert all(math.isfinite(x) for x in losses), (family, mode)
+            assert mode == "s2fp8" or not launched, (family, mode, launched)
+    counts = path_counts()                        # ... and ends here
+    check_counts(counts, TRAIN_PAPER_KERNELS)
+    log("train-paper metrics: " + json.dumps(metrics))
+    return {"counts": counts, "metrics": metrics}
 
 
 def phase_train(dev, profile: bool = False) -> dict:
@@ -2810,6 +3355,7 @@ def main() -> int:
     phase_small_fused(dev)
     phase_small_mamba(dev)
     phase_small_long(dev)
+    phase_small_paper(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
@@ -2833,10 +3379,17 @@ def main() -> int:
     long_runs = phase_train_long(dev)
     served_dense = phase_serve_dense(dev)
     free_device_memory()
+    trained_encdec = phase_train_encdec(dev, args.profile)
+    free_device_memory()
+    served_encdec = phase_serve_encdec(dev)
+    free_device_memory()
+    trained_paper = phase_train_paper(dev)
+    free_device_memory()
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba, ops, modes,
                                  long_runs["flash"], long_runs["naive"],
-                                 served_dense)))
+                                 served_dense, trained_encdec, served_encdec,
+                                 trained_paper)))
     if args.profile:
         log_profiled_totals()
     out = []

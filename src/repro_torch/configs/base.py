@@ -11,7 +11,10 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b", "falcon_mamba_7b")
+ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b", "falcon_mamba_7b",
+            "whisper_medium",
+            # paper-reproduction models
+            "transformer_tiny", "resnet20_cifar", "ncf_ml1m")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,7 +47,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm (the families ported)
+    family: str                      # dense | moe | ssm | audio | conv | mlp
     n_layers: int
     d_model: int
     n_heads: int
@@ -59,6 +62,11 @@ class ArchConfig:
     pattern: Tuple[str, ...] = ()    # () -> ("dense",) * n_layers
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
+    # encoder-decoder (whisper, transformer_tiny): n_layers counts DECODER
+    # layers
+    enc_dec: bool = False
+    n_enc_layers: int = 0
+    frontend: str = "none"           # none | audio_stub
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True               # rematerialize each layer in training
@@ -110,13 +118,18 @@ class ArchConfig:
 
     def n_params(self) -> int:
         """Analytic parameter count of the ported block types (embeddings
-        once if tied).  Unlike the reference's formula, which skips them,
+        once if tied; an encoder-decoder adds its encoder blocks and its
+        decoder's cross-attention, as the reference does).  Unlike the reference's formula, which skips them,
         ``dense_first`` blocks are counted, at ``moe.dense_d_ff``.  A
         ``mamba1`` block counts its matrices, the conv kernel and A, as the
         reference does (not its biases, D or norm scale)."""
         total = sum(self._block_params(b, self.moe.n_experts if self.moe
                                        else 0)
                     for b in self.resolved_pattern)
+        if self.enc_dec:
+            # the encoder's blocks and each decoder layer's cross-attention
+            total += (self.n_enc_layers * self._block_params("dense", 0)
+                      + self.n_layers * self._attn_params())
         return total + self.vocab * self.d_model * (
             1 if self.tie_embeddings else 2)
 
@@ -124,6 +137,8 @@ class ArchConfig:
         """Params one token reads: every weight but the routed experts it
         is not sent to (``top_k`` of ``n_experts`` per MoE block; the
         router, shared experts, embedding row and head are counted)."""
+        if not self.moe:
+            return self.n_params()
         total = sum(self._block_params(b, self.moe.top_k if self.moe else 0)
                     for b in self.resolved_pattern)
         return total + self.vocab * self.d_model * (

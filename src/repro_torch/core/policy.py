@@ -52,6 +52,7 @@ per-call stats through ``bidir_truncate``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 from typing import Callable, Optional
@@ -231,6 +232,64 @@ class Policy:
                 return self._qdot_out(y, _promoted(operands))
         return self._dense(lambda *xs: torch.einsum(spec, *xs), *operands)
 
+    def conv(self, x: torch.Tensor, kernel: torch.Tensor, *,
+             stride=(1, 1), padding="SAME") -> torch.Tensor:
+        """NHWC x HWIO conv (the ResNet path; conv is a GEMM to the paper),
+        ``padding`` "SAME", "VALID" or ((lo, hi), (lo, hi)) as
+        ``lax.conv_general_dilated`` takes it ("SAME" pads asymmetrically
+        at stride 2: 32 -> 16 with a 3x3 kernel pads (0, 1)).
+
+        On the payload path the conv lowers to the payload GEMM through an
+        im2col gather (:meth:`_conv_im2col`).  Every other mode wraps both
+        operands, convolves the f32 upcasts (exact) in f32, rounds to
+        ``accum_dtype`` (bf16 operands with a bf16 ``accum_dtype`` take the
+        narrow transpose of ``_NarrowAccum``, as a bf16
+        ``preferred_element_type`` does), applies the output truncation and
+        returns x's dtype, as the reference does.  The convolution is
+        ``F.conv2d`` over the explicitly padded input, the counterpart of
+        the reference's ``lax.conv_general_dilated`` outside any kernel,
+        forward and backward with cuDNN's TF32 off
+        (``torch.backends.cudnn.allow_tf32`` is True by default, and a TF32
+        conv computes another function than the f32 one)."""
+        if self.uses_payload_gemm:
+            return self._conv_im2col(x, kernel, stride, padding)
+        pads = conv_pads(x.shape[1:3], kernel.shape[:2], stride, padding)
+        wx, wk = self._wrap(x), self._wrap(kernel)
+        op = torch.promote_types(wx.dtype, wk.dtype)
+        fn = functools.partial(_conv_f32, stride=tuple(stride), pads=pads)
+        xs = (wx.float(), wk.float())
+        if (self.accum_dtype.itemsize < op.itemsize
+                or self.accum_dtype == torch.float32):
+            y = fn(*xs).to(self.accum_dtype)
+        else:
+            y = _NarrowAccum.apply(fn, self.accum_dtype, *xs)
+        return self._wrap_out(y).to(x.dtype)
+
+    def _conv_im2col(self, x, kernel, stride, padding) -> torch.Tensor:
+        """Payload-domain conv: im2col gather -> dense payload GEMM.  The
+        patches [B, OH, OW, KH*KW*C] are KH*KW strided slices of the
+        zero-padded input concatenated with the (i, j) offset outer and the
+        channel inner, which pairs them with ``kernel.reshape(KH*KW*C, F)``
+        of the HWIO kernel (``F.unfold`` puts the channel outer).  Zero
+        padding is exact for S2FP8: zeros are left out of the stats and
+        quantize to zero payloads.  The GEMM is ``qdot_train``'s dense
+        family, its backward the NT/TN payload GEMMs, scattered back
+        through the slices by autograd.  The output shape is checked
+        against the conv's."""
+        kh, kw, cin, cout = kernel.shape
+        sh, sw = stride
+        patches = im2col(x, kh, kw, stride,
+                         conv_pads(x.shape[1:3], (kh, kw), stride, padding))
+        y = qdot_mod.qdot_train(patches, kernel.reshape(kh * kw * cin, cout),
+                                backend=self.backend, fmt=self._fmt)
+        expected = conv_out_shape(x.shape, kernel.shape, stride, padding)
+        if tuple(y.shape) != expected:
+            raise ValueError(
+                f"im2col conv lowering produced {tuple(y.shape)}, but the "
+                f"conv would produce {expected} (stride={stride}, "
+                f"padding={padding!r})")
+        return self._qdot_out(y, x.dtype)
+
     def flash_attention(self, q, k, v, *, causal: bool = True,
                         window=None) -> torch.Tensor:
         """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]``.  The payload
@@ -330,6 +389,88 @@ def _dot_general_spec(a_rank: int, b_rank: int, dimension_numbers) -> str:
            + [la[i] for i in range(a_rank) if i not in ca and i not in ba]
            + [lb[j] for j in range(b_rank) if j not in cb and j not in bb])
     return f"{''.join(la)},{''.join(lb)}->{''.join(out)}"
+
+
+def conv_pads(spatial, window, stride, padding):
+    """((lo, hi), (lo, hi)) of a conv's spatial padding, as
+    ``lax.padtype_to_pads`` gives them: "SAME" pads to ceil(in / stride)
+    outputs, the odd pad on the high side; "VALID" pads nothing; explicit
+    pairs pass through."""
+    if not isinstance(padding, str):
+        return tuple((int(lo), int(hi)) for lo, hi in padding)
+    if padding == "VALID":
+        return tuple((0, 0) for _ in spatial)
+    if padding != "SAME":
+        raise ValueError(f"unknown padding {padding!r}")
+    pads = []
+    for n, k, s in zip(spatial, window, stride):
+        total = max((-(-n // s) - 1) * s + k - n, 0)
+        pads.append((total // 2, total - total // 2))
+    return tuple(pads)
+
+
+def conv_out_shape(x_shape, k_shape, stride, padding):
+    """The NHWC output shape of an NHWC x HWIO conv."""
+    pads = conv_pads(x_shape[1:3], k_shape[:2], stride, padding)
+    spatial = [(n + lo + hi - k) // s + 1 for n, k, s, (lo, hi)
+               in zip(x_shape[1:3], k_shape[:2], stride, pads)]
+    return (x_shape[0], *spatial, k_shape[3])
+
+
+def im2col(x: torch.Tensor, kh: int, kw: int, stride, pads) -> torch.Tensor:
+    """[B, OH, OW, KH*KW*C] patches of NHWC ``x``: the zero-padded input's
+    KH*KW strided slices, (i, j) outer and the channel inner."""
+    (pt, pb), (pl, pr) = pads
+    sh, sw = stride
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+    oh = (xp.shape[1] - kh) // sh + 1
+    ow = (xp.shape[2] - kw) // sw + 1
+    cols = [xp[:, i:i + (oh - 1) * sh + 1:sh, j:j + (ow - 1) * sw + 1:sw]
+            for i in range(kh) for j in range(kw)]
+    return torch.cat(cols, dim=-1)
+
+
+@contextlib.contextmanager
+def _cudnn_f32():
+    """cuDNN convolutions in full f32: TF32 off while the block runs."""
+    saved = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = saved
+
+
+class _ConvF32(torch.autograd.Function):
+    """``F.conv2d`` of NCHW x OIHW with TF32 off in the forward and in both
+    backward convolutions."""
+
+    @staticmethod
+    def forward(ctx, x, w, stride):
+        ctx.save_for_backward(x, w)
+        ctx.stride = stride
+        with _cudnn_f32():
+            return torch.nn.functional.conv2d(x, w, stride=stride)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        grad = torch.nn.grad
+        with _cudnn_f32():
+            dx = grad.conv2d_input(x.shape, w, g, stride=ctx.stride)
+            dw = grad.conv2d_weight(x, w.shape, g, stride=ctx.stride)
+        return dx, dw, None
+
+
+def _conv_f32(x: torch.Tensor, k: torch.Tensor, *, stride, pads
+              ) -> torch.Tensor:
+    """NHWC x HWIO -> NHWC in f32: the explicit pad, then the conv with no
+    padding of its own."""
+    (pt, pb), (pl, pr) = pads
+    xp = torch.nn.functional.pad(x, (0, 0, pl, pr, pt, pb))
+    y = _ConvF32.apply(xp.permute(0, 3, 1, 2), k.permute(3, 2, 0, 1),
+                       stride)
+    return y.permute(0, 2, 3, 1)
 
 
 def make_policy(mode: str, backend: Optional[str] = None,

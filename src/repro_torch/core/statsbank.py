@@ -566,7 +566,7 @@ def init_bank(loss_fn: Callable, params, batch, policy,
     sess = DiscoverySession(cfg)
     with _activate(sess), torch.no_grad():
         loss_fn(params, batch, policy)
-    device = params["embed"].device
+    device = _first_leaf(params).device
     bank = {key: {d: init_site_state(
                 None if seg is None else sess.segment_lengths[seg], device)
                   for d in dirs}
@@ -576,6 +576,12 @@ def init_bank(loss_fn: Callable, params, batch, policy,
             "no truncation sites found — StatsBank requires an s2fp8-mode "
             f"policy (got mode={getattr(policy, 'mode', policy)!r})")
     return bank
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    while isinstance(tree, (dict, list, tuple)):
+        tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
+    return tree
 
 
 def merge_updates(bank: Dict[str, Any], updates: Dict[str, Any]

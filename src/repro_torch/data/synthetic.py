@@ -1,4 +1,6 @@
-"""Deterministic synthetic LM data (port of ``repro.data.synthetic``).
+"""Deterministic synthetic data (port of ``repro.data.synthetic``): the
+Markov LM stream, the seq2seq reversal task, NCF implicit feedback from a
+low-rank preference matrix, and CIFAR-shaped class-conditional blobs.
 
 ``make_markov_table`` is the reference's numpy construction, bit for bit:
 each token has ``branching`` likely successors with logits ~ N(2, 0.5),
@@ -9,8 +11,11 @@ chain kept sparse (:class:`MarkovChain`: the successors and their logits;
 softmax(table[tok]) exactly: a successor or the background bucket by
 their total weights, then a uniform non-successor within the bucket.
 
-``lm_batch`` draws from an explicit ``torch.Generator``; JAX's random
-stream cannot be reproduced, so parity tests feed JAX batches as numpy.
+Every batch is drawn from an explicit ``torch.Generator`` on the CPU and
+moved to ``device``; each task's fixed structure (the chain, the
+preference matrix, the class centers) is a function of the seed.  The
+distributions are the reference's; JAX's random stream cannot be
+reproduced, so parity tests feed JAX batches as numpy.
 """
 from __future__ import annotations
 
@@ -85,3 +90,69 @@ def lm_batch(chain: MarkovChain, gen: torch.Generator, batch: int, seq: int,
     labels = torch.stack(toks, dim=1)
     tokens = torch.cat([first[:, None], labels[:, :-1]], dim=1)
     return {"tokens": tokens.to(dev), "labels": labels.to(dev)}
+
+
+def seq2seq_batch(gen: torch.Generator, batch: int, src_len: int,
+                  tgt_len: int, vocab: int, device=None):
+    """Reversal: the target is the reversed source, shifted right behind a
+    BOS (token 1) for teacher forcing; source tokens uniform in [2,
+    vocab).  Returns {"enc_tokens" [B, src_len], "dec_tokens", "dec_labels"
+    [B, tgt_len]} int64 on ``device``."""
+    dev = resolve_device(device)
+    src = torch.randint(2, vocab, (batch, src_len), generator=gen)
+    rev = torch.flip(src, dims=(1,))[:, :tgt_len]
+    bos = torch.ones((batch, 1), dtype=torch.int64)
+    dec_in = torch.cat([bos, rev[:, :-1]], dim=1)
+    return {"enc_tokens": src.to(dev), "dec_tokens": dec_in.to(dev),
+            "dec_labels": rev.to(dev)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Preferences:
+    """The fixed low-rank user x item preference factors of an NCF task."""
+    users: torch.Tensor      # [n_users, rank] f32
+    items: torch.Tensor      # [n_items, rank] f32
+
+
+def ncf_preferences(seed: int, n_users: int, n_items: int, rank: int = 8
+                    ) -> Preferences:
+    """Standard normal factors drawn from ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return Preferences(torch.randn((n_users, rank), generator=gen),
+                       torch.randn((n_items, rank), generator=gen))
+
+
+def ncf_batch(prefs: Preferences, gen: torch.Generator, batch: int,
+              device=None):
+    """Implicit feedback: uniform (user, item) pairs, label 1 with
+    probability sigmoid(2 <u, i> / sqrt(rank)).  Returns {"users",
+    "items", "labels"} [B] int64 on ``device``."""
+    dev = resolve_device(device)
+    n_users, rank = prefs.users.shape
+    users = torch.randint(0, n_users, (batch,), generator=gen)
+    items = torch.randint(0, prefs.items.shape[0], (batch,), generator=gen)
+    score = (prefs.users[users] * prefs.items[items]).sum(-1) / rank ** 0.5
+    prob = torch.sigmoid(2.0 * score)
+    labels = (torch.rand((batch,), generator=gen) < prob).long()
+    return {"users": users.to(dev), "items": items.to(dev),
+            "labels": labels.to(dev)}
+
+
+def cifar_centers(seed: int, n_classes: int = 10) -> torch.Tensor:
+    """The class centers [n_classes, 32, 32, 3], N(0, 0.8^2), from
+    ``seed``."""
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn((n_classes, 32, 32, 3), generator=gen) * 0.8
+
+
+def cifar_batch(centers: torch.Tensor, gen: torch.Generator, batch: int,
+                device=None):
+    """Class-conditional Gaussian blobs at CIFAR-10 shapes: a uniform label,
+    its center plus N(0, 0.6^2) noise.  Returns {"images" [B, 32, 32, 3]
+    f32, "labels" [B] int64} on ``device``."""
+    dev = resolve_device(device)
+    labels = torch.randint(0, centers.shape[0], (batch,), generator=gen)
+    noise = torch.randn((batch,) + tuple(centers.shape[1:]),
+                        generator=gen) * 0.6
+    return {"images": (centers[labels] + noise).to(dev),
+            "labels": labels.to(dev)}

@@ -1,4 +1,7 @@
-"""Training launcher of the port: the decoder LM on synthetic Markov data.
+"""Training launcher of the port: the decoder LM on synthetic Markov data,
+and the encoder-decoder archs (``whisper_medium``, ``transformer_tiny``)
+on the seq2seq reversal task with ``--seq`` as both lengths, as the
+reference's launcher trains them.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --steps 4 --batch 4 --seq 512 --stats-refresh-every 8   # on the GPU
@@ -13,6 +16,8 @@
         --policy fp8_ls --loss-scale 100 --track-stats --steps 2
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --batch 1 --seq 4096 --attn-impl flash --stats-refresh-every 8
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch transformer_tiny --reduced --device cpu --steps 2
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
@@ -28,8 +33,8 @@ leaf's (mu, m, alpha, beta) to each step's line; ``--attn-impl`` picks the
 attention of sequences above 2048 tokens (``naive``: chunked, ``flash``:
 the flash path).  The header line prints the resolved mode, loss scale,
 attention, engine and GEMM path, and whether f32 products may use TF32.  ``--n-layers N`` cuts the depth to the first N layers of the
-config's pattern (widths unchanged) and says so.  Prints one JSON line per
-step: loss, the MoE aux loss, step ms, tokens/s.
+config's pattern (widths unchanged) and says so.  Prints one JSON line per step: loss, the MoE aux loss (0
+for an encoder-decoder), step ms, tokens/s (decoder tokens).
 """
 from __future__ import annotations
 
@@ -46,6 +51,7 @@ from repro_torch.core import backend as nbackend
 from repro_torch.core import statsbank
 from repro_torch.core.policy import GEMM_MODES, S2FP8_MODES, make_policy
 from repro_torch.data import synthetic
+from repro_torch.models import encdec
 from repro_torch.models import transformer as tlm
 from repro_torch.optim import optimizers, schedules
 from repro_torch.training.trainer import make_train_step
@@ -101,17 +107,29 @@ def main(argv=None):
     stats_cfg = (statsbank.StatsConfig(refresh_every=args.stats_refresh_every)
                  if args.stats_refresh_every > 0 else None)
 
-    def loss_fn(params, batch, policy):
-        return tlm.loss_fn(params, batch["tokens"], batch["labels"], cfg,
-                           policy)
-
-    chain = synthetic.markov_chain(args.seed, cfg.vocab)
     gen = torch.Generator().manual_seed(args.seed)
+    if cfg.enc_dec:
+        def loss_fn(params, batch, policy):
+            return encdec.loss_fn(params, batch["enc_tokens"],
+                                  batch["dec_tokens"], batch["dec_labels"],
+                                  cfg, policy)
 
-    def data(_step):
-        return synthetic.lm_batch(chain, gen, args.batch, args.seq, dev)
+        def data(_step):
+            return synthetic.seq2seq_batch(gen, args.batch, args.seq,
+                                           args.seq, cfg.vocab, dev)
 
-    params = tlm.init_lm(cfg, seed=args.seed, device=dev)
+        params = encdec.init_encdec(cfg, seed=args.seed, device=dev)
+    else:
+        def loss_fn(params, batch, policy):
+            return tlm.loss_fn(params, batch["tokens"], batch["labels"], cfg,
+                               policy)
+
+        chain = synthetic.markov_chain(args.seed, cfg.vocab)
+
+        def data(_step):
+            return synthetic.lm_batch(chain, gen, args.batch, args.seq, dev)
+
+        params = tlm.init_lm(cfg, seed=args.seed, device=dev)
     opt_state = opt.init(params)
     step_fn = make_train_step(loss_fn, opt, sched, pol,
                               track_stats=args.track_stats, stats=stats_cfg)
@@ -141,7 +159,7 @@ def main(argv=None):
                                                  batch, s)
         loss = float(m["loss"])            # waits for the step
         ms = (time.perf_counter() - t0) * 1e3
-        line = {"step": s, "loss": loss, "aux": float(m["aux"]),
+        line = {"step": s, "loss": loss, "aux": float(m.get("aux", 0.0)),
                 "step_ms": ms,
                 "tokens_per_s": args.batch * args.seq / ms * 1e3}
         if args.track_stats:

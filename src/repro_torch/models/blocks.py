@@ -2,7 +2,8 @@
 ``repro.models.blocks``).
 
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
-goes through the policy.  Ported: RMS norm, SiLU-GLU, RoPE (scalar and
+goes through the policy.  Ported: RMS and layer norm, SiLU-GLU and the
+tanh GELU (with the non-GLU MLP, which has no ``w_up``), RoPE (scalar and
 per-slot positions), ``full_attention`` (the payload flash fast path for
 payload policies, the masked softmax through ``policy.einsum`` for the
 others), ``chunked_attention`` (the doubly chunked online softmax in f32,
@@ -10,7 +11,8 @@ differentiated op by op) and ``decode_attention`` (one token against a
 dense cache), the MLP, the MoE (token-choice top-k routing with capacity,
 global or grouped per batch row, shared experts, the load-balance aux
 loss), and ``attn_block_apply``'s train, prefill, dense-cache decode and
-paged decode for the ``dense``, ``dense_first`` and ``moe`` block types.
+paged decode for the ``dense``, ``dense_first`` and ``moe`` block types,
+and the encoder-decoder's non-causal ``encoder`` block.
 Above 2048 tokens a block attends through ``Policy.flash_attention`` when
 ``cfg.attn_impl == "flash"`` (on the payload path the payload flash
 node, else ``models/flash.py``) and through ``chunked_attention``
@@ -49,25 +51,55 @@ _MASK = -1e30
 
 
 def init_norm(cfg: ArchConfig, dim: int, device=None) -> Dict[str, torch.Tensor]:
-    if cfg.norm != "rms":
+    """RMS norm: a scale; layer norm (``norm="ln"``): a scale and a bias."""
+    if cfg.norm not in ("rms", "ln"):
         raise NotImplementedError(f"norm {cfg.norm!r} is not ported")
-    return {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    p = {"scale": torch.ones((dim,), dtype=torch.float32, device=device)}
+    if cfg.norm == "ln":
+        p["bias"] = torch.zeros((dim,), dtype=torch.float32, device=device)
+    return p
 
 
 def apply_norm(p, x: torch.Tensor, cfg: ArchConfig) -> torch.Tensor:
+    """In f32, cast back to x's dtype.  Layer norm: the population variance
+    (``jnp.var``: the mean of the squared deviations from the mean), eps
+    1e-6."""
     xf = x.float()
-    y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
-    y = y * p["scale"]
+    if cfg.norm == "ln":
+        mean = xf.mean(dim=-1, keepdim=True)
+        c = xf - mean
+        var = (c * c).mean(dim=-1, keepdim=True)
+        y = c * torch.rsqrt(var + 1e-6) * p["scale"] + p["bias"]
+    else:
+        y = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + 1e-6)
+        y = y * p["scale"]
     return y.to(x.dtype)
 
 
-def activate(h_gate: torch.Tensor, h_lin: torch.Tensor, activation: str):
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (``approximate=True``, its default; torch's default
+    is the exact erf form) in the reference's op order, x * (0.5 * (1 +
+    tanh(c * (x + k * x^3)))), one op at a time in x's dtype: c =
+    sqrt(2/pi) and k = 0.044715 are rounded to x's dtype first, as JAX
+    casts them, and x^3 is x * (x * x), as XLA lowers ``x ** 3``."""
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype,
+                     device=x.device)
+    k = torch.tensor(0.044715, dtype=x.dtype, device=x.device)
+    cube = x * (x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * cube))))
+
+
+def activate(h_gate: torch.Tensor, h_lin: Optional[torch.Tensor],
+             activation: str):
     """SiLU-GLU as the reference computes it: XLA lowers ``jax.nn.silu`` to
     x * 1 / (1 + exp(-x)) and rounds to the activation dtype after each op,
     so the port does the same ops on the same dtype (a fused f32 SiLU
-    rounds once and gives other bf16 values)."""
+    rounds once and gives other bf16 values).  ``gelu``: the tanh
+    approximation (:func:`gelu_tanh`), no gate."""
     if activation == "silu_glu":
         return h_gate * (1.0 / (1.0 + torch.exp(-h_gate))) * h_lin
+    if activation == "gelu":
+        return gelu_tanh(h_gate)
     raise NotImplementedError(f"activation {activation!r} is not ported")
 
 
@@ -164,20 +196,24 @@ def decode_attention(q, k_cache, v_cache, valid, *,
 
 def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_in: int, d_ff: int,
              device=None) -> Dict[str, torch.Tensor]:
+    """``w_gate``, ``w_down`` and, for a GLU activation only, ``w_up``."""
     std_in, std_ff = 1.0 / math.sqrt(d_in), 1.0 / math.sqrt(d_ff)
 
     def normal(shape, std):
         return torch.randn(shape, generator=gen, device=device) * std
 
-    return {"w_gate": normal((d_in, d_ff), std_in),
-            "w_down": normal((d_ff, d_in), std_ff),
-            "w_up": normal((d_in, d_ff), std_in)}
+    p = {"w_gate": normal((d_in, d_ff), std_in),
+         "w_down": normal((d_ff, d_in), std_ff)}
+    if cfg.activation.endswith("_glu"):
+        p["w_up"] = normal((d_in, d_ff), std_in)
+    return p
 
 
 def mlp_fwd(p, x, cfg: ArchConfig, pol: Policy):
+    glu = cfg.activation.endswith("_glu")
     with statsbank.scope("mlp"):
         hg = pol.dot(x, p["w_gate"].to(x.dtype))
-        hl = pol.dot(x, p["w_up"].to(x.dtype))
+        hl = pol.dot(x, p["w_up"].to(x.dtype)) if glu else None
         h = activate(hg, hl, cfg.activation)
         return pol.dot(h, p["w_down"].to(x.dtype))
 
@@ -338,7 +374,7 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None,
     }
     if block_type == "moe":
         p["moe"] = init_moe(cfg, gen, device)
-    elif block_type in ("dense", "dense_first"):
+    elif block_type in ("dense", "dense_first", "encoder"):
         d_ff = cfg.d_ff
         if block_type == "dense_first" and cfg.moe:
             d_ff = cfg.moe.dense_d_ff or cfg.d_ff
@@ -361,8 +397,10 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     the paged payload cache (serving/paged_cache.py), or the dense cache
     (``cache_index`` a scalar or per-slot [B] positions; with ``window``
     the cache is a ring buffer when Smax <= window).  A ``moe`` block runs
-    its MoE under the ``moe`` StatsBank scope.  Returns (x, cache, aux):
-    aux is the MoE's load-balance loss, 0 for the other block types."""
+    its MoE under the ``moe`` StatsBank scope.  An ``encoder`` block of an
+    encoder-decoder attends without the causal mask (the reference's rule,
+    in every attention branch).  Returns (x, cache, aux): aux is the MoE's
+    load-balance loss, 0 for the other block types."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.kv_heads
@@ -387,15 +425,16 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
             raise ValueError("decode runs one token against a cache")
         attn = _dense_decode(qg, k, v, cache, cache_index, pol, window)
     elif mode in ("train", "prefill"):
+        causal = not (cfg.enc_dec and block_type == "encoder")
         if s > LONG_SEQ:
             if cfg.attn_impl == "flash":
-                attn = pol.flash_attention(qg, k, v, causal=True,
+                attn = pol.flash_attention(qg, k, v, causal=causal,
                                            window=window).to(qg.dtype)
             else:
-                attn = chunked_attention(qg, k, v, causal=True,
+                attn = chunked_attention(qg, k, v, causal=causal,
                                          window=window, policy=pol)
         else:
-            attn = full_attention(qg, k, v, causal=True, window=window,
+            attn = full_attention(qg, k, v, causal=causal, window=window,
                                   policy=pol)
         if mode == "prefill" and cache is not None:
             k_store, v_store = _kv_store(k, v, pol)
@@ -609,7 +648,7 @@ def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
 # Uniform dispatch + caches
 # =========================================================================
 
-ATTN_BLOCK_TYPES = ("dense", "dense_first", "moe")
+ATTN_BLOCK_TYPES = ("dense", "dense_first", "moe", "encoder")
 
 
 def init_block(block_type: str, cfg: ArchConfig, gen: torch.Generator,

@@ -124,6 +124,19 @@ def _unstack(tree, length: int) -> List[Any]:
     return list(torch.unbind(tree, 0))
 
 
+def remat_call(fn, remat: bool, *args):
+    """``fn(*args)``; with ``remat`` (and autograd on), rematerialized in
+    the backward by ``torch.utils.checkpoint``, the replay under this
+    forward's StatsBank session whatever thread the autograd engine
+    uses."""
+    if not (remat and torch.is_grad_enabled()):
+        return fn(*args)
+    sess = statsbank.current_session()
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=lambda: (contextlib.nullcontext(),
+                                          statsbank.resume(sess)))
+
+
 def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
             cache_index=0, mode: str = "train",
             cache_fmt: Optional[str] = None):
@@ -141,7 +154,6 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
     else:
         ci = None
         positions = torch.arange(s, dtype=torch.int32, device=x.device)
-    sess = statsbank.current_session()
     total_aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for i, (btype, length) in enumerate(segments_of(cfg)):
         name = f"seg{i}:{btype}"
@@ -161,15 +173,7 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
                         mode, cache_fmt)
                 return y, aux
 
-            if mode == "train" and cfg.remat and torch.is_grad_enabled():
-                # the replay in the backward runs under this forward's
-                # session, whatever thread the autograd engine uses
-                x, aux = checkpoint(
-                    run, x, use_reentrant=False,
-                    context_fn=lambda: (contextlib.nullcontext(),
-                                        statsbank.resume(sess)))
-            else:
-                x, aux = run(x)
+            x, aux = remat_call(run, mode == "train" and cfg.remat, x)
             total_aux = total_aux + aux
     x = blocks.apply_norm(params["final_norm"], x, cfg)
     return x, total_aux, caches

@@ -1,5 +1,5 @@
 """LR schedules (port of ``repro.optim.schedules``): WSD (minicpm), cosine,
-constant.  Each is ``step -> lr`` as a Python float holding the f32 value
+the paper's step decay (ResNet), constant.  Each is ``step -> lr`` as a Python float holding the f32 value
 the reference computes."""
 from __future__ import annotations
 
@@ -30,6 +30,18 @@ def cosine(base_lr: float, warmup: int, total: int, min_frac: float = 0.1):
         cos = _F(min_frac) + _F(1 - min_frac) * _F(0.5) * (
             _F(1.0) + np.cos(_F(math.pi) * prog))
         return float(_F(base_lr) * warm * cos)
+    return fn
+
+
+def step_decay(base_lr: float, boundaries, factor: float = 0.1):
+    """The paper's ResNet schedule: x ``factor`` at each boundary step."""
+    def fn(step):
+        step = _F(step)
+        mult = _F(1.0)
+        for b in boundaries:
+            if step >= _F(b):
+                mult = mult * _F(factor)
+        return float(_F(base_lr) * mult)
     return fn
 
 

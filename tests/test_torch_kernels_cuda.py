@@ -949,3 +949,80 @@ def test_quant_fused_is_quant_apply_of_stats(dev, fmt, dtype, size, offset):
     assert torch.equal(pk.view(torch.uint8), pk2.view(torch.uint8))
     assert torch.equal(qab, qab2)
     assert kernels.counts()["quant"]["launches"] == 2
+
+
+# (layout, M, K, N) of the paper workloads' narrow GEMMs: the ResNet stem's
+# K = 27 with its NT dA (N = 27) and TN dW (M = 27); NCF's output GEMM
+# (N = 1), its NT dA (K = 1) and TN dW (N = 1); the ResNet head (N = 10)
+# with its NT dA (K = 10) and TN dW (N = 10)
+PAPER_GEMMS = [("nn", 4096, 27, 16), ("nt", 4096, 16, 27),
+               ("tn", 27, 4096, 16),
+               ("nn", 1024, 16, 1), ("nt", 1024, 1, 16), ("tn", 16, 1024, 1),
+               ("nn", 128, 64, 10), ("nt", 128, 10, 64), ("tn", 64, 128, 10)]
+
+
+@pytest.mark.parametrize("layout,m,k,n", PAPER_GEMMS)
+def test_gemm_kernels_at_paper_widths(dev, layout, m, k, n):
+    """K = 27, N = 1 and N = 10 in NN, NT and TN (rows of 27, 1 and 10
+    bytes are copied into 16-byte strides): raw output within 1e-5 * (|A|
+    @ |B|), epilogue codes at most one step apart in at most 1e-3 of the
+    outputs, the same bits on a second launch."""
+    g = torch.Generator(device=dev).manual_seed(13)
+    a = torch.randn(*((k, m) if layout == "tn" else (m, k)), generator=g,
+                    device=dev)
+    b = torch.randn(*((n, k) if layout == "nt" else (k, n)), generator=g,
+                    device=dev) / k ** 0.5
+    aab, bab = s2fp8.compute_stats(a), s2fp8.compute_stats(b)
+    qa, qb = s2fp8_quant.quant_apply(a, aab), s2fp8_quant.quant_apply(b, bab)
+    kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
+    plain = (s2fp8_matmul.qmatmul_plain if layout == "nn"
+             else getattr(s2fp8_matmul, f"qmatmul_{layout}_plain"))
+    da = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
+    db = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
+    lhs = da.t() if layout == "tn" else da
+    rhs = db.t() if layout == "nt" else db
+    raw_k, raw_p = kernel(qa, aab, qb, bab), plain(qa, aab, qb, bab)
+    assert raw_k.shape == (m, n)
+    assert bool(((raw_k - raw_p).abs() <= 1e-5 * (lhs.abs() @ rhs.abs())
+                 + 1e-30).all())
+    oab = s2fp8.compute_stats(raw_p)
+    ek = kernel(qa, aab, qb, bab, oab)
+    d = _steps(ek, plain(qa, aab, qb, bab, oab), oab)
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-3
+    assert torch.equal(kernel(qa, aab, qb, bab, oab), ek)
+    assert kernels.counts()[f"qmatmul_{layout}"]["launches"] == 3
+
+
+@pytest.mark.parametrize("sq", [448, 1])
+def test_qflash_kernels_cross_attention(dev, sq):
+    """Whisper's cross-attention: non-causal, 448 or 1 query rows over
+    1,500 keys, head dim 64, 2 heads: the forward's output codes at most
+    one step apart in at most 1e-2 of the elements and |lse| within 1e-4;
+    the backward's dq, dk, dv within 1e-4 * max|plain| (448 rows); the
+    same bits on a second launch."""
+    pq, pk, pv, pg, sts = _qflash_inputs(dev, 17, 2, 1, sq, 1500, 64)
+    kw = dict(g=1, causal=False)
+    # the plain loop in 500-key chunks (gcd(512, 1500) = 4 otherwise)
+    ck = dict(q_chunk=min(sq, 448), kv_chunk=500)
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], **kw,
+                                                **ck)
+    oab = s2fp8.compute_stats(raw)
+    ok, lk = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab,
+                                        **kw)
+    op, lp = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3],
+                                              out_ab=oab, **kw, **ck)
+    dd = _steps(ok, op, oab)
+    assert dd.max() <= 1 and (dd != 0).float().mean() <= 1e-2
+    assert (lk - lp).abs().max() <= 1e-4
+    assert torch.equal(flash_attention.qflash_fwd(
+        pq, pk, pv, *sts[:3], out_ab=oab, **kw)[0], ok)
+    if sq == 1:
+        return
+    args = (pq, pk, pv, pg, *sts, lse, _delta(pg, sts[3], raw, oab, "e5m2"))
+    got = flash_attention.qflash_bwd(*args, **kw)
+    want = flash_attention.qflash_bwd_plain(*args, **kw, **ck)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    again = flash_attention.qflash_bwd(*args, **kw)
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
