@@ -128,6 +128,15 @@ Phases, each fatal on failure:
              (batch 1,024) and transformer_tiny (batch 64 x 32) in s2fp8
              payload on cuda (every training kernel launched between them)
              and in fp32, fp8 and fp8_ls(100) (no kernel); losses finite.
+18. train-loop — the resilient loop of ``launch/train.py`` (TrainLoop as
+             ``main`` builds it) on full-width minicpm_2b cut to 2 layers,
+             batch 4 x 512, bank k = 4 with telemetry, the guard and a
+             snapshot ring of 2: the escalation ladder under
+             nan_grad@5x3 (every rejected step bit-invisible), the same
+             schedule under reject@5x3, a corrupted checkpoint quarantined
+             by --resume auto, a compressed checkpoint through the
+             quantize-with-stats and dequantize kernels held against the
+             plain codec, finite telemetry and a watchdog trip.
 
 Phase 3 also holds #7, #8, #10 and #11 at the shapes these phases give
 them (the convs' im2col GEMMs, N = 1 and 10, whisper's head and
@@ -240,10 +249,14 @@ TRAIN_ENCDEC_KERNELS = TRAIN_KERNELS
 SERVE_ENCDEC_KERNELS = ("stats", "quant", "truncate_apply", "qmatmul_nn",
                         "qmatmul_nn/small", "qmatmul_batched", "qflash_fwd")
 TRAIN_PAPER_KERNELS = TRAIN_KERNELS
+# the resilient loop on the cuda engine (health metrics through
+# truncate-apply), its compressed checkpoint through cuda_fused's
+# quantize-with-stats and the dequantize on restore
+TRAIN_LOOP_KERNELS = TRAIN_KERNELS + ("quant",)
 PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "serve_mamba", "ops", "train_modes", "train_long_flash",
           "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
-          "train_paper")
+          "train_paper", "train_loop")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -2700,6 +2713,324 @@ def phase_train_paper(dev) -> dict:
     return {"counts": counts, "metrics": metrics}
 
 
+TRAIN_LOOP_STEPS = 10
+TRAIN_LOOP_ARGS = ["--arch", "minicpm_2b", "--n-layers", "2", "--batch", "4",
+                   "--seq", "512", "--backend", "cuda",
+                   "--stats-refresh-every", "4", "--telemetry", "--guard",
+                   "--snapshot-every", "2", "--snapshot-ring", "2",
+                   "--metrics-sink", "memory",
+                   "--steps", str(TRAIN_LOOP_STEPS)]
+# the ladder's faults; the straggler sleeps well past 3 x the median step
+TRAIN_LOOP_CHAOS = "nan_grad@5x3,corrupt_ckpt@8,slow_step@9:1.5"
+
+
+def _timed(record: list, fn):
+    """``fn`` wrapped to append its synchronized wall ms to ``record``."""
+    def timed(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        torch.cuda.synchronize()
+        record.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return timed
+
+
+def _leaves_equal(a: list, b: list) -> bool:
+    import numpy as np
+    return len(a) == len(b) and all(
+        torch.equal(x, y) if isinstance(x, torch.Tensor)
+        else np.array_equal(x, y) for x, y in zip(a, b))
+
+
+def _events(loop, names) -> list:
+    return [(r["event"], r["step"]) for r in loop.sink.by_kind("event")
+            if r["event"] in names]
+
+
+def phase_train_loop(dev) -> dict:
+    """The resilient training loop of ``launch/train.py`` on full-width
+    minicpm_2b cut to 2 layers (``cut_depth``; 405 M params, so params,
+    AdamW m and v are 4.86 GB), batch 4 x 512, the cuda engine, the bank
+    at k = 4 with telemetry, the guard armed, a snapshot ring of 2 every 2
+    steps; each run is ``launch.train.build`` of its argv, as ``main``
+    builds it, into a memory sink.
+
+    * Ladder: ``--chaos nan_grad@5x3,corrupt_ckpt@8,slow_step@9:1.5`` with
+      checkpoints every 4 steps: the events must be guard_tripped (5, 6,
+      7), stats_refresh_forced (6) and rollback (7 -> 4), each rejected
+      step must leave params, AdamW state, bank and guard carry bit for bit
+      as they were (the step is wrapped to compare a copy), the slow step
+      must trip the watchdog, and every site's telemetry must be finite.
+    * Reject: the same schedule with ``reject@5x3``: whether the final
+      state equals the ladder run's bit for bit, and the largest
+      difference; if they differ, whether the embedding's backward
+      (``table[tokens]``, an accumulating ``index_put_``) gives the same
+      bits twice.
+    * Resume: ``--resume auto`` past the corrupted step-8 checkpoint: a
+      ``checkpoint_quarantined`` event, the restore from step 4, bit for
+      bit the state that was saved there (a device copy taken at the
+      save).
+    * Compressed: one ``compress=True`` save and restore through the
+      cuda_fused engine's codec (quantize-with-stats #3 on save,
+      dequantize #4 on restore), then held against the two kernels'
+      plain versions with phase 3's tolerances: codes at most one step
+      apart in at most 1e-4 of the elements, (alpha, beta) within 4 ulp,
+      decoded values within 1e-6 relative of the plain dequantize of the
+      same payload, the small leaves bit for bit.  The main path ends
+      here; three bare steady steps of the resumed state are timed
+      after it.
+
+    Prints the steady step ms in TrainLoop against the bare train step,
+    the checkpoint's blocking and write seconds, bytes raw and compressed,
+    the snapshot push, rollback and restore ms and the phase's wall time.
+    Checkpoints go to a temporary directory, removed at the end."""
+    import os
+    import shutil
+    import tempfile
+    import numpy as np
+    from repro_torch import convert, kernels
+    from repro_torch.checkpoint import manager as ckpt_mod
+    from repro_torch.kernels import s2fp8_quant as sq
+    from repro_torch.launch import train as launch
+    from repro_torch.obs import TELE_FIELDS
+
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="train_loop_")
+    try:
+        ck_dir = os.path.join(root, "ladder")
+        kernels.reset_counts()                    # the main path starts here
+        loop = launch.build(launch.parse_args(TRAIN_LOOP_ARGS + [
+            "--ckpt-dir", ck_dir, "--ckpt-every", "4",
+            "--chaos", TRAIN_LOOP_CHAOS]))
+        n_params = sum(p.numel() for p in convert.jax_leaves(loop.params))
+        state_bytes = sum(x.numel() * x.element_size()
+                          for x in convert.jax_leaves(loop._state_tree())
+                          if isinstance(x, torch.Tensor))
+        log(f"train-loop: {n_params / 1e6:.1f} M params, state (params, "
+            f"AdamW m and v, bank, guard) {state_bytes / 1e9:.3f} GB, "
+            f"{len(loop.stats_bank)} bank sites")
+
+        rejected, saved, pushes, rollbacks, saves = [], {}, [], [], []
+        inner = loop.train_step
+
+        def checked_step(*args):
+            batch, step = args[-2], args[-1]
+            fires = any(v == step for v in batch["_chaos"].values())
+            before = ([x.clone() if isinstance(x, torch.Tensor) else x
+                       for x in convert.jax_leaves(args[:-2])]
+                      if fires else None)
+            out = inner(*args)
+            if fires:
+                rejected.append((step, out[-1]["guard_ok"].item(),
+                                 _leaves_equal(before, convert.jax_leaves(
+                                     tuple(out[:-1])))))
+            return out
+
+        save = loop.ckpt.save
+
+        def saving(step, tree, blocking=True):
+            t0 = time.perf_counter()
+            save(step, tree, blocking)
+            saves.append((step, time.perf_counter() - t0))
+            if step == 4:       # what restore must give back, on the card
+                saved[4] = [x.clone() if isinstance(x, torch.Tensor) else x
+                            for x in convert.jax_leaves(tree)]
+
+        loop.train_step = checked_step
+        loop.ckpt.save = saving
+        loop.ring.push = _timed(pushes, loop.ring.push)
+        loop.ring.latest = _timed(rollbacks, loop.ring.latest)
+        t0 = time.perf_counter()
+        history = loop.run(TRAIN_LOOP_STEPS)
+        ladder_s = time.perf_counter() - t0
+        write_s = loop.ckpt.last_write_seconds
+        ladder = _events(loop, ("guard_tripped", "stats_refresh_forced",
+                                "rollback"))
+        log(f"train-loop ladder: {ladder_s:.1f} s for {len(history)} step "
+            f"runs; events {ladder}; rejected steps (step, guard_ok, "
+            f"state bit-equal) {rejected}")
+        assert ladder == [("guard_tripped", 5), ("guard_tripped", 6),
+                          ("stats_refresh_forced", 6), ("guard_tripped", 7),
+                          ("rollback", 7)], ladder
+        assert [r for r in loop.sink.by_kind("event")
+                if r["event"] == "rollback"][0]["to_step"] == 4
+        assert [(s, ok, eq) for s, ok, eq in rejected] == [
+            (5, 0.0, True), (6, 0.0, True), (7, 0.0, True)], rejected
+        watch = [r for r in loop.sink.by_kind("event")
+                 if r["event"] == "watchdog"]
+        trips = [(r["step"], round(r["dt_s"], 3), round(r["median_s"], 3))
+                 for r in watch]
+        log(f"train-loop watchdog trips (step, s, median s): {trips}")
+        assert 9 in [r["step"] for r in watch], watch
+        health = loop.sink.by_kind("site_health")
+        assert {r["site"] for r in health} == set(loop.stats_bank)
+        assert all(math.isfinite(r[f]) for r in health
+                   for f in TELE_FIELDS + ("alpha", "beta", "staleness"))
+        worst = max(health, key=lambda r: (r["sat_frac"], r["uflow_frac"]))
+        log(f"train-loop telemetry: {len(health)} site-direction records "
+            f"at steps {sorted({r['step'] for r in health})}, all finite; "
+            f"largest sat_frac {worst['sat_frac']:.3g} at {worst['site']}."
+            f"{worst['dir']}, its uflow_frac {worst['uflow_frac']:.3g}")
+        steady = [r for r in loop.sink.by_kind("train_step")
+                  if r["step"] % 4 and r["step"] != 9]
+        loop_ms = float(np.mean([r["step_ms"] for r in steady]))
+        data_ms = float(np.mean([r["data_ms"] for r in steady]))
+        refresh_ms = [round(r["step_ms"], 1)
+                      for r in loop.sink.by_kind("train_step")
+                      if r["step"] % 4 == 0]
+        assert all(math.isfinite(m["loss"]) for m in history)
+        final = [x.clone() if isinstance(x, torch.Tensor) else x
+                 for x in convert.jax_leaves(loop._state_tree())]
+        del loop, inner, save, checked_step, saving
+        free_device_memory()
+
+        # the same schedule, rejected by force
+        other = launch.build(launch.parse_args(
+            TRAIN_LOOP_ARGS + ["--chaos", "reject@5x3"]))
+        other.run(TRAIN_LOOP_STEPS)
+        assert _events(other, ("guard_tripped", "stats_refresh_forced",
+                               "rollback")) == ladder
+        got = convert.jax_leaves(other._state_tree())
+        equal = _leaves_equal(final, got)
+        diff = max(((x.float() - y.float()).abs().max().item()
+                    for x, y in zip(final, got)
+                    if isinstance(x, torch.Tensor) and x.numel()),
+                   default=0.0)
+        log(f"train-loop nan_grad@5x3 vs reject@5x3: final states bitwise "
+            f"equal {equal}, largest difference {diff:.3g}")
+        if not equal:
+            table = other.params["embed"]
+            tokens = torch.randint(0, table.shape[0], (4, 512), device=dev,
+                                   generator=torch.Generator(
+                                       device=dev).manual_seed(0))
+
+            def embed_grad():
+                t = table.detach().requires_grad_(True)
+                return torch.autograd.grad(t[tokens].sum() * 1e-3, t)[0]
+            log(f"train-loop: the embedding backward (index_put_ with "
+                f"accumulate) gives the same bits twice: "
+                f"{torch.equal(embed_grad(), embed_grad())}")
+        del other, got, final
+        free_device_memory()
+
+        # resume past the corrupted newest checkpoint
+        resumed = launch.build(launch.parse_args(
+            TRAIN_LOOP_ARGS + ["--ckpt-dir", ck_dir, "--resume", "auto"]))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        resumed.maybe_resume()
+        torch.cuda.synchronize()
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        quarantined = _events(resumed, ("checkpoint_quarantined",))
+        log(f"train-loop resume: {quarantined}, from step "
+            f"{resumed.start_step}, {restore_ms:.0f} ms (validate, read, "
+            f"copy to the card)")
+        assert quarantined == [("checkpoint_quarantined", 8)], quarantined
+        assert resumed.start_step == 4
+        assert _leaves_equal(saved.pop(4),
+                             convert.jax_leaves(resumed._state_tree()))
+        log("train-loop resume: the restored state is bit for bit the one "
+            "saved at step 4")
+
+        # one compressed save through the cuda_fused codec
+        tree = resumed._state_tree()
+        cdir = os.path.join(root, "compressed")
+        comp = ckpt_mod.CheckpointManager(cdir, compress=True,
+                                          backend="cuda_fused")
+        t0 = time.perf_counter()
+        comp.save(4, tree)
+        comp_save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back, _ = comp.restore(tree)
+        torch.cuda.synchronize()
+        comp_restore_ms = (time.perf_counter() - t0) * 1e3
+
+        def dir_bytes(d):
+            return sum(os.path.getsize(os.path.join(d, n))
+                       for n in os.listdir(d))
+        raw_bytes = dir_bytes(os.path.join(ck_dir, "step_0000000004"))
+        comp_bytes = dir_bytes(os.path.join(cdir, "step_0000000004"))
+        counts = path_counts()                    # ... and ends here
+        check_counts(counts, TRAIN_LOOP_KERNELS)
+
+        # the compressed leaves against the plain versions of #3 and #4
+        leaves, restored = convert.jax_leaves(tree), convert.jax_leaves(back)
+        worst = {"max_step": 0, "frac": 0.0, "ulp": 0, "rel": 0.0}
+        for i, (x, y) in enumerate(zip(leaves, restored)):
+            if not ckpt_mod.compressible(x):
+                assert (torch.equal(x, y) if isinstance(x, torch.Tensor)
+                        else np.array_equal(x, y)), i
+                continue
+            d = os.path.join(cdir, "step_0000000004")
+            pk = torch.from_numpy(np.load(os.path.join(
+                d, f"leaf_{i:05d}.payload.npy"))).to(dev).view(
+                    torch.float8_e5m2)
+            ab = torch.from_numpy(np.load(os.path.join(
+                d, f"leaf_{i:05d}.stats.npy"))).to(dev)
+            pp, abp = sq.quant_plain(x, "e5m2")
+            f = flips(code_ordinal(pk), code_ordinal(pp))
+            ref = sq.dequant_plain(pk, ab)
+            rel = ((y - ref).abs() / ref.abs().clamp_min(1e-30)).max().item()
+            worst = {"max_step": max(worst["max_step"], f["max_step"]),
+                     "frac": max(worst["frac"], f["frac"]),
+                     "ulp": max(worst["ulp"], ulps(ab, abp)),
+                     "rel": max(worst["rel"], rel)}
+        log(f"train-loop compressed checkpoint against the plain codec: "
+            f"{worst}")
+        assert worst["max_step"] <= 1 and worst["frac"] <= 1e-4
+        assert worst["ulp"] <= 4 and worst["rel"] <= 1e-6
+        del back, leaves, restored
+        free_device_memory()
+
+        # the bare step beside TrainLoop's span, steady steps 5-7
+        bare = []
+        state = list(resumed._state_tree())
+        for s in (5, 6, 7):
+            batch = resumed.data_fn(s)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = resumed.train_step(*state, batch, s)
+            torch.cuda.synchronize()
+            bare.append((time.perf_counter() - t0) * 1e3)
+            state = list(out[:-1])
+            assert math.isfinite(out[-1]["loss"].item())
+
+        del tree, state, resumed
+        free_device_memory()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+    bare_ms = float(np.mean(bare))
+    blocking = [round(s, 3) for _, s in saves]
+    phase_s = time.perf_counter() - t_phase
+    metrics = {
+        "params": n_params, "state_gb": state_bytes / 1e9,
+        "loop_steady_step_ms": loop_ms, "bare_steady_step_ms": bare_ms,
+        "loop_data_ms": data_ms, "refresh_step_ms": refresh_ms,
+        "ckpt_blocking_s": blocking, "ckpt_write_s": write_s,
+        "ckpt_write_gb_per_s": raw_bytes / 1e9 / write_s,
+        "raw_bytes": raw_bytes, "compressed_bytes": comp_bytes,
+        "compressed_save_s": comp_save_s,
+        "compressed_restore_ms": comp_restore_ms,
+        "snapshot_push_ms": pushes, "rollback_ms": rollbacks,
+        "restore_ms": restore_ms, "reject_vs_nan_bitwise": equal,
+        "reject_vs_nan_max_diff": diff, "ladder_s": ladder_s,
+        "phase_s": phase_s}
+    log(f"train-loop: steady step {loop_ms:.1f} ms in TrainLoop (span, "
+        f"data {data_ms:.2f} ms) against {bare_ms:.1f} ms bare; refresh "
+        f"steps {refresh_ms} ms; checkpoint blocking {blocking} s, write "
+        f"{write_s:.2f} s ({raw_bytes / 1e9 / write_s:.2f} GB/s); "
+        f"{raw_bytes / 1e9:.3f} GB raw, {comp_bytes / 1e9:.3f} GB "
+        f"compressed (save {comp_save_s:.2f} s, restore "
+        f"{comp_restore_ms:.0f} ms); snapshot push "
+        f"{[round(x) for x in pushes]} ms, rollback "
+        f"{[round(x) for x in rollbacks]} ms, restore {restore_ms:.0f} ms; "
+        f"phase {phase_s:.1f} s")
+    log("train-loop metrics: " + json.dumps(metrics))
+    log("train-loop launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
 def phase_train(dev, profile: bool = False) -> dict:
     """Full-width minicpm_2b (40 layers, remat) trained through the port's
     entry points: seeded params, seeded Markov batches of 4 x 512 tokens,
@@ -3385,11 +3716,13 @@ def main() -> int:
     free_device_memory()
     trained_paper = phase_train_paper(dev)
     free_device_memory()
+    train_loop = phase_train_loop(dev)
+    free_device_memory()
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba, ops, modes,
                                  long_runs["flash"], long_runs["naive"],
                                  served_dense, trained_encdec, served_encdec,
-                                 trained_paper)))
+                                 trained_paper, train_loop)))
     if args.profile:
         log_profiled_totals()
     out = []

@@ -13,6 +13,8 @@ Bank layout (plain nested dicts, the reference's)::
     }
     state = {"alpha", "beta", "ema_mu", "ema_m", "last"}   # f32; [L] rows
                                                            # inside segments
+    # + the six health leaves of obs/metrics.py TELE_FIELDS with
+    #   StatsConfig(telemetry=True), refreshed with the stats
 
 Site keys come from the same naming rules (``scope`` stack, per-prefix
 counters, ``seg{i}:{btype}`` segment scope), so a bank exported by the
@@ -70,6 +72,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.core import backend as nbackend
 from repro_torch.core import s2fp8
+from repro_torch.obs import metrics as obs_metrics
 
 STATE_FIELDS = ("alpha", "beta", "ema_mu", "ema_m", "last")
 TRUNC_DIRS = ("fwd", "bwd")
@@ -81,10 +84,14 @@ FLASH_DIRS = ("q.fwd", "q.bwd", "k.fwd", "k.bwd", "v.fwd", "v.bwd",
 @dataclasses.dataclass(frozen=True)
 class StatsConfig:
     """``refresh_every``: refresh cadence; ``ema_decay``: EMA coefficient
-    on the raw (mu, m) moments (0.0 replaces them at each refresh)."""
+    on the raw (mu, m) moments (0.0 replaces them at each refresh);
+    ``telemetry``: site states carry the per-site FP8 health leaves
+    (``obs/metrics.py``), recomputed on each refresh (steady steps stay
+    free of reductions) and drained by ``obs/telemetry.py``."""
 
     refresh_every: int = 16
     ema_decay: float = 0.0
+    telemetry: bool = False
 
     def __post_init__(self):
         if self.refresh_every < 1:
@@ -93,24 +100,34 @@ class StatsConfig:
             raise ValueError("ema_decay must be in [0, 1)")
 
 
-def init_site_state(length: Optional[int] = None, device=None
-                    ) -> Dict[str, torch.Tensor]:
-    """Identity stats, empty EMA, ``last = -1`` (bootstrap on first use)."""
+def init_site_state(length: Optional[int] = None, device=None,
+                    telemetry: bool = False) -> Dict[str, torch.Tensor]:
+    """Identity stats, empty EMA, ``last = -1`` (bootstrap on first use);
+    ``telemetry`` adds the zeroed health leaves (a cold site reports
+    clean)."""
     shape = () if length is None else (length,)
 
     def full(v):
         return torch.full(shape, v, dtype=torch.float32, device=device)
 
-    return {"alpha": full(1.0), "beta": full(0.0), "ema_mu": full(0.0),
-            "ema_m": full(0.0), "last": full(-1.0)}
+    state = {"alpha": full(1.0), "beta": full(0.0), "ema_mu": full(0.0),
+             "ema_m": full(0.0), "last": full(-1.0)}
+    if telemetry:
+        state.update(obs_metrics.init_tele_state(shape, device))
+    return state
 
 
 def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
                   *, ema_decay: float = 0.0,
                   target_max: float = s2fp8.TARGET_MAX_LOG2,
-                  backend: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                  backend: Optional[str] = None,
+                  fmt: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """One refresh: raw moments of ``x`` folded into the EMAs, (alpha, beta)
-    re-derived — the reference's rule, op for op."""
+    re-derived — the reference's rule, op for op.  A state that carries
+    the telemetry leaves gets its health metrics recomputed, measured
+    against its pre-refresh stats (``obs_metrics.health_update``);
+    ``fmt`` names the payload format (None: derived from
+    ``target_max``)."""
     be = nbackend.get_backend(backend)
     log_sum, log_max, count = be.compute_stats_partials(x)
     has = count > 0
@@ -126,8 +143,13 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
     alpha, beta = s2fp8.stats_from_reduction(
         ema_mu, ema_m, torch.where(valid, 1.0, 0.0), target_max)
     new_last = torch.where(has, float(step_f), state["last"])
-    return {"alpha": alpha, "beta": beta, "ema_mu": ema_mu, "ema_m": ema_m,
-            "last": new_last}
+    new = {"alpha": alpha, "beta": beta, "ema_mu": ema_mu, "ema_m": ema_m,
+           "last": new_last}
+    if obs_metrics.has_telemetry(state):
+        new.update(obs_metrics.health_update(
+            x, state, new, mu_t, m_t, has, first, count,
+            fmt=obs_metrics.resolve_fmt(fmt, target_max), backend=backend))
+    return new
 
 
 def maybe_refresh(x: torch.Tensor, state: Dict[str, torch.Tensor],
@@ -345,7 +367,7 @@ class CalibratingSession(Session):
                             ema_decay=self.cfg.ema_decay,
                             target_max=s2fp8.FMT_TARGET_MAX[fmt],
                             backend=backend)
-        for f in STATE_FIELDS:
+        for f in new:
             if site.layer is None:
                 full[f] = new[f]
             else:
@@ -424,7 +446,7 @@ class TrainSession(Session):
                 entry[direction] = {f: v.clone() for f, v in
                                     self.bank[site.key][direction].items()}
             upd = entry[direction]
-            for f in STATE_FIELDS:
+            for f in new:
                 if site.layer is None:
                     upd[f] = new[f]
                 else:
@@ -568,7 +590,8 @@ def init_bank(loss_fn: Callable, params, batch, policy,
         loss_fn(params, batch, policy)
     device = _first_leaf(params).device
     bank = {key: {d: init_site_state(
-                None if seg is None else sess.segment_lengths[seg], device)
+                None if seg is None else sess.segment_lengths[seg], device,
+                cfg.telemetry)
                   for d in dirs}
             for key, (seg, dirs) in sess.recorded.items()}
     if not bank:

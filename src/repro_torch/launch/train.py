@@ -18,6 +18,11 @@ reference's launcher trains them.
         --batch 1 --seq 4096 --attn-impl flash --stats-refresh-every 8
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch transformer_tiny --reduced --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
+        --reduced --device cpu --steps 12 --batch 2 --seq 32 \
+        --stats-refresh-every 4 --telemetry --snapshot-every 2 \
+        --ckpt-dir /tmp/ck --ckpt-every 4 --resume auto \
+        --chaos nan_grad@5x3,corrupt_ckpt@8    # the resilient loop
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
@@ -32,20 +37,36 @@ products) and ``fp8_ls`` (raw e5m2 with the loss scaled by
 leaf's (mu, m, alpha, beta) to each step's line; ``--attn-impl`` picks the
 attention of sequences above 2048 tokens (``naive``: chunked, ``flash``:
 the flash path).  The header line prints the resolved mode, loss scale,
-attention, engine and GEMM path, and whether f32 products may use TF32.  ``--n-layers N`` cuts the depth to the first N layers of the
-config's pattern (widths unchanged) and says so.  Prints one JSON line per step: loss, the MoE aux loss (0
-for an encoder-decoder), step ms, tokens/s (decoder tokens).
+attention, engine and GEMM path, and whether f32 products may use TF32.
+``--n-layers N`` cuts the depth to the first N layers of the config's
+pattern (widths unchanged) and says so.
+
+The steps run in ``training.trainer.TrainLoop``, with the reference's
+resilience flags and defaults: ``--ckpt-dir`` / ``--ckpt-every`` /
+``--resume auto`` (checkpoints of params, AdamW state, bank and guard,
+quarantine of corrupt ones), ``--stats-ema``, ``--telemetry`` (per-site
+FP8 health in the bank, drained every refresh), ``--metrics-sink``
+(``jsonl:<path>``, ``csv:<path>``, ``console``), ``--guard`` and its
+thresholds, ``--snapshot-every`` / ``--snapshot-ring`` /
+``--snapshot-compress`` (the rollback ring), ``--watchdog-escalate-after``
+and ``--chaos <spec>`` (``training/chaos.py``; implies ``--guard``).
+Batches are a function of ``--seed`` and the step, so a rollback replays
+the same data.  Without ``--metrics-sink`` the console prints one JSON
+line per step: loss, the MoE aux loss (0 for an encoder-decoder), step
+ms, tokens/s (decoder tokens); events print as ``[event] ...`` lines.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
-import time
 
+import numpy as np
 import torch
 
-from repro_torch import resolve_device
+from repro_torch import obs, resolve_device
+from repro_torch.checkpoint.manager import CheckpointManager
 from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.core import backend as nbackend
 from repro_torch.core import statsbank
@@ -53,11 +74,49 @@ from repro_torch.core.policy import GEMM_MODES, S2FP8_MODES, make_policy
 from repro_torch.data import synthetic
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tlm
+from repro_torch.obs.sinks import ConsoleSink
 from repro_torch.optim import optimizers, schedules
-from repro_torch.training.trainer import make_train_step
+from repro_torch.training import chaos as chaos_mod
+from repro_torch.training import guard as guard_mod
+from repro_torch.training.trainer import TrainLoop, make_train_step
+
+
+class StepLines(ConsoleSink):
+    """The launcher's console: one JSON line per ``train_step`` record
+    (step, loss, aux, step ms, tokens/s, and probe stats when tracked);
+    every other record as :class:`ConsoleSink` prints it."""
+
+    def __init__(self, tokens_per_step: int, print_fn=print):
+        super().__init__(print_fn)
+        self.tokens = tokens_per_step
+
+    def emit(self, record):
+        if record.get("kind") != "train_step":
+            return super().emit(record)
+        line = {"step": record["step"], "loss": record["loss"],
+                "aux": record.get("aux", 0.0), "step_ms": record["step_ms"],
+                "tokens_per_s": self.tokens / record["step_ms"] * 1e3}
+        if "probe_stats" in record:
+            line["probe_stats"] = record["probe_stats"]
+        self.print_fn(json.dumps(line))
 
 
 def main(argv=None):
+    """Parse ``argv``, build the run (:func:`build`), resume it when asked,
+    train ``--steps`` steps and return the loop."""
+    args = parse_args(argv)
+    loop = build(args)
+    if args.resume == "auto" and loop.ckpt is not None:
+        loop.maybe_resume()
+    history = loop.run(args.steps)
+    loop.sink.close()
+    if args.metrics_sink and history:
+        print(f"[train] done: final loss {history[-1]['loss']:.4f}",
+              flush=True)
+    return loop
+
+
+def parse_args(argv=None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
@@ -90,8 +149,70 @@ def main(argv=None):
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--stats-refresh-every", type=int, default=0)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--ckpt-every", type=int, default=0)
+    ap.add_argument("--resume", default="none", choices=["none", "auto"])
+    ap.add_argument("--stats-ema", type=float, default=0.0,
+                    help="EMA decay on the raw (mu, m) moments at each "
+                         "StatsBank refresh (0 = replace)")
+    ap.add_argument("--metrics-sink", default=None,
+                    help="route loop records (step spans, watchdog / "
+                         "checkpoint / guard events, per-site FP8 health) "
+                         "to a sink: jsonl:<path>, csv:<path>, console")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="carry per-site FP8 health metrics in the "
+                         "StatsBank (requires --stats-refresh-every) and "
+                         "drain them to the sink each refresh")
+    ap.add_argument("--guard", action="store_true",
+                    help="arm the StepGuard: non-finite loss/grad and "
+                         "grad-norm-spike sentinels reject bad updates and "
+                         "the loop escalates skip -> forced refresh -> "
+                         "snapshot rollback -> checkpoint restore")
+    ap.add_argument("--guard-spike-factor", type=float, default=10.0,
+                    help="trip when grad_norm exceeds this multiple of "
+                         "its accepted-step EMA")
+    ap.add_argument("--guard-warmup", type=int, default=8,
+                    help="accepted steps before the spike sentinel arms")
+    ap.add_argument("--guard-sat-threshold", type=float, default=0.0,
+                    help="trip when any StatsBank site's sat_frac "
+                         "telemetry exceeds this fraction (0 = off; "
+                         "needs --telemetry)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="push (params, opt, bank, guard) onto an "
+                         "in-memory snapshot ring every K clean steps — "
+                         "the ladder's rollback target (0 = ring off)")
+    ap.add_argument("--snapshot-ring", type=int, default=4,
+                    help="snapshot ring depth")
+    ap.add_argument("--snapshot-compress", action="store_true",
+                    help="S2FP8-compress big snapshot leaves (~4x less "
+                         "host memory; rollback no longer bitwise)")
+    ap.add_argument("--watchdog-escalate-after", type=int, default=0,
+                    help="N consecutive watchdog trips push a proactive "
+                         "snapshot + watchdog_escalated event (0 = trips "
+                         "stay log-only)")
+    ap.add_argument("--chaos", default=None,
+                    help="deterministic fault injection spec "
+                         "(training/chaos.py), e.g. 'nan_grad@5x3,"
+                         "slow_step@12:0.5'; injectors: nan_grad, "
+                         "inf_loss, reject, saturating_bank, "
+                         "corrupt_ckpt, slow_step, corrupt_batch. "
+                         "Implies --guard.")
     args = ap.parse_args(argv)
+    if args.telemetry and args.stats_refresh_every <= 0:
+        raise SystemExit("--telemetry requires --stats-refresh-every > 0 "
+                         "(health metrics ride the StatsBank refresh)")
+    if args.guard_sat_threshold > 0 and not args.telemetry:
+        raise SystemExit("--guard-sat-threshold reads the StatsBank's "
+                         "sat_frac telemetry leaves: add --telemetry "
+                         "(and --stats-refresh-every)")
+    return args
 
+
+def build(args: argparse.Namespace) -> TrainLoop:
+    """The run ``args`` describe, ready to resume and run: params and
+    AdamW state from ``--seed``, the bank (one probe pass), the step, the
+    sink, the checkpoint manager and the :class:`TrainLoop` around them
+    (the header lines are printed here)."""
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.n_layers:
@@ -104,18 +225,23 @@ def main(argv=None):
     sched = schedules.make_schedule(
         cfg.schedule if cfg.schedule == "wsd" else "cosine", args.lr,
         total_steps=args.steps, warmup=max(args.steps // 20, 1))
-    stats_cfg = (statsbank.StatsConfig(refresh_every=args.stats_refresh_every)
-                 if args.stats_refresh_every > 0 else None)
+    stats_cfg = (statsbank.StatsConfig(
+        refresh_every=args.stats_refresh_every, ema_decay=args.stats_ema,
+        telemetry=args.telemetry) if args.stats_refresh_every > 0 else None)
 
-    gen = torch.Generator().manual_seed(args.seed)
+    def gen(step):
+        # each step's batch is a function of (seed, step): a rollback or a
+        # resume replays the same data
+        return torch.Generator().manual_seed(int(
+            np.random.SeedSequence([args.seed, step]).generate_state(1)[0]))
     if cfg.enc_dec:
         def loss_fn(params, batch, policy):
             return encdec.loss_fn(params, batch["enc_tokens"],
                                   batch["dec_tokens"], batch["dec_labels"],
                                   cfg, policy)
 
-        def data(_step):
-            return synthetic.seq2seq_batch(gen, args.batch, args.seq,
+        def data(step):
+            return synthetic.seq2seq_batch(gen(step), args.batch, args.seq,
                                            args.seq, cfg.vocab, dev)
 
         params = encdec.init_encdec(cfg, seed=args.seed, device=dev)
@@ -126,46 +252,62 @@ def main(argv=None):
 
         chain = synthetic.markov_chain(args.seed, cfg.vocab)
 
-        def data(_step):
-            return synthetic.lm_batch(chain, gen, args.batch, args.seq, dev)
+        def data(step):
+            return synthetic.lm_batch(chain, gen(step), args.batch, args.seq,
+                                      dev)
 
         params = tlm.init_lm(cfg, seed=args.seed, device=dev)
     opt_state = opt.init(params)
+    out = functools.partial(print, flush=True)
+    console = StepLines(args.batch * args.seq, out)
+    sink = obs.make_sink(args.metrics_sink, out) if args.metrics_sink \
+        else console
+    telemetry = (obs.Telemetry(sink, every=args.stats_refresh_every)
+                 if args.telemetry else None)
+    chaos_plan = chaos_mod.ChaosPlan.parse(args.chaos) if args.chaos else None
+    guard_cfg = None
+    if args.guard or chaos_plan is not None:
+        guard_cfg = guard_mod.GuardConfig(
+            spike_factor=args.guard_spike_factor, warmup=args.guard_warmup,
+            sat_threshold=args.guard_sat_threshold)
     step_fn = make_train_step(loss_fn, opt, sched, pol,
-                              track_stats=args.track_stats, stats=stats_cfg)
+                              track_stats=args.track_stats, stats=stats_cfg,
+                              telemetry=telemetry, guard=guard_cfg)
     bank = None
     if stats_cfg is not None:
         bank = statsbank.init_bank(loss_fn, params, data(0), pol, stats_cfg)
     gemm = ("-" if pol.mode not in S2FP8_MODES
             else "payload" if pol.uses_payload_gemm else "fig4")
-    print(f"[train] {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
-          f"{cfg.n_params() / 1e6:.1f} M params, policy {pol.mode}, "
-          f"loss scale "
-          f"{pol.loss_scale if pol.mode == 'fp8_ls' else 1.0}, attention "
-          f"{cfg.attn_impl}, "
-          f"backend {args.backend} -> {pol.backend_obj.name}, gemm {gemm}, "
-          f"tf32 {torch.backends.cuda.matmul.allow_tf32}, "
-          f"bank {'off' if bank is None else f'{len(bank)} sites'}, on {dev}",
-          flush=True)
-    for s in range(args.steps):
-        batch = data(s)
-        if dev.type == "cuda":
-            torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if bank is None:
-            params, opt_state, m = step_fn(params, opt_state, batch, s)
-        else:
-            params, opt_state, bank, m = step_fn(params, opt_state, bank,
-                                                 batch, s)
-        loss = float(m["loss"])            # waits for the step
-        ms = (time.perf_counter() - t0) * 1e3
-        line = {"step": s, "loss": loss, "aux": float(m.get("aux", 0.0)),
-                "step_ms": ms,
-                "tokens_per_s": args.batch * args.seq / ms * 1e3}
-        if args.track_stats:
-            line["probe_stats"] = {k: float(v)
-                                   for k, v in m["probe_stats"].items()}
-        print(json.dumps(line), flush=True)
+    out(f"[train] {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_params() / 1e6:.1f} M params, policy {pol.mode}, "
+        f"loss scale "
+        f"{pol.loss_scale if pol.mode == 'fp8_ls' else 1.0}, attention "
+        f"{cfg.attn_impl}, "
+        f"backend {args.backend} -> {pol.backend_obj.name}, gemm {gemm}, "
+        f"tf32 {torch.backends.cuda.matmul.allow_tf32}, "
+        f"bank {'off' if bank is None else f'{len(bank)} sites'}, on {dev}")
+    if guard_cfg is not None:
+        out(f"[train] step guard armed: spike x{guard_cfg.spike_factor} "
+            f"(warmup {guard_cfg.warmup}), sat_threshold "
+            f"{guard_cfg.sat_threshold}"
+            + (f", chaos: {args.chaos}" if chaos_plan else ""))
+    engine = pol.backend_obj.name
+    ckpt = (CheckpointManager(args.ckpt_dir, event_fn=sink.emit,
+                              backend=engine)
+            if args.ckpt_dir else None)
+    loop = TrainLoop(step_fn, params, opt_state,
+                     chaos_mod.wrap_data_fn(data, chaos_plan),
+                     ckpt_manager=ckpt, ckpt_every=args.ckpt_every,
+                     log_every=1, stats_bank=bank, sink=sink,
+                     guard_state=(guard_mod.init_state(dev)
+                                  if guard_cfg is not None else None),
+                     chaos=chaos_plan, snapshot_every=args.snapshot_every,
+                     snapshot_ring=args.snapshot_ring,
+                     snapshot_compress=args.snapshot_compress,
+                     watchdog_escalate_after=args.watchdog_escalate_after,
+                     codec_backend=engine,
+                     record_metrics=("aux", "probe_stats"))
+    return loop
 
 
 def cut_depth(cfg, n_layers: int):

@@ -1026,3 +1026,42 @@ def test_qflash_kernels_cross_attention(dev, sq):
         assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
     again = flash_attention.qflash_bwd(*args, **kw)
     assert all(torch.equal(x, y) for x, y in zip(got, again))
+
+
+@pytest.mark.parametrize("engine", ["cuda", "cuda_fused"])
+def test_checkpoint_codec_kernels(dev, engine, tmp_path):
+    """The checkpoint / snapshot codec on the card (``checkpoint.manager``
+    ``encode`` / ``decode``): on ``cuda_fused`` quantize-with-stats (#3),
+    on ``cuda`` the torch stats and quantize-apply (#2), dequantize (#4)
+    on restore; the payload within one code of quantize-apply's plain
+    version under the codec's own (alpha, beta) in at most 1e-4 of the
+    elements (the math library), the stats within 4 ulp of the plain
+    stats; the decoded leaf within 1e-6 relative of the plain
+    dequantize of the same payload.  A compressed save and restore through the manager lands
+    on the card, the small leaves bit for bit."""
+    from repro_torch.checkpoint import manager as ckpt
+    g = torch.Generator(device=dev).manual_seed(21)
+    w = torch.randn(2304, 576, generator=g, device=dev) * 0.02
+    payload, stats = ckpt.encode(w, engine)
+    ab = torch.from_numpy(stats).to(dev)
+    assert _ulps(ab, s2fp8.compute_stats(w)).max() <= (
+        0 if engine == "cuda" else 4)
+    pk = torch.from_numpy(payload).to(dev).view(torch.float8_e5m2)
+    d = (_ordinal(pk) - _ordinal(s2fp8_quant.quant_apply_plain(
+        w, ab, "e5m2"))).abs()
+    assert d.max() <= 1 and (d != 0).float().mean() <= 1e-4
+    got = ckpt.decode(payload, stats, dev, backend=engine)
+    ref = s2fp8_quant.dequant_plain(pk, ab)
+    assert got.device.type == "cuda"
+    assert bool(((got - ref).abs() <= 1e-6 * ref.abs()).all())
+    c = kernels.counts()
+    assert c["quant" if engine == "cuda_fused" else "quant_apply"][
+        "launches"] == 1
+    assert c["dequant"]["launches"] == 1
+    tree = {"w": w, "b": torch.randn(576, generator=g, device=dev)}
+    m = ckpt.CheckpointManager(str(tmp_path), compress=True, backend=engine)
+    m.save(1, tree)
+    back, _ = m.restore(tree)
+    assert back["w"].device == dev and torch.equal(back["b"], tree["b"])
+    assert torch.equal(back["w"], got)
+    assert kernels.counts()["dequant"]["launches"] == 2

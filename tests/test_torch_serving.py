@@ -375,6 +375,10 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     # the training slices' modules are scanned too
     assert {"trainer.py", "train.py", "optimizers.py", "schedules.py",
             "synthetic.py", "deepseek_moe_16b.py"} <= {f.name for f in files}
+    # and the resilient loop's: obs/, checkpoint/, guard, chaos, fault
+    assert {"sinks.py", "metrics.py", "telemetry.py", "doctor.py",
+            "manager.py", "guard.py", "chaos.py", "fault.py"} <= {
+        f.name for f in files}
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
