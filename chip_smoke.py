@@ -2777,12 +2777,15 @@ def phase_train_loop(dev) -> dict:
       apart in at most 1e-4 of the elements, (alpha, beta) within 4 ulp,
       decoded values within 1e-6 relative of the plain dequantize of the
       same payload, the small leaves bit for bit.  The main path ends
-      here; three bare steady steps of the resumed state are timed
-      after it.
+      here; the steady steps 5-7 of the resumed state are timed bare
+      after it, by the guarded step and by one built without the guard,
+      in the order guarded, unguarded, unguarded, guarded (means over
+      steps 6 and 7: each step 5 reads a new bank's cold sites).
 
-    Prints the steady step ms in TrainLoop against the bare train step,
-    the checkpoint's blocking and write seconds, bytes raw and compressed,
-    the snapshot push, rollback and restore ms and the phase's wall time.
+    Prints the steady step ms in TrainLoop against the bare train step
+    with and without the guard, the checkpoint's blocking and write
+    seconds, bytes raw and compressed, the snapshot push, rollback and
+    restore ms and the phase's wall time.
     Checkpoints go to a temporary directory, removed at the end."""
     import os
     import shutil
@@ -2875,7 +2878,7 @@ def phase_train_loop(dev) -> dict:
                   if r["step"] % 4 and r["step"] != 9]
         loop_ms = float(np.mean([r["step_ms"] for r in steady]))
         data_ms = float(np.mean([r["data_ms"] for r in steady]))
-        refresh_ms = [round(r["step_ms"], 1)
+        refresh_ms = [(r["step"], round(r["step_ms"], 1))
                       for r in loop.sink.by_kind("train_step")
                       if r["step"] % 4 == 0]
         assert all(math.isfinite(m["loss"]) for m in history)
@@ -2982,30 +2985,52 @@ def phase_train_loop(dev) -> dict:
         del back, leaves, restored
         free_device_memory()
 
-        # the bare step beside TrainLoop's span, steady steps 5-7
-        bare = []
+        # the bare step beside TrainLoop's span, steady steps 5-7: the
+        # guarded step as the loop ran it, and the same step built without
+        # the guard (its verdict's host read is the sync between the
+        # backward and the optimizer), in the order guarded, unguarded,
+        # unguarded, guarded on the resumed state and the same batches;
+        # step 5 of each run of three reads the cold sites of a bank the
+        # other step built, so the means are over steps 6 and 7
+        unguarded = launch.build(launch.parse_args(
+            [a for a in TRAIN_LOOP_ARGS if a != "--guard"])).train_step
+        free_device_memory()
+        bare, bare_unguarded = [], []
         state = list(resumed._state_tree())
-        for s in (5, 6, 7):
-            batch = resumed.data_fn(s)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out = resumed.train_step(*state, batch, s)
-            torch.cuda.synchronize()
-            bare.append((time.perf_counter() - t0) * 1e3)
-            state = list(out[:-1])
-            assert math.isfinite(out[-1]["loss"].item())
+        for guarded in (True, False, False, True):
+            for s in (5, 6, 7):
+                batch = resumed.data_fn(s)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if guarded:
+                    out = resumed.train_step(*state, batch, s)
+                else:
+                    out = unguarded(*state[:3], batch, s)
+                torch.cuda.synchronize()
+                ms = (time.perf_counter() - t0) * 1e3
+                if guarded:
+                    assert out[-1]["guard_ok"].item() == 1.0, s
+                    bare.append((s, ms))
+                    state = list(out[:-1])
+                else:
+                    bare_unguarded.append((s, ms))
+                    state[:3] = out[:-1]
+                assert math.isfinite(out[-1]["loss"].item())
 
-        del tree, state, resumed
+        del tree, state, resumed, unguarded
         free_device_memory()
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
-    bare_ms = float(np.mean(bare))
+    bare_ms = float(np.mean([ms for s, ms in bare if s != 5]))
+    unguarded_ms = float(np.mean([ms for s, ms in bare_unguarded if s != 5]))
     blocking = [round(s, 3) for _, s in saves]
     phase_s = time.perf_counter() - t_phase
     metrics = {
         "params": n_params, "state_gb": state_bytes / 1e9,
         "loop_steady_step_ms": loop_ms, "bare_steady_step_ms": bare_ms,
+        "unguarded_steady_step_ms": unguarded_ms,
+        "bare_step_ms": bare, "unguarded_step_ms": bare_unguarded,
         "loop_data_ms": data_ms, "refresh_step_ms": refresh_ms,
         "ckpt_blocking_s": blocking, "ckpt_write_s": write_s,
         "ckpt_write_gb_per_s": raw_bytes / 1e9 / write_s,
@@ -3017,9 +3042,12 @@ def phase_train_loop(dev) -> dict:
         "reject_vs_nan_max_diff": diff, "ladder_s": ladder_s,
         "phase_s": phase_s}
     log(f"train-loop: steady step {loop_ms:.1f} ms in TrainLoop (span, "
-        f"data {data_ms:.2f} ms) against {bare_ms:.1f} ms bare; refresh "
-        f"steps {refresh_ms} ms; checkpoint blocking {blocking} s, write "
-        f"{write_s:.2f} s ({raw_bytes / 1e9 / write_s:.2f} GB/s); "
+        f"data {data_ms:.2f} ms) against {bare_ms:.1f} ms bare "
+        f"({unguarded_ms:.1f} ms bare without the guard; (step, ms) "
+        f"{[(s, round(ms, 1)) for s, ms in bare]} guarded, "
+        f"{[(s, round(ms, 1)) for s, ms in bare_unguarded]} not); refresh "
+        f"steps (step, ms) {refresh_ms}; checkpoint blocking {blocking} "
+        f"s, write {write_s:.2f} s ({raw_bytes / 1e9 / write_s:.2f} GB/s); "
         f"{raw_bytes / 1e9:.3f} GB raw, {comp_bytes / 1e9:.3f} GB "
         f"compressed (save {comp_save_s:.2f} s, restore "
         f"{comp_restore_ms:.0f} ms); snapshot push "

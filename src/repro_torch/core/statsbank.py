@@ -120,14 +120,12 @@ def init_site_state(length: Optional[int] = None, device=None,
 def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
                   *, ema_decay: float = 0.0,
                   target_max: float = s2fp8.TARGET_MAX_LOG2,
-                  backend: Optional[str] = None,
-                  fmt: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                  backend: Optional[str] = None) -> Dict[str, torch.Tensor]:
     """One refresh: raw moments of ``x`` folded into the EMAs, (alpha, beta)
     re-derived — the reference's rule, op for op.  A state that carries
     the telemetry leaves gets its health metrics recomputed, measured
-    against its pre-refresh stats (``obs_metrics.health_update``);
-    ``fmt`` names the payload format (None: derived from
-    ``target_max``)."""
+    against its pre-refresh stats (``obs_metrics.health_update``), in
+    the payload format that ``target_max`` belongs to."""
     be = nbackend.get_backend(backend)
     log_sum, log_max, count = be.compute_stats_partials(x)
     has = count > 0
@@ -148,7 +146,7 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
     if obs_metrics.has_telemetry(state):
         new.update(obs_metrics.health_update(
             x, state, new, mu_t, m_t, has, first, count,
-            fmt=obs_metrics.resolve_fmt(fmt, target_max), backend=backend))
+            fmt=obs_metrics.resolve_fmt(target_max), backend=backend))
     return new
 
 
@@ -588,7 +586,7 @@ def init_bank(loss_fn: Callable, params, batch, policy,
     sess = DiscoverySession(cfg)
     with _activate(sess), torch.no_grad():
         loss_fn(params, batch, policy)
-    device = _first_leaf(params).device
+    device = first_leaf(params).device
     bank = {key: {d: init_site_state(
                 None if seg is None else sess.segment_lengths[seg], device,
                 cfg.telemetry)
@@ -601,7 +599,8 @@ def init_bank(loss_fn: Callable, params, batch, policy,
     return bank
 
 
-def _first_leaf(tree) -> torch.Tensor:
+def first_leaf(tree) -> torch.Tensor:
+    """The first leaf of nested dicts/lists/tuples (a dict's first value)."""
     while isinstance(tree, (dict, list, tuple)):
         tree = next(iter(tree.values())) if isinstance(tree, dict) else tree[0]
     return tree

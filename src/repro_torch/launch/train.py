@@ -305,8 +305,7 @@ def build(args: argparse.Namespace) -> TrainLoop:
                      snapshot_ring=args.snapshot_ring,
                      snapshot_compress=args.snapshot_compress,
                      watchdog_escalate_after=args.watchdog_escalate_after,
-                     codec_backend=engine,
-                     record_metrics=("aux", "probe_stats"))
+                     codec_backend=engine)
     return loop
 
 

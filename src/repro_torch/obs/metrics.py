@@ -51,9 +51,7 @@ TELE_FIELDS = ("sat_frac", "uflow_frac", "qmse", "qsnr_db",
 _FMT_FROM_TARGET = {float(v): k for k, v in s2fp8.FMT_TARGET_MAX.items()}
 
 
-def resolve_fmt(fmt: Optional[str], target_max: float) -> str:
-    if fmt is not None:
-        return fmt
+def resolve_fmt(target_max: float) -> str:
     return _FMT_FROM_TARGET.get(float(target_max), "e5m2")
 
 

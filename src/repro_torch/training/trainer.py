@@ -39,7 +39,7 @@ were.
 from __future__ import annotations
 
 import time
-from typing import Callable, Optional, Sequence
+from typing import Callable, Optional
 
 import torch
 
@@ -184,18 +184,6 @@ def make_eval_step(loss_fn: Callable, policy: Policy):
     return eval_step
 
 
-def _first_tensor(tree) -> Optional[torch.Tensor]:
-    if isinstance(tree, torch.Tensor):
-        return tree
-    kids = (tree.values() if isinstance(tree, dict)
-            else tree if isinstance(tree, (list, tuple)) else ())
-    for v in kids:
-        t = _first_tensor(v)
-        if t is not None:
-            return t
-    return None
-
-
 def _host_metrics(metrics: dict) -> dict:
     """``metrics`` with every 0-d tensor (nested dicts too) a Python float,
     read in one transfer per dict."""
@@ -259,7 +247,8 @@ class TrainLoop:
     ``sink``: a ``repro_torch.obs.MetricsSink`` receiving per-step
     ``"train_step"`` records with span timings (data / device-synchronized
     step / checkpoint / refresh wall-clock) every ``log_every`` steps, plus
-    the step metrics named in ``record_metrics``, and ``"event"`` records.
+    the step's ``aux`` and ``probe_stats`` metrics where it has them, and
+    ``"event"`` records.
     Defaults to a ``ConsoleSink`` over ``run``'s ``print_fn``.
     """
 
@@ -271,8 +260,7 @@ class TrainLoop:
                  snapshot_ring: int = 4, snapshot_compress: bool = False,
                  watchdog_escalate_after: int = 0,
                  max_interventions: int = 32,
-                 codec_backend: Optional[str] = None,
-                 record_metrics: Sequence[str] = ()):
+                 codec_backend: Optional[str] = None):
         self.train_step = train_step
         self.params = params
         self.opt_state = opt_state
@@ -291,7 +279,6 @@ class TrainLoop:
                                             backend=codec_backend)
                      if snapshot_every else None)
         self.max_interventions = max_interventions
-        self.record_metrics = tuple(record_metrics)
         self.sink = sink
         self.start_step = 0
         self.history = []
@@ -316,15 +303,12 @@ class TrainLoop:
         if self.guard_state is not None:
             self.guard_state = tree[i]
 
-    def _ckpt_tree(self):
-        return self._state_tree()
-
     def _sync(self):
         """Wait for the card (the reference's ``block_until_ready``): the
         step's kernels run asynchronously, so a span without it times the
         launches, not the work."""
-        t = _first_tensor(self.params)
-        if t is not None and t.device.type == "cuda":
+        t = statsbank.first_leaf(self.params)
+        if isinstance(t, torch.Tensor) and t.is_cuda:
             torch.cuda.synchronize(t.device)
 
     def _step_once(self, batch, step):
@@ -349,7 +333,7 @@ class TrainLoop:
             return
         try:
             # step=None walks newest -> oldest, quarantining corrupt dirs
-            restored, latest = self.ckpt.restore(self._ckpt_tree())
+            restored, latest = self.ckpt.restore(self._state_tree())
         except FileNotFoundError:
             return
         self._load_state(restored)
@@ -377,7 +361,7 @@ class TrainLoop:
             return snap_step
         if self.ckpt is not None:
             try:
-                restored, s = self.ckpt.restore(self._ckpt_tree())
+                restored, s = self.ckpt.restore(self._state_tree())
             except FileNotFoundError:
                 return step + 1
             self._load_state(restored)
@@ -462,7 +446,7 @@ class TrainLoop:
             saved = False
             if self.ckpt is not None and self.ckpt_every and \
                     (step + 1) % self.ckpt_every == 0:
-                self.ckpt.save(step + 1, self._ckpt_tree(), blocking=False)
+                self.ckpt.save(step + 1, self._state_tree(), blocking=False)
                 saved = True
             ckpt_s = time.perf_counter() - t1
             if saved:
@@ -484,7 +468,7 @@ class TrainLoop:
                            "data_ms": data_s * 1e3, "step_ms": dt * 1e3,
                            "ckpt_ms": ckpt_s * 1e3 if saved else 0.0,
                            "refresh_ms": dt * 1e3 if refreshed else 0.0,
-                           **{k: metrics[k] for k in self.record_metrics
+                           **{k: metrics[k] for k in ("aux", "probe_stats")
                               if k in metrics}})
             step += 1
         if self.ckpt is not None:

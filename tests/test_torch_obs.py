@@ -67,7 +67,7 @@ def test_health_metrics_match_jax_refresh(fmt, backend):
         jst = jsb.refresh_state(jnp.asarray(xx), jst, jnp.float32(step),
                                 backend="ref", fmt=fmt, target_max=target)
         tst = tsb.refresh_state(torch.from_numpy(xx), tst, float(step),
-                                backend=backend, fmt=fmt, target_max=target)
+                                backend=backend, target_max=target)
         got = {k: v.item() for k, v in tst.items()}
         want = {k: float(v) for k, v in jst.items()}
         count = float((xx != 0).sum())
@@ -112,9 +112,9 @@ def test_ensure_and_strip_telemetry_roundtrip():
 
 
 def test_resolve_fmt():
-    for args in (("e4m3", 15.0), (None, 8.0), (None, 15.0),
-                 (None, 12.345)):
-        assert tmetrics.resolve_fmt(*args) == jmetrics.resolve_fmt(*args)
+    for target_max in (8.0, 15.0, 12.345):
+        assert (tmetrics.resolve_fmt(target_max)
+                == jmetrics.resolve_fmt(None, target_max))
 
 
 def _bank_pair():
