@@ -343,20 +343,32 @@ _KIND_DIRS = {"t": TRUNC_DIRS, "qt": GEMM_DIRS, "qf": FLASH_DIRS,
 class CalibratingSession(Session):
     """Forward-only calibration: refresh-then-use at every visit (every
     site is due, so the banked nodes' forward serves it), sites minted on
-    first visit (``[L]`` rows inside segments)."""
+    first visit (``[L]`` rows inside segments), each a copy of ``seed``'s
+    entry where that has the same directions, fields and shapes (a train
+    bank's), else fresh."""
 
-    def __init__(self, bank: Dict[str, Any], cfg: StatsConfig, device):
+    def __init__(self, bank: Dict[str, Any], cfg: StatsConfig, device,
+                 seed: Optional[Dict[str, Any]] = None):
         if cfg.refresh_every != 1:
             raise ValueError("a calibrating session refreshes at every "
                              "visit: refresh_every must be 1")
         super().__init__(bank, cfg)
         self.device = device
+        self.seed = seed or {}
 
     def _require(self, key, kind):
-        if key not in self.bank:
-            length = None if self._segment is None else self._segment_length
-            self.bank[key] = {d: init_site_state(length, self.device)
-                              for d in _KIND_DIRS[kind]}
+        if key in self.bank:
+            return
+        length = None if self._segment is None else self._segment_length
+        entry = {d: init_site_state(length, self.device)
+                 for d in _KIND_DIRS[kind]}
+        seeded = self.seed.get(key)
+        if seeded is not None and _same_layout(seeded, entry):
+            entry = {d: {f: torch.as_tensor(v, dtype=torch.float32,
+                                            device=self.device).clone()
+                         for f, v in st.items()}
+                     for d, st in seeded.items()}
+        self.bank[key] = entry
 
     def refresh(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
                 backend: Optional[str] = None) -> torch.Tensor:
@@ -382,6 +394,14 @@ class CalibratingSession(Session):
     def truncate(self, x, *, fmt="e5m2", backend=None):
         ab = self.site("t").refresh("fwd", x, fmt, backend)
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
+
+
+def _same_layout(a: Dict[str, Any], b: Dict[str, Any]) -> bool:
+    """Two site entries with the same directions, fields and shapes."""
+    return set(a) == set(b) and all(
+        set(a[d]) == set(b[d]) and all(
+            tuple(a[d][f].shape) == tuple(b[d][f].shape) for f in b[d])
+        for d in b)
 
 
 class _TruncateBanked(torch.autograd.Function):
@@ -531,10 +551,12 @@ def freeze(bank):
     return _activate(FrozenSession(fb))
 
 
-def calibrate(bank: Dict[str, Any], cfg: StatsConfig, device):
+def calibrate(bank: Dict[str, Any], cfg: StatsConfig, device,
+              seed: Optional[Dict[str, Any]] = None):
     """Activate a :class:`CalibratingSession` that refreshes ``bank`` in
-    place (sites are added on first visit)."""
-    return _activate(CalibratingSession(bank, cfg, device))
+    place (sites are added on first visit, from ``seed``'s entry where it
+    has one of the same layout)."""
+    return _activate(CalibratingSession(bank, cfg, device, seed))
 
 
 def bind(bank: Dict[str, Any], step: int, cfg: StatsConfig = StatsConfig(),

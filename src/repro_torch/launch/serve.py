@@ -1,18 +1,26 @@
 """Serving launcher of the port: the paged-payload engine (attention
-models) and the dense-cache engine (attention and mamba1 models).
+models: dense, dense_first and moe blocks) and the dense-cache engine
+(attention and mamba1 models).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --requests 16 --slots 8 --max-len 1024            # on the GPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --reduced --device cpu --requests 4 --max-len 64  # plain versions
     PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek_moe_16b --reduced --device cpu --cache-fmt f32_e5m2 \
+        --metrics jsonl:/tmp/ticks.jsonl      # MoE, comparator pool, sink
+    PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon_mamba_7b --reduced --engine dense --device cpu
 
-Params are random from ``--seed``.  The payload engine serves from a
-frozen bank calibrated on the device from seeded random prompts
-(serving/bank.py); the dense engine uses exact per-call stats, and its
-s2fp8 default is payload GEMMs on the ``cuda_fused`` engine (every stats
-reduction in a kernel).
+Params are random from ``--seed`` (``api.init_params``).  The payload
+engine serves from a frozen bank calibrated on the device from seeded
+random prompts (serving/bank.py, prefill and decode probes) into the pool
+``--cache-fmt`` (the payload formats e5m2 / e4m3, the grid-snapped f32
+comparators f32_e5m2 / f32_e4m3, raw f32), and ``--metrics`` sends one
+``serving_tick`` event a tick to a sink (``obs.sinks.make_sink``:
+``jsonl:<path>``, ``csv:<path>``, ``console``); the dense engine uses
+exact per-call stats, and its s2fp8 default is payload GEMMs on the
+``cuda_fused`` engine (every stats reduction in a kernel).
 """
 from __future__ import annotations
 
@@ -25,7 +33,8 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import get_config, get_reduced_config
 from repro_torch.core.policy import make_policy
-from repro_torch.models import transformer as tlm
+from repro_torch.launch import api
+from repro_torch.obs.sinks import make_sink
 from repro_torch.serving import bank as sbank
 from repro_torch.serving import paged_cache
 from repro_torch.serving.engine import LMServer, PayloadLMServer, Request
@@ -53,17 +62,23 @@ def main(argv=None):
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
     ap.add_argument("--calib-passes", type=int, default=2)
+    ap.add_argument("--metrics", default=None,
+                    help="per-tick metrics sink spec (obs.sinks.make_sink)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
+    if cfg.enc_dec:
+        raise SystemExit("serve launcher covers decoder LMs; whisper uses "
+                         "encdec.serve_prefill / serve_decode "
+                         "(api.make_prefill_step / make_decode_step)")
     dense = args.engine == "dense"
     backend = args.backend or ("cuda_fused" if dense else "auto")
     pol = make_policy(args.policy, backend, "payload")
     print(f"[serve] {cfg.name}, engine {args.engine}, policy {pol.mode}, "
           f"numerics {pol.backend_obj.name}, gemm payload, on {dev}")
-    params = tlm.init_lm(cfg, seed=args.seed, device=dev)
+    params = api.init_params(cfg, seed=args.seed, device=dev)
     rng = np.random.default_rng(args.seed)
     if dense:
         server = LMServer(cfg, params, pol, slots=args.slots,
@@ -77,9 +92,11 @@ def main(argv=None):
               f"passes)...")
         bank = sbank.calibrate_serving_bank(params, cfg, pol, calib,
                                             passes=args.calib_passes)
+        sink = make_sink(args.metrics) if args.metrics else None
         server = PayloadLMServer(cfg, params, pol, bank=bank,
                                  slots=args.slots, max_len=args.max_len,
-                                 block=args.block, cache_fmt=args.cache_fmt)
+                                 block=args.block, cache_fmt=args.cache_fmt,
+                                 sink=sink)
         pool_b, stats_b = server.cache_bytes()
         print(f"[serve] paged cache: {pool_b/1e6:.2f} MB pool + {stats_b} B "
               f"frozen stats ({args.cache_fmt}, block={args.block}, "
@@ -104,6 +121,8 @@ def main(argv=None):
           + ("" if dense else f", {server.preemptions} preemptions"))
     for i, r in enumerate(reqs[:3]):
         print(f"  req{i}: {r.out[:8]}...")
+    if not dense and server.sink is not None:
+        server.sink.close()
 
 
 if __name__ == "__main__":

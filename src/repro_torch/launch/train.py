@@ -72,8 +72,7 @@ from repro_torch.core import backend as nbackend
 from repro_torch.core import statsbank
 from repro_torch.core.policy import GEMM_MODES, S2FP8_MODES, make_policy
 from repro_torch.data import synthetic
-from repro_torch.models import encdec
-from repro_torch.models import transformer as tlm
+from repro_torch.launch import api
 from repro_torch.obs.sinks import ConsoleSink
 from repro_torch.optim import optimizers, schedules
 from repro_torch.training import chaos as chaos_mod
@@ -234,29 +233,21 @@ def build(args: argparse.Namespace) -> TrainLoop:
         # resume replays the same data
         return torch.Generator().manual_seed(int(
             np.random.SeedSequence([args.seed, step]).generate_state(1)[0]))
+    loss_fn = api.make_loss_fn(cfg)
     if cfg.enc_dec:
-        def loss_fn(params, batch, policy):
-            return encdec.loss_fn(params, batch["enc_tokens"],
-                                  batch["dec_tokens"], batch["dec_labels"],
-                                  cfg, policy)
-
         def data(step):
-            return synthetic.seq2seq_batch(gen(step), args.batch, args.seq,
-                                           args.seq, cfg.vocab, dev)
-
-        params = encdec.init_encdec(cfg, seed=args.seed, device=dev)
+            b = synthetic.seq2seq_batch(gen(step), args.batch, args.seq,
+                                        args.seq, cfg.vocab, dev)
+            return {"enc_inputs": b["enc_tokens"],
+                    "dec_tokens": b["dec_tokens"],
+                    "dec_labels": b["dec_labels"]}
     else:
-        def loss_fn(params, batch, policy):
-            return tlm.loss_fn(params, batch["tokens"], batch["labels"], cfg,
-                               policy)
-
         chain = synthetic.markov_chain(args.seed, cfg.vocab)
 
         def data(step):
             return synthetic.lm_batch(chain, gen(step), args.batch, args.seq,
                                       dev)
-
-        params = tlm.init_lm(cfg, seed=args.seed, device=dev)
+    params = api.init_params(cfg, seed=args.seed, device=dev)
     opt_state = opt.init(params)
     out = functools.partial(print, flush=True)
     console = StepLines(args.batch * args.seq, out)

@@ -18,9 +18,10 @@ mamba1 scan and conv window run on
 through the pad tokens, so a prompt shorter than its bucket decodes from a
 state that includes the pads.
 
-``PayloadLMServer``: KV lives as S2FP8 payloads in a paged block pool (serving/paged_cache.py)
-with frozen per-layer stats; every other site's stats come from the
-frozen bank, so prefill and decode run no stats reductions.  Per tick:
+``PayloadLMServer``: KV lives in a paged block pool (serving/paged_cache.py:
+S2FP8 payloads, or the f32 comparator pools) with frozen per-layer stats;
+every other site's stats come from the frozen bank, so prefill and decode
+run no stats reductions.  Per tick:
 
   * batched, bucketed admission — free slots are filled FCFS from the
     queue while a slot, the prefill-token budget and pool blocks allow;
@@ -30,13 +31,15 @@ frozen bank, so prefill and decode run no stats reductions.  Per tick:
   * block growth at decode boundaries, preempting the youngest live slot
     (LIFO) when the pool runs dry — its request is requeued at the head
     and restarts cleanly;
-  * one decode step for all slots with a per-slot position vector.
+  * one decode step for all slots with a per-slot position vector;
+  * one ``serving_tick`` event to the sink, if one is given.
 
 Both host loops are the reference's, line for line; the device work is
 the port's prefill / pack / decode.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
 from typing import Any, Dict, List, Optional
@@ -201,18 +204,29 @@ class LMServer:
 class PayloadLMServer:
     """Paged-payload serving engine (see module docstring).
 
-    ``bank``: frozen serving bank (serving/bank.py).  ``n_blocks``: pool
-    size including the trash block; the default leaves no memory pressure
-    (slots * max_blocks + 1).  ``prefill_token_budget``: per-tick cap on
-    padded prefill tokens.  The device is the params' device.
+    ``bank``: frozen serving bank (serving/bank.py); None runs without a
+    frozen session and with identity cache stats, the fp32-baseline
+    configuration.  ``stats_cfg`` is accepted for the reference's
+    signature and changes nothing: a frozen session reads no config
+    (neither does the reference's).
+    ``cache_fmt``: pool storage (paged_cache.CACHE_FMTS): "e5m2" / "e4m3"
+    payload pools, "f32_e5m2" / "f32_e4m3" the grid-snapped comparators,
+    "f32" the raw baseline.  ``n_blocks``: pool size including the trash
+    block; the default leaves no memory pressure (slots * max_blocks + 1).
+    ``prefill_token_budget``: per-tick cap on padded prefill tokens.
+    ``sink``: an ``obs.sinks`` sink that receives one ``serving_tick``
+    event a tick, from host state only.  The device is the params'
+    device.
     """
 
     def __init__(self, cfg: ArchConfig, params, policy: Policy, *,
-                 bank: Dict[str, Any], slots: int = 8, max_len: int = 256,
-                 block: int = 16, n_blocks: Optional[int] = None,
-                 cache_fmt: str = "e5m2", eos: int = -1,
-                 admit_width: Optional[int] = None,
-                 prefill_token_budget: Optional[int] = None):
+                 bank: Optional[Dict[str, Any]] = None, slots: int = 8,
+                 max_len: int = 256, block: int = 16,
+                 n_blocks: Optional[int] = None, cache_fmt: str = "e5m2",
+                 eos: int = -1, admit_width: Optional[int] = None,
+                 prefill_token_budget: Optional[int] = None,
+                 stats_cfg: Optional[statsbank.StatsConfig] = None,
+                 sink=None):
         if max_len % block:
             raise ValueError(f"max_len {max_len} not a multiple of "
                              f"block {block}")
@@ -224,16 +238,18 @@ class PayloadLMServer:
         self.n_blocks = n_blocks or slots * self.max_blocks + 1
         self.cache_fmt = cache_fmt
         self.bank = bank
-        self.frozen = statsbank.FrozenBank(bank)
+        self.frozen = None if bank is None else statsbank.FrozenBank(bank)
         self.admit_width = admit_width or min(slots, 8)
         self.prefill_token_budget = (prefill_token_budget
                                      or self.admit_width * max_len)
+        self.sink = sink
 
+        kv_stats = (None if bank is None else
+                    paged_cache.kv_stats_from_bank(bank, cfg, cache_fmt))
         self.caches = paged_cache.init_paged_caches(
             cfg, slots=slots, n_blocks=self.n_blocks, block=block,
             max_blocks=self.max_blocks, cache_fmt=cache_fmt,
-            kv_stats=paged_cache.kv_stats_from_bank(bank, cfg, cache_fmt),
-            device=self.device)
+            kv_stats=kv_stats, device=self.device)
         self.alloc = paged_cache.BlockAllocator(self.n_blocks, slots,
                                                 self.max_blocks)
 
@@ -248,21 +264,28 @@ class PayloadLMServer:
         self._tick = 0
         self._last_token = np.zeros((slots, 1), np.int32)
 
+    def _session(self):
+        """The frozen session over the bank, or none without one."""
+        if self.frozen is None:
+            return contextlib.nullcontext()
+        return statsbank.freeze(self.frozen)
+
     # -- device work ------------------------------------------------------
     def _prefill(self, params, tokens, last_index):
         dense = tlm.init_caches(self.cfg, tokens.shape[0], tokens.shape[1],
                                 device=self.device)
-        with torch.no_grad(), statsbank.freeze(self.frozen):
+        with torch.no_grad(), self._session():
             return tlm.prefill(params, tokens, self.cfg, self.pol, dense,
                                last_index=last_index)
 
     def _pack(self, caches, dense, bids):
         with torch.no_grad():
             return paged_cache.pack_dense_caches(caches, dense, bids,
-                                                 self.cache_fmt)
+                                                 self.cache_fmt,
+                                                 policy=self.pol)
 
     def _decode(self, params, token, caches, pos):
-        with torch.no_grad(), statsbank.freeze(self.frozen):
+        with torch.no_grad(), self._session():
             return tlm.decode_step(params, token, self.cfg, self.pol, caches,
                                    pos, cache_fmt=self.cache_fmt)
 
@@ -368,6 +391,7 @@ class PayloadLMServer:
         youngest slot when the pool runs dry), one batched decode."""
         self._tick += 1
         n_admit = self._admit()
+        preempted_this_tick = 0
         for s in range(self.slots):
             if self.slot_req[s] is None:
                 continue
@@ -377,10 +401,12 @@ class PayloadLMServer:
                     continue
                 victim = self._pick_victim(exclude=s)
                 self._preempt(s if victim is None else victim)
+                preempted_this_tick += 1
                 if self.slot_req[s] is None:
                     break
         live = [s for s in range(self.slots) if self.slot_req[s] is not None]
         if not live:
+            self._emit_tick(n_admit, 0, preempted_this_tick)
             return bool(n_admit or self.queue)
         self._sync_tables()
         pos = np.zeros((self.slots,), np.int32)
@@ -402,7 +428,21 @@ class PayloadLMServer:
             if done:
                 self.alloc.release(s)
                 self.slot_req[s] = None
+        self._emit_tick(n_admit, len(live), preempted_this_tick)
         return True
+
+    def _emit_tick(self, admitted: int, decoded: int, preempted: int):
+        """The reference's ``serving_tick`` event, from host state only."""
+        if self.sink is None:
+            return
+        self.sink.emit({
+            "kind": "event", "event": "serving_tick", "tick": self._tick,
+            "admitted": admitted, "decode_tokens": decoded,
+            "preempted": preempted, "preemptions_total": self.preemptions,
+            "live": sum(r is not None for r in self.slot_req),
+            "queue_depth": len(self.queue),
+            "free_blocks": self.alloc.free_blocks,
+        })
 
     def run_to_completion(self, max_ticks: int = 10_000):
         ticks = 0
@@ -410,4 +450,6 @@ class PayloadLMServer:
                 and ticks < max_ticks:
             self.step()
             ticks += 1
+        if self.sink is not None:
+            self.sink.flush()
         return ticks

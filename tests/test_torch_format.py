@@ -22,6 +22,7 @@ import torch
 
 from repro.core import s2fp8 as js2
 from repro_torch.core import s2fp8 as ts2
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

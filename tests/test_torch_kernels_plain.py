@@ -34,6 +34,7 @@ from repro_torch import kernels
 from repro_torch.core import s2fp8 as ts2
 from repro_torch.kernels import (flash_attention, paged_attention,
                                  s2fp8_matmul, s2fp8_quant)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

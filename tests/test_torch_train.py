@@ -47,6 +47,7 @@ from repro_torch.models import transformer as tlm
 from repro_torch.optim import optimizers as topt
 from repro_torch.optim import schedules as tsched
 from repro_torch.training import trainer as ttrainer
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 

@@ -42,6 +42,7 @@ from repro.core import qdot as jqdot
 from repro.core import statsbank as jsb
 from repro_torch.core import qdot as tqdot
 from repro_torch.core import statsbank as tsb
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax.config.update("jax_platform_name", "cpu")
 
