@@ -153,12 +153,39 @@ Phases, each fatal on failure:
              pool may decode through ``decode_attention``, and the sink
              must hold one ``serving_tick`` event a tick.  It runs after
              phase 5.
+20. train-gemma3 — full-width, full-depth gemma3_1b (26 layers: 22
+             local with window 512, 4 dense; d 1152, 4 heads of 256 on 1
+             K/V head, GELU-GLU, vocab 262,144 tied; 1.00 B params) trained
+             2 steps at batch 1 x 4096 with attn_impl flash and the bank
+             at k = 8: the flash kernels at head dim 256, windowed and
+             causal, beside every training kernel.
+21. serve-gemma3 — gemma3_1b through the dense-cache LMServer as
+             serve-dense runs minicpm: its local layers' caches are rings
+             of 512 positions, which the prompts above 512 tokens wrap.
+22. serve-stablelm — full-width, full-depth stablelm_12b (40 layers, 32
+             heads of 160 on 8 K/V heads; 12.1 B f32 params) served as
+             serve-moe serves: 16 requests, 32 new tokens, frozen bank,
+             e5m2 pool; the paged decode at head dim 160.
+23. serve-nemotron — full-width nemotron_4_340b (d 18,432, 96 heads of
+             192 on 8 K/V heads, squared ReLU, layer norm, vocab 256,000
+             untied) cut to 1 of its 96 layers (51.6 GB of f32 params), 8
+             requests, 16 new tokens; the paged decode at head dim 192.
+Phase 4 also runs "small-families": the five attention-family configs
+reduced, served through the kernels (every call held) and through the
+plain versions teacher-forced along the kernels' tokens.
 
 Phase 3 also holds #7, #8, #10, #11 and #12 at the shapes these phases
 give them (the convs' im2col GEMMs, N = 1 and 10, whisper's head and
 attention; serve-moe's head, dense_first, shared-expert and attention
 GEMMs, its routed experts at decode and at every prefill bucket, its
-prefill attention and its decode at head dim 128).
+prefill attention and its decode at head dim 128), #9-#11 at head
+dims 160, 192 and 256, #12 at 16, 160 and 192 and #8 at kimi's experts
+(``wide_kernel_checks``), and #7 and #8 at every GEMM shape of phases
+20-23: the projections, MLPs and heads of gemma3_1b, stablelm_12b and
+nemotron_4_340b at decode, prefill and training, gemma3's decode
+attention and the calibration's decode probes (``family_gemm_checks``).
+A weight above 2^30 elements (nemotron's 4.72 G-element head) is made in
+row chunks and its plain GEMM runs on slices of its columns.
 
 Prints a ``kernels:`` JSON line and then, as the last line, the device
 contract line.  Imports nothing of JAX or of the JAX package.
@@ -277,10 +304,16 @@ TRAIN_LOOP_KERNELS = TRAIN_KERNELS + ("quant",)
 SERVE_MOE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn",
                      "qmatmul_nn/small", "qmatmul_batched", "qflash_fwd",
                      "paged_decode")
+# the attention-family configs' untied-head payload serving (stablelm_12b,
+# nemotron_4_340b): every projection and the head on the NN GEMM (its small
+# path at decode), the prefill's payload flash, the paged decode
+SERVE_UNTIED_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn",
+                        "qmatmul_nn/small", "qflash_fwd", "paged_decode")
 PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "serve_mamba", "ops", "train_modes", "train_long_flash",
           "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
-          "train_paper", "train_loop", "serve_moe")
+          "train_paper", "train_loop", "serve_moe", "train_gemma3",
+          "serve_gemma3", "serve_stablelm", "serve_nemotron")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -380,7 +413,11 @@ def device_ms(fn, iters: int = 20, warmup: int = 2,
     the sum.  The profiler can miss the first kernel of a window, so each
     window opens with a primer (an int16 fill, left out); a window whose
     counts are still not whole multiples of ``iters`` is measured again,
-    up to three times."""
+    up to three times.  The profiler can also drop a kernel inside a long
+    window (a plain version of a few dozen launches a call lost one in
+    three windows running); then the call is timed with CUDA events
+    instead (``cuda_time``, host gaps included; under ``cold`` less the
+    flush's own time), and the log says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     flush = (torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold
@@ -412,28 +449,41 @@ def device_ms(fn, iters: int = 20, warmup: int = 2,
         if (us > 0 and launches % iters == 0
                 and flushes == (iters if cold else 0)):
             return us / 1e3 / iters
-    raise AssertionError(f"the profiler saw {launches} launches and "
-                         f"{flushes} flushes in {iters} calls")
+    log(f"device_ms: the profiler saw {launches} launches and {flushes} "
+        f"flushes in {iters} calls, three windows running; CUDA-event "
+        f"time instead")
+    if not cold:
+        return cuda_time(fn, iters=iters, warmup=0)
+    return cuda_time(lambda: (flush.zero_(), fn()), iters=iters,
+                     warmup=0) - cuda_time(flush.zero_, iters=iters,
+                                           warmup=0)
 
 
 def kernels_per_call(fn, calls: int = 3) -> dict:
     """Kernel function -> launches per call of ``fn`` (torch.profiler over
-    ``calls`` calls; the window opens with a primer, left out)."""
+    ``calls`` calls; the window opens with a primer, left out).  A window
+    whose counts are not whole multiples of ``calls`` (the profiler dropped
+    a kernel, see ``device_ms``) is measured again, up to three times; the
+    last window's counts are returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     primer = torch.empty(1, dtype=torch.int16, device="cuda")
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        primer.fill_(0)
-        torch.cuda.synchronize()
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    return {kernel_function(e.key): e.count / calls
-            for e in prof.key_averages()
-            if e.device_type != DeviceType.CPU
-            and "FillFunctor<short>" not in e.key}
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            primer.fill_(0)
+            torch.cuda.synchronize()
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        counts = {kernel_function(e.key): e.count
+                  for e in prof.key_averages()
+                  if e.device_type != DeviceType.CPU
+                  and "FillFunctor<short>" not in e.key}
+        if counts and all(c % calls == 0 for c in counts.values()):
+            break
+    return {k: c / calls for k, c in counts.items()}
 
 
 def same_bits(fn, what: str) -> None:
@@ -755,13 +805,15 @@ def phase_kernels(dev) -> dict:
     long_kernel_checks(dev, rnd, record)
     paper_kernel_checks(dev, rnd, record)
     moe_serve_kernel_checks(dev, rnd, record)
+    wide_kernel_checks(dev, gen, rnd, record)
+    family_gemm_checks(dev, rnd, record)
     return rows
 
 
 def paged_decode_checks(dev, gen, rnd, record, row, kvh, hd,
-                        serve_lens) -> None:
+                        serve_lens, g: int = 1) -> None:
     """The paged decode kernel at 8 slots x ``kvh`` KV heads of head dim
-    ``hd`` (one query head a KV head), block 16, 64 blocks per slot, both
+    ``hd`` (``g`` query heads a KV head), block 16, 64 blocks per slot, both
     formats, at three sets of positions: across the whole context; on
     both sides of the kernel's split boundaries; and a serve run's first
     8 prompts (``serve_lens``) at their 16th decode token, the row's
@@ -779,7 +831,7 @@ def paged_decode_checks(dev, gen, rnd, record, row, kvh, hd,
         "serve": [int(n) + 15 for n in serve_lens[:8]],
     }
     for fmt in ("e4m3", "e5m2"):
-        b, g, blk, max_b = 8, 1, 16, 64
+        b, blk, max_b = 8, 16, 64
         nb = b * max_b + 1
         q = rnd(b, kvh, g, hd)
         kf, vf = rnd(nb, kvh, blk, hd), rnd(nb, kvh, blk, hd)
@@ -797,7 +849,8 @@ def paged_decode_checks(dev, gen, rnd, record, row, kvh, hd,
             op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab,
                                                     table, pos, fmt)
             err = (ok - op).abs()
-            log(f"{row} {fmt} KV={kvh} hd={hd} {label} {positions}: max err "
+            log(f"{row} {fmt} KV={kvh} G={g} hd={hd} {label} {positions}: "
+                f"max err "
                 f"{err.max().item():.3e}")
             assert bool((err <= 1e-4 * op.abs() + 1e-5).all()), \
                 err.max().item()
@@ -810,7 +863,7 @@ def paged_decode_checks(dev, gen, rnd, record, row, kvh, hd,
                    2 * live * kvh * hd + 2 * b * kvh * g * hd * 4
                    + table.numel() * 4 + b * 4,
                    4.0 * live * kvh * g * hd,
-                   f"{fmt} B={b} KV={kvh} hd={hd} block={blk} {label} "
+                   f"{fmt} B={b} KV={kvh} G={g} hd={hd} block={blk} {label} "
                    f"live={live}",
                    keep=label == "spread",
                    path_ms=device_ms(kernel, cold=True),
@@ -1114,7 +1167,8 @@ def moe_kernel_checks(dev, rnd, record) -> None:
                      k, n)
 
 
-def batched_case(rnd, record, row, layout, ga, gb, ob, m, k, n) -> None:
+def batched_case(rnd, record, row, layout, ga, gb, ob, m, k, n,
+                 keep=True) -> None:
     """One batched payload GEMM case, (layout, Ga, Gb, out_batch, M, K, N)
     on bf16 operands, held against the plain version (raw within 1e-5 *
     (|A| @ |B|) + 1e-30, epilogue codes at most one step apart in at most
@@ -1172,7 +1226,7 @@ def batched_case(rnd, record, row, layout, ga, gb, ob, m, k, n) -> None:
                qa, aab, qb, bab, oab, **kw), iters=3),
            cuda_time(library),
            ga * m * k + gb * k * n + 4 * (ob or g) * m * n,
-           2.0 * g * m * k * n, label, tensor_cores=True)
+           2.0 * g * m * k * n, label, keep=keep, tensor_cores=True)
 
 
 def long_kernel_checks(dev, rnd, record) -> None:
@@ -1300,54 +1354,120 @@ FLASH_WHISPER = [("enc S1500", 64, 1500, 1500, False),
                  ("cross 1x1500", 64, 1, 1500, False)]
 
 
+BIG_OPERAND = 1 << 30    # elements: a larger operand is made in row chunks,
+                         # and the plain version runs on slices of B's columns
+CHUNK = 1 << 26          # elements a chunk
+
+
+def seeded_payload(rnd, shape, dtype, scale=1.0):
+    """A seeded N(0, scale^2) 2-D operand in ``dtype`` and its e5m2 payload
+    under the operand's exact stats.  Above ``BIG_OPERAND`` elements
+    (nemotron_4_340b's 4.72 G-element head) the draw, the stats reduction
+    and the encode go in row chunks, so no f32 temporary the size of the
+    operand is made; the stats are then the chunks' partial reductions
+    combined."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import s2fp8_quant
+    rows, cols = shape
+    if rows * cols <= BIG_OPERAND:
+        x = rnd(rows, cols, dtype=dtype, scale=scale)
+        ab = s2fp8.compute_stats(x)
+        return s2fp8_quant.quant_apply(x, ab), ab
+    step = max(1, CHUNK // cols)
+    x, parts = None, []
+    for r in range(0, rows, step):
+        piece = rnd(min(step, rows - r), cols, dtype=dtype, scale=scale)
+        if x is None:
+            x = torch.empty(shape, dtype=dtype, device=piece.device)
+        x[r:r + step] = piece
+        parts.append(s2fp8.compute_stats_partials(piece))
+    sums, maxes, counts = (torch.stack(t) for t in zip(*parts))
+    ab = torch.stack(s2fp8.stats_from_reduction(sums.sum(), maxes.max(),
+                                                counts.sum()))
+    q = torch.empty(shape, dtype=torch.float8_e5m2, device=x.device)
+    for r in range(0, rows, step):
+        q[r:r + step] = s2fp8_quant.quant_apply(x[r:r + step], ab)
+    return q, ab
+
+
+def dequantized(q, ab) -> torch.Tensor:
+    """The f32 values of a 2-D payload, in row chunks above
+    ``BIG_OPERAND`` elements (the plain dequantize makes several f32
+    temporaries of its input's size)."""
+    from repro_torch.core import s2fp8
+    if q.numel() <= BIG_OPERAND:
+        return s2fp8.dequantize(s2fp8.S2FP8Tensor(q, ab))
+    out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    step = max(1, CHUNK // q.shape[1])
+    for r in range(0, q.shape[0], step):
+        out[r:r + step] = s2fp8.dequantize(s2fp8.S2FP8Tensor(q[r:r + step],
+                                                             ab))
+    return out
+
+
 def gemm_case(rnd, record, row, layout, m, k, n, dtype, keep=True) -> None:
     """One 2-D payload GEMM (logical C[M,N] over K under ``layout``) held
     against its plain version: raw |kernel - plain| <= 1e-5 * (|A| @ |B|)
-    + 1e-30 (f32 summation order), epilogue codes at most one grid step
-    apart in at most 1e-3 of the outputs, two launches the same bits; timed
-    (device time on the small path) beside its bound and the library's
-    ``torch.matmul`` on the dequantized operands into ``row``."""
+    + 1e-30 (f32 summation order; |A| @ |B| is the plain version on the
+    payloads with their sign bits cleared), epilogue codes at most one grid
+    step apart in at most 1e-3 of the outputs, two launches the same bits;
+    timed (device time on the small path) beside its bound and the
+    library's ``torch.matmul`` on the dequantized operands into ``row``.
+    Where B holds more than ``BIG_OPERAND`` elements the plain version runs
+    on slices of its output columns (each column is its own product) and
+    its time is the slices' sum."""
     from repro_torch.core import s2fp8
-    from repro_torch.kernels import s2fp8_matmul, s2fp8_quant
-
-    def payload(x):
-        ab = s2fp8.compute_stats(x)
-        return s2fp8_quant.quant_apply(x, ab), ab
+    from repro_torch.kernels import s2fp8_matmul
 
     kernel = getattr(s2fp8_matmul, f"qmatmul_{layout}")
-    plain = (s2fp8_matmul.qmatmul_plain if layout == "nn"
-             else getattr(s2fp8_matmul, f"qmatmul_{layout}_plain"))
+    plain_gemm = (s2fp8_matmul.qmatmul_plain if layout == "nn"
+                  else getattr(s2fp8_matmul, f"qmatmul_{layout}_plain"))
     a_shape = (k, m) if layout == "tn" else (m, k)
     b_shape = (n, k) if layout == "nt" else (k, n)
-    qa, aab = payload(rnd(*a_shape, dtype=dtype))
-    qb, bab = payload(rnd(*b_shape, dtype=dtype, scale=k ** -0.5))
-    deq_a = s2fp8.dequantize(s2fp8.S2FP8Tensor(qa, aab))
-    deq_b = s2fp8.dequantize(s2fp8.S2FP8Tensor(qb, bab))
-    lhs = deq_a.t() if layout == "tn" else deq_a
-    rhs = deq_b.t() if layout == "nt" else deq_b
+    qa, aab = seeded_payload(rnd, a_shape, dtype)
+    qb, bab = seeded_payload(rnd, b_shape, dtype, scale=k ** -0.5)
+    width = -(-n // -(-k * n // BIG_OPERAND))      # B's columns a slice
+    cols = [(c, min(n, c + width)) for c in range(0, n, width)]
+
+    def plain(a, b, out_ab=None):
+        if len(cols) == 1:
+            return plain_gemm(a, aab, b, bab, out_ab)
+        return torch.cat([plain_gemm(a, aab, b[c0:c1] if layout == "nt"
+                                     else b[:, c0:c1], bab, out_ab)
+                          for c0, c1 in cols], dim=1)
+
     raw_k = kernel(qa, aab, qb, bab)
-    raw_p = plain(qa, aab, qb, bab)
+    raw_p = plain(qa, qb)
     err = (raw_k - raw_p).abs()
-    assert bool((err <= 1e-5 * (lhs.abs() @ rhs.abs()) + 1e-30).all()), \
+    bad = ~(err <= 1e-5 * plain(abs_payload(qa), abs_payload(qb)) + 1e-30)
+    assert not bool(bad.any()), \
         f"{row} raw {m}x{k}x{n}: max err {err.max().item()}"
+    raw_err = err.max().item()
     oab = s2fp8.compute_stats(raw_p)
+    del raw_k, raw_p, err, bad
     ek = kernel(qa, aab, qb, bab, oab)
-    ep = plain(qa, aab, qb, bab, oab)
+    ep = plain(qa, qb, oab)
     f = flips(ordinal(ek, oab, "e5m2"), ordinal(ep, oab, "e5m2"))
     log(f"{row} {layout} {m}x{k}x{n} {str(dtype)[6:]}: raw max err "
-        f"{err.max().item():.3e}, epilogue flips {f}")
+        f"{raw_err:.3e}, epilogue flips {f}")
     assert f["max_step"] <= 1 and f["frac"] <= 1e-3, f
+    err = (ek - ep).abs().max().item()
+    del ek, ep
     call = lambda: kernel(qa, aab, qb, bab, oab)
     same_bits(call, f"{row} {m}x{k}x{n}")
     small = layout != "tn" and s2fp8_matmul.plan_gemm(
         m, n, k, layout=layout).path == "small"
     timer = device_ms if small else cuda_time
-    record(row, (ek - ep).abs().max().item(), timer(call),
-           timer(lambda: plain(qa, aab, qb, bab, oab), iters=3),
-           timer(lambda: torch.matmul(lhs, rhs)),
+    t_kernel = timer(call)
+    t_plain = timer(lambda: plain(qa, qb, oab), iters=3)
+    deq_a, deq_b = dequantized(qa, aab), dequantized(qb, bab)
+    lhs = deq_a.t() if layout == "tn" else deq_a
+    rhs = deq_b.t() if layout == "nt" else deq_b
+    record(row, err, t_kernel, t_plain, timer(lambda: torch.matmul(lhs, rhs)),
            m * k + k * n + 4 * m * n, 2.0 * m * k * n,
-           f"{layout} M={m} K={k} N={n} epilogue", keep=keep,
-           tensor_cores=not small,
+           f"{layout} M={m} K={k} N={n} epilogue"
+           + (f" (plain over {len(cols)} column slices)" if len(cols) > 1
+              else ""), keep=keep, tensor_cores=not small,
            **({"call_ms": cuda_time(call)} if small else {}))
 
 
@@ -1985,52 +2105,71 @@ def phase_serve_moe(dev, profile: bool = False) -> dict:
     """Full-width deepseek_moe_16b (d 2048, 16 heads of 128, 64 routed
     experts top-6 + 2 shared of width 1408, a dense_first layer of d_ff
     10,944, vocab 102,400) at ``SERVE_MOE_LAYERS`` layers from seed 0,
-    through the entry points a user calls: ``api.init_params``,
-    ``calibrate_serving_bank`` (prefill and decode probes) on phase 5's
-    calibration tokens, then ``PayloadLMServer``: 8 slots, 16 requests
-    with prompts of 64-700, 32 new tokens, max_len 1024, block 16, an e5m2
-    pool, a JSONL sink in a temporary directory.  Every request completes
-    with in-vocabulary tokens, the sink holds one ``serving_tick`` event a
-    tick, every kernel of the path launches (the batched payload GEMM and
-    the paged decode among them), no plain version runs, and the payload
-    pool never decodes through ``decode_attention``.  Returns the launch
-    counts and metrics (tok/s, prefill ms, decode ms a tick, calibration
-    s, peak device memory); with ``profile``, then profiles the server
-    as ``phase_profile`` does."""
+    served by ``serve_payload_run`` with 16 requests, 32 new tokens and a
+    JSONL sink: the batched payload GEMM among the kernels that must
+    launch.  With ``profile``, then profiles the server as
+    ``phase_profile`` does."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    cfg = get_config("deepseek_moe_16b")
+    if SERVE_MOE_LAYERS < cfg.n_layers:
+        cfg = cut_depth(cfg, SERVE_MOE_LAYERS)
+    return serve_payload_run(
+        dev, "serve-moe", cfg, SERVE_MOE_KERNELS, requests=16,
+        new_tokens=32, sink=True, profile=profile,
+        detail=f"{cfg.moe.n_experts} experts top-{cfg.moe.top_k} + "
+               f"{cfg.moe.n_shared} shared")
+
+
+def serve_payload_run(dev, label, cfg, expected, *, requests: int,
+                      new_tokens: int, sink: bool = False,
+                      profile: bool = False, detail: str = "",
+                      backend: str = "cuda") -> dict:
+    """``cfg`` from seed 0, s2fp8 on the ``backend`` engine, through the
+    entry points a user calls:
+    ``api.init_params``, ``calibrate_serving_bank`` (prefill and decode
+    probes) on phase 5's calibration tokens, then ``PayloadLMServer``: 8
+    slots, the first ``requests`` of phase 5's prompt lengths (64-700),
+    ``new_tokens`` each, max_len 1024, block 16, an e5m2 pool (with
+    ``sink``, a JSONL sink in a temporary directory, which must hold one
+    ``serving_tick`` event a tick).  Every request completes with
+    in-vocabulary tokens, every kernel of ``expected`` launches, no plain
+    version runs, and the payload pool never decodes through
+    ``decode_attention``.  Returns the launch counts and metrics (tok/s,
+    prefill ms, decode ms a tick, calibration s, peak device memory)."""
     import tempfile
 
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core.policy import make_policy
     from repro_torch.launch import api
-    from repro_torch.launch.train import cut_depth
     from repro_torch.obs.sinks import JsonlSink
     from repro_torch.serving.bank import calibrate_serving_bank
     from repro_torch.serving.engine import PayloadLMServer, Request
 
-    cfg = get_config("deepseek_moe_16b")
-    if SERVE_MOE_LAYERS < cfg.n_layers:
-        cfg = cut_depth(cfg, SERVE_MOE_LAYERS)
-    pol = make_policy("s2fp8")
+    pol = make_policy("s2fp8", backend)
     t0 = time.perf_counter()
     params = api.init_params(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"serve-moe: deepseek_moe_16b {cfg.n_layers} layers, "
-        f"d={cfg.d_model}, {cfg.moe.n_experts} experts top-{cfg.moe.top_k} "
-        f"+ {cfg.moe.n_shared} shared, vocab {cfg.vocab}, "
-        f"{cfg.n_params() / 1e9:.3f} B params "
+    log(f"{label}: {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim} on {cfg.kv_heads} "
+        f"K/V heads, {cfg.activation}, {cfg.norm} norm, "
+        + (f"{detail}, " if detail else "")
+        + f"engine {pol.backend_obj.name}, "
+        + f"vocab {cfg.vocab}, {cfg.n_params() / 1e9:.3f} B params "
         f"({torch.cuda.memory_allocated() / 1e9:.2f} GB), init "
         f"{time.perf_counter() - t0:.1f} s")
     rng, calib_tokens, prompt_lens = serve_prompts(cfg.vocab)
+    prompt_lens = prompt_lens[:requests]
     calib = torch.as_tensor(calib_tokens, device=dev)
     reqs = [Request(prompt=rng.integers(0, cfg.vocab, int(n),
-                                        dtype=np.int32), max_new_tokens=32)
+                                        dtype=np.int32),
+                    max_new_tokens=new_tokens)
             for n in prompt_lens]
 
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "ticks.jsonl"
-        sink = JsonlSink(str(path))
+        tick_sink = JsonlSink(str(path)) if sink else None
         torch.cuda.reset_peak_memory_stats()
         kernels.reset_counts()                    # the main path starts here
         t0 = time.perf_counter()
@@ -2039,7 +2178,7 @@ def phase_serve_moe(dev, profile: bool = False) -> dict:
         t_calib = time.perf_counter() - t0
         server = PayloadLMServer(cfg, params, pol, bank=bank, slots=8,
                                  max_len=1024, block=16, cache_fmt="e5m2",
-                                 sink=sink)
+                                 sink=tick_sink)
         timing = {"prefill": [], "decode": []}
         prefill, decode = server._prefill, server._decode
 
@@ -2065,18 +2204,24 @@ def phase_serve_moe(dev, profile: bool = False) -> dict:
             wall = time.perf_counter() - t0
         counts = path_counts()                    # ... and ends here
         peak = torch.cuda.max_memory_allocated()
-        sink.close()
-        events = [json.loads(line) for line in path.read_text().splitlines()]
+        events = []
+        if sink:
+            tick_sink.close()
+            events = [json.loads(line)
+                      for line in path.read_text().splitlines()]
     pool_b, stats_b = server.cache_bytes()
 
     for r in reqs:
-        assert len(r.out) == 32, ("request did not complete", len(r.out))
+        assert len(r.out) == new_tokens, ("request did not complete",
+                                          len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
-    assert len(events) == ticks and all(
-        e["event"] == "serving_tick" for e in events), (len(events), ticks)
-    assert [e["tick"] for e in events] == list(range(1, ticks + 1))
+    if sink:
+        assert len(events) == ticks and all(
+            e["event"] == "serving_tick" for e in events), (len(events),
+                                                            ticks)
+        assert [e["tick"] for e in events] == list(range(1, ticks + 1))
     assert n_attn[0] == 0, "a payload pool decoded through decode_attention"
-    check_counts(counts, SERVE_MOE_KERNELS)
+    check_counts(counts, expected)
     tokens = sum(len(r.out) for r in reqs)
     metrics = {
         "layers": cfg.n_layers, "params": cfg.n_params(),
@@ -2096,8 +2241,8 @@ def phase_serve_moe(dev, profile: bool = False) -> dict:
         "max_memory_allocated_gb": peak / 1e9,
         "pool_bytes": pool_b, "pool_stats_bytes": stats_b,
     }
-    log("serve-moe metrics: " + json.dumps(metrics))
-    log("serve-moe launches: " + json.dumps(counts))
+    log(f"{label} metrics: " + json.dumps(metrics))
+    log(f"{label} launches: " + json.dumps(counts))
     for i, r in enumerate(reqs[:2]):
         log(f"  req{i} ({len(r.prompt)} prompt tokens): {r.out[:8]}...")
     if profile:
@@ -3692,31 +3837,38 @@ def phase_train_long(dev, profile: bool = False) -> dict:
 
 
 def phase_serve_dense(dev) -> dict:
-    """Full-width minicpm_2b (40 layers) served through the dense-cache
-    LMServer: 8 slots, max_len 1024 (f32 K/V caches, 6.0 GB), the first
-    8 requests of phase 5's seeded prompts (64-700 tokens), 16 new tokens
-    each; s2fp8 with exact per-call stats on the cuda_fused engine and
-    payload GEMMs (no bank).  Prefill attends through the payload flash
-    forward; every decode step writes each slot's K/V at its position and
-    runs ``decode_attention``, whose two einsums are the batched payload
-    GEMM over 288 (slot, head) groups of one query row.  Every kernel of
-    the path must launch and no plain version may run; every logit row
-    finite.  Returns the launch counts and metrics (tok/s over
+    """Full-width minicpm_2b (40 layers) through ``serve_dense_run``."""
+    from repro_torch.configs import get_config
+    return serve_dense_run(dev, "serve-dense", get_config("minicpm_2b"))
+
+
+def serve_dense_run(dev, label, cfg) -> dict:
+    """``cfg`` from seed 0 served through the dense-cache LMServer: 8
+    slots, max_len 1024 (f32 K/V caches; a ``local`` layer's a ring of its
+    window), the first 8 requests of phase 5's seeded prompts (64-700
+    tokens), 16 new tokens each; s2fp8 with exact per-call stats on the
+    cuda_fused engine and payload GEMMs (no bank).  Prefill attends
+    through the payload flash forward; every decode step writes each
+    slot's K/V at its position (a ring slot in a local layer) and runs
+    ``decode_attention``, whose two einsums are the batched payload GEMM
+    over (slot, head) groups of one query row.  Every kernel of the path
+    must launch and no plain version may run; every logit row finite.
+    Returns the launch counts and metrics (tok/s over
     ``run_to_completion``, prefill ms per call, decode ms per tick, peak
     device memory)."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core.policy import make_policy
     from repro_torch.models import transformer as tlm
     from repro_torch.serving.engine import LMServer, Request
 
-    cfg = get_config("minicpm_2b")
     pol = make_policy("s2fp8", "cuda_fused", "payload")
     t0 = time.perf_counter()
     params = tlm.init_lm(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"serve-dense: minicpm_2b {cfg.n_layers} layers, d={cfg.d_model}, "
+    log(f"{label}: {cfg.name} {cfg.n_layers} layers "
+        f"{cfg.resolved_pattern[:6]}..., d={cfg.d_model}, "
+        f"{cfg.n_heads} heads of {cfg.resolved_head_dim}, "
         f"{cfg.n_params() / 1e9:.3f} B params, init "
         f"{time.perf_counter() - t0:.1f} s; engine {pol.backend_obj.name}, "
         f"payload GEMMs, exact stats")
@@ -3758,6 +3910,11 @@ def phase_serve_dense(dev) -> dict:
         assert len(r.out) == 16, ("request did not complete", len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
     check_counts(counts, SERVE_DENSE_KERNELS)
+    if cfg.window:
+        # every local layer's cache is a ring of the window's positions
+        for (btype, _), seg in zip(tlm.segments_of(cfg), server.caches):
+            assert seg["k"].shape[3] == (min(1024, cfg.window)
+                                         if btype == "local" else 1024)
     tokens = sum(len(r.out) for r in reqs)
     metrics = {
         "requests": len(reqs), "tokens": tokens, "ticks": ticks,
@@ -3772,8 +3929,8 @@ def phase_serve_dense(dev) -> dict:
         "max_memory_allocated_gb": peak / 1e9,
         "cache_bytes": server.cache_bytes(),
     }
-    log("serve-dense metrics: " + json.dumps(metrics))
-    log("serve-dense launches: " + json.dumps(counts))
+    log(f"{label} metrics: " + json.dumps(metrics))
+    log(f"{label} launches: " + json.dumps(counts))
     for i, r in enumerate(reqs[:2]):
         log(f"  req{i} ({len(r.prompt)} prompt tokens): {r.out[:8]}...")
     return {"counts": counts, "metrics": metrics}
@@ -4061,6 +4218,428 @@ def phase_profile(server) -> None:
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# the attention-family configs: phase 3's rows at the wide head dims, and
+# the phases small-families, train-gemma3, serve-gemma3, serve-stablelm and
+# serve-nemotron
+# ---------------------------------------------------------------------------
+
+# (shape label, query heads BH, tokens S, query heads a K/V head g, window)
+# of the flash kernels above head dim 128: a 16-head causal shape at 2,048
+# tokens, and gemma3_1b's training attention (4 query heads on 1 K/V head,
+# 4,096 tokens) in its global layers (causal) and its local ones (window
+# 512), the kept shape
+WIDE_FLASH = [("16h S2048", 16, 2048, 1, None),
+              ("gemma3 S4096 global", 4, 4096, 4, None),
+              ("gemma3 S4096 window512", 4, 4096, 4, 512)]
+WIDE_DIMS = (160, 192, 256)
+# kimi_k2_1t_a32b's routed experts on the batched GEMM (gate / up
+# ecd,edf->ecf: K 7,168, N 2,048) at decode (M 8) and at a prefill
+# capacity (M 1,024), over 64 of its 384 experts (each expert's product is
+# independent; 64 keep the f32 sources under 4 GB)
+GEMMS_BATCHED_KIMI = [("nn", 64, 64, None, 8, 7168, 2048),
+                      ("nn", 64, 64, None, 1024, 7168, 2048)]
+
+
+# the payload GEMMs of the attention family's full-width phases, (row,
+# [(M, K, N), ...]) per layout, each list's last case the row's kept
+# shape.  gemma3_1b (d 1,152, Q 4 x 256, K/V 256, GELU-GLU 6,912, tied
+# head 262,144): serve-gemma3's decode (8 slots: the small path) and its
+# tied head's NT there, its prefill (8 rows x buckets 256 and 1,024);
+# train-gemma3's forward NN, backward NT (dX) and TN (dW) at batch 1 x
+# 4,096, the tied head's among them (NT forward, NN dX over K = 262,144,
+# TN dW).  stablelm_12b (d 5,120 = Q, K/V 1,280, SiLU-GLU 13,824, untied
+# head 100,352) and nemotron_4_340b (d 18,432 = Q, K/V 1,536, squared-ReLU
+# 73,728, untied head 256,000): decode and the head at 8 slots, prefill at
+# 8 rows x their smallest and largest buckets (stablelm 128 and 1,024;
+# nemotron 256, where its 73,728-wide MLP is 5.6 TFLOP a GEMM)
+GEMMS_FAMILY = {
+    "nn": [("qmatmul_nn decode gemma3", [(8, 1152, 1024), (8, 1152, 256),
+                                         (8, 1024, 1152), (8, 6912, 1152),
+                                         (8, 1152, 6912)]),
+           ("qmatmul_nn gemma3 prefill", [(8 * 256, 1152, 6912),
+                                          (8 * 1024, 1152, 1024),
+                                          (8 * 1024, 1152, 256),
+                                          (8 * 1024, 1024, 1152),
+                                          (8 * 1024, 6912, 1152),
+                                          (8 * 1024, 1152, 6912)]),
+           ("qmatmul_nn gemma3 train", [(4096, 1152, 1024), (4096, 1152, 256),
+                                        (4096, 1024, 1152),
+                                        (4096, 6912, 1152),
+                                        (4096, 262144, 1152),
+                                        (4096, 1152, 6912)]),
+           ("qmatmul_nn decode stablelm", [(8, 5120, 5120), (8, 5120, 1280),
+                                           (8, 13824, 5120),
+                                           (8, 5120, 13824)]),
+           ("qmatmul_nn decode stablelm head", [(8, 5120, 100352)]),
+           ("qmatmul_nn stablelm prefill", [(8 * 128, 5120, 13824),
+                                            (8 * 1024, 5120, 5120),
+                                            (8 * 1024, 5120, 1280),
+                                            (8 * 1024, 13824, 5120),
+                                            (8 * 1024, 5120, 13824)]),
+           ("qmatmul_nn decode nemotron", [(8, 18432, 18432),
+                                           (8, 18432, 1536),
+                                           (8, 73728, 18432),
+                                           (8, 18432, 73728)]),
+           ("qmatmul_nn decode nemotron head", [(8, 18432, 256000)]),
+           ("qmatmul_nn nemotron prefill", [(8 * 256, 18432, 18432),
+                                            (8 * 256, 18432, 1536),
+                                            (8 * 256, 73728, 18432),
+                                            (8 * 256, 18432, 73728)])],
+    "nt": [("qmatmul_nt decode gemma3 head", [(8, 1152, 262144)]),
+           ("qmatmul_nt gemma3 train", [(4096, 1024, 1152), (4096, 256, 1152),
+                                        (4096, 1152, 1024),
+                                        (4096, 6912, 1152),
+                                        (4096, 1152, 6912),
+                                        (4096, 1152, 262144)])],
+    "tn": [("qmatmul_tn gemma3 train", [(1152, 4096, 1024), (1152, 4096, 256),
+                                        (1024, 4096, 1152),
+                                        (6912, 4096, 1152),
+                                        (1152, 4096, 6912),
+                                        (262144, 4096, 1152)])],
+}
+# (row, [(layout, Ga, Gb, out_batch, M, K, N), ...]) of the batched GEMM in
+# the same phases: serve-gemma3's decode attention (8 slots x 1 K/V head,
+# its 4 query heads the M rows; K / N 256 over a local ring of 512 and a
+# global cache of 1,024), and the decode probes of serve-stablelm's and
+# serve-nemotron's calibration (2 rows x 8 K/V heads, 4 or 12 query heads
+# of 160 or 192 over 68 positions)
+GEMMS_BATCHED_FAMILY = [
+    ("qmatmul_batched decode gemma3", [("nt", 8, 8, None, 4, 256, 1024),
+                                       ("nn", 8, 8, None, 4, 1024, 256),
+                                       ("nn", 8, 8, None, 4, 512, 256),
+                                       ("nt", 8, 8, None, 4, 256, 512)]),
+    ("qmatmul_batched probe", [("nt", 16, 16, None, 4, 160, 68),
+                               ("nn", 16, 16, None, 4, 68, 160),
+                               ("nn", 16, 16, None, 12, 68, 192),
+                               ("nt", 16, 16, None, 12, 192, 68)]),
+]
+
+
+def family_gemm_checks(dev, rnd, record) -> None:
+    """The payload GEMMs at the shapes the attention family's full-width
+    phases give them, in rows of their own: ``GEMMS_FAMILY``
+    (``gemm_case``: bf16 operands, raw within 1e-5 * (|A| @ |B|) + 1e-30,
+    epilogue codes at most one step apart in at most 1e-3 of the outputs)
+    and ``GEMMS_BATCHED_FAMILY`` (``batched_case``, the same
+    tolerances)."""
+    for layout, rows in GEMMS_FAMILY.items():
+        for row, shapes in rows:
+            for i, (m, k, n) in enumerate(shapes):
+                gemm_case(rnd, record, row, layout, m, k, n, torch.bfloat16,
+                          keep=i == len(shapes) - 1)
+    for row, cases in GEMMS_BATCHED_FAMILY:
+        for i, (layout, ga, gb, ob, m, k, n) in enumerate(cases):
+            batched_case(rnd, record, row, layout, ga, gb, ob, m, k, n,
+                         keep=i == len(cases) - 1)
+
+
+def _visible(s: int, window, dev) -> torch.Tensor:
+    """[S, S] bool: query i sees key j (causal, within ``window``)."""
+    i = torch.arange(s, device=dev)[:, None]
+    j = torch.arange(s, device=dev)[None, :]
+    mask = j <= i
+    if window:
+        mask &= j > i - window
+    return mask
+
+
+def wide_kernel_checks(dev, gen, rnd, record) -> None:
+    """The attention kernels at the head dims the widened kernels added
+    (rows of their own, named by head dim): #10 / #11 (``qflash_fwd`` /
+    ``qflash_bwd``) and #9 (``flash_fwd``, f32) at d 160, 192 and 256 over
+    ``WIDE_FLASH`` (kept: gemma3's window-512 shape), held with phase 3's
+    tolerances (forward codes at most one step apart in at most 1% of the
+    elements, |lse| within 1e-4; dq, dk, dv within 1e-4 * max|plain|; the
+    f32 forward allclose rtol 2e-4, atol 2e-5), two launches the same
+    bits, and timed beside SDPA on the dequantized f32 tensors (K/V heads
+    repeated; the window as a boolean mask; backward by autograd); #12 at
+    hd 16 (the reduced configs), 160 (stablelm_12b: 8 K/V heads x 4) and
+    192 (nemotron_4_340b: 8 x 12) at serve's positions
+    (``paged_decode_checks``); #8 at kimi's expert shapes
+    (``GEMMS_BATCHED_KIMI``, ``batched_case``)."""
+    from repro_torch.core import s2fp8
+    from repro_torch.kernels import flash_attention, s2fp8_quant
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def payload(x):
+        ab = s2fp8.compute_stats(x)
+        return s2fp8_quant.quant_apply(x, ab), ab
+
+    for d in WIDE_DIMS:
+        for i, (label, bh, sl, g, window) in enumerate(WIDE_FLASH):
+            keep = i == len(WIDE_FLASH) - 1
+            kw = dict(g=g, window=window)
+            (qq, qab) = payload(rnd(bh, sl, d))
+            (qk, kab), (qv, vab) = (payload(rnd(bh // g, sl, d))
+                                    for _ in range(2))
+            qg, gab = payload(rnd(bh, sl, d, scale=1e-3))
+            sts = (qab, kab, vab)
+            shape = (f"d={d} {label}: BH={bh} g={g} S={sl} causal"
+                     + (f" window {window}" if window else ""))
+            mask = _visible(sl, window, dev)
+            pairs = int(mask.sum().item())
+            raw, lse = flash_attention.qflash_fwd_plain(qq, qk, qv, *sts,
+                                                        **kw)
+            oab = s2fp8.compute_stats(raw)
+            ok, lk = flash_attention.qflash_fwd(qq, qk, qv, *sts, out_ab=oab,
+                                                **kw)
+            op, lp = flash_attention.qflash_fwd_plain(qq, qk, qv, *sts,
+                                                      out_ab=oab, **kw)
+            f = flips(ordinal(ok, oab, "e5m2"), ordinal(op, oab, "e5m2"))
+            lerr = (lk - lp).abs().max().item()
+            log(f"qflash_fwd {shape}: flips {f}, lse err {lerr:.2e}")
+            assert f["max_step"] <= 1 and f["frac"] <= 1e-2 \
+                and lerr <= 1e-4, (f, lerr)
+            same_bits(lambda: flash_attention.qflash_fwd(
+                qq, qk, qv, *sts, out_ab=oab, **kw)[0], f"qflash_fwd {shape}")
+            deq = [s2fp8.dequantize(s2fp8.S2FP8Tensor(t, ab))
+                   for t, ab in ((qq, qab), (qk, kab), (qv, vab))]
+            q4 = deq[0][None]
+            k4, v4 = (t.repeat_interleave(g, 0)[None] for t in deq[1:])
+
+            def library_fwd():
+                return (sdpa(q4, k4, v4, attn_mask=mask) if window
+                        else sdpa(q4, k4, v4, is_causal=True))
+            record(f"qflash_fwd d{d}", (ok - op).abs().max().item(),
+                   cuda_time(lambda: flash_attention.qflash_fwd(
+                       qq, qk, qv, *sts, out_ab=oab, **kw)),
+                   cuda_time(lambda: flash_attention.qflash_fwd_plain(
+                       qq, qk, qv, *sts, out_ab=oab, **kw), iters=3),
+                   cuda_time(library_fwd),
+                   (bh + 2 * bh // g) * sl * d + bh * sl * d * 4
+                   + bh * sl * 4, 4.0 * bh * pairs * d, shape, keep=keep,
+                   tensor_cores=True)
+            del ok, op, lk, lp
+
+            qo, oab = payload(raw)
+            delta = (s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))
+                     * s2fp8.dequantize(s2fp8.S2FP8Tensor(qo, oab))).sum(-1)
+            args = (qq, qk, qv, qg, qab, kab, vab, gab, lse, delta)
+            got = flash_attention.qflash_bwd(*args, **kw)
+            want = flash_attention.qflash_bwd_plain(*args, **kw)
+            errs = []
+            for name, x, y in zip(("dq", "dk", "dv"), got, want):
+                e = (x - y).abs().max().item()
+                errs.append(e)
+                assert bool(torch.isfinite(x).all()), name
+                assert e <= 1e-4 * y.abs().max().item(), (name, e)
+            log(f"qflash_bwd {shape}: max err dq/dk/dv "
+                + " ".join(f"{e:.2e}" for e in errs) + " of max |plain| "
+                + " ".join(f"{y.abs().max().item():.2e}" for y in want))
+            same_bits(lambda: torch.cat([t.flatten() for t in
+                                         flash_attention.qflash_bwd(
+                                             *args, **kw)]),
+                      f"qflash_bwd {shape}")
+            del got, want
+            leaves = [t.clone().requires_grad_() for t in (q4, k4, v4)]
+            lib_out = (sdpa(*leaves, attn_mask=mask) if window
+                       else sdpa(*leaves, is_causal=True))
+            dout = s2fp8.dequantize(s2fp8.S2FP8Tensor(qg, gab))[None]
+            record(f"qflash_bwd d{d}", max(errs),
+                   cuda_time(lambda: flash_attention.qflash_bwd(*args, **kw)),
+                   cuda_time(lambda: flash_attention.qflash_bwd_plain(
+                       *args, **kw), iters=3),
+                   cuda_time(lambda: torch.autograd.grad(
+                       lib_out, leaves, dout, retain_graph=True)),
+                   2 * bh * sl * d + 2 * (bh // g) * sl * d + 8 * bh * sl
+                   + 3 * 4 * bh * sl * d, 10.0 * bh * pairs * d, shape,
+                   keep=keep, tensor_cores=True)
+            del args, leaves, lib_out, dout, raw, lse, delta
+
+            # #9, the f32 forward over values (K/V heads broadcast)
+            q32, k32, v32 = q4.contiguous(), k4.contiguous(), v4.contiguous()
+            fk = flash_attention.flash_attention(q32, k32, v32,
+                                                 window=window)
+            fp = flash_attention.flash_attention_plain(q32, k32, v32,
+                                                       window=window)
+            torch.testing.assert_close(fk, fp, rtol=2e-4, atol=2e-5)
+            same_bits(lambda: flash_attention.flash_attention(
+                q32, k32, v32, window=window), f"flash_fwd {shape}")
+            record(f"flash_fwd d{d}", (fk - fp).abs().max().item(),
+                   cuda_time(lambda: flash_attention.flash_attention(
+                       q32, k32, v32, window=window)),
+                   cuda_time(lambda: flash_attention.flash_attention_plain(
+                       q32, k32, v32, window=window), iters=3),
+                   cuda_time(library_fwd), 4 * 4 * bh * sl * d,
+                   4.0 * bh * pairs * d, shape + " f32", keep=keep,
+                   tensor_cores=True)
+            del fk, fp, q32, k32, v32, q4, k4, v4, deq
+
+    lens = serve_prompts(100352)[2]
+    paged_decode_checks(dev, gen, rnd, record, "paged_decode hd16", 2, 16,
+                        lens, g=4)
+    paged_decode_checks(dev, gen, rnd, record, "paged_decode hd160", 8, 160,
+                        lens, g=4)
+    paged_decode_checks(dev, gen, rnd, record, "paged_decode hd192", 8, 192,
+                        lens, g=12)
+    for i, (layout, ga, gb, ob, m, k, n) in enumerate(GEMMS_BATCHED_KIMI):
+        batched_case(rnd, record, "qmatmul_batched kimi", layout, ga, gb, ob,
+                     m, k, n)
+
+
+# (reduced arch, layers, engine, per-step logit bound max / mean, near-tie
+# margin): small-reference's and small-formats' bounds, scaled for an
+# untied head (logits ~0.8 in size against a tied head's ~0.18) and kept
+# at deepseek's for the MoE
+FAMILY_MODELS = (("gemma3_1b", 4, "dense", 0.1, 0.02, 0.1),
+                 ("stablelm_12b", 2, "payload", 0.5, 0.1, 0.5),
+                 ("nemotron_4_340b", 2, "payload", 0.5, 0.1, 0.5),
+                 ("chameleon_34b", 2, "payload", 0.5, 0.1, 0.5),
+                 ("kimi_k2_1t_a32b", 3, "payload", 0.75, 0.15, 0.2))
+
+
+def phase_small_families(dev) -> None:
+    """The five attention-family configs reduced (``FAMILY_MODELS``), served
+    on the card through the kernels and through the plain versions, held
+    as small-formats holds them: the paged ones (head dim 16 through the
+    paged decode; nemotron's sq_relu and layer norm; kimi's routed experts
+    on the batched GEMM) on ``PayloadLMServer`` from a bank calibrated on
+    the plain engine, e5m2 pool, 8 requests (prompts 3-30, 6 new tokens,
+    4 slots, block 8); gemma3 (local rings of 64 and a dense layer) on the
+    dense-cache ``LMServer`` with exact stats, prompts of 5-100 tokens
+    (buckets to 128) and 8 new tokens, so that rings wrap at prefill and
+    in decode.  The checked engine holds every kernel call against its
+    plain version (``checked_engine``'s tolerances); the plain engine is
+    then teacher-forced along the checked run's tokens: every step's
+    logits within the model's bound, the plain engine's own choice the
+    kernels' except at a near tie."""
+    import numpy as np
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.launch import api
+    from repro_torch.serving.bank import calibrate_serving_bank
+    from repro_torch.serving.engine import LMServer, PayloadLMServer, Request
+
+    for arch, layers, engine, lim_max, lim_mean, near in FAMILY_MODELS:
+        cfg = get_reduced_config(arch).replace(n_layers=layers)
+        params = api.init_params(cfg, seed=1, device=dev)
+        rng = np.random.default_rng(1)
+        dense = engine == "dense"
+        if dense:
+            lens, new, max_len, bank = (5, 100, 60, 17, 70, 9), 8, 128, None
+        else:
+            lens, new, max_len = (5, 11, 30, 17, 9, 24, 3, 14), 6, 64
+            calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, 16)),
+                                    device=dev)
+            bank = calibrate_serving_bank(
+                params, cfg, make_policy("s2fp8", "plain", "payload"), calib,
+                passes=2)
+        prompts = [rng.integers(1, cfg.vocab, n, dtype=np.int32)
+                   for n in lens]
+
+        def server(pol):
+            if dense:
+                srv = LMServer(cfg, params, pol, slots=FORMAT_SLOTS,
+                               max_len=max_len)
+            else:
+                srv = PayloadLMServer(cfg, params, pol, bank=bank,
+                                      slots=FORMAT_SLOTS, max_len=max_len,
+                                      block=8, cache_fmt="e5m2")
+            reqs = [Request(prompt=x, max_new_tokens=new) for x in prompts]
+            for r in reqs:
+                srv.submit(r)
+            return srv, reqs
+
+        with checked_engine("fused" if dense else "exact") as tally:
+            srv, reqs = server(make_policy("s2fp8", "checked", "payload"))
+            kern, kinds = [], []
+            record_steps(srv, kern, kinds)
+            srv.run_to_completion()
+            toks = [r.out for r in reqs]
+        assert all(len(t) == new for t in toks), (arch, toks)
+        srv, reqs = server(make_policy("s2fp8", "plain", "payload"))
+        plain = []
+        record_steps(srv, plain, [], [k.argmax(dim=-1) for k in kern])
+        srv.run_to_completion()
+        assert [r.out for r in reqs] == toks
+        assert len(plain) == len(kern)
+        ties, worst = 0, 0.0
+        for i, (a, b) in enumerate(zip(kern, plain)):
+            dlt = (a - b).abs()
+            assert bool(torch.isfinite(a).all())
+            worst = max(worst, dlt.max().item())
+            assert dlt.max().item() <= lim_max and \
+                dlt.mean().item() <= lim_mean, (arch, i, dlt.max().item(),
+                                                dlt.mean().item())
+            top2 = a.topk(2, dim=-1).values
+            for r in range(a.shape[0]):
+                if a[r].argmax() != b[r].argmax():
+                    ties += 1
+                    assert (top2[r, 0] - top2[r, 1]).item() <= near, (
+                        arch, i, r)
+        calls = sum(t["calls"] for t in tally.values())
+        want = {"qflash_fwd", "qmatmul_nn"} | (
+            {"qmatmul_batched"} if dense or cfg.moe else set())
+        assert want <= set(tally), (arch, sorted(tally))
+        log(f"small families {arch} ({engine} engine, head dim "
+            f"{cfg.resolved_head_dim}): tokens {toks[0]}..., {len(kern)} "
+            f"steps, {calls} kernel calls held ({sorted(tally)}), largest "
+            f"|kernels - plain| logit {worst:.4f}, plain choices that differ "
+            f"{ties}")
+
+
+def phase_train_gemma3(dev, profile: bool = False) -> dict:
+    """Full-width gemma3_1b at full depth (26 layers: 22 local with window
+    512, 4 dense; d 1152, 4 heads of 256 on 1 K/V head, GELU-GLU of 6,912,
+    vocab 262,144 tied; 1.00 B f32 params, about 16 GB with AdamW state
+    and gradients) trained 2 steps at batch 1 x 4096 with
+    ``attn_impl="flash"``, s2fp8 payload on the cuda engine, the bank at
+    k = 8: ``qflash_fwd`` and ``qflash_bwd`` at head dim 256, windowed
+    and causal, beside every training kernel; no plain version; every
+    loss finite."""
+    from repro_torch.configs import get_config
+    cfg = get_config("gemma3_1b").replace(attn_impl="flash")
+    return _train_run(dev, cfg, "train-gemma3", "cosine", cfg.n_params(),
+                      TRAIN_KERNELS, profile, steps=2, batch=1,
+                      seq=FLASH_LONG_S)
+
+
+def phase_serve_gemma3(dev) -> dict:
+    """Full-width gemma3_1b (26 layers) through ``serve_dense_run``: its
+    local layers' caches are rings of 512 positions, and the five prompts
+    above 512 tokens (bucket 1,024) wrap them at prefill; decode runs #8
+    at K = 256 (scores) and N = 256 (values)."""
+    from repro_torch.configs import get_config
+    return serve_dense_run(dev, "serve-gemma3", get_config("gemma3_1b"))
+
+
+def phase_serve_stablelm(dev) -> dict:
+    """Full-width stablelm_12b at full depth (40 layers, d 5120, 32 heads
+    of 160 on 8 K/V heads, vocab 100,352 untied; 12.1 B f32 params, 48.6
+    GB) through ``serve_payload_run``: 16 requests, 32 new tokens, frozen
+    bank calibrated on the card, e5m2 pool; the paged decode at head dim
+    160 (padded lane groups of 16)."""
+    from repro_torch.configs import get_config
+    return serve_payload_run(dev, "serve-stablelm", get_config("stablelm_12b"),
+                             SERVE_UNTIED_KERNELS, requests=16,
+                             new_tokens=32)
+
+
+SERVE_NEMOTRON_LAYERS = 1    # of 96: the embedding and head alone are 37.7 GB
+
+
+def phase_serve_nemotron(dev) -> dict:
+    """Full-width nemotron_4_340b (d 18,432, 96 heads of 192 on 8 K/V
+    heads, squared-ReLU MLP of 73,728, layer norm, vocab 256,000 untied)
+    cut to ``SERVE_NEMOTRON_LAYERS`` of its 96 layers (the untied
+    embedding and head are 9.44 B f32 params, 37.7 GB, and a layer 3.45 B:
+    51.6 GB in all) through ``serve_payload_run``: 8 requests, 16 new
+    tokens; the paged decode at head dim 192 with 12 query heads a K/V
+    head.  Its numerics run on the ``cuda_fused`` engine: every call
+    truncates the whole 4.72 G-element embedding table, and the exact
+    stats that calibration takes of it through torch reductions want 35
+    GB of temporaries beside the params (out of memory on the 80 GB
+    card), where the stats kernel reads the table once."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    cfg = cut_depth(get_config("nemotron_4_340b"), SERVE_NEMOTRON_LAYERS)
+    return serve_payload_run(dev, "serve-nemotron", cfg,
+                             SERVE_UNTIED_KERNELS, requests=8, new_tokens=16,
+                             detail=f"depth cut to {cfg.n_layers} of 96 "
+                                    f"layers", backend="cuda_fused")
+
+
 def free_device_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4099,6 +4678,7 @@ def main() -> int:
     phase_small_mamba(dev)
     phase_small_long(dev)
     phase_small_paper(dev)
+    phase_small_families(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
@@ -4132,11 +4712,21 @@ def main() -> int:
     free_device_memory()
     train_loop = phase_train_loop(dev)
     free_device_memory()
+    trained_gemma3 = phase_train_gemma3(dev, args.profile)
+    free_device_memory()
+    served_gemma3 = phase_serve_gemma3(dev)
+    free_device_memory()
+    served_stablelm = phase_serve_stablelm(dev)
+    free_device_memory()
+    served_nemotron = phase_serve_nemotron(dev)
+    free_device_memory()
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba, ops, modes,
                                  long_runs["flash"], long_runs["naive"],
                                  served_dense, trained_encdec, served_encdec,
-                                 trained_paper, train_loop, served_moe)))
+                                 trained_paper, train_loop, served_moe,
+                                 trained_gemma3, served_gemma3,
+                                 served_stablelm, served_nemotron)))
     if args.profile:
         log_profiled_totals()
     out = []

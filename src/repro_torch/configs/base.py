@@ -11,8 +11,9 @@ import dataclasses
 import importlib
 from typing import Optional, Tuple
 
-ARCH_IDS = ("minicpm_2b", "deepseek_moe_16b", "falcon_mamba_7b",
-            "whisper_medium",
+ARCH_IDS = ("minicpm_2b", "stablelm_12b", "gemma3_1b", "nemotron_4_340b",
+            "deepseek_moe_16b", "kimi_k2_1t_a32b", "chameleon_34b",
+            "falcon_mamba_7b", "whisper_medium",
             # paper-reproduction models
             "transformer_tiny", "resnet20_cifar", "ncf_ml1m")
 
@@ -47,7 +48,7 @@ class SSMConfig:
 @dataclasses.dataclass(frozen=True)
 class ArchConfig:
     name: str
-    family: str                      # dense | moe | ssm | audio | conv | mlp
+    family: str                      # dense | moe | hybrid | ssm | vlm | audio | mlp | conv
     n_layers: int
     d_model: int
     n_heads: int
@@ -55,18 +56,22 @@ class ArchConfig:
     d_ff: int
     vocab: int
     head_dim: int = 0                # 0 -> d_model // n_heads
-    activation: str = "silu_glu"
-    norm: str = "rms"
+    activation: str = "silu_glu"     # silu_glu | gelu_glu | gelu | sq_relu
+    norm: str = "rms"                # rms | ln
     rope_theta: float = 10_000.0
     tie_embeddings: bool = False
     pattern: Tuple[str, ...] = ()    # () -> ("dense",) * n_layers
+    window: int = 0                  # sliding window for "local" blocks
     moe: Optional[MoEConfig] = None
     ssm: Optional[SSMConfig] = None
     # encoder-decoder (whisper, transformer_tiny): n_layers counts DECODER
     # layers
     enc_dec: bool = False
     n_enc_layers: int = 0
-    frontend: str = "none"           # none | audio_stub
+    # vq_stub (chameleon): images arrive as VQ token ids in the shared
+    # vocab, so the backbone reads token ids and no model code branches
+    # on it
+    frontend: str = "none"           # none | audio_stub | vq_stub
     activation_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     remat: bool = True               # rematerialize each layer in training
@@ -98,7 +103,7 @@ class ArchConfig:
 
     def _block_params(self, blk: str, experts: int) -> int:
         """Weights of one block with ``experts`` routed experts counted."""
-        if blk == "dense":
+        if blk in ("dense", "local", "attn"):
             return self._attn_params() + self._mlp_params(self.d_ff)
         if blk == "mamba1":
             s, d = self.ssm, self.d_model

@@ -6,7 +6,10 @@ can read — and gives the port's params: the same stacked segments, the
 same leaf names, the same layout ([d_in, d_out] weights, [L]-stacked
 layers), MoE blocks included (``moe/router`` [L, d, E], the stacked
 experts ``moe/we_gate``, ``we_up`` [L, E, d, f] and ``we_down`` [L, E, f,
-d], ``moe/shared/*``), mamba1 blocks (``ln``, ``w_in`` [L, d, 2di],
+d], ``moe/shared/*``; kimi's 384 experts alike), the ``local`` and
+``attn`` blocks (a ``dense`` block's leaves; a non-GLU MLP such as
+nemotron's squared ReLU holds ``w_gate`` and ``w_down`` only), mamba1
+blocks (``ln``, ``w_in`` [L, d, 2di],
 ``conv_w`` [L, K, di], ``conv_b``, ``w_x`` [L, di, dt_rank + 2n], ``w_dt``
 [L, dt_rank, di], ``b_dt``, ``a_log`` [L, di, n], ``d_skip`` [L, di],
 ``w_out`` [L, di, d]) and the untied ``head``.  The same call carries

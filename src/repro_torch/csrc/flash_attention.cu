@@ -77,7 +77,17 @@
 //   copies, per warp for the products); tiles that the mask leaves whole
 //   skip the per-element mask.  Masked logits are -1e30, so the online
 //   rescaling never sees inf - inf, and a row that sees no key gives 0.
-//   Query head h reads K/V head h / g.  Head dims 1..128.
+//   Query head h reads K/V head h / g.  Head dims 1..256.
+// * Head dims above 128 split the output's columns: a block owns one of
+//   two column chunks (gridDim.z = 2, each dpad / 2 <= 128 columns wide)
+//   of its rows' output (forward), dq, or dk and dv, and forms the score
+//   tile from the full d itself.  The accumulators stay at 16 x 128 f32 a
+//   warp (the DC = 128 kernels' registers, which leave no headroom for
+//   16 x 256), at the cost of forming the score tiles (S, and dP) in both
+//   chunks: 3 products a tile forward against 2, 11 backward against 7
+//   (dq: S, dP, dS K; dk/dv: S^T, dv, dP^T, dk).  Both chunks do the same
+//   arithmetic on the score tile, so their softmax statistics agree bit
+//   for bit and chunk 0 writes the logsumexp.
 // * Backward: two kernels, as the reference.  dq over key tiles; per-head
 //   dk and dv over query tiles (the sum over the G query heads of a K/V
 //   head happens outside).  Every output element is written once by one
@@ -101,7 +111,8 @@ using tc::split;
 constexpr int WARPS = 4, THREADS = 32 * WARPS;
 constexpr int FQ = 16 * WARPS;   // query rows (dq, forward) / key rows (dk/dv)
 constexpr int FK = 64;           // rows of the streamed operand per tile
-constexpr int DMAX = 128;
+constexpr int DMAX = 256;
+constexpr int CMAX = 128;        // output columns a block accumulates
 constexpr float kMask = -1e30f;
 
 // what the forward's Q/K/V hold (and, for the plain forms, its output)
@@ -426,6 +437,8 @@ __host__ __device__ constexpr int fwd_keys() {
   return SRC == kF32 ? 32 : FK;
 }
 
+// At d = 256: 205,824 B for f32 values (KT 32), 172,032 for bf16 and
+// 111,616 for payloads.
 template <int SRC>
 size_t fwd_smem_bytes(int d) {
   using L = Op<SRC>;
@@ -436,9 +449,10 @@ size_t fwd_smem_bytes(int d) {
              (static_cast<size_t>(FQ) * sr + 2 * KT * sr + 2 * KT * sv);
 }
 
-// Grid (ceil(Sq / FQ), BH): one block per (query head, FQ query rows),
-// heaviest (last, under a causal mask) query blocks first.  DC: the
-// padded head dim's class (64 or 128), which sizes the output accumulator.
+// Grid (ceil(Sq / FQ), BH, column chunks): one block per (query head, FQ
+// query rows, cw output columns from blockIdx.z * cw), heaviest (last,
+// under a causal mask) query blocks first.  DC: the chunk's class (64 or
+// 128), which sizes the output accumulator.
 // At DC = 64 the registers are capped so that three blocks share a SM:
 // the kernel waits on latency more than it issues, so occupancy pays.
 template <int SRC, int DC>
@@ -451,14 +465,16 @@ __global__ __launch_bounds__(THREADS, DC == 64 ? 3 : 1) void qflash_fwd_kernel(
     float* __restrict__ lse, int sq, int sk, int d, int g,
     const float* __restrict__ q_ab, const float* __restrict__ k_ab,
     const float* __restrict__ v_ab, const float* __restrict__ o_ab,
-    int epilogue, int causal, int window, float scale, int fmt, int gran) {
+    int epilogue, int causal, int window, float scale, int fmt, int gran,
+    int cw) {
   using L = Op<SRC>;
   using T = typename L::T;
   constexpr int NT = DC / 8;
   constexpr int KT = fwd_keys<SRC>(), NKT = KT / 8;
   constexpr int E = sizeof(T);
   extern __shared__ __align__(16) uint8_t smem[];
-  const int dpad = pad16(d), nt = dpad / 8;
+  const int dpad = pad16(d), col0 = blockIdx.z * cw;
+  const int nt = min(cw, dpad - col0) / 8;   // the chunk's 8-column tiles
   const int sr = row_stride(dpad), sv = L::col_stride(dpad);
   float2* lut = reinterpret_cast<float2*>(smem);      // q, k, v tables
   T* Qs = reinterpret_cast<T*>(lut + (SRC == kPayload ? 3 * LUT_SIZE : 0));
@@ -577,8 +593,8 @@ __global__ __launch_bounds__(THREADS, DC == 64 ? 3 : 1) void qflash_fwd_kernel(
         o[n][2] *= c1;
         o[n][3] *= c1;
       }
-      cols_product<SRC, NKT, NT, 8>(o, s, Vs + st * KT * sv, lv, sv, nt,
-                                    gid, tig);
+      cols_product<SRC, NKT, NT, 8>(o, s, Vs + st * KT * sv + col0, lv, sv,
+                                    nt, gid, tig);
     }
     __syncthreads();                   // stage st is free for tile t + 2
   }
@@ -599,7 +615,7 @@ __global__ __launch_bounds__(THREADS, DC == 64 ? 3 : 1) void qflash_fwd_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 2 * half; e < 2 * half + 2; ++e) {
-        const int c = 8 * n + 2 * tig + (e & 1);
+        const int c = col0 + 8 * n + 2 * tig + (e & 1);
         if (n >= nt || c >= d) continue;
         float v = o[n][e] / denom;
         if constexpr (SRC == kPayload) {
@@ -611,7 +627,7 @@ __global__ __launch_bounds__(THREADS, DC == 64 ? 3 : 1) void qflash_fwd_kernel(
           orow[c] = v;
         }
       }
-    if (lse != nullptr && tig == 0)
+    if (lse != nullptr && tig == 0 && blockIdx.z == 0)
       lse[static_cast<size_t>(bh) * sq + gq] =
           (half ? m1 : m0) + logf(fmaxf(l, 1e-30f));
   }
@@ -626,8 +642,12 @@ __global__ __launch_bounds__(THREADS, DC == 64 ? 3 : 1) void qflash_fwd_kernel(
 //   dq[r] += ds * k[t];  dk[t] += ds * q[r];  dv[t] += p * g[r]
 // Outputs are raw f32: dq [BH, Sq, d] and PER-HEAD dk, dv [BH, Sk, d].
 // Shared memory (payload bytes, the four (hi, lo) tables, lse / delta;
-// dk/dv also a p stage): dq 63 KB at d = 64, 89 KB at d = 128; dk/dv
-// 16 KB more.  Two blocks a SM at d = 128.  The mask is applied
+// dk/dv also a p stage): 33,792 B + 6 x 64 rows x row_stride(dpad) bytes,
+// so dq 64,512 B at d = 64, 89,088 B at d = 128 and 138,240 B at d = 256
+// (row stride 272); dk/dv 16,384 B more (154,624 B at d = 256, under the
+// 232,448 a block may take).  Two blocks a SM at d = 128, one above it.
+// Above d = 128 each block owns one column chunk of dq (or of dk and dv)
+// and forms s and dP from the full d.  The mask is applied
 // as the reference does: p is computed only for visible pairs, so exp
 // never sees a masked logit and a masked pair gives exactly 0.
 // ---------------------------------------------------------------------------
@@ -642,7 +662,7 @@ size_t bwd_smem_bytes(int d, bool dkdv) {
          (dkdv ? PSTAGE * sizeof(float) : 0);
 }
 
-// Grid (ceil(Sq / FQ), BH); key tiles innermost.
+// Grid (ceil(Sq / FQ), BH, column chunks); key tiles innermost.
 template <int DC>
 __global__ __launch_bounds__(THREADS) void qflash_dq_kernel(
     const uint8_t* __restrict__ qp, const uint8_t* __restrict__ kp,
@@ -651,10 +671,11 @@ __global__ __launch_bounds__(THREADS) void qflash_dq_kernel(
     float* __restrict__ dq, int sq, int sk, int d, int g,
     const float* __restrict__ q_ab, const float* __restrict__ k_ab,
     const float* __restrict__ v_ab, const float* __restrict__ g_ab,
-    int causal, int window, float scale, int fmt, int gran) {
+    int causal, int window, float scale, int fmt, int gran, int cw) {
   constexpr int NT = DC / 8;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int dpad = pad16(d), nt = dpad / 8, sr = row_stride(dpad);
+  const int dpad = pad16(d), sr = row_stride(dpad), col0 = blockIdx.z * cw;
+  const int nt = min(cw, dpad - col0) / 8;
   float2* lut = reinterpret_cast<float2*>(smem);    // q, k, v, g
   float* lse_s = reinterpret_cast<float*>(lut + 4 * LUT_SIZE);
   float* dlt_s = lse_s + FQ;
@@ -757,7 +778,8 @@ __global__ __launch_bounds__(THREADS) void qflash_dq_kernel(
             s[n][e] = p * (dp[n][e] - dr) * scale;       // ds
           }
       }
-      cols_product<kPayload, 8, NT, 2>(acc, s, kt, lk, sr, nt, gid, tig);
+      cols_product<kPayload, 8, NT, 2>(acc, s, kt + col0, lk, sr, nt, gid,
+                                       tig);
     }
     __syncthreads();
   }
@@ -771,14 +793,15 @@ __global__ __launch_bounds__(THREADS) void qflash_dq_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 2 * half; e < 2 * half + 2; ++e) {
-        const int c = 8 * n + 2 * tig + (e & 1);
+        const int c = col0 + 8 * n + 2 * tig + (e & 1);
         if (n < nt && c < d) orow[c] = acc[n][e];
       }
   }
 }
 
-// Grid (ceil(Sk / FQ), BH): one block per (query head, FQ key rows), each
-// warp 16 keys; query tiles innermost.  The warp computes S^T = K Q^T,
+// Grid (ceil(Sk / FQ), BH, column chunks): one block per (query head, FQ
+// key rows, cw columns of dk and dv), each warp 16 keys; query tiles
+// innermost.  The warp computes S^T = K Q^T,
 // then p^T and dv += p^T G, then dP^T = V G^T, ds^T and dk += ds^T Q.
 template <int DC>
 __global__ __launch_bounds__(THREADS) void qflash_dkdv_kernel(
@@ -788,10 +811,11 @@ __global__ __launch_bounds__(THREADS) void qflash_dkdv_kernel(
     float* __restrict__ dk, float* __restrict__ dv, int sq, int sk, int d,
     int g, const float* __restrict__ q_ab, const float* __restrict__ k_ab,
     const float* __restrict__ v_ab, const float* __restrict__ g_ab,
-    int causal, int window, float scale, int fmt, int gran) {
+    int causal, int window, float scale, int fmt, int gran, int cw) {
   constexpr int NT = DC / 8;
   extern __shared__ __align__(16) uint8_t smem[];
-  const int dpad = pad16(d), nt = dpad / 8, sr = row_stride(dpad);
+  const int dpad = pad16(d), sr = row_stride(dpad), col0 = blockIdx.z * cw;
+  const int nt = min(cw, dpad - col0) / 8;
   float2* lut = reinterpret_cast<float2*>(smem);    // q, k, v, g
   float* lse_s = reinterpret_cast<float*>(lut + 4 * LUT_SIZE);  // [2][FK]
   float* dlt_s = lse_s + 2 * FK;                                 // [2][FK]
@@ -888,7 +912,8 @@ __global__ __launch_bounds__(THREADS) void qflash_dkdv_kernel(
               (gq < sq && visible(gq + shift, kpos, sk, causal, window));
           s[n][e] = vis ? expf(__fmul_rn(s[n][e], scale) - ls[c]) : 0.0f;
         }
-      cols_product<kPayload, 8, NT, 2>(dva, s, gt, lg, sr, nt, gid, tig);
+      cols_product<kPayload, 8, NT, 2>(dva, s, gt + col0, lg, sr, nt, gid,
+                                       tig);
       // p waits in shared memory while dP^T is formed (registers: the two
       // accumulators take 2 x 16 x d / 32 a lane)
 #pragma unroll
@@ -904,7 +929,8 @@ __global__ __launch_bounds__(THREADS) void qflash_dkdv_kernel(
           const int c = 8 * n + 2 * tig + (e & 1);
           s[n][e] = pw[32 * (4 * n + e)] * (s[n][e] - dl[c]) * scale;  // ds^T
         }
-      cols_product<kPayload, 8, NT, 2>(dka, s, qt, lq, sr, nt, gid, tig);
+      cols_product<kPayload, 8, NT, 2>(dka, s, qt + col0, lq, sr, nt, gid,
+                                       tig);
     }
     __syncthreads();
   }
@@ -918,7 +944,7 @@ __global__ __launch_bounds__(THREADS) void qflash_dkdv_kernel(
     for (int n = 0; n < NT; ++n)
 #pragma unroll
       for (int e = 2 * half; e < 2 * half + 2; ++e) {
-        const int c = 8 * n + 2 * tig + (e & 1);
+        const int c = col0 + 8 * n + 2 * tig + (e & 1);
         if (n < nt && c < d) {
           dk[row + c] = dka[n][e];
           dv[row + c] = dva[n][e];
@@ -939,6 +965,11 @@ int granule(int row_bytes, std::initializer_list<const void*> bases) {
   return 1;
 }
 
+// Column chunks of a padded head dim: one of dpad columns up to CMAX, two
+// of dpad / 2 (a multiple of 8, at most CMAX) above it.
+int col_chunks(int dpad) { return dpad <= CMAX ? 1 : 2; }
+int chunk_width(int dpad) { return dpad <= CMAX ? dpad : dpad / 2; }
+
 template <int SRC, int DC>
 int launch_fwd(const void* q, const void* k, const void* v, void* out,
                void* lse, int bh, int sq, int sk, int d, int g,
@@ -955,13 +986,15 @@ int launch_fwd(const void* q, const void* k, const void* v, void* out,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int gran = granule(d * static_cast<int>(sizeof(T)), {q, k, v});
-  kern<<<dim3((sq + FQ - 1) / FQ, bh), THREADS, smem, st>>>(
+  const int dpad = pad16(d);
+  kern<<<dim3((sq + FQ - 1) / FQ, bh, col_chunks(dpad)), THREADS, smem,
+         st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<O*>(out),
       static_cast<float*>(lse), sq, sk, d, g,
       static_cast<const float*>(q_ab), static_cast<const float*>(k_ab),
       static_cast<const float*>(v_ab), static_cast<const float*>(o_ab),
-      epilogue, causal, window, scale, fmt, gran);
+      epilogue, causal, window, scale, fmt, gran, chunk_width(dpad));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -998,15 +1031,17 @@ int launch_bwd(const uint8_t* q, const uint8_t* k, const uint8_t* v,
                              static_cast<int>(smem_kv));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int gran = granule(d, {q, k, v, gout});
-  qflash_dq_kernel<DC><<<dim3((sq + FQ - 1) / FQ, bh), THREADS, smem, st>>>(
+  const int dpad = pad16(d), nc = col_chunks(dpad), cw = chunk_width(dpad);
+  qflash_dq_kernel<DC><<<dim3((sq + FQ - 1) / FQ, bh, nc), THREADS, smem,
+                         st>>>(
       q, k, v, gout, lse, delta, dq, sq, sk, d, g, q_ab, k_ab, v_ab, g_ab,
-      causal, window, scale, fmt, gran);
+      causal, window, scale, fmt, gran, cw);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  qflash_dkdv_kernel<DC><<<dim3((sk + FQ - 1) / FQ, bh), THREADS, smem_kv,
-                           st>>>(
+  qflash_dkdv_kernel<DC><<<dim3((sk + FQ - 1) / FQ, bh, nc), THREADS,
+                           smem_kv, st>>>(
       q, k, v, gout, lse, delta, dk, dv, sq, sk, d, g, q_ab, k_ab, v_ab, g_ab,
-      causal, window, scale, fmt, gran);
+      causal, window, scale, fmt, gran, cw);
   return static_cast<int>(cudaGetLastError());
 }
 

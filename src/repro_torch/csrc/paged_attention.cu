@@ -11,16 +11,20 @@
 // here leaves the card idle behind the longest slot (64 serial steps at
 // position 1,023 against 1 at position 0) on 288 blocks for 132 SMs.
 //
-// Design: split-KV decode in one launch, paged_decode_kernel<HD, GC>.  The
+// Design: split-KV decode in one launch, paged_decode_kernel<LP, GC>.  The
 // grid is (KV head x query-row chunk, slot, split); a split is kSplit cache
 // positions, a constant of the kernel (not of the card), so the same inputs
 // give the same bits on any card.  A split wholly past positions[slot]
 // exits at once; the block reads table[slot, j] itself (Hopper has no
 // scalar prefetch), its first rows' entries beside the slot's position.  A
-// payload row of hd bytes (hd 32, 64 or 128) is read by a group of
-// hd / 16 lanes, one 16-byte load each (4 lanes at hd 64, 8 at hd 128), so
-// a warp covers 32 / (hd / 16) rows at a time and neighbouring lanes read
-// neighbouring bytes.  Codes are dequantized through 256-entry K and V
+// payload row of hd bytes (hd any multiple of 16 up to 256) is read by a
+// lane group of LP lanes, LP = hd / 16 rounded up to a power of two (1 at
+// hd 16, 4 at hd 64, 8 at hd 128, 16 at hd 160, 192 and 256); its first
+// hd / 16 lanes take one 16-byte load each and the rest idle (6 of 16 at
+// hd 160, 4 at 192), so a warp covers 32 / LP whole rows at a time and
+// neighbouring lanes read neighbouring bytes.  An idle lane holds zeros
+// and adds 0 to its group's sums, so a padded group computes the
+// unpadded one's values.  Codes are dequantized through 256-entry K and V
 // tables (s2fp8::decode) in shared memory, built while the block's first
 // rows load.  The lane's 16 dims of the block's GC query rows (GC <=
 // kMaxGroup of the KV head's G) live in registers and share every K/V
@@ -69,21 +73,22 @@ __device__ __forceinline__ void fill_tables(float* lut_k, float* lut_v,
   __syncthreads();
 }
 
-template <int HD, int GC>
+// LP: the lane group (a power of two, 1..16); hd: the head dim, a multiple
+// of 16 with hd / 16 <= LP.
+template <int LP, int GC>
 __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     const float* __restrict__ q, const unsigned char* __restrict__ kp,
     const unsigned char* __restrict__ vp, const int* __restrict__ table,
     const int* __restrict__ positions, float* __restrict__ out,
     float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int* __restrict__ tickets, int kvh, int g, int blk, int max_b,
+    int* __restrict__ tickets, int kvh, int g, int hd, int blk, int max_b,
     const float* __restrict__ k_ab, const float* __restrict__ v_ab,
     float inv_sqrt_d, int fmt) {
-  constexpr int L = HD / 16;           // lanes of one payload row
-  constexpr int NG = kThreads / L;     // rows in flight in the block
+  constexpr int NG = kThreads / LP;    // rows in flight in the block
   constexpr int R = kSplit / NG;       // rows of a lane group per split
   constexpr int NB = R < 4 ? R : 4;    // rows a lane loads at once
   __shared__ float lut_k[256], lut_v[256];
-  __shared__ float red[kWarps][GC][HD + 2];
+  __shared__ float red[kWarps][GC][16 * LP + 2];
   __shared__ bool last;
 
   const int chunks = (g + GC - 1) / GC;
@@ -91,7 +96,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   const int b = blockIdx.y, split = blockIdx.z;
   const int s0 = split * kSplit, span = max_b * blk;
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int grp = tid / L, sub = tid % L;
+  const int grp = tid / LP, sub = tid % LP;
+  const bool act = sub < hd / 16;      // a lane that reads 16 bytes of a row
   const int* trow = table + static_cast<size_t>(b) * max_b;
   // the first rows' block ids load beside the slot's position
   int bid[NB];
@@ -103,12 +109,12 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
   float qr[GC][16];
   const float* qh =
-      q + (static_cast<size_t>(b) * kvh + h) * g * HD + sub * 16;
+      q + (static_cast<size_t>(b) * kvh + h) * g * hd + (act ? sub * 16 : 0);
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi)
 #pragma unroll
     for (int e = 0; e < 16; ++e)
-      qr[gi][e] = g0 + gi < g ? qh[(g0 + gi) * HD + e] : 0.0f;
+      qr[gi][e] = act && g0 + gi < g ? qh[(g0 + gi) * hd + e] : 0.0f;
   float m[GC], l[GC], acc[GC][16];
 #pragma unroll
   for (int gi = 0; gi < GC; ++gi) {
@@ -118,7 +124,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
     for (int e = 0; e < 16; ++e) acc[gi][e] = 0.0f;
   }
 
-  const size_t head_bytes = static_cast<size_t>(blk) * HD;
+  const size_t head_bytes = static_cast<size_t>(blk) * hd;
   const size_t block_bytes = head_bytes * kvh;
 #pragma unroll
   for (int k0 = 0; k0 < R; k0 += NB) {
@@ -128,10 +134,10 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const int t = s0 + grp + (k0 + k) * NG;
       if (k0 > 0) bid[k] = trow[min(t, span - 1) / blk];
       kw[k] = vw[k] = make_uint4(0u, 0u, 0u, 0u);
-      if (t < end) {
+      if (act && t < end) {
         const size_t at = static_cast<size_t>(bid[k]) * block_bytes +
                           h * head_bytes +
-                          static_cast<size_t>(t % blk) * HD + sub * 16;
+                          static_cast<size_t>(t % blk) * hd + sub * 16;
         kw[k] = __ldg(reinterpret_cast<const uint4*>(kp + at));
         vw[k] = __ldg(reinterpret_cast<const uint4*>(vp + at));
       }
@@ -151,7 +157,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
           dot[gi] = fmaf(qr[gi][e], kv, dot[gi]);
       }
 #pragma unroll
-      for (int off = L / 2; off > 0; off >>= 1)
+      for (int off = LP / 2; off > 0; off >>= 1)
 #pragma unroll
         for (int gi = 0; gi < GC; ++gi)
           dot[gi] += __shfl_xor_sync(kFull, dot[gi], off);
@@ -178,7 +184,7 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
 
   // the warp's lane groups into group 0, in a fixed tree
 #pragma unroll
-  for (int off = 16; off >= L; off >>= 1) {
+  for (int off = 16; off >= LP; off >>= 1) {
 #pragma unroll
     for (int gi = 0; gi < GC; ++gi) {
       const float mo = __shfl_down_sync(kFull, m[gi], off);
@@ -193,14 +199,14 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
                      __shfl_down_sync(kFull, acc[gi][e], off) * cb;
     }
   }
-  if (lane < L) {
+  if (lane < LP && act) {
 #pragma unroll
     for (int gi = 0; gi < GC; ++gi) {
 #pragma unroll
       for (int e = 0; e < 16; ++e) red[warp][gi][sub * 16 + e] = acc[gi][e];
       if (sub == 0) {
-        red[warp][gi][HD] = m[gi];
-        red[warp][gi][HD + 1] = l[gi];
+        red[warp][gi][hd] = m[gi];
+        red[warp][gi][hd + 1] = l[gi];
       }
     }
   }
@@ -208,21 +214,21 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   // the warps, in warp order, into the split's (m, l, acc)
   const size_t row0 =
       (static_cast<size_t>(b) * kvh + h) * gridDim.z * g + g0;  // split 0
-  for (int i = tid; i < GC * HD; i += kThreads) {
-    const int gi = i / HD, d = i % HD;
+  for (int i = tid; i < GC * hd; i += kThreads) {
+    const int gi = i / hd, d = i % hd;
     if (g0 + gi >= g) break;
     float mx = kMask;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[w][gi][HD]);
+    for (int w = 0; w < kWarps; ++w) mx = fmaxf(mx, red[w][gi][hd]);
     float ls = 0.0f, a = 0.0f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(red[w][gi][HD] - mx);
-      ls += red[w][gi][HD + 1] * c;
+      const float c = expf(red[w][gi][hd] - mx);
+      ls += red[w][gi][hd + 1] * c;
       a += red[w][gi][d] * c;
     }
     const size_t row = row0 + static_cast<size_t>(split) * g + gi;
-    part_acc[row * HD + d] = a;
+    part_acc[row * hd + d] = a;
     if (d == 0) {
       part_ml[2 * row] = mx;
       part_ml[2 * row + 1] = ls;
@@ -244,8 +250,8 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
   if (!last) return;
   __threadfence();
   const int live = (end + kSplit - 1) / kSplit;
-  for (int i = tid; i < GC * HD; i += kThreads) {
-    const int gi = i / HD, d = i % HD;
+  for (int i = tid; i < GC * hd; i += kThreads) {
+    const int gi = i / hd, d = i % hd;
     if (g0 + gi >= g) break;
     float mx = kMask;
     for (int s = 0; s < live; ++s)
@@ -255,9 +261,9 @@ __global__ void __launch_bounds__(kThreads) paged_decode_kernel(
       const size_t row = row0 + static_cast<size_t>(s) * g + gi;
       const float c = expf(__ldcg(&part_ml[2 * row]) - mx);
       ls += __ldcg(&part_ml[2 * row + 1]) * c;
-      a += __ldcg(&part_acc[row * HD + d]) * c;
+      a += __ldcg(&part_acc[row * hd + d]) * c;
     }
-    out[((static_cast<size_t>(b) * kvh + h) * g + g0 + gi) * HD + d] =
+    out[((static_cast<size_t>(b) * kvh + h) * g + g0 + gi) * hd + d] =
         a / (ls == 0.0f ? 1.0f : ls);
   }
 }
@@ -268,25 +274,25 @@ struct Args {
   const int *table, *positions;
   float *out, *part_acc, *part_ml;
   int* tickets;
-  int kvh, g, blk, max_b;
+  int kvh, g, hd, blk, max_b;
   const float *k_ab, *v_ab;
   float inv_sqrt_d;
   int fmt;
 };
 
-template <int HD, int GC>
+template <int LP, int GC>
 void launch(dim3 grid, cudaStream_t stream, const Args& a) {
-  paged_decode_kernel<HD, GC><<<grid, kThreads, 0, stream>>>(
+  paged_decode_kernel<LP, GC><<<grid, kThreads, 0, stream>>>(
       a.q, a.kp, a.vp, a.table, a.positions, a.out, a.part_acc, a.part_ml,
-      a.tickets, a.kvh, a.g, a.blk, a.max_b, a.k_ab, a.v_ab, a.inv_sqrt_d,
-      a.fmt);
+      a.tickets, a.kvh, a.g, a.hd, a.blk, a.max_b, a.k_ab, a.v_ab,
+      a.inv_sqrt_d, a.fmt);
 }
 
-template <int HD>
+template <int LP>
 void launch_g(int gc, dim3 grid, cudaStream_t stream, const Args& a) {
-  auto* fn = gc == 1   ? &launch<HD, 1>
-             : gc == 2 ? &launch<HD, 2>
-                       : &launch<HD, kMaxGroup>;
+  auto* fn = gc == 1   ? &launch<LP, 1>
+             : gc == 2 ? &launch<LP, 2>
+                       : &launch<LP, kMaxGroup>;
   fn(grid, stream, a);
 }
 
@@ -306,8 +312,7 @@ extern "C" int s2fp8_paged_decode(const void* q, const void* kp,
                                   const void* k_ab, const void* v_ab,
                                   float inv_sqrt_d, int fmt, int split,
                                   void* stream) {
-  if (split != kSplit || (hd != 32 && hd != 64 && hd != 128) || g < 1 ||
-      blk < 1)
+  if (split != kSplit || hd < 16 || hd > 256 || hd % 16 || g < 1 || blk < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (b == 0 || kvh == 0 || max_b == 0) return 0;
   const int nsplit = (max_b * blk + kSplit - 1) / kSplit;
@@ -329,6 +334,7 @@ extern "C" int s2fp8_paged_decode(const void* q, const void* kp,
   a.tickets = static_cast<int*>(tickets);
   a.kvh = kvh;
   a.g = g;
+  a.hd = hd;
   a.blk = blk;
   a.max_b = max_b;
   a.k_ab = static_cast<const float*>(k_ab);
@@ -336,9 +342,12 @@ extern "C" int s2fp8_paged_decode(const void* q, const void* kp,
   a.inv_sqrt_d = inv_sqrt_d;
   a.fmt = fmt;
   const dim3 grid(kvh * chunks, b, nsplit);
-  auto* fn = hd == 32   ? &launch_g<32>
-             : hd == 64 ? &launch_g<64>
-                        : &launch_g<128>;
+  const int lanes = hd / 16;
+  auto* fn = lanes <= 1   ? &launch_g<1>
+             : lanes <= 2 ? &launch_g<2>
+             : lanes <= 4 ? &launch_g<4>
+             : lanes <= 8 ? &launch_g<8>
+                          : &launch_g<16>;
   fn(gc, grid, static_cast<cudaStream_t>(stream), a);
   return static_cast<int>(cudaGetLastError());
 }

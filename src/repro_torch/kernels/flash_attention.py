@@ -26,8 +26,10 @@ design: the recompute schedule from the payloads plus lse — a dq kernel
 block per 64 key rows, query tiles innermost) that writes per-query-head
 dk/dv; the sum over a K/V head's G query heads is done outside
 (``dispatch.qflash_bwd_grouped``), so no float atomics and two launches
-give the same bits.  Head dims 1..128 (zero-padded to a multiple of 16 in
-shared memory, which is exact).
+give the same bits.  Head dims 1..256 (zero-padded to a multiple of 16 in
+shared memory, which is exact); above 128 each block accumulates one of
+two column halves of the output (or of dq, or of dk and dv) and forms the
+score tiles from the full head dim.
 
 ``flash_fwd_reference`` / ``flash_bwd_reference`` are ports of the
 reference's pure-jnp grouped flash forward and backward; the plain
@@ -47,6 +49,7 @@ from repro_torch.kernels.s2fp8_quant import (DTYPE_ID, FMT_ID, PAYLOAD_FMT,
                                              check_cuda_operand, stats_arg)
 
 _MASK_VALUE = -1e30
+MAX_HEAD_DIM = 256     # the kernels' DMAX
 
 
 def _chunk(block: int, s: int) -> int:
@@ -189,8 +192,9 @@ def qflash_fwd(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
         check_cuda_operand(t, name, (s2fp8.FMT_QDTYPE[fmt],), qp.device)
     bh, sq, d = qp.shape
     sk = kp.shape[1]
-    if not 1 <= d <= 128:
-        raise ValueError(f"qflash kernel takes head dims 1..128, got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"qflash kernel takes head dims 1..{MAX_HEAD_DIM}, "
+                         f"got {d}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     dev = qp.device
     qab, kab, vab = (stats_arg(s, dev) for s in (q_ab, k_ab, v_ab))
@@ -258,8 +262,9 @@ def qflash_bwd(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
         check_cuda_operand(t, name, (torch.float32,), qp.device)
     bh, sq, d = qp.shape
     sk = kp.shape[1]
-    if not 1 <= d <= 128:
-        raise ValueError(f"qflash kernel takes head dims 1..128, got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"qflash kernel takes head dims 1..{MAX_HEAD_DIM}, "
+                         f"got {d}")
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     dev = qp.device
     qab, kab, vab, gab = (stats_arg(s, dev) for s in (q_ab, k_ab, v_ab, g_ab))
@@ -302,7 +307,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None
 def flash_attention(q, k, v, *, causal=True, window=None) -> torch.Tensor:
     """Flash attention forward over values: q [B, H, Sq, D], k/v [B, H,
     Sk, D] (K/V heads already broadcast), all f32 or all bf16, contiguous,
-    D <= 128; causal and/or windowed, query rows aligned to the end of the
+    D <= 256; causal and/or windowed, query rows aligned to the end of the
     key axis.  Accumulates in f32 and returns q's dtype; a row that sees no
     key gives 0.  CPU tensors take the plain version."""
     _check_plain(q, k, v, window)
@@ -313,8 +318,9 @@ def flash_attention(q, k, v, *, causal=True, window=None) -> torch.Tensor:
         check_cuda_operand(t, name, (q.dtype,), q.device)
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    if not 1 <= d <= 128:
-        raise ValueError(f"flash kernel takes head dims 1..128, got {d}")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash kernel takes head dims 1..{MAX_HEAD_DIM}, "
+                         f"got {d}")
     out = torch.empty_like(q)
     rc = build.load("flash_attention").flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b * h, sq,

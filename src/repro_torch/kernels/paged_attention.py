@@ -8,7 +8,8 @@ Bound on the card: bytes — each slot's live K/V payload rows, read once.
 Design: a split-KV decode in one launch, one block per (KV head, slot,
 split of :data:`SPLIT` cache positions); a split past the slot's position
 exits at once, and a block reads its own ``table[slot, j]`` (Hopper has no
-scalar prefetch).  Lane groups read payload rows as 16-byte loads,
+scalar prefetch).  Lane groups of hd / 16 lanes, rounded up to a power of
+two (the extra lanes idle), read payload rows as 16-byte loads,
 dequantize through 256-entry tables in shared memory, share each K/V row
 among the KV head's query rows (up to 4 a block) and keep an online
 softmax in registers; warps merge in a fixed order, each split writes
@@ -37,7 +38,7 @@ _MASK_VALUE = -1e30
 # cache positions one block of the kernel covers (kSplit in the source,
 # which refuses any other value)
 SPLIT = 256
-HEAD_DIMS = (32, 64, 128)        # the kernel's template head dims
+HEAD_DIMS = tuple(range(16, 257, 16))   # every multiple of 16 up to 256
 
 
 def _check_shapes(q, kp, vp, table, positions):
@@ -121,8 +122,8 @@ def paged_decode_attention(q, kp, vp, k_ab, v_ab, table, positions,
     b, kvh, g, hd = q.shape
     blk, max_b = kp.shape[2], table.shape[1]
     if hd not in HEAD_DIMS:
-        raise ValueError(f"paged decode kernel takes head dim {HEAD_DIMS}, "
-                         f"got {hd}")
+        raise ValueError(f"paged decode kernel takes head dims that are "
+                         f"multiples of 16 in 16..256, got {hd}")
     for name, t in (("kp", kp), ("vp", vp)):
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must start on a 16-byte boundary")

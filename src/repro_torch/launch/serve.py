@@ -1,6 +1,7 @@
-"""Serving launcher of the port: the paged-payload engine (attention
-models: dense, dense_first and moe blocks) and the dense-cache engine
-(attention and mamba1 models).
+"""Serving launcher of the port: the paged-payload engine (global
+attention models: dense, attn, dense_first and moe blocks) and the
+dense-cache engine (every attention model, gemma3_1b's sliding-window
+``local`` blocks included, and mamba1 models).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --requests 16 --slots 8 --max-len 1024            # on the GPU
@@ -11,6 +12,8 @@ models: dense, dense_first and moe blocks) and the dense-cache engine
         --metrics jsonl:/tmp/ticks.jsonl      # MoE, comparator pool, sink
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon_mamba_7b --reduced --engine dense --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_1b \
+        --reduced --engine dense --device cpu --prompt-len 70 --max-len 128
 
 Params are random from ``--seed`` (``api.init_params``).  The payload
 engine serves from a frozen bank calibrated on the device from seeded

@@ -2,8 +2,9 @@
 ``repro.models.blocks``).
 
 Attention computes in the grouped layout [B, KV, G, S, hd] and every GEMM
-goes through the policy.  Ported: RMS and layer norm, SiLU-GLU and the
-tanh GELU (with the non-GLU MLP, which has no ``w_up``), RoPE (scalar and
+goes through the policy.  Ported: RMS and layer norm, SiLU-GLU, GELU-GLU,
+the tanh GELU and the squared ReLU (the last two with the non-GLU MLP,
+which has no ``w_up``), RoPE (scalar and
 per-slot positions), ``full_attention`` (the payload flash fast path for
 payload policies, the masked softmax through ``policy.einsum`` for the
 others), ``chunked_attention`` (the doubly chunked online softmax in f32,
@@ -11,15 +12,17 @@ differentiated op by op) and ``decode_attention`` (one token against a
 dense cache), the MLP, the MoE (token-choice top-k routing with capacity,
 global or grouped per batch row, shared experts, the load-balance aux
 loss), and ``attn_block_apply``'s train, prefill, dense-cache decode and
-paged decode for the ``dense``, ``dense_first`` and ``moe`` block types,
-and the encoder-decoder's non-causal ``encoder`` block.
+paged decode for the ``dense``, ``local``, ``attn``, ``dense_first`` and
+``moe`` block types, and the encoder-decoder's non-causal ``encoder``
+block.
 Above 2048 tokens a block attends through ``Policy.flash_attention`` when
 ``cfg.attn_impl == "flash"`` (on the payload path the payload flash
 node, else ``models/flash.py``) and through ``chunked_attention``
-otherwise, as the reference does.  The sliding window of the reference's
-``local`` blocks (window masks, the ring-buffer decode cache, the window
-prefill cache) is here behind ``attn_block_apply``'s ``window``; the port
-has no ``local`` block type yet, so only tests pass one.
+otherwise, as the reference does.  A ``local`` block attends within
+``cfg.window`` keys (window masks, the ring-buffer decode cache of
+``min(max_len, window)`` positions, the window prefill cache), every other
+type globally; ``attn`` is the reference's attention block with its MLP,
+as ``dense``.
 
 Mamba-1 (``mamba1``): ``init_mamba1`` and ``mamba1_apply`` in prefill and
 single-token decode over a dense {conv, ssm} cache.  Prefill runs the
@@ -91,15 +94,22 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
 
 def activate(h_gate: torch.Tensor, h_lin: Optional[torch.Tensor],
              activation: str):
-    """SiLU-GLU as the reference computes it: XLA lowers ``jax.nn.silu`` to
-    x * 1 / (1 + exp(-x)) and rounds to the activation dtype after each op,
-    so the port does the same ops on the same dtype (a fused f32 SiLU
-    rounds once and gives other bf16 values).  ``gelu``: the tanh
-    approximation (:func:`gelu_tanh`), no gate."""
+    """The reference's activations, op by op in the activation dtype.
+    SiLU-GLU: XLA lowers ``jax.nn.silu`` to x * 1 / (1 + exp(-x)) and
+    rounds to the activation dtype after each op, so the port does the
+    same ops on the same dtype (a fused f32 SiLU rounds once and gives
+    other bf16 values).  ``gelu_glu``: :func:`gelu_tanh` of the gate times
+    the linear half.  ``gelu``: the tanh approximation, no gate.
+    ``sq_relu`` (Nemotron-4): relu(gate), squared, no gate."""
     if activation == "silu_glu":
         return h_gate * (1.0 / (1.0 + torch.exp(-h_gate))) * h_lin
+    if activation == "gelu_glu":
+        return gelu_tanh(h_gate) * h_lin
     if activation == "gelu":
         return gelu_tanh(h_gate)
+    if activation == "sq_relu":
+        r = torch.relu(h_gate)
+        return r * r
     raise NotImplementedError(f"activation {activation!r} is not ported")
 
 
@@ -356,7 +366,7 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None,
                     block_type: str = "dense") -> Dict[str, Any]:
     """Same leaves and per-leaf std as the reference's init_attn_block:
     ``moe`` blocks hold a ``moe`` subtree, ``dense_first`` blocks an MLP of
-    width ``moe.dense_d_ff``."""
+    width ``moe.dense_d_ff``, the other types an MLP of width ``d_ff``."""
     d, hd = cfg.d_model, cfg.resolved_head_dim
     h, kv = cfg.n_heads, cfg.kv_heads
     std, std_o = 1.0 / math.sqrt(d), 1.0 / math.sqrt(h * hd)
@@ -374,7 +384,7 @@ def init_attn_block(cfg: ArchConfig, gen: torch.Generator, device=None,
     }
     if block_type == "moe":
         p["moe"] = init_moe(cfg, gen, device)
-    elif block_type in ("dense", "dense_first", "encoder"):
+    elif block_type in ATTN_BLOCK_TYPES:
         d_ff = cfg.d_ff
         if block_type == "dense_first" and cfg.moe:
             d_ff = cfg.moe.dense_d_ff or cfg.d_ff
@@ -399,11 +409,16 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     the cache is a ring buffer when Smax <= window).  A ``moe`` block runs
     its MoE under the ``moe`` StatsBank scope.  An ``encoder`` block of an
     encoder-decoder attends without the causal mask (the reference's rule,
-    in every attention branch).  Returns (x, cache, aux): aux is the MoE's
-    load-balance loss, 0 for the other block types."""
+    in every attention branch).  A ``local`` block attends within
+    ``cfg.window`` keys whatever ``window`` says (the reference's rule);
+    the other types take ``window`` as given (None: global).  Returns (x,
+    cache, aux): aux is the MoE's load-balance loss, 0 for the other block
+    types."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.kv_heads
+    if block_type == "local":
+        window = cfg.window
 
     xn = apply_norm(p["ln1"], x, cfg)
     with statsbank.scope("attn"):
@@ -648,7 +663,8 @@ def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
 # Uniform dispatch + caches
 # =========================================================================
 
-ATTN_BLOCK_TYPES = ("dense", "dense_first", "moe", "encoder")
+ATTN_BLOCK_TYPES = ("dense", "local", "moe", "attn", "dense_first",
+                    "encoder")
 
 
 def init_block(block_type: str, cfg: ArchConfig, gen: torch.Generator,
@@ -674,10 +690,14 @@ def block_apply(block_type: str, params, x: torch.Tensor, cfg: ArchConfig,
 def init_cache(block_type: str, cfg: ArchConfig, batch: int, max_len: int,
                dtype=torch.float32, device=None) -> Dict[str, torch.Tensor]:
     """One layer's dense cache: attention {k, v} [B, KV, max_len, hd] in
-    ``dtype``; mamba1 {conv [B, K-1, di] in ``dtype``, ssm [B, di, n] in
-    f32}."""
+    ``dtype`` (a ``local`` block's a ring of ``min(max_len, window)``
+    positions, reference blocks.py:835-837); mamba1 {conv [B, K-1, di] in
+    ``dtype``, ssm [B, di, n] in f32}."""
     if block_type in ATTN_BLOCK_TYPES:
-        shape = (batch, cfg.kv_heads, max_len, cfg.resolved_head_dim)
+        slots = max_len
+        if block_type == "local":
+            slots = min(max_len, cfg.window or max_len)
+        shape = (batch, cfg.kv_heads, slots, cfg.resolved_head_dim)
         return {key: torch.zeros(shape, dtype=dtype, device=device)
                 for key in ("k", "v")}
     if block_type == "mamba1":

@@ -1,5 +1,6 @@
 """Decoder-only LM (port of ``repro.models.transformer`` for the dense,
-``dense_first``, ``moe`` and ``mamba1`` block types).
+``local``, ``attn``, ``dense_first``, ``moe`` and ``mamba1`` block
+types).
 
 Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
 ``segments`` — one dict per homogeneous run of layers with every leaf

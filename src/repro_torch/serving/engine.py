@@ -2,21 +2,24 @@
 ``LMServer`` and the paged-payload ``PayloadLMServer``.
 
 ``LMServer`` serves over one dense cache tree at width ``slots`` (f32
-leaves: the attention blocks' K/V [L, slots, KV, max_len, hd], the mamba1
-blocks' conv windows and SSM states).  Per tick it
+leaves: the attention blocks' K/V [L, slots, KV, max_len, hd], a ``local``
+block's a ring of ``min(max_len, window)`` positions, the mamba1 blocks'
+conv windows and SSM states).  Per tick it
 fills every free slot FCFS, runs one prefill per power-of-two prompt
 bucket at width ``slots`` (prompts right-padded in their own slot rows,
 logits read at each row's true last index) into a fresh cache tree,
 copies only the admitted columns into the server's tree, then runs one
 decode step for all slots with a per-slot position vector: an attention
-block writes each slot's token at its own position and attends over its
-cache row (``blocks.decode_attention``, whose two einsums run on the
-batched payload GEMM on the payload path).  Prefill and decode use exact
-per-call stats (no bank session), as the reference's engine does, so the
-caches hold K/V as computed.  As in the reference, a padded prompt's
-mamba1 scan and conv window run on
-through the pad tokens, so a prompt shorter than its bucket decodes from a
-state that includes the pads.
+block writes each slot's token at its own position (a ``local`` block at
+the position mod its ring) and attends over its cache row
+(``blocks.decode_attention``, whose two einsums run on the batched payload
+GEMM on the payload path).  Prefill and decode use exact per-call stats
+(no bank session), as the reference's engine does, so the caches hold K/V
+as computed.  As in the reference, a prompt padded to a bucket longer
+than a ``local`` block's window leaves the pads' K/V in that block's ring,
+and a padded prompt's mamba1 scan and conv window run on through the pad
+tokens, so a prompt shorter than its bucket decodes from a state that
+includes the pads.
 
 ``PayloadLMServer``: KV lives in a paged block pool (serving/paged_cache.py:
 S2FP8 payloads, or the f32 comparator pools) with frozen per-layer stats;

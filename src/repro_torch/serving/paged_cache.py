@@ -43,9 +43,9 @@ from repro_torch.core.s2fp8 import S2FP8Tensor
 from repro_torch.kernels import paged_attention as _pk
 
 CACHE_FMTS = ("e5m2", "e4m3", "f32_e5m2", "f32_e4m3", "f32")
-# global-attention block types; the reference's "attn" joins when that
-# block type is ported (models/blocks.py ATTN_BLOCK_TYPES)
-PAGED_BLOCK_TYPES = ("dense", "moe", "dense_first")
+# Segment block types that use the paged KV layout (global attention only;
+# sliding-window rings and mamba conv / ssm states keep their dense layout)
+PAGED_BLOCK_TYPES = ("dense", "moe", "attn", "dense_first")
 
 
 def _check_fmt(cache_fmt: str) -> None:
@@ -76,7 +76,9 @@ def _check_blocks(cfg: ArchConfig) -> None:
     for i, (btype, _) in enumerate(tlm.segments_of(cfg)):
         if btype not in PAGED_BLOCK_TYPES:
             raise ValueError(f"paged serving supports global-attention "
-                             f"blocks only, got {btype!r} (segment {i})")
+                             f"blocks only, got {btype!r} (segment {i}); "
+                             f"window rings / ssm states need the dense "
+                             f"engine")
 
 
 def _raw(t: torch.Tensor) -> torch.Tensor:

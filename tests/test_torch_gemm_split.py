@@ -21,7 +21,9 @@ Here, in plain torch / numpy:
   whatever order the blocks run in;
 * the planner gives every GEMM shape that ``chip_smoke.py`` checks, and
   every decode GEMM of the served models, a path, and its decode grids
-  cover at least two waves of an H100's 132 SMs.
+  cover at least two waves of an H100's 132 SMs;
+* the GEMMs ``chip_smoke.py`` holds for the attention family's full-width
+  phases are their configs' weights at the main path's rows.
 """
 import importlib.util
 from pathlib import Path
@@ -244,3 +246,86 @@ def test_rows_padded_to_sixteen_bytes():
     assert ref.s2fp8_dequant_ref(zero, torch.tensor([0.7, 3.0])).item() == 0
     same, ld = mm._aligned(torch.zeros(4, 32, dtype=torch.uint8))
     assert ld == 32 and same.shape == (4, 32)
+
+
+# the attention family's full-width configs by the word that names them in
+# chip_smoke.py's GEMMS_FAMILY rows
+FAMILY_ARCHS = {"gemma3": "gemma3_1b", "stablelm": "stablelm_12b",
+                "nemotron": "nemotron_4_340b"}
+FAMILY_ROWS = [(layout, row) for layout, rows in
+               _chip_smoke().GEMMS_FAMILY.items() for row, _ in rows]
+
+
+def _weights(arch):
+    """(K, N) of the config's projection, MLP and head weights [in, out],
+    and the head's alone."""
+    from repro_torch.configs import get_config
+    c = get_config(arch)
+    d, hd, ff = c.d_model, c.resolved_head_dim, c.d_ff
+    head = (d, c.vocab)
+    return {(d, c.n_heads * hd), (d, c.kv_heads * hd), (c.n_heads * hd, d),
+            (d, ff), (ff, d), head}, head
+
+
+@pytest.mark.parametrize("layout,row", FAMILY_ROWS)
+def test_family_gemm_shapes_are_the_configs(layout, row):
+    """Every GEMM that chip_smoke.py holds for the attention family's
+    full-width phases is one of its config's weights in the layout the
+    main path runs it (NN forward X @ W, and the tied head's dX = dlogits
+    @ E; NT dX = dY @ W^T, and the tied head's X @ E^T; TN dW = X^T @ dY),
+    at the main path's rows (8 slots at decode, 8 rows x a power-of-two
+    bucket at prefill, 1 x 4,096 tokens in training), on the path the
+    planner gives those rows."""
+    shapes = dict(_chip_smoke().GEMMS_FAMILY[layout])[row]
+    arch = next(a for w, a in FAMILY_ARCHS.items() if w in row.split())
+    ws, head = _weights(arch)
+    for m, k, n in shapes:
+        rows = k if layout == "tn" else m
+        if layout == "nn":
+            assert (k, n) in ws or (n, k) == head, (m, k, n)
+        elif layout == "nt":
+            assert (n, k) in ws or (k, n) == head, (m, k, n)
+        else:
+            assert (m, n) in ws or (n, m) == head, (m, k, n)
+        plan = mm.plan_gemm(m, n, k, layout=layout)
+        if "decode" in row.split():
+            assert rows == 8 and plan.path == "small", (m, k, n)
+            assert (plan.splits - 1) * plan.kchunk < k
+            assert k <= plan.splits * plan.kchunk
+            assert plan.kchunk <= mm.SMALL_KCHUNK_MAX
+        else:
+            assert plan.path == "large", (m, k, n)
+            want = 4096 if row.endswith("train") else rows
+            assert rows == want and rows % 8 == 0, (m, k, n)
+            bucket = rows // (1 if row.endswith("train") else 8)
+            assert bucket & (bucket - 1) == 0, (m, k, n)
+
+
+def test_family_batched_shapes_are_the_configs():
+    """The batched GEMMs chip_smoke.py holds for the attention family:
+    gemma3_1b's decode attention (8 slots x its K/V heads, its query heads
+    a group the M rows, head dim 256 over the local ring and the global
+    cache) and the decode probes of stablelm_12b's and nemotron_4_340b's
+    calibration (2 rows x 8 K/V heads over the probe's cache of 64 + 4
+    positions), all on the large path."""
+    from repro_torch.configs import get_config
+    rows = dict(_chip_smoke().GEMMS_BATCHED_FAMILY)
+    g3 = get_config("gemma3_1b")
+    hd, grp = g3.resolved_head_dim, g3.n_heads // g3.kv_heads
+    want = {("nt", 8 * g3.kv_heads, grp, hd, s) for s in (g3.window, 1024)}
+    want |= {("nn", 8 * g3.kv_heads, grp, s, hd) for s in (g3.window, 1024)}
+    assert {(lay, ga, m, k, n) for lay, ga, gb, ob, m, k, n
+            in rows["qmatmul_batched decode gemma3"]} == want
+    probes = set()
+    for arch in ("stablelm_12b", "nemotron_4_340b"):
+        c = get_config(arch)
+        hd, grp = c.resolved_head_dim, c.n_heads // c.kv_heads
+        probes |= {("nt", 2 * c.kv_heads, grp, hd, 64 + 4),
+                   ("nn", 2 * c.kv_heads, grp, 64 + 4, hd)}
+    assert {(lay, ga, m, k, n) for lay, ga, gb, ob, m, k, n
+            in rows["qmatmul_batched probe"]} == probes
+    for cases in rows.values():
+        for lay, ga, gb, ob, m, k, n in cases:
+            assert ga == gb and ob is None
+            plan = mm.plan_gemm(m, n, k, g=ga, layout=lay)
+            assert plan.path == "large" and plan.bm == 64

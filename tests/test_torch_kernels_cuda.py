@@ -31,7 +31,10 @@ rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
 that sees no key exactly 0 on both sides.  The flash kernels also give
 the same bits on two launches with the same inputs (no float atomics),
 and hold their tolerances at tile edges (head dims 1, 8 and 72, one query
-row, ragged Sq != Sk) and at d = 128 with grouped K/V heads.  The payload GEMM is held on both
+row, ragged Sq != Sk), at d = 128 with grouped K/V heads, and at the head
+dims above 128 (136, 160, 192 and 256: two column chunks of the output);
+the paged decode at every head dim its padded lane groups take (16, 48,
+80, 160, 192, 256 and 240).  The payload GEMM is held on both
 of its paths (small M split over K, large M on tensor cores in 64- and
 128-row blocks), at ragged and padded shapes, and gives the same bits on
 two launches on each path.
@@ -503,7 +506,7 @@ def test_flash_fwd_kernel(dev, dtype, causal, window, sq, sk, d):
 
 
 def test_flash_fwd_kernel_refuses(dev):
-    q = torch.randn(1, 2, 8, 144, device=dev)
+    q = torch.randn(1, 2, 8, 264, device=dev)
     with pytest.raises(ValueError, match="head dims"):
         flash_attention.flash_attention(q, q, q)
     q = torch.randn(1, 2, 8, 64, device=dev)
@@ -1065,3 +1068,109 @@ def test_checkpoint_codec_kernels(dev, engine, tmp_path):
     assert back["w"].device == dev and torch.equal(back["b"], tree["b"])
     assert torch.equal(back["w"], got)
     assert kernels.counts()["dequant"]["launches"] == 2
+
+
+@pytest.mark.parametrize("d,g,window,sq", [
+    (160, 2, None, 300), (192, 4, 100, 257), (256, 4, 512, 700),
+    (256, 1, None, 129), (136, 2, 40, 200)])
+def test_qflash_kernels_wide_head_dims(dev, d, g, window, sq):
+    """Head dims above 128 (each block one of two column chunks of the
+    output, dq or dk / dv, the score tiles from the full d): the payload
+    forward and backward against their plain versions with the tolerances
+    above, and the same bits on a second launch."""
+    pq, pk, pv, pg, sts = _qflash_inputs(dev, 14, 2, g, sq, sq, d)
+    kw = dict(g=g, window=window)
+    raw, lse = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3], **kw)
+    oab = s2fp8.compute_stats(raw)
+    ok, lk = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab,
+                                        **kw)
+    op, lp = flash_attention.qflash_fwd_plain(pq, pk, pv, *sts[:3],
+                                              out_ab=oab, **kw)
+    dd = _steps(ok, op, oab)
+    assert dd.max() <= 1 and (dd != 0).float().mean() <= 1e-2
+    assert (lk - lp).abs().max() <= 1e-4
+    again = flash_attention.qflash_fwd(pq, pk, pv, *sts[:3], out_ab=oab,
+                                       **kw)
+    assert torch.equal(ok, again[0]) and torch.equal(lk, again[1])
+    args = (pq, pk, pv, pg, *sts, lse, _delta(pg, sts[3], raw, oab, "e5m2"))
+    got = flash_attention.qflash_bwd(*args, **kw)
+    want = flash_attention.qflash_bwd_plain(*args, **kw)
+    for x, y in zip(got, want):
+        assert bool(torch.isfinite(x).all())
+        assert (x - y).abs().max().item() <= 1e-4 * y.abs().max().item()
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, flash_attention.qflash_bwd(*args, **kw)))
+
+
+@pytest.mark.parametrize("d", [160, 192, 256])
+def test_flash_fwd_kernel_wide_head_dims(dev, d):
+    """The plain forward above d = 128, f32 and bf16, causal with a
+    window; the same bits on a second launch."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    q, k, v = (torch.randn(1, 4, 300, d, generator=gen, device=dev)
+               for _ in range(3))
+    for dtype, rtol, atol in ((torch.float32, 2e-4, 2e-5),
+                              (torch.bfloat16, 1e-2, 1e-3)):
+        t = [x.to(dtype) for x in (q, k, v)]
+        ok = flash_attention.flash_attention(*t, window=100)
+        op = flash_attention.flash_attention_plain(*t, window=100)
+        torch.testing.assert_close(ok.float(), op.float(), rtol=rtol,
+                                   atol=atol)
+        assert torch.equal(ok, flash_attention.flash_attention(*t,
+                                                               window=100))
+
+
+def test_qflash_kernels_refuse_above_256(dev):
+    p = torch.zeros((2, 8, 272), dtype=torch.uint8, device=dev).view(
+        torch.float8_e5m2)
+    ab = torch.tensor([1.0, 0.0], device=dev)
+    with pytest.raises(ValueError, match="head dims 1..256"):
+        flash_attention.qflash_fwd(p, p, p, ab, ab, ab, g=1)
+    with pytest.raises(ValueError, match="head dims 1..256"):
+        flash_attention.qflash_bwd(p, p, p, p, ab, ab, ab, ab,
+                                   torch.zeros(2, 8, device=dev),
+                                   torch.zeros(2, 8, device=dev), g=1)
+    assert kernels.counts()["qflash_fwd"]["launches"] == 0
+
+
+@pytest.mark.parametrize("hd,g", [(16, 4), (48, 3), (80, 2), (160, 4),
+                                  (192, 12), (240, 1), (256, 5)])
+def test_paged_decode_kernel_padded_lane_groups(dev, hd, g):
+    """Head dims whose hd / 16 lanes are not a power of two (3, 5, 10, 12,
+    15 of a padded group) or one lane (hd 16) or 16 (hd 256), G up to 12:
+    allclose to the plain version (1e-4 relative + 1e-5), positions on
+    both sides of the split, a dead slot, and the same bits twice."""
+    gen = torch.Generator(device=dev).manual_seed(hd + g)
+    b, kvh, blk, max_b = 6, 2, 16, 40
+    nb = b * max_b + 1
+    q = torch.randn(b, kvh, g, hd, generator=gen, device=dev)
+    kf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    vf = torch.randn(nb, kvh, blk, hd, generator=gen, device=dev)
+    kab, vab = s2fp8.compute_stats(kf), s2fp8.compute_stats(vf)
+    kp = s2fp8_quant.quant_apply(kf, kab)
+    vp = s2fp8_quant.quant_apply(vf, vab)
+    table = (torch.randperm(nb - 1, generator=gen, device=dev) + 1).reshape(
+        b, max_b).to(torch.int32)
+    table[0] = 0                                  # a dead slot
+    pos = torch.tensor([0, 15, 255, 256, 400, 639], dtype=torch.int32,
+                       device=dev)
+    ok = paged_attention.paged_decode_attention(q, kp, vp, kab, vab, table,
+                                                pos)
+    op = paged_attention.paged_decode_plain(q, kp, vp, kab, vab, table, pos)
+    assert bool(((ok - op).abs() <= 1e-4 * op.abs() + 1e-5).all())
+    assert torch.equal(ok, paged_attention.paged_decode_attention(
+        q, kp, vp, kab, vab, table, pos))
+    assert kernels.counts()["paged_decode"]["launches"] == 2
+
+
+def test_paged_decode_kernel_refuses_other_head_dims(dev):
+    for hd in (8, 24, 272):
+        q = torch.zeros((1, 1, 1, hd), device=dev)
+        pool = torch.zeros((2, 1, 16, hd), dtype=torch.uint8,
+                           device=dev).view(torch.float8_e5m2)
+        ab = torch.tensor([1.0, 0.0], device=dev)
+        with pytest.raises(ValueError, match="multiples of 16"):
+            paged_attention.paged_decode_attention(
+                q, pool, pool, ab, ab, torch.ones((1, 1), dtype=torch.int32,
+                                                  device=dev),
+                torch.zeros(1, dtype=torch.int32, device=dev))

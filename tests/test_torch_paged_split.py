@@ -1,10 +1,11 @@
 """The split-KV paged decode, emulated in plain torch on the CPU.
 
 The CUDA kernel (``csrc/paged_attention.cu``) splits each slot's cache
-into runs of ``SPLIT`` positions.  Inside a split, a group of hd / 16
-lanes reads one payload row at a time; the block's 128 threads make
-128 / (hd / 16) such groups, and group ``r`` takes rows s0 + r, s0 + r +
-groups, ... with an online softmax (m, l, acc).  The groups of a warp merge
+into runs of ``SPLIT`` positions.  Inside a split, a lane group reads one
+payload row at a time: hd / 16 lanes rounded up to a power of two (the
+extra lanes idle and add 0), so the block's 128 threads make 128 / that
+many groups, and group ``r`` takes rows s0 + r, s0 + r + groups, ... with
+an online softmax (m, l, acc).  The groups of a warp merge
 into its first group by a shuffle tree (offsets 16, 8, ... lanes), the
 warps in warp order (max first, then the sums), and the slot's last split
 to finish merges its live splits in split order the same way.  Here that schedule is
@@ -15,7 +16,8 @@ payloads quantized on the JAX side and shared bit for bit.
 
 Cases: positions 0 (a dead slot whose table row is all trash block 0), 15,
 16, split - 1, split and the last position of the table; G in {1, 3}; hd in
-{64, 128}; e5m2 and e4m3.  Tolerance: |emulation - plain| and |emulation
+{16, 64, 128, 160, 192} (1, 4, 8 and two padded groups of 16 lanes); e5m2
+and e4m3.  Tolerance: |emulation - plain| and |emulation
 - reference| <= 2e-5 + 2e-5 * |plain| (the reference's own
 kernel-vs-oracle tolerance, tests/test_serving.py); only the order of f32
 sums and the softmax's rescaling differ.
@@ -71,7 +73,7 @@ def split_decode_emulation(q, kf, vf, positions, split):
     positions: [B].  Returns [B, KV, G, hd]."""
     b, kvh, g, hd = q.shape
     s_len = kf.shape[2]
-    lanes = hd // 16
+    lanes = 1 << (hd // 16 - 1).bit_length()     # padded to a power of two
     groups = THREADS // lanes
     per_warp = WARP // lanes
     rounds = -(-split // groups)
@@ -166,7 +168,7 @@ def _close(got, want):
 
 
 @pytest.mark.parametrize("split", [64, 128, paged_attention.SPLIT])
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [16, 64, 128, 160, 192])
 @pytest.mark.parametrize("g", [1, 3])
 @pytest.mark.parametrize("fmt", ["e5m2", "e4m3"])
 def test_split_emulation_matches_plain_and_reference(fmt, g, hd, split):

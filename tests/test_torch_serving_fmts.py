@@ -84,8 +84,7 @@ def sides():
 def test_cache_formats_are_the_reference_five():
     from repro.serving import paged_cache as jpc
     assert paged_cache.CACHE_FMTS == jpc.CACHE_FMTS
-    assert paged_cache.PAGED_BLOCK_TYPES == tuple(
-        t for t in jpc.PAGED_BLOCK_TYPES if t != "attn")
+    assert paged_cache.PAGED_BLOCK_TYPES == jpc.PAGED_BLOCK_TYPES
     for fmt in jpc.CACHE_FMTS:
         assert paged_cache.base_fmt(fmt) == jpc.base_fmt(fmt)
         assert paged_cache.is_payload(fmt) == jpc.is_payload(fmt)
