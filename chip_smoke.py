@@ -9,7 +9,7 @@ Phases, each fatal on failure:
              (nvidia-smi) and the software versions.
 2. build   — compiles every CUDA kernel of the serving and training paths
              from src/repro_torch/csrc (one nvcc per source, all at once).
-3. kernels — holds each of the fifteen kernels against its plain
+3. kernels — holds each of the sixteen kernels against its plain
              PyTorch version on the card at the serving and training
              paths' shapes (the MoE's expert GEMMs, head dim 128, the
              exact-stats path's tensors, serve-mamba's selective scan and
@@ -170,9 +170,27 @@ Phases, each fatal on failure:
              192 on 8 K/V heads, squared ReLU, layer norm, vocab 256,000
              untied) cut to 1 of its 96 layers (51.6 GB of f32 params), 8
              requests, 16 new tokens; the paged decode at head dim 192.
+24. train-zamba2 — full-width, full-depth zamba2_1p2b (38 layers: 32
+             mamba2 of 64 heads x 64 channels with 64 states, 6 attn; 1.35 B
+             params) trained 4 steps at batch 4 x 512 with the bank at k = 8
+             (payload GEMMs on cuda, AdamW, remat): the per-head scan and
+             its backward kernel at every mamba2 layer beside every
+             training kernel.
+25. train-mamba — full-width falcon_mamba_7b cut to 4 of its 64 layers
+             (64 would be ~116 GB of f32 state; 4 are 0.95 B params), trained
+             as train-zamba2: the per-channel scan and its backward.
+26. serve-zamba2 — zamba2_1p2b at full width and depth through the
+             dense-cache LMServer as serve-mamba runs falcon: every prefill
+             launches the scan once per mamba2 layer (32).
 Phase 4 also runs "small-families": the five attention-family configs
 reduced, served through the kernels (every call held) and through the
-plain versions teacher-forced along the kernels' tokens.
+plain versions teacher-forced along the kernels' tokens; and "small-ssm":
+reduced zamba2 served as reduced falcon_mamba_7b is, and reduced zamba2 and
+falcon trained (bank k = 2), every scan forward and backward call held
+against its plain version.  Phase 3 holds the per-head scan at
+serve-zamba2's prefill buckets (8 x 128 / 256 / 512, 64 heads x 64, 64
+states) and the scan's backward at train-mamba's and train-zamba2's shapes
+(4 x 512), two launches giving the same bits.
 
 Phase 3 also holds #7, #8, #10, #11 and #12 at the shapes these phases
 give them (the convs' im2col GEMMs, N = 1 and 10, whisper's head and
@@ -245,6 +263,9 @@ REPLACES = {
     "paged_decode": "src/repro/kernels/paged_attention.py:89",
     "selective_scan": "src/repro/kernels/selective_scan.py:58",
     "flash_fwd": "src/repro/kernels/flash_attention.py:91",
+    # no TPU kernel: the reference differentiates lax.scan (mamba1, mamba2)
+    "selective_scan_bwd": "port only: src/repro/models/blocks.py:643 and "
+                          ":734 differentiate lax.scan",
 }
 SOURCES = {
     "quant_apply": "src/repro_torch/csrc/s2fp8_quant.cu",
@@ -262,6 +283,7 @@ SOURCES = {
     "paged_decode": "src/repro_torch/csrc/paged_attention.cu",
     "selective_scan": "src/repro_torch/csrc/selective_scan.cu",
     "flash_fwd": "src/repro_torch/csrc/flash_attention.cu",
+    "selective_scan_bwd": "src/repro_torch/csrc/selective_scan.cu",
 }
 # the kernels each main path runs (phase 5 serves, phase 6 trains minicpm,
 # phase 7 trains deepseek_moe_16b, phases 8 and 9 train minicpm with exact
@@ -309,11 +331,24 @@ SERVE_MOE_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn",
 # path at decode), the prefill's payload flash, the paged decode
 SERVE_UNTIED_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn",
                         "qmatmul_nn/small", "qflash_fwd", "paged_decode")
+# the SSM slice: the scan and its backward train falcon_mamba_7b's mamba1
+# blocks (no attention) and zamba2_1p2b's mamba2 blocks beside its attn
+# blocks; zamba2 serves on the dense-cache engine as minicpm does there
+SCAN_KERNELS = frozenset(("selective_scan", "selective_scan_bwd"))
+TRAIN_MAMBA_KERNELS = ("quant_apply", "truncate_apply", "qmatmul_nn",
+                       "qmatmul_nt", "qmatmul_tn", "selective_scan",
+                       "selective_scan_bwd")
+TRAIN_ZAMBA2_KERNELS = TRAIN_KERNELS + ("selective_scan",
+                                        "selective_scan_bwd")
+SERVE_ZAMBA2_KERNELS = STATS_KERNELS + (
+    "quant_apply", "truncate_apply", "qmatmul_nn", "qmatmul_batched",
+    "qflash_fwd", "selective_scan")
 PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "serve_mamba", "ops", "train_modes", "train_long_flash",
           "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
           "train_paper", "train_loop", "serve_moe", "train_gemma3",
-          "serve_gemma3", "serve_stablelm", "serve_nemotron")
+          "serve_gemma3", "serve_stablelm", "serve_nemotron",
+          "train_zamba2", "train_mamba", "serve_zamba2")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -802,6 +837,7 @@ def phase_kernels(dev) -> dict:
     moe_kernel_checks(dev, rnd, record)
     stats_kernel_checks(dev, rnd, record)
     mamba_ops_kernel_checks(dev, gen, rnd, record)
+    ssm_kernel_checks(dev, gen, record)
     long_kernel_checks(dev, rnd, record)
     paper_kernel_checks(dev, rnd, record)
     moe_serve_kernel_checks(dev, rnd, record)
@@ -898,18 +934,131 @@ def scan_inputs(dev, gen, b, s, di, n):
     return x, dt, bm, cm, a, torch.ones(di, device=dev)
 
 
-def scan_bound_ms(b, s, di, n):
+def scan_bound_ms(b, s, di, n, nh=0):
     """(bound ms, bound_by, bytes, f32 operations) of the selective scan,
     by ``bound_ms``: its bytes (x, dt and y once, B and C once, A, D and
-    the final h once) over HBM, and its f32 operations (7 a state and
-    step, 3 a channel and step, the exp counted as one) over the f32
-    cores.  The exps are no term of their own: an exp2 runs on the SFUs
-    or as a polynomial on the FMA pipes, and the two together take them
-    in less time than the bytes."""
-    nbytes = 4 * (3 * b * s * di + 2 * b * s * n + di * n + di + b * di * n)
-    flops = float(b * s * di * (7 * n + 3))
+    the final h once; per head dt, A and D a head) over HBM, and its f32
+    operations over the f32 cores: per channel 7 a state and step (the
+    exp counted as one) and 3 a channel and step; per head 5 a state and
+    step, 3 a channel and step and 2 a head and step (its one exp).  The
+    exps are no term of their own: an exp2 runs on the SFUs or as a
+    polynomial on the FMA pipes, and the two together take them in less
+    time than the bytes."""
+    width, params = (nh, 2 * nh) if nh else (di, di * n + di)
+    nbytes = 4 * (2 * b * s * di + b * s * width + 2 * b * s * n + params
+                  + b * di * n)
+    flops = float(b * s * di * (5 * n + 3) + (2 * b * s * nh if nh
+                                              else 2 * b * s * di * n))
     bound, by, _ = bound_ms(nbytes, flops)
     return bound, by, nbytes, flops
+
+
+def scan_bwd_bound_ms(b, s, di, n, nh=0):
+    """(bound ms, bound_by, bytes, f32 operations) of the scan's backward,
+    by ``bound_ms``.  Bytes: its inputs once (x, dt, B, C, A, D, dy and
+    the forward's chunk states [b, ceil(s / 16), di, n]) and its outputs
+    once (dx, ddt, dB, dC, dA, dD).  Operations, as the kernel does them
+    (the replay of each chunk from its saved state is part of the work:
+    no input holds the states between chunk starts): per channel 24 a
+    state and step (the replay's 7, the walk's 14 with the exp again, the
+    dC and dB sums' 3) and 9 a channel and step; per head 16 a state and
+    step, 10 a channel and step and 2 a head and step."""
+    width, params = (nh, 2 * nh) if nh else (di, di * n + di)
+    chunks = -(-s // 16)
+    nbytes = 4 * (3 * b * s * di + 2 * b * s * width + 4 * b * s * n
+                  + 2 * params + b * chunks * di * n)
+    flops = float(b * s * di * (16 * n + 10) + 2 * b * s * nh if nh
+                  else b * s * di * (24 * n + 9))
+    bound, by, _ = bound_ms(nbytes, flops)
+    return bound, by, nbytes, flops
+
+
+def scan_heads_inputs(dev, gen, b, s, nh, hd, n):
+    """The per-head scan's inputs as a mamba2 prefill or training step
+    feeds them: x [b, s, nh hd], dt [b, s, nh] (through softplus), B, C
+    [b, s, n], the model's A = -linspace(1, 16, nh) and D = 1; f32, from
+    ``gen``."""
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=gen, device=dev) * scale
+    x = rnd(b, s, nh * hd, scale=0.5)
+    dt = torch.nn.functional.softplus(rnd(b, s, nh) - 1.0)
+    bm, cm = rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5)
+    a = -torch.linspace(1.0, 16.0, nh, device=dev)
+    return x, dt, bm, cm, a, torch.ones(nh, device=dev)
+
+
+def ssm_kernel_checks(dev, gen, record) -> None:
+    """The widened scan per head at serve-zamba2's prefill buckets (8 rows
+    x 128, 256 and 512 tokens, 64 heads of 64 channels, 64 states; the S
+    512 times kept, device time with the L2 flushed at S 256), and the
+    scan's backward at train-mamba's shape (4 x 512, di 8192, 16 states,
+    per channel) and train-zamba2's (4 x 512, 64 heads of 64, 64 states).
+    Tolerance: the forward's y and h within 1e-5 * max |plain| (h bit for
+    bit but for the math library's exp), the backward's six gradients
+    within 1e-4 * max |plain| (autograd through the plain version sums the
+    same terms in another order), and two launches give the same bits.
+    No single PyTorch call computes either: library none."""
+    from repro_torch.kernels import selective_scan as ss
+
+    for s in (128, 256, 512):
+        b, nh, hd, n = 8, 64, 64, 64
+        args = scan_heads_inputs(dev, gen, b, s, nh, hd, n)
+        yk, hk = ss.selective_scan(*args)
+        yp, hp = ss.selective_scan_plain(*args)
+        ey, eh = (yk - yp).abs().max().item(), (hk - hp).abs().max().item()
+        ty, th = yp.abs().max().item(), hp.abs().max().item()
+        log(f"selective_scan zamba2 B={b} S={s} heads {nh}x{hd} n={n}: y "
+            f"err {ey:.3e} (max {ty:.3e}), h err {eh:.3e} (max {th:.3e}), "
+            f"h equal {bool(torch.equal(hk, hp))}")
+        assert ey <= 1e-5 * ty and eh <= 1e-5 * th, (ey, ty, eh, th)
+        same_bits(lambda: torch.cat([t.flatten() for t in
+                                     ss.selective_scan(*args)]),
+                  f"selective_scan zamba2 S={s}")
+        _, _, nbytes, flops = scan_bound_ms(b, s, nh * hd, n, nh)
+        record("selective_scan zamba2", max(ey, eh),
+               cuda_time(lambda: ss.selective_scan(*args)),
+               cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
+                         warmup=1), None, nbytes, flops,
+               f"B={b} S={s} heads={nh}x{hd} n={n} f32", keep=s == 512,
+               path_ms=device_ms(lambda: ss.selective_scan(*args),
+                                 cold=True), on_path=s == 256)
+        del args, yk, hk, yp, hp
+
+    for label, (b, s, di, n, nh) in (("falcon", (4, 512, 8192, 16, 0)),
+                                     ("zamba2", (4, 512, 4096, 64, 64))):
+        if nh:
+            args = scan_heads_inputs(dev, gen, b, s, nh, di // nh, n)
+        else:
+            args = scan_inputs(dev, gen, b, s, di, n)
+        dy = torch.randn(b, s, di, generator=gen, device=dev)
+        _, _, chunks = ss.selective_scan(*args, chunk_states=True)
+        gk = ss.selective_scan_bwd(*args, dy, chunks)
+        t0 = time.perf_counter()
+        gp = ss.selective_scan_bwd_plain(*args, dy)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        errs = {}
+        for name, k, p in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), gk, gp):
+            errs[name] = ((k - p).abs().max() / p.abs().max()).item()
+        log(f"selective_scan_bwd {label} B={b} S={s} di={di} n={n} nh={nh}: "
+            "errors / max |plain| " + ", ".join(
+                f"{k} {v:.3e}" for k, v in errs.items()))
+        assert max(errs.values()) <= 1e-4, errs
+        same_bits(lambda: torch.cat([t.flatten() for t in
+                                     ss.selective_scan_bwd(*args, dy,
+                                                           chunks)]),
+                  f"selective_scan_bwd {label}")
+        err = max((k - p).abs().max().item() for k, p in zip(gk, gp))
+        del gp
+        _, _, nbytes, flops = scan_bwd_bound_ms(b, s, di, n, nh)
+        record(f"selective_scan_bwd {label}", err,
+               cuda_time(lambda: ss.selective_scan_bwd(*args, dy, chunks)),
+               plain_ms, None, nbytes, flops,
+               f"B={b} S={s} di={di} n={n} "
+               + (f"heads={nh}x{di // nh} " if nh else "") + "f32",
+               path_ms=device_ms(lambda: ss.selective_scan_bwd(
+                   *args, dy, chunks), cold=True), on_path=True)
+        del args, dy, chunks, gk
 
 
 def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
@@ -2733,53 +2882,91 @@ def _small_train_checked(dev, cfg, batches, loss_fn, stats, tally,
 
 @contextlib.contextmanager
 def scan_route(check: bool):
-    """Routes the mamba1 blocks' selective scan: with ``check``, through
-    the kernel, each call held against the plain version on the same
-    inputs (y and h within 1e-5 * max |plain|, phase 3's tolerance); else
-    through the plain version.  Yields the tally of calls checked."""
+    """Routes the SSM blocks' selective scan, forward and backward (the
+    prefill's ``selective_scan`` and training's ``SelectiveScanFn``, as
+    ``models/blocks.py`` reaches them through its ``scan`` module): with
+    ``check``, through the kernels, each call held against its plain
+    version on the same inputs (the forward's y and h within 1e-5 * max
+    |plain|, the backward's six gradients within 1e-4 * max |plain|, phase
+    3's tolerances); else through the plain versions.  Training runs an
+    autograd Function of SelectiveScanFn's form over the routed calls.
+    Yields the tally of calls checked."""
+    import types
     from repro_torch.kernels import selective_scan as ss
     from repro_torch.models import blocks
-    kernel, tally = blocks.selective_scan, {"calls": 0, "differ": 0}
+    tally = {"calls": 0, "differ": 0, "bwd_calls": 0, "bwd_differ": 0}
 
-    def checked(*args):
-        yk, hk = kernel(*args)
-        yp, hp = ss.selective_scan_plain(*args)
-        for got, want in ((yk, yp), (hk, hp)):
-            err, top = (got - want).abs().max().item(), want.abs().max().item()
-            assert err <= 1e-5 * top, ("selective_scan", err, top)
-            tally["differ"] += int((got != want).sum())
+    def held(got, want, tol, what, key):
+        for g, w in zip(got, want):
+            err, top = (g - w).abs().max().item(), w.abs().max().item()
+            assert err <= tol * top, (what, err, top)
+            tally[key] += int((g != w).sum())
+
+    def checked(*args, chunk_states=False):
+        out = ss.selective_scan(*args, chunk_states=chunk_states)
+        held(out[:2], ss.selective_scan_plain(*args), 1e-5,
+             "selective_scan", "differ")
         tally["calls"] += 1
-        return yk, hk
+        return out
 
-    blocks.selective_scan = checked if check else ss.selective_scan_plain
+    def checked_bwd(*args):
+        grads = ss.selective_scan_bwd(*args)
+        held(grads, ss.selective_scan_bwd_plain(*args), 1e-4,
+             "selective_scan_bwd", "bwd_differ")
+        tally["bwd_calls"] += 1
+        return grads
+
+    def plain(*args, chunk_states=False):
+        y, h = ss.selective_scan_plain(*args)
+        return (y, h, None) if chunk_states else (y, h)
+
+    fwd, bwd = (checked, checked_bwd) if check else (
+        plain, ss.selective_scan_bwd_plain)
+
+    class RoutedScanFn(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            args = [t.contiguous() for t in args]
+            y, _, chunks = fwd(*args, chunk_states=True)
+            ctx.save_for_backward(*args, chunks)
+            return y
+
+        @staticmethod
+        def backward(ctx, dy):
+            *args, chunks = ctx.saved_tensors
+            return bwd(*args, dy.contiguous(), chunks)
+
+    module = blocks.scan
+    blocks.scan = types.SimpleNamespace(selective_scan=fwd,
+                                        SelectiveScanFn=RoutedScanFn)
     try:
         yield tally
     finally:
-        blocks.selective_scan = kernel
+        blocks.scan = module
 
 
-def phase_small_mamba(dev) -> None:
-    """Reduced falcon_mamba_7b (4 mamba1 layers, d 128, di 256, 8 states,
-    vocab 512) served by LMServer on the card (4 slots, prompts of 5, 8, 3
-    and 20 tokens: buckets 8, 8, 4 and 32, so three are padded), once
-    through the kernels and once through the plain versions, from the same
-    seeded params.  fp32: every scan call held against its plain version
-    and the same greedy tokens.  s2fp8, exact stats, payload GEMMs: the
-    cuda_fused engine run as the ``checked_engine`` (every kernel call held
-    against its plain version on the same inputs, phase 3's tolerances)
-    against the plain engine; logits finite, and at each step the rows
-    whose tokens so far agree within max |diff| <= 0.5 and mean <= 0.1
-    (the two engines' exact stats differ in their last bits, f64 against
-    f32 sums, which moves payload codes across rounding boundaries and
-    spreads through the recurrence; the CPU tests see the same between the
-    port and the reference)."""
+def small_serve_ssm(dev, arch: str, expected) -> None:
+    """Reduced ``arch`` served by LMServer on the card (4 slots, prompts of
+    5, 8, 3 and 20 tokens: buckets 8, 8, 4 and 32, so three are padded),
+    once through the kernels and once through the plain versions, from the
+    same seeded params.  fp32: every scan call held against its plain
+    version and the same greedy tokens.  s2fp8, exact stats, payload GEMMs:
+    the cuda_fused engine run as the ``checked_engine`` (every kernel call
+    held against its plain version on the same inputs, phase 3's
+    tolerances) against the plain engine; logits finite, and at each step
+    the rows whose tokens so far agree within max |diff| <= 0.5 and mean
+    <= 0.1 (the two engines' exact stats differ in their last bits, f64
+    against f32 sums, which moves payload codes across rounding boundaries
+    and spreads through the recurrence; the CPU tests see the same between
+    the port and the reference).  Every kernel of ``expected`` but the scan
+    must have been checked by the engine, the scan by ``scan_route``."""
     import numpy as np
     from repro_torch.configs import get_reduced_config
     from repro_torch.core.policy import make_policy
     from repro_torch.models import transformer as tlm
     from repro_torch.serving.engine import LMServer, Request
 
-    cfg = get_reduced_config("falcon_mamba_7b")
+    cfg = get_reduced_config(arch)
     params = tlm.init_lm(cfg, seed=1, device=dev)
     rng = np.random.default_rng(1)
     prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
@@ -2812,19 +2999,20 @@ def phase_small_mamba(dev) -> None:
         srv.run_to_completion()
         return [r.out for r in reqs], steps
 
+    label = f"small {arch}"
     with scan_route(check=True) as scans:
         tk, _ = serve(make_policy("fp32"))
     with scan_route(check=False):
         tp, _ = serve(make_policy("fp32"))
-    log(f"small mamba fp32: tokens kernels {tk} plain {tp}; scan calls "
-        f"held against the plain version: {scans}")
+    log(f"{label} fp32: tokens kernels {tk} plain {tp}; scan calls held "
+        f"against the plain version: {scans}")
     assert tk == tp, "kernel and plain scans chose different tokens"
 
     with checked_engine("fused") as tally, scan_route(check=True) as scans:
         tk, sk = serve(make_policy("s2fp8", "checked", "payload"))
     with scan_route(check=False):
         tp, sp = serve(make_policy("s2fp8", "plain", "payload"))
-    log(f"small mamba s2fp8: tokens kernels {tk} plain {tp}; kernel calls "
+    log(f"{label} s2fp8: tokens kernels {tk} plain {tp}; kernel calls "
         f"held against their plain versions: {tally}, scans {scans}")
     assert len(sk) == len(sp)
     for i, ((lk, rows, n_out), (lp, rows_p, _)) in enumerate(zip(sk, sp)):
@@ -2833,11 +3021,42 @@ def phase_small_mamba(dev) -> None:
         if not same:
             continue
         dlt = (lk[same] - lp[same]).abs()
-        log(f"small mamba s2fp8 step {i}: {len(same)} rows agree so far, "
+        log(f"{label} s2fp8 step {i}: {len(same)} rows agree so far, "
             f"max {dlt.max().item():.4f} mean {dlt.mean().item():.5f}")
         assert dlt.max().item() <= 0.5 and dlt.mean().item() <= 0.1
-    missing = set(SERVE_MAMBA_KERNELS) - set(tally) - {"selective_scan"}
+    missing = set(expected) - set(tally) - {"selective_scan"}
     assert not missing and scans["calls"], f"never checked: {missing}"
+
+
+def phase_small_mamba(dev) -> None:
+    """Reduced falcon_mamba_7b (4 mamba1 layers, d 128, di 256, 8 states,
+    vocab 512) served as ``small_serve_ssm`` serves."""
+    small_serve_ssm(dev, "falcon_mamba_7b", SERVE_MAMBA_KERNELS)
+
+
+def phase_small_ssm(dev) -> None:
+    """"small-ssm": reduced zamba2_1p2b (mamba2, mamba2, attn, mamba2; d
+    128, 8 heads of 32 channels, 8 states, vocab 512) served as
+    ``small_serve_ssm`` serves (the attention block through the dense
+    decode's batched GEMM), then reduced zamba2 and reduced falcon_mamba_7b
+    trained as ``phase_small_train`` trains minicpm (batch 2 x 64, bank k
+    = 2, the checked engine against the plain engine, the gradients of
+    steps 0 and 1 and 3 train steps) with every scan forward and backward
+    call, in both engines' runs, through the kernels and held against its
+    plain version (``scan_route``).  Losses within 0.05 of each other, a
+    smoke test as for the MoE: a recurrence carries a moved code through
+    every later step."""
+    from repro_torch.configs import get_reduced_config
+    small_serve_ssm(dev, "zamba2_1p2b", SERVE_ZAMBA2_KERNELS)
+    for arch, expected in (("zamba2_1p2b", TRAIN_ZAMBA2_KERNELS),
+                           ("falcon_mamba_7b", TRAIN_MAMBA_KERNELS)):
+        log(f"small train {arch}")
+        with scan_route(check=True) as scans:
+            _small_train(dev, get_reduced_config(arch),
+                         set(expected) - SCAN_KERNELS, 0.05)
+        log(f"small train {arch}: scan calls held against the plain "
+            f"versions: {scans}")
+        assert scans["calls"] and scans["bwd_calls"], scans
 
 
 def phase_small_long(dev) -> None:
@@ -3660,6 +3879,39 @@ def phase_train_fig4(dev, profile: bool = False) -> dict:
                       refresh_every=0, steps=3)
 
 
+TRAIN_MAMBA_LAYERS = 4    # of falcon_mamba_7b's 64: 64 would need ~116 GB
+
+
+def phase_train_zamba2(dev, profile: bool = False) -> dict:
+    """Full-width, full-depth zamba2_1p2b (38 layers: 32 mamba2, 6 attn;
+    1.35 B params, 21.6 GB of f32 params, gradients and AdamW state)
+    trained as ``phase_train`` trains minicpm: batch 4 x 512, bank k = 8,
+    payload GEMMs on the cuda engine, remat, 4 steps, its cosine schedule:
+    the per-head scan and its backward kernel at every mamba2 layer (the
+    remat replay reruns the scan's forward), the payload flash at the
+    attention layers.  Model FLOP/s count 6 * N * T with N every
+    parameter."""
+    from repro_torch.configs import get_config
+    cfg = get_config("zamba2_1p2b")
+    return _train_run(dev, cfg, "train-zamba2", cfg.schedule, cfg.n_params(),
+                      TRAIN_ZAMBA2_KERNELS, profile)
+
+
+def phase_train_mamba(dev, profile: bool = False) -> dict:
+    """Full-width falcon_mamba_7b (d 4096, di 8192, 16 states, dt rank 256,
+    vocab 65,024 untied) cut to its first TRAIN_MAMBA_LAYERS = 4 of 64
+    layers (``launch.train.cut_depth``: 64 layers would be about 116 GB of
+    f32 params, gradients and AdamW state; 4 are 0.96 B params, 15.3 GB),
+    trained as ``phase_train_zamba2`` trains: the per-channel scan and its
+    backward kernel at every layer, no attention.  Model FLOP/s count 6 *
+    N * T with N every parameter."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import cut_depth
+    cfg = cut_depth(get_config("falcon_mamba_7b"), TRAIN_MAMBA_LAYERS)
+    return _train_run(dev, cfg, "train-mamba", cfg.schedule, cfg.n_params(),
+                      TRAIN_MAMBA_KERNELS, profile)
+
+
 def _train_run(dev, cfg, label, schedule, n_flop, expected, profile, *,
                pol=None, refresh_every=8, steps=4, compare=None, batch=4,
                seq=512) -> dict:
@@ -3937,30 +4189,49 @@ def serve_dense_run(dev, label, cfg) -> dict:
 
 
 def phase_serve_mamba(dev, profile: bool = False) -> dict:
-    """Full-width falcon_mamba_7b at full depth through the port's entry
-    points: seeded params (``init_lm``), then LMServer with 8 slots serving
-    8 requests (prompts of 64-512 tokens from a seeded generator, 16 new
-    tokens each), s2fp8 with exact per-call stats on the cuda_fused engine
-    and payload GEMMs (no bank).  Every prefill must run the selective-scan
-    kernel once per layer.  Returns the kernel launch counts of this phase
-    and its metrics (tok/s over ``run_to_completion``, prefill ms per call,
+    """Full-width falcon_mamba_7b at full depth (64 mamba1 layers) through
+    ``serve_ssm_run``."""
+    from repro_torch.configs import get_config
+    return serve_ssm_run(dev, "serve-mamba", get_config("falcon_mamba_7b"),
+                         SERVE_MAMBA_KERNELS, profile)
+
+
+def phase_serve_zamba2(dev) -> dict:
+    """Full-width zamba2_1p2b at full depth (32 mamba2 layers of 64 heads
+    x 64 channels with 64 states, 6 attention layers of 32 heads x 64,
+    GELU-GLU, vocab 32,000 untied) through ``serve_ssm_run``: the prefill
+    runs the per-head scan once a mamba2 layer and the payload flash at
+    the attention layers, the decode the reference's recurrence step and
+    the dense-cache attention on the batched payload GEMM."""
+    from repro_torch.configs import get_config
+    return serve_ssm_run(dev, "serve-zamba2", get_config("zamba2_1p2b"),
+                         SERVE_ZAMBA2_KERNELS)
+
+
+def serve_ssm_run(dev, label, cfg, expected, profile: bool = False) -> dict:
+    """``cfg`` through the port's entry points: seeded params
+    (``init_lm``), then LMServer with 8 slots serving 8 requests (prompts
+    of 64-512 tokens from a seeded generator, 16 new tokens each), s2fp8
+    with exact per-call stats on the cuda_fused engine and payload GEMMs
+    (no bank).  Every prefill must run the selective-scan kernel once per
+    mamba layer.  Returns the kernel launch counts of this phase and its
+    metrics (tok/s over ``run_to_completion``, prefill ms per call,
     decode ms per tick, peak device memory).  With ``profile``, an
     admission tick and five decode ticks of 8 more requests run under
     torch.profiler afterwards."""
     import numpy as np
     from repro_torch import kernels
-    from repro_torch.configs import get_config
     from repro_torch.core.policy import make_policy
     from repro_torch.models import transformer as tlm
     from repro_torch.serving.engine import LMServer, Request
 
-    cfg = get_config("falcon_mamba_7b")
     pol = make_policy("s2fp8", "cuda_fused", "payload")
     t0 = time.perf_counter()
     params = tlm.init_lm(cfg, seed=0, device=dev)
     torch.cuda.synchronize()
-    log(f"serve-mamba: falcon_mamba_7b {cfg.n_layers} layers, d="
-        f"{cfg.d_model}, di {cfg.ssm.expand * cfg.d_model}, state "
+    ssm_layers = sum(b.startswith("mamba") for b in cfg.resolved_pattern)
+    log(f"{label}: {cfg.name} {cfg.n_layers} layers ({ssm_layers} mamba), "
+        f"d={cfg.d_model}, di {cfg.ssm.expand * cfg.d_model}, state "
         f"{cfg.ssm.state}, vocab {cfg.vocab}, {cfg.n_params() / 1e9:.3f} B "
         f"params, init {time.perf_counter() - t0:.1f} s, "
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated; engine "
@@ -4007,9 +4278,9 @@ def phase_serve_mamba(dev, profile: bool = False) -> dict:
     for r in reqs:
         assert len(r.out) == 16, ("request did not complete", len(r.out))
         assert all(0 <= t < cfg.vocab for t in r.out)
-    check_counts(counts, SERVE_MAMBA_KERNELS + ("qmatmul_nn/small",))
+    check_counts(counts, expected + ("qmatmul_nn/small",))
     assert scans_per_prefill and all(
-        n == cfg.n_layers for n in scans_per_prefill), scans_per_prefill
+        n == ssm_layers for n in scans_per_prefill), scans_per_prefill
     tokens = sum(len(r.out) for r in reqs)
     metrics = {
         "requests": len(reqs), "tokens": tokens, "ticks": ticks,
@@ -4026,8 +4297,8 @@ def phase_serve_mamba(dev, profile: bool = False) -> dict:
         "max_memory_allocated_gb": peak / 1e9,
         "cache_bytes": server.cache_bytes(),
     }
-    log("serve-mamba metrics: " + json.dumps(metrics))
-    log("serve-mamba launches: " + json.dumps(counts))
+    log(f"{label} metrics: " + json.dumps(metrics))
+    log(f"{label} launches: " + json.dumps(counts))
     for i, r in enumerate(reqs[:2]):
         log(f"  req{i} ({len(r.prompt)} prompt tokens): {r.out[:8]}...")
     if profile:
@@ -4679,6 +4950,7 @@ def main() -> int:
     phase_small_long(dev)
     phase_small_paper(dev)
     phase_small_families(dev)
+    phase_small_ssm(dev)
     served = phase_serve(dev)
     if args.profile:
         phase_profile(served["server"])
@@ -4720,13 +4992,21 @@ def main() -> int:
     free_device_memory()
     served_nemotron = phase_serve_nemotron(dev)
     free_device_memory()
+    trained_zamba2 = phase_train_zamba2(dev, args.profile)
+    free_device_memory()
+    trained_mamba = phase_train_mamba(dev, args.profile)
+    free_device_memory()
+    served_zamba2 = phase_serve_zamba2(dev)
+    free_device_memory()
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba, ops, modes,
                                  long_runs["flash"], long_runs["naive"],
                                  served_dense, trained_encdec, served_encdec,
                                  trained_paper, train_loop, served_moe,
                                  trained_gemma3, served_gemma3,
-                                 served_stablelm, served_nemotron)))
+                                 served_stablelm, served_nemotron,
+                                 trained_zamba2, trained_mamba,
+                                 served_zamba2)))
     if args.profile:
         log_profiled_totals()
     out = []

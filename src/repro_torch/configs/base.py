@@ -12,7 +12,8 @@ import importlib
 from typing import Optional, Tuple
 
 ARCH_IDS = ("minicpm_2b", "stablelm_12b", "gemma3_1b", "nemotron_4_340b",
-            "deepseek_moe_16b", "kimi_k2_1t_a32b", "chameleon_34b",
+            "zamba2_1p2b", "deepseek_moe_16b", "kimi_k2_1t_a32b",
+            "chameleon_34b",
             "falcon_mamba_7b", "whisper_medium",
             # paper-reproduction models
             "transformer_tiny", "resnet20_cifar", "ncf_ml1m")
@@ -79,8 +80,9 @@ class ArchConfig:
     # "flash" (Policy.flash_attention: the payload flash node, or the
     # chunked flash attention with a recompute backward)
     attn_impl: str = "naive"
-    # SSM scan schedule; the port's prefill runs every schedule as its
-    # selective-scan kernel, so the field is carried for the configs only
+    # SSM scan schedule ("step", "unroll8", "ssd"): the port runs every
+    # schedule as its selective-scan kernel (prefill and training), so the
+    # field is carried for the configs only
     ssm_impl: str = "step"
     schedule: str = "cosine"
 
@@ -111,6 +113,12 @@ class ArchConfig:
             dtr = s.dt_rank or d // 16
             return (d * 2 * di + di * s.conv_kernel + di * (dtr + 2 * s.state)
                     + dtr * di + di * s.state + di * d)
+        if blk == "mamba2":
+            s, d = self.ssm, self.d_model
+            di = s.expand * d
+            nh = di // s.head_dim
+            return (d * (2 * di + 2 * s.state + nh) + di * s.conv_kernel
+                    + di * d)
         m = self.moe
         if blk == "dense_first":
             return self._attn_params() + self._mlp_params(
@@ -127,7 +135,10 @@ class ArchConfig:
         decoder's cross-attention, as the reference does).  Unlike the reference's formula, which skips them,
         ``dense_first`` blocks are counted, at ``moe.dense_d_ff``.  A
         ``mamba1`` block counts its matrices, the conv kernel and A, as the
-        reference does (not its biases, D or norm scale)."""
+        reference does (not its biases, D or norm scale); a ``mamba2``
+        block its in and out projections and the conv kernel over the di
+        x channels (not the conv's 2n channels of B and C, A, dt's bias, D
+        or the norm scales), as the reference does."""
         total = sum(self._block_params(b, self.moe.n_experts if self.moe
                                        else 0)
                     for b in self.resolved_pattern)

@@ -12,7 +12,10 @@ nemotron's squared ReLU holds ``w_gate`` and ``w_down`` only), mamba1
 blocks (``ln``, ``w_in`` [L, d, 2di],
 ``conv_w`` [L, K, di], ``conv_b``, ``w_x`` [L, di, dt_rank + 2n], ``w_dt``
 [L, dt_rank, di], ``b_dt``, ``a_log`` [L, di, n], ``d_skip`` [L, di],
-``w_out`` [L, di, d]) and the untied ``head``.  The same call carries
+``w_out`` [L, di, d]), mamba2 blocks (``ln``, ``w_in`` [L, d, 2di + 2n +
+nh], ``conv_w`` [L, K, di + 2n], ``conv_b``, ``a_log``, ``dt_bias`` and
+``d_skip`` [L, nh], ``norm_scale`` [L, di], ``w_out``) and the untied
+``head``.  The same call carries
 the paper's models: ``repro.models.encdec.init_encdec``'s tree (``embed``,
 ``head``, ``enc_norm``, ``dec_norm``, the [L]-stacked ``encoder`` blocks
 and ``decoder`` blocks with their ``self`` / ``cross`` projections and

@@ -27,10 +27,10 @@ def plain_version(fn: Callable) -> Callable:
 
 
 def registry() -> Dict[str, Tuple[Callable, Callable]]:
-    """kernel name -> (wrapper, plain version), for the fifteen kernels
+    """kernel name -> (wrapper, plain version), for the sixteen kernels
     of the serving, dense training, MoE training, exact-stats (fused-stats
-    engine) and Mamba serving slices, and the plain flash forward of
-    ``kernels.ops``."""
+    engine) and SSM slices (the selective scan and its backward), and the
+    plain flash forward of ``kernels.ops``."""
     from repro_torch.kernels import (flash_attention, paged_attention,
                                      s2fp8_matmul, s2fp8_quant,
                                      selective_scan)
@@ -60,6 +60,8 @@ def registry() -> Dict[str, Tuple[Callable, Callable]]:
                          paged_attention.paged_decode_plain),
         "selective_scan": (selective_scan.selective_scan,
                            selective_scan.selective_scan_plain),
+        "selective_scan_bwd": (selective_scan.selective_scan_bwd,
+                               selective_scan.selective_scan_bwd_plain),
         "flash_fwd": (flash_attention.flash_attention,
                       flash_attention.flash_attention_plain),
     }

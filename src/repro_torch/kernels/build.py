@@ -60,8 +60,9 @@ SIGNATURES = {
                                _I, _I, _I, _I, _I, _P, _P, _F, _I, _I, _P),
     },
     "selective_scan": {
-        "selective_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                           _P),
+        "selective_scan": (_P,) * 9 + (_I,) * 5 + (_P,),
+        "selective_scan_bwd": (_P,) * 15 + (_I,) * 5 + (_P,),
+        "selective_scan_bwd_scratch": (_I,) * 5,
     },
 }
 

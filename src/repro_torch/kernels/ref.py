@@ -156,6 +156,30 @@ def selective_scan_ref(x, dt, bmat, cmat, a, d_skip):
     return torch.stack(ys, dim=1), h
 
 
+def selective_scan_heads_ref(x, dt, bmat, cmat, a, d_skip):
+    """Mamba-2 (per-head) selective scan oracle, f32: x [B,S,nh*hd]; dt
+    [B,S,nh]; bmat, cmat [B,S,n]; a, d_skip [nh] -> (y [B,S,nh*hd],
+    h_final [B,nh*hd,n], the [B,nh,hd,n] state flattened).  Per step h = h
+    * exp(dt A) + (dt x) B with one decay a (row, head), y = h.C + D x
+    (reference blocks.py:724-729 step, then ``+ d_skip * x``)."""
+    x, dt, bmat, cmat, a, d_skip = (t.float() for t in
+                                    (x, dt, bmat, cmat, a, d_skip))
+    b, s, di = x.shape
+    nh, n = a.shape[0], bmat.shape[-1]
+    xh = x.reshape(b, s, nh, di // nh)
+    h = torch.zeros((b, nh, di // nh, n), dtype=torch.float32,
+                    device=x.device)
+    ys = []
+    for t in range(s):
+        xt, dtt = xh[:, t], dt[:, t]
+        da = torch.exp(dtt * a)                                  # [B, nh]
+        h = (h * da[:, :, None, None]
+             + (dtt[:, :, None] * xt)[..., None] * bmat[:, t, None, None, :])
+        ys.append(torch.einsum("bhpn,bn->bhp", h, cmat[:, t])
+                  + d_skip[:, None] * xt)
+    return torch.stack(ys, dim=1).reshape(b, s, di), h.reshape(b, di, n)
+
+
 def attention_ref(q, k, v, *, causal: bool = True,
                   window: Optional[int] = None):
     """Softmax attention oracle in f32: q [B,H,Sq,D], k/v [B,H,Sk,D] (KV

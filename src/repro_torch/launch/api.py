@@ -3,7 +3,8 @@
 
 Dispatch on ``cfg.enc_dec``: the encoder-decoder (``models/encdec.py``:
 whisper_medium, transformer_tiny) or the decoder LM
-(``models/transformer.py``: dense, moe, mamba1 patterns).
+(``models/transformer.py``: dense, local, attn, moe, mamba1 and mamba2
+patterns).
 
     params = api.init_params(cfg, seed=0, device="cuda")
     loss, metrics = api.make_loss_fn(cfg)(params, batch, policy)

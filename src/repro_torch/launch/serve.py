@@ -1,7 +1,8 @@
 """Serving launcher of the port: the paged-payload engine (global
 attention models: dense, attn, dense_first and moe blocks) and the
 dense-cache engine (every attention model, gemma3_1b's sliding-window
-``local`` blocks included, and mamba1 models).
+``local`` blocks included, and the SSM models: falcon_mamba_7b's mamba1
+blocks, zamba2_1p2b's mamba2 blocks beside its attention blocks).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch minicpm_2b \
         --requests 16 --slots 8 --max-len 1024            # on the GPU
@@ -12,6 +13,8 @@ dense-cache engine (every attention model, gemma3_1b's sliding-window
         --metrics jsonl:/tmp/ticks.jsonl      # MoE, comparator pool, sink
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch falcon_mamba_7b --reduced --engine dense --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch zamba2_1p2b --reduced --engine dense --device cpu
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3_1b \
         --reduced --engine dense --device cpu --prompt-len 70 --max-len 128
 

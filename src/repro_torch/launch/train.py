@@ -18,6 +18,11 @@ reference's launcher trains them.
         --batch 1 --seq 4096 --attn-impl flash --stats-refresh-every 8
     PYTHONPATH=src python -m repro_torch.launch.train \
         --arch transformer_tiny --reduced --device cpu --steps 2
+    PYTHONPATH=src python -m repro_torch.launch.train --arch zamba2_1p2b \
+        --steps 4 --batch 4 --seq 512 --stats-refresh-every 8  # mamba2 + attn
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch falcon_mamba_7b --n-layers 4 --steps 4 --batch 4 --seq 512 \
+        --stats-refresh-every 8      # mamba1, full width, 4 of 64 layers
     PYTHONPATH=src python -m repro_torch.launch.train --arch minicpm_2b \
         --reduced --device cpu --steps 12 --batch 2 --seq 32 \
         --stats-refresh-every 4 --telemetry --snapshot-every 2 \

@@ -24,13 +24,17 @@ otherwise, as the reference does.  A ``local`` block attends within
 type globally; ``attn`` is the reference's attention block with its MLP,
 as ``dense``.
 
-Mamba-1 (``mamba1``): ``init_mamba1`` and ``mamba1_apply`` in prefill and
-single-token decode over a dense {conv, ssm} cache.  Prefill runs the
-selective-scan kernel (kernels/selective_scan.py); decode is the
+Mamba-1 (``mamba1``) and Mamba-2 (``mamba2``, multi-head with one
+scalar decay a head): ``init_mamba1`` / ``init_mamba2`` and
+``mamba1_apply`` / ``mamba2_apply`` in training, prefill and single-token
+decode over a dense {conv, ssm} cache.  Training and prefill run the
+selective-scan kernel (kernels/selective_scan.py; training through
+``SelectiveScanFn``, whose backward is the scan's backward kernel) for
+every ``cfg.ssm_impl`` schedule: the reference's "step", "unroll8" and
+"ssd" compute the same function in other orders.  Decode is the
 reference's single recurrence step in plain torch ops, as the reference
-computes it outside any kernel.  Training a mamba1 block raises: the scan
-has no backward yet.  ``init_block``, ``block_apply`` and ``init_cache``
-dispatch by block type as the reference's do.
+computes it outside any kernel.  ``init_block``, ``block_apply`` and
+``init_cache`` dispatch by block type as the reference's do.
 
 The layer params keep the reference's names and layout (weights
 [d_in, d_out]), and every cast happens where the reference casts.
@@ -45,8 +49,8 @@ import torch
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import statsbank
 from repro_torch.core.policy import Policy
+from repro_torch.kernels import selective_scan as scan
 from repro_torch.kernels.flash_attention import flash_fwd_reference
-from repro_torch.kernels.selective_scan import selective_scan
 from repro_torch.models.flash import check_chunks
 
 LONG_SEQ = 2048        # above this, chunked or flash attention
@@ -582,23 +586,42 @@ def init_mamba1(cfg: ArchConfig, gen: torch.Generator, device=None
     }
 
 
+def _check_ssm_mode(mode: str, cache) -> None:
+    if mode not in ("train", "prefill", "decode"):
+        raise ValueError(f"mode {mode!r} is not ported "
+                         f"(train/prefill/decode)")
+    if mode == "train" and cache is not None:
+        raise ValueError("an SSM block trains without a cache")
+
+
+def _conv_window(cache_conv: torch.Tensor, new: torch.Tensor,
+                 kernel: torch.Tensor, bias: torch.Tensor):
+    """The decode step's conv: the cached K-1 inputs and the new one (in
+    their promoted dtype, as the reference's concatenate promotes), summed
+    in f32 in k order, plus the bias -> (conv f32 [B, C], new window
+    [B, K-1, C])."""
+    wdt = torch.promote_types(cache_conv.dtype, new.dtype)
+    window = torch.cat([cache_conv.to(wdt), new.to(wdt)], dim=1)
+    wf = window.float()
+    out = wf[:, 0] * kernel[0]
+    for i in range(1, kernel.shape[0]):
+        out = out + wf[:, i] * kernel[i]
+    return out + bias, window[:, 1:]
+
+
 def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
                  mode: str):
-    """One Mamba-1 block (reference blocks.py:578-652).  ``mode="prefill"``
-    runs the causal conv and the selective-scan kernel over the sequence
-    and, given a cache, writes its last K-1 conv inputs and the final state
-    into it in place; ``mode="decode"`` advances one token from the cache
-    (updated in place).  The three GEMMs go through the policy; dt's
-    projection is an f32 ``torch.matmul`` and the conv and the decode step
-    plain f32 ops, as the reference computes them outside the policy.
-    Returns (x, cache, aux = 0)."""
-    if mode == "train":
-        raise NotImplementedError(
-            "training a mamba1 block needs the selective scan's backward, "
-            "which is not ported (the reference has no backward kernel for "
-            "the scan either); mamba1 runs in prefill and decode")
-    if mode not in ("prefill", "decode"):
-        raise ValueError(f"mode {mode!r} is not ported (prefill/decode)")
+    """One Mamba-1 block (reference blocks.py:578-652).  ``mode="train"``
+    runs the causal conv and the selective scan with its gradient
+    (``SelectiveScanFn``: the scan kernel and its backward kernel);
+    ``mode="prefill"`` runs the scan kernel over the sequence and, given a
+    cache, writes its last K-1 conv inputs and the final state into it in
+    place; ``mode="decode"`` advances one token from the cache (updated in
+    place).  The three GEMMs go through the policy; dt's projection is an
+    f32 ``torch.matmul`` and the conv and the decode step plain f32 ops, as
+    the reference computes them outside the policy.  Returns (x, cache, aux
+    = 0)."""
+    _check_ssm_mode(mode, cache)
     s_cfg = cfg.ssm
     b, s, d = x.shape
     di = s_cfg.expand * d
@@ -613,14 +636,9 @@ def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
     if mode == "decode":
         if cache is None or s != 1:
             raise ValueError("mamba1 decode runs one token against a cache")
-        wdt = torch.promote_types(cache["conv"].dtype, xpart.dtype)
-        window = torch.cat([cache["conv"].to(wdt), xpart.to(wdt)], dim=1)
-        wf = window.float()
-        xc = wf[:, 0] * p["conv_w"][0]
-        for i in range(1, kk):
-            xc = xc + wf[:, i] * p["conv_w"][i]
-        xc = _silu_f32(xc + p["conv_b"]).to(x.dtype)[:, None]  # [B, 1, di]
-        new_conv = window[:, 1:]
+        xc, new_conv = _conv_window(cache["conv"], xpart, p["conv_w"],
+                                    p["conv_b"])
+        xc = _silu_f32(xc).to(x.dtype)[:, None]                # [B, 1, di]
     else:
         if cache is not None and s < kk - 1:
             raise ValueError(f"a prefill that fills the cache needs at least "
@@ -643,15 +661,128 @@ def mamba1_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
               * xcf[:, 0, :, None])
         y = torch.einsum("bdn,bn->bd", hn, cmat[:, 0])[:, None]
         y = y + p["d_skip"] * xcf
-    else:
+    elif mode == "train":
         # the kernel adds D x inside the scan (the reference adds the same
         # f32 term after it): only the order of the sums differs
-        y, hn = selective_scan(xcf.contiguous(), dt.contiguous(),
-                               bmat.contiguous(), cmat.contiguous(),
-                               a.contiguous(), p["d_skip"].contiguous())
+        y = scan.SelectiveScanFn.apply(xcf, dt, bmat, cmat, a, p["d_skip"])
+    else:
+        y, hn = scan.selective_scan(xcf.contiguous(), dt.contiguous(),
+                                    bmat.contiguous(), cmat.contiguous(),
+                                    a.contiguous(), p["d_skip"].contiguous())
     y = y.to(x.dtype)
     y = y * (z * (1.0 / (1.0 + torch.exp(-z))))   # silu(z), rounded per op
     out = pol.dot(y, p["w_out"].to(x.dtype))
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["ssm"].copy_(hn)
+    return x + out, cache, torch.zeros((), dtype=torch.float32,
+                                       device=x.device)
+
+
+# =========================================================================
+# Mamba-2 (zamba2): multi-head SSD with a scalar decay a head
+# =========================================================================
+
+def init_mamba2(cfg: ArchConfig, gen: torch.Generator, device=None
+                ) -> Dict[str, torch.Tensor]:
+    """The reference's leaves, shapes and per-leaf std: w_in's outputs
+    [x (di) | z (di) | B (n) | C (n) | dt (nh)] by its comment, read as
+    [x|B|C (di + 2n, conv'd) | z | dt] by the block; A = -exp(a_log) with
+    a_log = log(linspace(1, 16, nh)), dt's bias softplus^-1(0.01), D = 1
+    per head, the gated norm's scale 1."""
+    s = cfg.ssm
+    d = cfg.d_model
+    di = s.expand * d
+    nh = di // s.head_dim
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=gen, device=device) * std
+
+    f32 = dict(dtype=torch.float32, device=device)
+    return {
+        "ln": init_norm(cfg, d, device),
+        "w_in": normal((d, 2 * di + 2 * s.state + nh), 1.0 / math.sqrt(d)),
+        "conv_w": normal((s.conv_kernel, di + 2 * s.state), 0.1),
+        "conv_b": torch.zeros((di + 2 * s.state,), **f32),
+        "a_log": torch.log(torch.linspace(1.0, 16.0, nh, **f32)),
+        "dt_bias": torch.full((nh,), math.log(math.expm1(0.01)), **f32),
+        "d_skip": torch.ones((nh,), **f32),
+        "norm_scale": torch.ones((di,), **f32),
+        "w_out": normal((di, d), 1.0 / math.sqrt(di)),
+    }
+
+
+def mamba2_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy, cache,
+                 mode: str):
+    """One Mamba-2 block (reference blocks.py:681-747): the in projection
+    through the policy, the causal conv over [x | B | C] (di + 2n channels)
+    and SiLU in f32, dt = softplus(dt_in + dt_bias) per head, the per-head
+    selective scan with D x inside it (training through
+    ``SelectiveScanFn``, prefill through the scan kernel, whatever
+    ``cfg.ssm_impl`` names), then the gated RMSNorm in f32 (y silu(z),
+    times rsqrt(mean(y^2) + 1e-6) and the scale) and the out projection
+    through the policy.  The cache is {conv [B, K-1, di + 2n], ssm [B, nh,
+    hd, n] f32}, written in place at prefill and decode; decode is the
+    reference's single step in plain torch ops.  Returns (x, cache, aux =
+    0)."""
+    _check_ssm_mode(mode, cache)
+    s_cfg = cfg.ssm
+    b, s, d = x.shape
+    di = s_cfg.expand * d
+    n = s_cfg.state
+    hd = s_cfg.head_dim
+    nh = di // hd
+    kk = s_cfg.conv_kernel
+
+    xn = apply_norm(p["ln"], x, cfg)
+    proj = pol.dot(xn, p["w_in"].to(x.dtype))
+    # w_in output layout: [ x|B|C (conv'd, di+2n) | z (di) | dt (nh) ]
+    xbc = proj[..., :di + 2 * n]
+    z = proj[..., di + 2 * n:2 * di + 2 * n]
+    dt_in = proj[..., 2 * di + 2 * n:]
+
+    if mode == "decode":
+        if cache is None or s != 1:
+            raise ValueError("mamba2 decode runs one token against a cache")
+        conv, new_conv = _conv_window(cache["conv"], xbc, p["conv_w"],
+                                      p["conv_b"])
+        conv = _silu_f32(conv)[:, None]                     # [B, 1, di+2n]
+    else:
+        if cache is not None and s < kk - 1:
+            raise ValueError(f"a prefill that fills the cache needs at least "
+                             f"{kk - 1} tokens, got {s}")
+        conv = _silu_f32(_causal_conv1d(xbc, p["conv_w"], p["conv_b"])
+                         .float())
+        new_conv = None if cache is None else xbc[:, s - (kk - 1):]
+
+    xpart = conv[..., :di]                                  # [B, S, di] f32
+    bmat = conv[..., di:di + n]                             # [B, S, n]
+    cmat = conv[..., di + n:]                               # [B, S, n]
+    dt_lin = dt_in.float() + p["dt_bias"]
+    dt = torch.logaddexp(dt_lin, torch.zeros_like(dt_lin))  # softplus, [B,S,nh]
+    a = -torch.exp(p["a_log"])                              # [nh]
+
+    if mode == "decode":
+        h0 = cache["ssm"].float()                           # [B, nh, hd, n]
+        xh = xpart[:, 0].reshape(b, nh, hd)
+        da = torch.exp(dt[:, 0] * a)                        # [B, nh]
+        upd = (dt[:, 0, :, None] * xh)[..., None] * bmat[:, 0, None, None, :]
+        hn = h0 * da[:, :, None, None] + upd
+        y = torch.einsum("bhpn,bn->bhp", hn, cmat[:, 0])
+        y = (y + p["d_skip"][:, None] * xh).reshape(b, 1, di)
+    elif mode == "train":
+        y = scan.SelectiveScanFn.apply(xpart, dt, bmat, cmat, a,
+                                       p["d_skip"])
+    else:
+        y, hn = scan.selective_scan(xpart.contiguous(), dt.contiguous(),
+                                    bmat.contiguous(), cmat.contiguous(),
+                                    a.contiguous(), p["d_skip"].contiguous())
+        hn = hn.view(b, nh, hd, n)
+    # gated RMSNorm then output proj
+    y = y * _silu_f32(z.float())
+    y = y * torch.rsqrt((y * y).mean(dim=-1, keepdim=True) + 1e-6) \
+        * p["norm_scale"]
+    out = pol.dot(y.to(x.dtype), p["w_out"].to(x.dtype))
     if cache is not None:
         cache["conv"].copy_(new_conv)
         cache["ssm"].copy_(hn)
@@ -673,6 +804,8 @@ def init_block(block_type: str, cfg: ArchConfig, gen: torch.Generator,
         return init_attn_block(cfg, gen, device, block_type)
     if block_type == "mamba1":
         return init_mamba1(cfg, gen, device)
+    if block_type == "mamba2":
+        return init_mamba2(cfg, gen, device)
     raise NotImplementedError(f"block type {block_type!r} is not ported")
 
 
@@ -684,6 +817,8 @@ def block_apply(block_type: str, params, x: torch.Tensor, cfg: ArchConfig,
                                 cache_index, mode, block_type, cache_fmt)
     if block_type == "mamba1":
         return mamba1_apply(params, x, cfg, pol, cache, mode)
+    if block_type == "mamba2":
+        return mamba2_apply(params, x, cfg, pol, cache, mode)
     raise NotImplementedError(f"block type {block_type!r} is not ported")
 
 
@@ -692,7 +827,8 @@ def init_cache(block_type: str, cfg: ArchConfig, batch: int, max_len: int,
     """One layer's dense cache: attention {k, v} [B, KV, max_len, hd] in
     ``dtype`` (a ``local`` block's a ring of ``min(max_len, window)``
     positions, reference blocks.py:835-837); mamba1 {conv [B, K-1, di] in
-    ``dtype``, ssm [B, di, n] in f32}."""
+    ``dtype``, ssm [B, di, n] in f32}; mamba2 {conv [B, K-1, di + 2n] in
+    ``dtype``, ssm [B, nh, hd, n] in f32}."""
     if block_type in ATTN_BLOCK_TYPES:
         slots = max_len
         if block_type == "local":
@@ -706,5 +842,14 @@ def init_cache(block_type: str, cfg: ArchConfig, batch: int, max_len: int,
         return {"conv": torch.zeros((batch, s.conv_kernel - 1, di),
                                     dtype=dtype, device=device),
                 "ssm": torch.zeros((batch, di, s.state), dtype=torch.float32,
+                                   device=device)}
+    if block_type == "mamba2":
+        s = cfg.ssm
+        di = s.expand * cfg.d_model
+        return {"conv": torch.zeros((batch, s.conv_kernel - 1,
+                                     di + 2 * s.state), dtype=dtype,
+                                    device=device),
+                "ssm": torch.zeros((batch, di // s.head_dim, s.head_dim,
+                                    s.state), dtype=torch.float32,
                                    device=device)}
     raise NotImplementedError(f"block type {block_type!r} is not ported")

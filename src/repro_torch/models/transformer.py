@@ -1,6 +1,6 @@
 """Decoder-only LM (port of ``repro.models.transformer`` for the dense,
-``local``, ``attn``, ``dense_first``, ``moe`` and ``mamba1`` block
-types).
+``local``, ``attn``, ``dense_first``, ``moe``, ``mamba1`` and ``mamba2``
+block types).
 
 Params keep the reference's tree: ``embed`` [V, d], ``final_norm``, and
 ``segments`` — one dict per homogeneous run of layers with every leaf
@@ -12,8 +12,9 @@ when ``cfg.remat`` (the reference's ``jax.checkpoint`` of the scan body);
 the replay runs under the forward's StatsBank session, so it reads the
 same stats and mints the same site keys, and it routes the MoE tokens as
 the forward did (the routing is a deterministic function of the layer's
-input: f32 router product, stable sorts).  The MoE load-balance losses
-are summed over the layers into the loss.
+input: f32 router product, stable sorts), and it reruns an SSM layer's
+scan forward, whose kernel gives the same bits on every launch.  The MoE
+load-balance losses are summed over the layers into the loss.
 
 Entry points: ``init_lm``, ``loss_fn``, ``prefill``, ``decode_step``.
 """
@@ -32,7 +33,7 @@ from repro_torch.core.policy import TRUNCATING_MODES, Policy
 from repro_torch.models import blocks
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
-BLOCK_TYPES = blocks.ATTN_BLOCK_TYPES + ("mamba1",)
+BLOCK_TYPES = blocks.ATTN_BLOCK_TYPES + ("mamba1", "mamba2")
 
 
 def segments_of(cfg: ArchConfig) -> List[Tuple[str, int]]:
@@ -142,7 +143,7 @@ def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
             cache_index=0, mode: str = "train",
             cache_fmt: Optional[str] = None):
     """Shared forward -> (hidden, total aux, caches).  ``caches``:
-    per-segment dense caches (prefill, and mamba1 decode) or paged caches
+    per-segment dense caches (prefill, and SSM decode) or paged caches
     (attention decode), filled or updated in place, None in training;
     ``cache_index``: [B] per-slot positions (decode)."""
     x = embed_tokens(params, tokens, cfg, pol)
@@ -204,7 +205,8 @@ def init_caches(cfg: ArchConfig, batch: int, max_len: int, device=None,
     """Dense per-segment caches, each leaf of ``blocks.init_cache`` stacked
     on a leading [L] axis: attention {"k","v"} [L, B, KV, max_len, hd],
     mamba1 {"conv" [L, B, K-1, di] in ``dtype``, "ssm" [L, B, di, n]
-    f32}."""
+    f32}, mamba2 {"conv" [L, B, K-1, di + 2n] in ``dtype``, "ssm" [L, B,
+    nh, hd, n] f32}."""
     caches = []
     for btype, length in segments_of(cfg):
         shapes = blocks.init_cache(btype, cfg, batch, max_len, dtype, "meta")
@@ -232,7 +234,7 @@ def prefill(params, tokens, cfg: ArchConfig, pol: Policy, caches, *,
 def decode_step(params, token, cfg: ArchConfig, pol: Policy, caches,
                 cache_index, *, cache_fmt: Optional[str] = None):
     """One decode step: token [B, 1], per-slot positions [B] -> logits
-    [B, 1, V]; the caches (paged for attention, dense for mamba1) are
+    [B, 1, V]; the caches (paged for attention, dense for mamba blocks) are
     updated in place."""
     x, _, caches = forward(params, token, cfg, pol, caches=caches,
                            cache_index=cache_index, mode="decode",

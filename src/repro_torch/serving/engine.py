@@ -3,8 +3,8 @@
 
 ``LMServer`` serves over one dense cache tree at width ``slots`` (f32
 leaves: the attention blocks' K/V [L, slots, KV, max_len, hd], a ``local``
-block's a ring of ``min(max_len, window)`` positions, the mamba1 blocks'
-conv windows and SSM states).  Per tick it
+block's a ring of ``min(max_len, window)`` positions, the mamba1 and
+mamba2 blocks' conv windows and SSM states).  Per tick it
 fills every free slot FCFS, runs one prefill per power-of-two prompt
 bucket at width ``slots`` (prompts right-padded in their own slot rows,
 logits read at each row's true last index) into a fresh cache tree,
@@ -17,9 +17,9 @@ GEMM on the payload path).  Prefill and decode use exact per-call stats
 (no bank session), as the reference's engine does, so the caches hold K/V
 as computed.  As in the reference, a prompt padded to a bucket longer
 than a ``local`` block's window leaves the pads' K/V in that block's ring,
-and a padded prompt's mamba1 scan and conv window run on through the pad
-tokens, so a prompt shorter than its bucket decodes from a state that
-includes the pads.
+and a padded prompt's mamba1 or mamba2 scan and conv window run on through
+the pad tokens, so a prompt shorter than its bucket decodes from a state
+that includes the pads.
 
 ``PayloadLMServer``: KV lives in a paged block pool (serving/paged_cache.py:
 S2FP8 payloads, or the f32 comparator pools) with frozen per-layer stats;

@@ -24,7 +24,10 @@ quantize-apply and truncate-apply kernels under the stats kernel's
 and at unaligned offsets; the stats kernel's ticket back at 0 after every
 launch, on two streams; the selective scan's y and final h within 1e-5 * max
 |plain| (the same rounded ops on both sides, the sum over the states in
-another order), and the same bits on a second launch; the plain flash
+another order), and the same bits on a second launch, per channel and per
+head up to 64 states; the scan's backward within 1e-4 * max |plain| of
+autograd through the plain version, the same bits on a second launch; the
+plain flash
 forward allclose at rtol 2e-4, atol 2e-5
 in f32 (the reference's tolerance for its kernel against the oracle) and
 rtol 1e-2, atol 1e-3 in bf16 (one bf16 rounding of f32 results), a row
@@ -478,8 +481,105 @@ def test_selective_scan_kernel(dev, b, s, di, n, offset):
     yk2, hk2 = selective_scan.selective_scan(*args)
     assert torch.equal(yk, yk2) and torch.equal(hk, hk2)
     with pytest.raises(ValueError, match="states"):
-        selective_scan.selective_scan(*args[:2], rnd(b, s, 17), rnd(b, s, 17),
-                                      rnd(di, 17), args[5])
+        selective_scan.selective_scan(*args[:2], rnd(b, s, 65), rnd(b, s, 65),
+                                      rnd(di, 65), args[5])
+
+
+def _scan_args(dev, seed, b, s, di, n, nh):
+    """Seeded scan inputs on the card: per channel (nh 0) or per head."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def rnd(*shape, scale=1.0):
+        return torch.randn(*shape, generator=g, device=dev) * scale
+
+    width = nh or di
+    x = rnd(b, s, di, scale=0.5)
+    dt = torch.nn.functional.softplus(rnd(b, s, width) - 1.0)
+    a = -torch.exp(rnd(nh, scale=0.3) if nh else rnd(di, n, scale=0.3))
+    return (x, dt, rnd(b, s, n, scale=0.5), rnd(b, s, n, scale=0.5), a,
+            rnd(width)), rnd(b, s, di)
+
+
+SCAN_WIDE = [(2, 37, 136, 40, 0), (1, 50, 100, 64, 0), (2, 37, 256, 8, 8),
+             (2, 37, 96, 64, 3), (2, 40, 128, 64, 16), (8, 128, 4096, 64, 64)]
+
+
+@pytest.mark.parametrize("b,s,di,n,nh", SCAN_WIDE)
+def test_selective_scan_kernel_wide_and_per_head(dev, b, s, di, n, nh):
+    """The widened scan (16 lanes a channel above 16 states) per channel
+    and per head (one dt, A and D a head: the reduced zamba2's 8 heads of
+    32 with 8 states, heads of 32, 8 and 64 channels with 64 states, and
+    serve-zamba2's smallest prefill, 8 x 128 x 64 heads of 64, 64 states):
+    y and the final h within 1e-5 * max |plain|, h bit for bit, the chunk
+    states the plain replay's, and the same bits on a second launch."""
+    args, _ = _scan_args(dev, 7, b, s, di, n, nh)
+    yk, hk, ck = selective_scan.selective_scan(*args, chunk_states=True)
+    yp, hp = selective_scan.selective_scan_plain(*args)
+    assert (yk - yp).abs().max() <= 1e-5 * yp.abs().max()
+    assert torch.equal(hk, hp)
+    assert ck.shape == (b, -(-s // 16), di, n) and not ck[:, 0].any()
+    _, h16 = selective_scan.selective_scan_plain(
+        *(t[:, :16] if t.dim() == 3 else t for t in args))
+    assert torch.equal(ck[:, 1], h16)
+    yk2, hk2 = selective_scan.selective_scan(*args)
+    assert torch.equal(yk, yk2) and torch.equal(hk, hk2)
+    assert kernels.counts()["selective_scan"]["launches"] == 2
+
+
+SCAN_BWD = [(2, 37, 136, 5, 0), (2, 37, 100, 16, 0), (1, 50, 96, 64, 0),
+            (2, 37, 256, 8, 8), (2, 37, 256, 64, 4), (2, 37, 96, 64, 3),
+            (2, 40, 128, 64, 16), (4, 64, 8192, 16, 0), (4, 64, 4096, 64, 64)]
+
+
+@pytest.mark.parametrize("b,s,di,n,nh", SCAN_BWD)
+def test_selective_scan_bwd_kernel(dev, b, s, di, n, nh):
+    """The scan's backward kernel against autograd through the plain
+    version: each of dx, ddt, dB, dC, dA, dD within 1e-4 * max |plain|
+    (the same terms summed in another order: the channel sums in a
+    block's order, then the blocks' partials by index; measured under
+    1e-6), and the same bits on a second launch (fixed orders, no float
+    atomics).  Per channel at 5, 16 and 64 states, per head with heads of
+    32 (two a block), 64 (over four blocks), 32 and 8 channels, and
+    falcon's and zamba2's widths over 64 steps."""
+    args, dy = _scan_args(dev, 9, b, s, di, n, nh)
+    _, _, ck = selective_scan.selective_scan(*args, chunk_states=True)
+    gk = selective_scan.selective_scan_bwd(*args, dy, ck)
+    gp = selective_scan.selective_scan_bwd_plain(*args, dy)
+    for name, k, p in zip(("dx", "ddt", "dB", "dC", "dA", "dD"), gk, gp):
+        assert k.shape == p.shape, name
+        assert (k - p).abs().max() <= 1e-4 * p.abs().max(), name
+    again = selective_scan.selective_scan_bwd(*args, dy, ck)
+    assert all(torch.equal(u, v) for u, v in zip(gk, again))
+    assert kernels.counts()["selective_scan_bwd"]["launches"] == 2
+
+
+def test_selective_scan_fn_routes_through_both_kernels(dev):
+    """``SelectiveScanFn`` on CUDA tensors launches the forward (with
+    chunk states) and the backward kernel once each, and its gradients are
+    the backward kernel's."""
+    args, dy = _scan_args(dev, 11, 2, 40, 128, 64, 4)
+    ins = [t.clone().requires_grad_(True) for t in args]
+    y = selective_scan.SelectiveScanFn.apply(*ins)
+    grads = torch.autograd.grad(y, ins, dy)
+    assert kernels.counts()["selective_scan"]["launches"] == 1
+    assert kernels.counts()["selective_scan_bwd"]["launches"] == 1
+    gp = selective_scan.selective_scan_bwd_plain(*args, dy)
+    for k, p in zip(grads, gp):
+        assert (k - p).abs().max() <= 1e-4 * p.abs().max()
+
+
+def test_selective_scan_bwd_refuses(dev):
+    """A head dim that neither divides a block's channels nor is a
+    multiple of them (24 at 64 states: blocks of 16), and chunk states of
+    the wrong shape."""
+    args, dy = _scan_args(dev, 13, 1, 20, 48, 64, 2)
+    _, _, ck = selective_scan.selective_scan(*args, chunk_states=True)
+    with pytest.raises(ValueError, match="head dim"):
+        selective_scan.selective_scan_bwd(*args, dy, ck)
+    args, dy = _scan_args(dev, 13, 1, 20, 64, 8, 0)
+    with pytest.raises(ValueError, match="chunk states"):
+        selective_scan.selective_scan_bwd(*args, dy, ck)
+    assert kernels.counts()["selective_scan_bwd"]["launches"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -173,12 +173,50 @@ def test_prefill_then_decode_matches_full_forward():
                                atol=1e-3)
 
 
-def test_training_a_mamba1_block_raises():
-    cfg = get_reduced_config(ARCH).replace(n_layers=1, pattern=("mamba1",))
-    params = tlm.init_lm(cfg, seed=0, device="cpu")
-    toks = torch.zeros((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="backward"):
-        tlm.loss_fn(params, toks, toks, cfg, make_policy("fp32"))
+def test_training_a_mamba1_block_matches_jax_grad(jax_params):
+    """One mamba1 block (layer 0) in ``mode="train"``, fp32 on an f32 input
+    of 2 x 40 tokens: the output within rtol 1e-4, and the gradients of a
+    fixed projection of it with respect to the input and every leaf
+    against ``jax.grad`` of ``blocks.mamba1_apply`` within rtol 2e-3, atol
+    2e-4 of each leaf's largest entry (tests/test_hillclimb_equivalence.py's
+    tolerance).  The scan's gradient is ``SelectiveScanFn``'s (the plain
+    backward on the CPU: one plain forward and one plain backward call)."""
+    cfg_j, cfg = jax_reduced_config(ARCH), get_reduced_config(ARCH)
+    pol_j, pol_t = _pols("fp32")
+    lp = jax.tree_util.tree_map(lambda v: np.asarray(v[0]),
+                                jax_params["segments"][0])
+    lpt = params_from_jax(lp, device="cpu")
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+    w = rng.standard_normal((2, 40, cfg.d_model)).astype(np.float32)
+
+    def jloss(p, x):
+        y = jblocks.mamba1_apply(p, x, cfg_j, pol_j, None, "train")[0]
+        return jnp.sum(y * w), y
+
+    (_, yj), (gpj, gxj) = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1), has_aux=True))(lp, jnp.asarray(x))
+    leaves = {k: v for k, v in lpt.items() if k != "ln"}
+    leaves["ln/scale"] = lpt["ln"]["scale"]
+    for v in leaves.values():
+        v.requires_grad_(True)
+    xt = torch.from_numpy(x).requires_grad_(True)
+    kernels.reset_counts()
+    yt = tblocks.mamba1_apply(lpt, xt, cfg, pol_t, None, "train")[0]
+    grads = torch.autograd.grad((yt * torch.from_numpy(w)).sum(),
+                                [xt] + list(leaves.values()))
+    counts = kernels.counts()
+    assert counts["selective_scan"]["plain_calls"] == 1
+    assert counts["selective_scan_bwd"]["plain_calls"] == 1
+    np.testing.assert_allclose(yt.detach().numpy(), np.asarray(yj),
+                               rtol=1e-4, atol=1e-5)
+    want = [np.asarray(gxj)] + [
+        np.asarray(gpj["ln"]["scale"] if k == "ln/scale" else gpj[k])
+        for k in leaves]
+    for name, g, wj in zip(["x"] + list(leaves), grads, want):
+        np.testing.assert_allclose(g.numpy(), wj, rtol=2e-3,
+                                   atol=2e-4 * np.abs(wj).max(),
+                                   err_msg=name)
 
 
 @pytest.mark.parametrize("get_jax,get_port", [
