@@ -182,6 +182,19 @@ Phases, each fatal on failure:
 26. serve-zamba2 — zamba2_1p2b at full width and depth through the
              dense-cache LMServer as serve-mamba runs falcon: every prefill
              launches the scan once per mamba2 layer (32).
+27. train-mesh — the mesh-native train step on a 1-rank NCCL group
+             (built in the process, destroyed at the phase's end):
+             full-width minicpm_2b (40 layers, remat, batch 4 x 512, bank
+             k = 8, payload GEMMs on cuda) through ``launch/train.py``'s
+             ``build`` and ``TrainLoop``, 3 steps each: meshless, then
+             ``--mesh 1x1`` with f32 sync under replicated, fsdp and
+             fsdp_q params (losses and per-leaf digests of params and
+             AdamW state bit for bit the meshless run's at every step),
+             then s2fp8 sync (its compressed legs' encode on cuda_fused,
+             each leg held against the plain quantize and dequantize;
+             the loss within 2e-3 relative of the meshless run's); the
+             collective records counted; and the exact toy under fsdp_q
+             on the card, where the 1-byte payload handoff runs.
 Phase 4 also runs "small-families": the five attention-family configs
 reduced, served through the kernels (every call held) and through the
 plain versions teacher-forced along the kernels' tokens; and "small-ssm":
@@ -348,7 +361,7 @@ PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
           "train_paper", "train_loop", "serve_moe", "train_gemma3",
           "serve_gemma3", "serve_stablelm", "serve_nemotron",
-          "train_zamba2", "train_mamba", "serve_zamba2")
+          "train_zamba2", "train_mamba", "serve_zamba2", "train_mesh")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -3464,7 +3477,7 @@ TRAIN_LOOP_ARGS = ["--arch", "minicpm_2b", "--n-layers", "2", "--batch", "4",
                    "--seq", "512", "--backend", "cuda",
                    "--stats-refresh-every", "4", "--telemetry", "--guard",
                    "--snapshot-every", "2", "--snapshot-ring", "2",
-                   "--metrics-sink", "memory",
+                   "--metrics-sink", "memory", "--mesh", "none",
                    "--steps", str(TRAIN_LOOP_STEPS)]
 # the ladder's faults; the straggler sleeps well past 3 x the median step
 TRAIN_LOOP_CHAOS = "nan_grad@5x3,corrupt_ckpt@8,slow_step@9:1.5"
@@ -4911,6 +4924,387 @@ def phase_serve_nemotron(dev) -> dict:
                                     f"layers", backend="cuda_fused")
 
 
+# ---------------------------------------------------------------------------
+# phase 27: train-mesh
+# ---------------------------------------------------------------------------
+
+TRAIN_MESH_STEPS = 3
+TRAIN_MESH_ARGS = ["--arch", "minicpm_2b", "--batch", "4", "--seq", "512",
+                   "--backend", "cuda", "--stats-refresh-every", "8",
+                   "--metrics-sink", "memory",
+                   "--steps", str(TRAIN_MESH_STEPS)]
+# (label, --mesh, --grad-sync, --shard-params); the first is the reference
+TRAIN_MESH_RUNS = [("meshless", "none", "f32", "replicated"),
+                   ("1x1 f32 replicated", "1x1", "f32", "replicated"),
+                   ("1x1 f32 fsdp", "1x1", "f32", "fsdp"),
+                   ("1x1 f32 fsdp_q", "1x1", "f32", "fsdp_q"),
+                   ("1x1 s2fp8 replicated", "1x1", "s2fp8", "replicated")]
+# the training kernels, and the compressed legs' encode on cuda_fused: the
+# quantize-with-stats kernel (#3); the decode is the dequantize (#4)
+TRAIN_MESH_KERNELS = TRAIN_KERNELS + ("quant",)
+# the s2fp8 sync run's loss against the meshless run's, relative: the
+# budget tests/test_torch_mesh.py holds reduced minicpm to on 4 gloo ranks
+# (measured there: 3.2e-4 replicated, 5.9e-4 under fsdp_q)
+TRAIN_MESH_LOSS_RTOL = 2e-3
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Kernel launches and plain calls made inside do not count: checks
+    that hold a main path's kernel against its plain version run here."""
+    from repro_torch import kernels
+    reg = kernels.registry()
+    saved = {n: (w.launches, p.calls, getattr(w, "small_launches", None))
+             for n, (w, p) in reg.items()}
+    try:
+        yield
+    finally:
+        for n, (w, p) in reg.items():
+            w.launches, p.calls, small = saved[n]
+            if small is not None:
+                w.small_launches = small
+
+
+def _xor_fold(v: torch.Tensor) -> int:
+    """XOR of every element of an int32 tensor (halving on the card)."""
+    v = v.reshape(-1)
+    while v.numel() > 1:
+        h = v.numel() // 2
+        r = v[:h] ^ v[h:2 * h]
+        if v.numel() % 2:
+            r[0] ^= v[-1]
+        v = r
+    return int(v[0]) if v.numel() else 0
+
+
+def _leaf_digests(tree, prefix: str) -> dict:
+    """name -> (int64 sum, XOR) of each tensor leaf's int32 view (an int
+    leaf as itself), names from the dict keys in JAX's leaf order."""
+    out = {}
+
+    def walk(node, name):
+        if isinstance(node, dict):
+            for k in sorted(node):
+                walk(node[k], f"{name}/{k}")
+        elif isinstance(node, (list, tuple)):
+            fields = getattr(node, "_fields", None)
+            for i, v in enumerate(node):
+                walk(v, f"{name}/{fields[i] if fields else i}")
+        elif isinstance(node, torch.Tensor):
+            v = node.detach().reshape(-1).view(torch.int32)
+            out[name] = (int(v.sum(dtype=torch.int64)), _xor_fold(v))
+        elif node is not None:
+            out[name] = (int(node), 0)
+    walk(tree, prefix)
+    return out
+
+
+def _toy_mesh(dev, mesh, mode: str, steps: int = 4):
+    """The order-exact toy of the repo's mesh tests (8 one-hot rows of K 8,
+    w [8, 16] of +-1/8, s2fp8_e4m3 payload GEMM on cuda, bank k = 64,
+    AdamW) for ``steps`` steps; (losses, w, the steps' collective
+    records)."""
+    import numpy as np
+    from repro_torch.core import collectives, statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.parallel import sharding
+    from repro_torch.training.trainer import make_train_step
+
+    def batch(step):
+        rng = np.random.RandomState(1000 + step)
+        x = np.zeros((8, 8), np.float32)
+        for b in range(8):
+            x[b, (b + step) % 8] = rng.choice([-1.0, 1.0])
+        t = rng.choice([-1.0, 1.0], size=(8, 16)).astype(np.float32)
+        return {"x": torch.from_numpy(x).to(dev),
+                "t": torch.from_numpy(t).to(dev)}
+
+    def loss_fn(params, b, pol):
+        y = pol.dot(b["x"], params["w"])
+        return torch.mean(torch.sum(y * b["t"], dim=-1)), {}
+
+    w = np.zeros((8, 16), np.float32)
+    rng = np.random.RandomState(0)
+    for k in range(8):
+        w[k, rng.randint(16)] = rng.choice([-1.0, 1.0]) * 0.125
+    params = {"w": torch.from_numpy(w).to(dev)}
+    pol = make_policy("s2fp8_e4m3", "cuda", gemm_mode="payload")
+    opt = optimizers.adamw()
+    cfg = statsbank.StatsConfig(refresh_every=64)
+    bank = statsbank.init_bank(loss_fn, params, batch(0), pol, cfg)
+    step = make_train_step(loss_fn, opt, schedules.constant(1e-3), pol,
+                           stats=cfg, mesh=mesh, param_sharding=mode)
+    if mesh is not None:
+        params = sharding.shard_tree(params, mesh, mode)
+    opt_state = sharding.mark_opt_state(opt.init(params), params)
+    losses = []
+    with collectives.recording() as rec:
+        for s in range(steps):
+            params, opt_state, bank, m = step(params, opt_state, bank,
+                                              batch(s), s)
+            losses.append(float(m["loss"]))
+    return losses, params["w"].detach().clone(), list(rec)
+
+
+def _mesh_run(dev, label, mesh_spec, sync, shard) -> dict:
+    """One run of train-mesh: ``launch.build`` of its argv, the step
+    wrapped to time it, record its collectives and digest params and AdamW
+    state after it; under s2fp8 the step is rebuilt as the launcher builds
+    it with the compressed legs on cuda_fused, every leg held against the
+    plain quantize and dequantize (uncounted, and their time taken out of
+    the step's and the sync's)."""
+    import numpy as np
+    from repro_torch import convert
+    from repro_torch.configs import get_config
+    from repro_torch.core import collectives, statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.kernels import s2fp8_quant as sq
+    from repro_torch.launch import api
+    from repro_torch.launch import train as launch
+    from repro_torch.optim import optimizers, schedules
+    from repro_torch.training.trainer import make_train_step
+
+    t0 = time.perf_counter()
+    loop = launch.build(launch.parse_args(TRAIN_MESH_ARGS + [
+        "--mesh", mesh_spec, "--grad-sync", sync, "--shard-params", shard]))
+    leaf_shapes = [tuple(x.shape) for x in convert.jax_leaves(loop.params)]
+    if sync == "s2fp8":
+        cfg = get_config("minicpm_2b")
+        loop.train_step = make_train_step(
+            api.make_loss_fn(cfg), optimizers.adamw(weight_decay=0.01),
+            schedules.make_schedule("wsd", 3e-3, total_steps=TRAIN_MESH_STEPS,
+                                    warmup=1),
+            make_policy("s2fp8", "cuda"),
+            stats=statsbank.StatsConfig(refresh_every=8), mesh=loop.mesh,
+            grad_sync_mode="s2fp8", grad_sync_backend="cuda_fused")
+    build_s = time.perf_counter() - t0
+    real_leg = collectives.compressed_allreduce_axis
+    real_sync = collectives.grad_sync_axis
+    legs = {"n": 0, "max_step": 0, "frac": 0.0, "ulp": 0, "rel": 0.0,
+            "elements": 0}
+    sync_ms, sync_bytes = [], []
+
+    checks = []            # (start, end) CUDA events around each check
+
+    def checked_leg(flat, axis_name, axis_size, backend=None, *, mesh=None):
+        out = real_leg(flat, axis_name, axis_size, backend, mesh=mesh)
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        with uncounted():
+            # one rank: the reduce-scatter is the bf16 round trip
+            red = flat.to(torch.bfloat16).float()
+            pk, abk = sq.quant(red)
+            pp, abp = sq.quant_plain(red)
+            f = flips(code_ordinal(pk), code_ordinal(pp))
+            dk = sq.dequant(pk, abk)
+            dp = sq.dequant_plain(pk, abk)
+            rel = float(((dk - dp).abs() / dp.abs().clamp_min(1e-30))
+                        .max().item())
+            assert torch.equal(out, dk), f"{label}: leg not reproduced"
+        ev[1].record()
+        checks.append(ev)
+        legs.update(n=legs["n"] + 1,
+                    max_step=max(legs["max_step"], f["max_step"]),
+                    frac=max(legs["frac"], f["frac"]),
+                    ulp=max(legs["ulp"], ulps(abk, abp)),
+                    rel=max(legs["rel"], rel),
+                    elements=legs["elements"] + red.numel())
+        return out
+
+    def check_ms(since: int) -> float:
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in checks[since:])
+
+    def timed_sync(*args, **kwargs):
+        rec = collectives._RECORDS[0]
+        n0, c0 = len(rec), len(checks)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = real_sync(*args, **kwargs)
+        end.record()
+        end.synchronize()
+        # the legs' checks ran inside: their time is not the sync's
+        sync_ms.append(start.elapsed_time(end) - check_ms(c0))
+        nbytes = 0
+        for r in rec[n0:]:
+            size = {"float32": 4, "float64": 8, "bfloat16": 2,
+                    "uint8": 1}[r["dtype"]]
+            nbytes += size * (r["out_numel"] if r["op"] == "all_gather"
+                              else r["numel"])
+        sync_bytes.append(nbytes)
+        return out
+
+    records, digests, step_ms = [], [], []
+    inner = loop.train_step
+
+    def wrapped(*args):
+        c0 = len(checks)
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        with collectives.recording() as rec:
+            out = inner(*args)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - ts) * 1e3 - check_ms(c0))
+        records.append(list(rec))
+        d = _leaf_digests(out[0], "params")
+        d.update(_leaf_digests(out[1], "opt"))
+        digests.append(d)
+        return out
+
+    loop.train_step = wrapped
+    collectives.compressed_allreduce_axis = checked_leg
+    collectives.grad_sync_axis = timed_sync
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        loop.run(TRAIN_MESH_STEPS)
+    finally:
+        collectives.compressed_allreduce_axis = real_leg
+        collectives.grad_sync_axis = real_sync
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in loop.history]
+    tokens = 4 * 512
+    steady = float(np.mean(step_ms[1:]))
+    res = {"label": label, "losses": losses, "step_ms": step_ms,
+           "steady_step_ms": steady, "tokens_per_s": tokens / steady * 1e3,
+           "peak_gb": peak, "build_s": build_s, "records": records,
+           "digests": digests, "leaf_shapes": leaf_shapes,
+           "sync_ms": sync_ms, "sync_bytes": sync_bytes, "legs": legs}
+    log(f"train-mesh {label}: losses {losses}, step ms "
+        f"{[round(x, 1) for x in step_ms]}, {res['tokens_per_s']:.0f} "
+        f"tokens/s, peak {peak:.2f} GB, build {build_s:.1f} s"
+        + (f", sync ms {[round(x, 2) for x in sync_ms]}, sync logical "
+           f"bytes a step {sync_bytes}" if sync_ms else ""))
+    del loop
+    return res
+
+
+def _count(records, op, dtype, pred=lambda r: True) -> int:
+    return sum(1 for r in records if r["op"] == op and r["dtype"] == dtype
+               and pred(r))
+
+
+def phase_train_mesh(dev) -> dict:
+    """Phase 27 (module docstring).  The bit-equality claim is the
+    reference's (``trainer.py``: a 1-device mesh reproduces the meshless
+    step): every f32 run's loss and its params' and AdamW moments' per-leaf
+    digests (int64 sum and XOR of the int32 view) equal the meshless
+    run's after every step, or the phase fails naming the leaf.  Counts,
+    from the collective recorder: f32 replicated, one f32 all-reduce per
+    gradient leaf a step; s2fp8, one bf16 reduce-scatter and one uint8
+    all-gather per compressible leaf (at least 65,536 elements) and no
+    f32 all-reduce of such a leaf; fsdp_q, minicpm_2b's one
+    payload-eligible leaf (the tied embedding; the [L]-stacked segment
+    leaves are 3-D) is gathered once in f32 (the embed site's truncation)
+    and once in bf16 (the tied head), the reference's fallbacks, and
+    takes no uint8 gather — so the toy runs fsdp_q on the card too, where
+    ``w`` crosses as its 1-byte payload four times in four steps and never
+    wide.  Numbers printed per run: step ms, tokens/s, peak memory; the
+    s2fp8 run's sync ms a step (CUDA events) and logical bytes a step
+    against the f32 run's (the bytes handed to the collectives: one rank
+    moves nothing over a wire)."""
+    import torch.distributed as dist
+    from repro_torch import kernels
+    from repro_torch.launch import mesh as lmesh
+
+    t_phase = time.perf_counter()
+    lmesh.init_distributed("cuda")
+    log(f"train-mesh: {dist.get_backend()} group of "
+        f"{dist.get_world_size()} rank, NCCL "
+        f"{'.'.join(map(str, torch.cuda.nccl.version()))}")
+    runs = []
+    try:
+        kernels.reset_counts()                    # the main path starts here
+        for label, mesh_spec, sync, shard in TRAIN_MESH_RUNS:
+            runs.append(_mesh_run(dev, label, mesh_spec, sync, shard))
+            free_device_memory()
+        mesh = lmesh.make_mesh_from_spec("1x1")
+        toy_ref = _toy_mesh(dev, None, "replicated")
+        toy_q = _toy_mesh(dev, mesh, "fsdp_q")
+        counts = path_counts()                    # ... and ends here
+    finally:
+        dist.destroy_process_group()
+    check_counts(counts, TRAIN_MESH_KERNELS)
+
+    ref = runs[0]
+    for run in runs[1:4]:
+        for i in range(TRAIN_MESH_STEPS):
+            assert run["losses"][i] == ref["losses"][i], (
+                f"{run['label']} step {i}: loss {run['losses'][i]} != "
+                f"meshless {ref['losses'][i]}")
+            bad = [k for k, v in ref["digests"][i].items()
+                   if run["digests"][i].get(k) != v]
+            assert not bad, (f"{run['label']} step {i}: leaves differ from "
+                             f"the meshless run: {bad}")
+    s2 = runs[4]
+    assert s2["losses"][0] == ref["losses"][0], "s2fp8 step 0 loss"
+    for a, b in zip(s2["losses"], ref["losses"]):
+        assert math.isfinite(a) and abs(a - b) <= TRAIN_MESH_LOSS_RTOL * abs(b), \
+            (s2["losses"], ref["losses"])
+    legs = s2["legs"]
+    log(f"train-mesh s2fp8 legs against the plain quantize / dequantize: "
+        f"{legs}")
+    assert legs["n"] > 0 and legs["max_step"] <= 1 and legs["frac"] <= 1e-4
+    assert legs["ulp"] <= 4 and legs["rel"] <= 1e-6
+
+    leaf_shapes = ref["leaf_shapes"]
+    n_leaves = len(leaf_shapes)
+    shapes = set(leaf_shapes)
+    n_comp = sum(1 for sh in leaf_shapes if math.prod(sh) >= 1 << 16)
+    summary = {}
+    for run in runs[1:]:
+        per_step = []
+        for rec in run["records"]:
+            per_step.append({
+                "grad_allreduce_f32": _count(
+                    rec, "all_reduce", "float32",
+                    lambda r: r["out_shape"] in shapes),
+                "big_allreduce_f32": _count(
+                    rec, "all_reduce", "float32",
+                    lambda r: r["numel"] >= 1 << 16),
+                "reduce_scatter_bf16": _count(rec, "reduce_scatter",
+                                              "bfloat16"),
+                "all_gather_uint8": _count(rec, "all_gather", "uint8"),
+                "embed_gathers": sorted(
+                    r["dtype"] for r in rec if r["op"] == "all_gather"
+                    and r["out_shape"] == leaf_shapes[0]),
+                "collectives": len(rec)})
+        summary[run["label"]] = per_step
+    log("train-mesh collectives a step: " + json.dumps(summary))
+    for st in summary["1x1 f32 replicated"]:
+        assert st["grad_allreduce_f32"] == n_leaves, (st, n_leaves)
+    for st in summary["1x1 s2fp8 replicated"]:
+        assert st["reduce_scatter_bf16"] == st["all_gather_uint8"] == n_comp
+        assert st["big_allreduce_f32"] == 0, st
+    for st in summary["1x1 f32 fsdp_q"]:
+        assert st["embed_gathers"] == ["bfloat16", "float32"], st
+        assert st["all_gather_uint8"] == 0, st
+    assert toy_q[0] == toy_ref[0] and torch.equal(toy_q[1], toy_ref[1]), \
+        (toy_q[0], toy_ref[0])
+    toy_gathers = [(r["dtype"], r["out_shape"]) for r in toy_q[2]
+                   if r["op"] == "all_gather"]
+    assert toy_gathers == [("uint8", (8, 16))] * 4, toy_gathers
+
+    f32_run = runs[1]
+    metrics = {
+        "runs": {r["label"]: {k: r[k] for k in (
+            "losses", "step_ms", "steady_step_ms", "tokens_per_s",
+            "peak_gb", "build_s")} for r in runs},
+        "s2fp8_sync_ms_per_step": s2["sync_ms"],
+        "f32_sync_ms_per_step": f32_run["sync_ms"],
+        "s2fp8_sync_logical_bytes_per_step": s2["sync_bytes"],
+        "f32_sync_logical_bytes_per_step": f32_run["sync_bytes"],
+        "compressed_leaves": n_comp, "param_leaves": n_leaves,
+        "legs": legs, "toy_fsdp_q_losses": toy_q[0],
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    log("train-mesh metrics: " + json.dumps(metrics))
+    log("train-mesh launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
 def free_device_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -4998,6 +5392,8 @@ def main() -> int:
     free_device_memory()
     served_zamba2 = phase_serve_zamba2(dev)
     free_device_memory()
+    trained_mesh = phase_train_mesh(dev)
+    free_device_memory()
     by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
                                  trained_fig4, served_mamba, ops, modes,
                                  long_runs["flash"], long_runs["naive"],
@@ -5006,7 +5402,7 @@ def main() -> int:
                                  trained_gemma3, served_gemma3,
                                  served_stablelm, served_nemotron,
                                  trained_zamba2, trained_mamba,
-                                 served_zamba2)))
+                                 served_zamba2, trained_mesh)))
     if args.profile:
         log_profiled_totals()
     out = []

@@ -35,6 +35,15 @@ Hardening:
     ``restore(step=None)`` falls back to the next-newest valid step.
   * transient-I/O retry: every write and read attempt retries up to
     ``retries`` times on OSError with exponential backoff and jitter.
+
+Under a mesh (``mesh=``, a ``launch/mesh.py`` :class:`Mesh`; every rank
+makes the same calls): ``save`` gathers the FSDP-sharded leaves to full
+ones (``sharding.gather_tree``), rank 0 writes, and the ranks meet at a
+barrier; ``restore`` lets rank 0 pick the step (validating and
+quarantining as above), tells the other ranks which, and every rank reads
+the full leaves and cuts its own shards (``sharding.reshard_like``).  The
+files are the meshless ones, so a checkpoint moves between any number of
+ranks and any sharding mode.
 """
 from __future__ import annotations
 
@@ -114,8 +123,9 @@ class CheckpointManager:
     def __init__(self, directory: str, keep: int = 3, compress: bool = False,
                  retries: int = 3, backoff_s: float = 0.05,
                  event_fn: Optional[Callable[[Dict[str, Any]], None]] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None, mesh=None):
         self.dir = directory
+        self.mesh = mesh
         self.keep = keep
         self.compress = compress
         self.retries = max(int(retries), 1)
@@ -157,7 +167,32 @@ class CheckpointManager:
             return ("s2fp8", payload, stats, list(leaf.shape))
         return ("raw", host_copy(leaf))
 
+    def _lead(self) -> bool:
+        return self.mesh is None or self.mesh.rank == 0
+
+    def _barrier(self, value: float = 0.0) -> float:
+        """Every rank meets here; returns the max of ``value`` over them
+        (how rank 0's pick reaches the others)."""
+        from repro_torch.core import collectives
+        t = torch.tensor([value], dtype=torch.float64,
+                         device=self.mesh.device)
+        return float(collectives.all_reduce(t, self.mesh.axis_names,
+                                            op="max", mesh=self.mesh)[0])
+
     def save(self, step: int, tree: Any, blocking: bool = True):
+        if self.mesh is not None:
+            from repro_torch.parallel import sharding
+            tree = sharding.gather_tree(tree, self.mesh)
+            if not self._lead():
+                self._barrier()
+                return
+        try:
+            self._save(step, tree, blocking)
+        finally:
+            if self.mesh is not None:
+                self._barrier()
+
+    def _save(self, step: int, tree: Any, blocking: bool):
         # host copies first, complete before save returns
         host = [self._host_leaf(x) for x in convert.jax_leaves(tree)]
         if self._writer is not None:
@@ -277,7 +312,32 @@ class CheckpointManager:
         quarantined (with a ``checkpoint_quarantined`` event) and the
         walk continues — the caller gets the newest VALID state or
         FileNotFoundError when none survives.  An explicit ``step`` is
-        validated the same way but raises instead of falling back."""
+        validated the same way but raises instead of falling back.  Under
+        a mesh, ``template`` is this rank's (sharded) tree."""
+        if self.mesh is None:
+            return self._restore(template, step)
+        from repro_torch.parallel import sharding
+        full = sharding.full_template(template, self.mesh)
+        # rank 0's pick wins the max: the other ranks offer -1e18
+        tree, got = None, -1e18
+        if self._lead():
+            try:
+                tree, got = self._restore(full, step)
+            except FileNotFoundError:
+                got = -1.0
+            except ValueError:
+                got = -2.0
+        got = int(self._barrier(got))
+        if got == -1:
+            raise FileNotFoundError(f"no valid checkpoint in {self.dir}")
+        if got == -2:
+            raise ValueError(f"checkpoint step {step} failed validation")
+        if tree is None:
+            tree = self._read(full, got)
+        return sharding.reshard_like(tree, template, self.mesh), got
+
+    def _restore(self, template: Any, step: Optional[int]
+                 ) -> Tuple[Any, int]:
         if step is not None:
             ok, reason = self.validate(step)
             if not ok:
@@ -329,5 +389,7 @@ class CheckpointManager:
         return convert.unflatten(template, out)
 
     def _gc(self):
+        if not self._lead():
+            return
         for s in self._committed_steps()[:-self.keep]:
             shutil.rmtree(self._step_dir(s), ignore_errors=True)

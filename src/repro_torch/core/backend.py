@@ -42,10 +42,30 @@ from repro_torch.core import s2fp8
 from repro_torch.core.s2fp8 import S2FP8Tensor
 
 
+def all_reduce_stats_partials(partials, axis_name):
+    """Combine per-rank (log_sum, log_max, count) stats partials over the
+    mesh axis (or axes) ``axis_name``: sums and counts add, maxes max —
+    exact global stats, not rank-averaged.  The sum and the count travel
+    together in f64 (one all-reduce), the max in a second; the results
+    come back f32, as the partials went in."""
+    from repro_torch.core import collectives
+    log_sum, log_max, count = partials
+    sc = collectives.all_reduce(
+        torch.stack([log_sum.double(), count.double()]), axis_name)
+    mx = collectives.all_reduce(log_max.double().reshape(1), axis_name,
+                                op="max")
+    return sc[0].float(), mx[0].float(), sc[1].float()
+
+
 class NumericsBackend:
     """Interface every engine implements.  ``stats`` is (alpha, beta) as an
     f32 [2] tensor or a pair: serving quantizes with frozen or calibrated
-    stats, never with per-call ones."""
+    stats, never with per-call ones.
+
+    ``compute_stats(x)`` reduces over the tensor the caller holds (local:
+    under a mesh, the rank's shard); ``compute_stats(x, axis_name=...)``
+    all-reduces the raw partials over those mesh axes first (global: every
+    rank gets the stats of the logical tensor)."""
 
     name = "abstract"
 
@@ -53,9 +73,15 @@ class NumericsBackend:
                                ) -> Tuple[torch.Tensor, ...]:
         return s2fp8.compute_stats_partials(x)
 
-    def compute_stats(self, x: torch.Tensor, *, fmt: str = "e5m2"
-                      ) -> torch.Tensor:
+    def compute_stats(self, x: torch.Tensor, *, fmt: str = "e5m2",
+                      axis_name=None) -> torch.Tensor:
         """Exact (alpha, beta) of ``x`` for ``fmt``'s range, f32 [2]."""
+        if axis_name is not None:
+            alpha, beta = s2fp8.stats_from_reduction(
+                *all_reduce_stats_partials(self.compute_stats_partials(x),
+                                           axis_name),
+                s2fp8.FMT_TARGET_MAX[fmt])
+            return torch.stack([alpha, beta])
         return s2fp8.compute_stats(x, s2fp8.FMT_TARGET_MAX[fmt])
 
     def quantize(self, x: torch.Tensor, *, stats=None,
@@ -149,9 +175,9 @@ class CudaBackend(NumericsBackend):
         from repro_torch.kernels import dispatch
         return dispatch.stats_partials_nd(x)
 
-    def compute_stats(self, x, *, fmt="e5m2"):
-        if self.stats_mode == "exact":
-            return super().compute_stats(x, fmt=fmt)
+    def compute_stats(self, x, *, fmt="e5m2", axis_name=None):
+        if self.stats_mode == "exact" or axis_name is not None:
+            return super().compute_stats(x, fmt=fmt, axis_name=axis_name)
         from repro_torch.kernels import dispatch
         return dispatch.stats_nd(x, s2fp8.FMT_TARGET_MAX[fmt])
 

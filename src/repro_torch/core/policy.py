@@ -60,6 +60,7 @@ from typing import Callable, Optional
 import torch
 
 from repro_torch.core import backend as nbackend
+from repro_torch.core import collectives as collectives_mod
 from repro_torch.core import qdot as qdot_mod
 from repro_torch.core import s2fp8
 from repro_torch.core import statsbank
@@ -174,7 +175,11 @@ class Policy:
 
     def truncate(self, x: torch.Tensor) -> torch.Tensor:
         """Tensor-level truncation at op boundaries (site kind ``t``),
-        bidirectional, in ``x``'s dtype."""
+        bidirectional, in ``x``'s dtype.  An FSDP payload operand
+        (``collectives.FSDPPayloadParam``) is not a GEMM B slot: it takes
+        the f32 gather first."""
+        if isinstance(x, collectives_mod.FSDPPayloadParam):
+            x = x.full()
         return self._wrap(x)
 
     def _qdot_out(self, y: torch.Tensor, dtype) -> torch.Tensor:
@@ -195,7 +200,16 @@ class Policy:
     def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """``jnp.dot`` semantics (a's last axis against b's second to last,
         or b's only axis).  Payload-domain when ``b`` is a 2-D ``[K, N]``
-        on the payload path, else the chain."""
+        on the payload path, else the chain.  An FSDP payload operand
+        streams into ``qdot_train`` as a gathered 1-byte payload where the
+        payload path takes it, else it takes the f32 gather."""
+        if isinstance(b, collectives_mod.FSDPPayloadParam):
+            if self._qdot_routable(a, b):
+                y = qdot_mod.qdot_train(a, b, backend=self.backend,
+                                        fmt=self._fmt)
+                return self._qdot_out(
+                    y, torch.promote_types(a.dtype, b.dtype))
+            b = b.full()
         if self._qdot_routable(a, b):
             y = qdot_mod.qdot_train(a, b, backend=self.backend, fmt=self._fmt)
             return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
@@ -208,6 +222,8 @@ class Policy:
         (``backend.plan_qdot_general``: dense, NT/TN, batched) runs
         payload-domain; the rest, and fig4, fp32, bf16 and the fp8 modes,
         run the chain."""
+        if isinstance(b, collectives_mod.FSDPPayloadParam):
+            b = b.full()                # the f32 gather
         plan = (nbackend.plan_qdot_general(a.shape, b.shape,
                                            dimension_numbers)
                 if self.uses_payload_gemm else None)
@@ -223,6 +239,8 @@ class Policy:
         plan_einsum``: dense, batched ``ecd,edf->ecf``, broadcast
         ``becd,edf->becf``, attention) run payload-domain on the payload
         path; every other contraction runs the chain."""
+        operands = tuple(o.full() if isinstance(
+            o, collectives_mod.FSDPPayloadParam) else o for o in operands)
         if len(operands) == 2 and self.uses_payload_gemm:
             plan = nbackend.plan_einsum(spec, operands[0].shape,
                                         operands[1].shape)

@@ -62,7 +62,7 @@ from typing import Optional
 import torch
 
 from repro_torch.core import backend as nbackend
-from repro_torch.core import statsbank
+from repro_torch.core import collectives, statsbank
 from repro_torch.core.backend import QdotPlan
 from repro_torch.core.s2fp8 import S2FP8Tensor
 from repro_torch.kernels import flash_attention as _fkern
@@ -129,21 +129,31 @@ def _epilogue_qmatmul(be, qa, qb, layout, site, direction, fmt, backend,
 
 
 class _QdotBanked(torch.autograd.Function):
+    """With ``fsdp`` (the quantized-FSDP handoff) ``b`` is the owner's
+    dim-0 shard of the logical B: its ``b.fwd`` refresh all-reduces the
+    partials over the session's ``axis_name`` (the shards partition the
+    leaf, so the stats are the leaf-global ones and every owner quantizes
+    on the same grid), the 1-byte payload all-gathers into the GEMM's B
+    slot, and the backward reduce-scatters dB to the owner's shard."""
+
     @staticmethod
-    def forward(ctx, a, b, site, be, backend, fmt, plan):
+    def forward(ctx, a, b, site, be, backend, fmt, plan, fsdp=None):
         qa = be.quantize(a, stats=site.stats("a.fwd", a, fmt, backend),
                          fmt=fmt)
         qb = be.quantize(b, stats=site.stats("b.fwd", b, fmt, backend),
                          fmt=fmt)
+        if fsdp is not None:
+            qb = collectives.payload_gather_axis(qb, fsdp.axis,
+                                                 mesh=fsdp.mesh)
         y = _epilogue_qmatmul(be, qa, qb, plan.layout, site, "out.fwd", fmt,
                               backend)
         _save(ctx, qa, qb)
-        ctx.meta = (site, be, backend, fmt, plan, a.dtype, b.dtype)
+        ctx.meta = (site, be, backend, fmt, plan, a.dtype, b.dtype, fsdp)
         return y
 
     @staticmethod
     def backward(ctx, g):
-        site, be, backend, fmt, plan, adt, bdt = ctx.meta
+        site, be, backend, fmt, plan, adt, bdt, fsdp = ctx.meta
         (qa, qb), _ = _saved(ctx)
         qg = be.quantize(g, stats=site.stats("out.bwd", g, fmt, backend),
                          fmt=fmt)
@@ -153,7 +163,9 @@ class _QdotBanked(torch.autograd.Function):
                                fmt, backend, aob)
         db = _epilogue_qmatmul(be, ops[bl], ops[br], blay, site, "b.bwd",
                                fmt, backend, bob)
-        return da.to(adt), db.to(bdt), None, None, None, None, None
+        if fsdp is not None:
+            db = collectives.param_scatter_axis(db, fsdp)
+        return da.to(adt), db.to(bdt), None, None, None, None, None, None
 
 
 class _QdotExact(torch.autograd.Function):
@@ -198,7 +210,44 @@ def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
     ``plan``: the dense ``[..., K] x [K, N] -> [..., N]`` family; with a
     :class:`QdotPlan` (``backend.plan_qdot_general`` or
     ``backend.plan_einsum``): its layout, reshapes and batch, broadcast
-    operands included.  Returns f32 (the caller casts)."""
+    operands included.  Returns f32 (the caller casts).
+
+    ``b`` may be a :class:`collectives.FSDPPayloadParam` (the quantized-FSDP
+    handoff, dense family only): it needs an active training session
+    whose ``StatsConfig.axis_name`` covers the fsdp axis (the leaf-global
+    stats contract), and raises elsewhere, as the reference does."""
+    fsdp = None
+    if isinstance(b, collectives.FSDPPayloadParam):
+        if plan is not None:
+            raise ValueError("FSDP payload operands support the dense "
+                             "[..., K] x [K, N] family only (planned/"
+                             "batched contractions coerce through the "
+                             "f32 gather in Policy)")
+        fsdp = b.info
+        b = b.shard
+        k_full = b.shape[0] * fsdp.axis_size
+        if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != k_full:
+            raise ValueError(f"qdot_train wants [..., K] x [K, N]; got "
+                             f"{tuple(a.shape)} x FSDP shard "
+                             f"{tuple(b.shape)} (full K = {k_full})")
+        plan = QdotPlan("nn", (-1, a.shape[-1]), tuple(b.shape),
+                        tuple(a.shape[:-1]) + (b.shape[-1],))
+        sess = statsbank.current_session()
+        if sess is None or sess.discovery:
+            raise ValueError(
+                "FSDP payload operands need an active StatsBank session "
+                "(make_train_step(param_sharding='fsdp_q', stats=...)); "
+                "discovery passes see full unwrapped params")
+        if sess.frozen:
+            raise ValueError("FSDP payload operands are a training-path "
+                             "feature; frozen serving sessions see "
+                             "replicated params")
+        axes = sess.cfg.axis_name
+        axes = (axes,) if isinstance(axes, str) else tuple(axes or ())
+        if fsdp.axis not in axes:
+            raise ValueError(
+                f"fsdp_q needs leaf-global stats: StatsConfig.axis_name "
+                f"{axes!r} must include the fsdp axis {fsdp.axis!r}")
     if plan is None:
         if b.dim() != 2 or a.dim() < 1 or a.shape[-1] != b.shape[0]:
             raise ValueError(f"qdot_train wants [..., K] x [K, N]; got "
@@ -217,7 +266,7 @@ def qdot_train(a: torch.Tensor, b: torch.Tensor, *,
         y2 = _qdot_frozen(be, fmt, a2, b2, sess.site("qt"), plan.layout)
     else:
         y2 = _QdotBanked.apply(a2, b2, sess.site("qt"), be, backend, fmt,
-                               plan)
+                               plan, fsdp)
     return y2.reshape(plan.out_shape)
 
 

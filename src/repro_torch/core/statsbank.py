@@ -64,7 +64,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import threading
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -85,12 +85,17 @@ FLASH_DIRS = ("q.fwd", "q.bwd", "k.fwd", "k.bwd", "v.fwd", "v.bwd",
 class StatsConfig:
     """``refresh_every``: refresh cadence; ``ema_decay``: EMA coefficient
     on the raw (mu, m) moments (0.0 replaces them at each refresh);
-    ``telemetry``: site states carry the per-site FP8 health leaves
-    (``obs/metrics.py``), recomputed on each refresh (steady steps stay
-    free of reductions) and drained by ``obs/telemetry.py``."""
+    ``axis_name``: when set (a mesh axis name or a tuple of them),
+    refreshes all-reduce the (sum, max, count) partials over those axes
+    of the mesh bound by the train step (``collectives.bind``): global
+    stats across the ranks; :func:`for_mesh` derives it from a mesh's
+    batch axes.  ``telemetry``: site states carry the per-site FP8 health
+    leaves (``obs/metrics.py``), recomputed on each refresh (steady steps
+    stay free of reductions) and drained by ``obs/telemetry.py``."""
 
     refresh_every: int = 16
     ema_decay: float = 0.0
+    axis_name: Optional[Union[str, Tuple[str, ...]]] = None
     telemetry: bool = False
 
     def __post_init__(self):
@@ -98,6 +103,23 @@ class StatsConfig:
             raise ValueError("refresh_every must be >= 1")
         if not (0.0 <= self.ema_decay < 1.0):
             raise ValueError("ema_decay must be in [0, 1)")
+        if isinstance(self.axis_name, list):
+            object.__setattr__(self, "axis_name", tuple(self.axis_name))
+
+
+def for_mesh(cfg: StatsConfig, mesh) -> StatsConfig:
+    """``cfg`` with ``axis_name`` bound to ``mesh``'s batch axes, so every
+    refresh in the mesh-native train step all-reduces its partials across
+    the data shards (stats of the global batch); ``mesh=None`` or a mesh
+    without batch axes clears it."""
+    if mesh is None:
+        return dataclasses.replace(cfg, axis_name=None)
+    from repro_torch.parallel import sharding as shd
+    axes = shd.mesh_batch_axes(mesh)
+    if not axes:
+        return dataclasses.replace(cfg, axis_name=None)
+    return dataclasses.replace(
+        cfg, axis_name=axes[0] if len(axes) == 1 else axes)
 
 
 def init_site_state(length: Optional[int] = None, device=None,
@@ -120,14 +142,20 @@ def init_site_state(length: Optional[int] = None, device=None,
 def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
                   *, ema_decay: float = 0.0,
                   target_max: float = s2fp8.TARGET_MAX_LOG2,
-                  backend: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                  backend: Optional[str] = None,
+                  axis_name=None) -> Dict[str, torch.Tensor]:
     """One refresh: raw moments of ``x`` folded into the EMAs, (alpha, beta)
-    re-derived — the reference's rule, op for op.  A state that carries
-    the telemetry leaves gets its health metrics recomputed, measured
-    against its pre-refresh stats (``obs_metrics.health_update``), in
-    the payload format that ``target_max`` belongs to."""
+    re-derived — the reference's rule, op for op.  With ``axis_name`` the
+    (sum, max, count) partials are all-reduced over those mesh axes first
+    (``backend.all_reduce_stats_partials``).  A state that carries the
+    telemetry leaves gets its health metrics recomputed, measured against
+    its pre-refresh stats (``obs_metrics.health_update``), in the payload
+    format that ``target_max`` belongs to."""
     be = nbackend.get_backend(backend)
     log_sum, log_max, count = be.compute_stats_partials(x)
+    if axis_name is not None:
+        log_sum, log_max, count = nbackend.all_reduce_stats_partials(
+            (log_sum, log_max, count), axis_name)
     has = count > 0
     mu_t = log_sum / torch.clamp(count, min=1.0)
     m_t = torch.where(has, log_max, 0.0)
@@ -146,7 +174,8 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
     if obs_metrics.has_telemetry(state):
         new.update(obs_metrics.health_update(
             x, state, new, mu_t, m_t, has, first, count,
-            fmt=obs_metrics.resolve_fmt(target_max), backend=backend))
+            fmt=obs_metrics.resolve_fmt(target_max), backend=backend,
+            axis_name=axis_name))
     return new
 
 
@@ -158,7 +187,8 @@ def maybe_refresh(x: torch.Tensor, state: Dict[str, torch.Tensor],
     steps, no reduction otherwise."""
     if need:
         new = refresh_state(x, state, step_f, ema_decay=cfg.ema_decay,
-                            target_max=target_max, backend=backend)
+                            target_max=target_max, backend=backend,
+                            axis_name=cfg.axis_name)
         return torch.stack([new["alpha"], new["beta"]]), new
     return torch.stack([state["alpha"], state["beta"]]), None
 

@@ -19,14 +19,18 @@ Batches use the reference's keys: ``tokens`` / ``labels`` for an LM,
 ``dec_tokens`` / ``dec_labels`` for an encoder-decoder; ``dec_bos`` [B, 1]
 at an enc-dec prefill (whose step takes no caches: it builds the decoder
 caches for ``WHISPER_DEC_LEN`` tokens and returns them with the cross
-K/V as its state) and ``token`` [B, 1] at decode.  The reference's
-ShapeDtypeStruct and PartitionSpec half (``param_struct``,
-``batch_struct``, ``cache_struct``, ``param_pspecs``, ``cache_pspecs``,
-``batch_pspecs``) belongs with the port's parallel layer and is not here.
+K/V as its state) and ``token`` [B, 1] at decode.
+
+The PartitionSpec half (reference ``api.py:56-164``): ``param_pspecs``,
+``cache_pspecs`` and ``batch_pspecs`` map a port tree to
+``parallel.sharding.PartitionSpec``s by name-based rules over the leaf
+names (the nearest dict key on the leaf's path), divisibility-guarded
+against the mesh's axis sizes.  The ShapeDtypeStruct half
+(``param_struct``, ``batch_struct``, ``cache_struct``) is not ported.
 """
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Dict, Tuple
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.policy import Policy
@@ -35,6 +39,139 @@ from repro_torch.models import transformer as tlm
 from repro_torch.optim import optimizers, schedules
 
 WHISPER_DEC_LEN = 448
+
+
+# =========================================================================
+# Sharding rules (name-based, divisibility-guarded)
+# =========================================================================
+
+# last-dims spec by leaf name; "T" = tensor-parallel axis ("model"),
+# "F" = fsdp axis ("data").  Left-padded with None to the leaf's rank
+# (covers the stacked leading layer dim).
+_PARAM_RULES: Dict[str, Tuple] = {
+    "embed": ("T", "F"),
+    "head": ("F", "T"),
+    "wq": ("F", "T"), "wk": ("F", "T"), "wv": ("F", "T"),
+    "w_gate": ("F", "T"), "w_up": ("F", "T"), "w_in": ("F", "T"),
+    "w_x": ("T", None),
+    "wo": ("T", "F"), "w_down": ("T", "F"), "w_out": ("T", "F"),
+    "w_dt": (None, "T"),
+    "we_gate": ("T", "F", None), "we_up": ("T", "F", None),
+    "we_down": ("T", None, "F"),
+    "router": (None, "T"),
+    "conv_w": (None, "T"),
+    "a_log": ("T", None),
+    # ncf / resnet leaves and all 1-D scales / biases: replicated
+}
+
+_CACHE_RULES: Dict[str, Tuple] = {
+    "k": ("B", None, "S", None),     # [B, KV, Smax, hd] (after layer pad)
+    "v": ("B", None, "S", None),
+    "conv": ("B", None, "T"),        # [B, K-1, C]
+    "ssm": ("B", "T", None),         # mamba1 [B, di, n]
+}
+
+
+def _resolve_tokens(tokens, shape, sizes, *, batch_axes, tp="model",
+                    fsdp="data"):
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    spec = []
+    used = set()
+    for dim, tok in zip(shape, tokens):
+        if tok is None:
+            spec.append(None)
+            continue
+        if tok == "T":
+            axes = (tp,)
+        elif tok == "F":
+            axes = (fsdp,)
+        elif tok == "B":
+            axes = batch_axes
+        elif tok == "S":
+            axes = (tp,)
+        else:
+            axes = (tok,)
+        axes = tuple(a for a in axes if a in sizes and a not in used)
+        prod = 1
+        for a in axes:
+            prod *= sizes[a]
+        if not axes or dim % prod != 0:
+            spec.append(None)
+        else:
+            used.update(axes)
+            spec.append(axes[0] if len(axes) == 1 else axes)
+    return P(*spec)
+
+
+def _map_named(fn, tree, name: str = ""):
+    """``fn(name, leaf)`` over a tree's leaves, ``name`` the nearest dict
+    key on the leaf's path (the reference's ``_leaf_name``)."""
+    if isinstance(tree, dict):
+        return {k: _map_named(fn, v, str(k)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        kids = [_map_named(fn, v, name) for v in tree]
+        return type(tree)(*kids) if hasattr(tree, "_fields") \
+            else type(tree)(kids)
+    if tree is None:
+        return None
+    return fn(name, tree)
+
+
+def _batch_axes(sizes) -> Tuple[str, ...]:
+    return tuple(a for a in ("pod", "data") if a in sizes)
+
+
+def param_pspecs(cfg: ArchConfig, struct, sizes: Dict[str, int]):
+    """Per-leaf PartitionSpecs of a param tree (tensors, fake or meta
+    tensors, anything with ``.shape``) on a mesh of ``sizes``."""
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    batch_axes = _batch_axes(sizes)
+
+    def rule(name, leaf):
+        toks = _PARAM_RULES.get(name)
+        if toks is None:
+            return P()
+        shape = tuple(leaf.shape)
+        toks = (None,) * (len(shape) - len(toks)) + tuple(toks)
+        return _resolve_tokens(toks, shape, sizes, batch_axes=batch_axes)
+
+    return _map_named(rule, struct)
+
+
+def cache_pspecs(cfg: ArchConfig, struct, sizes: Dict[str, int],
+                 shard_kv_seq: bool = True):
+    """Per-leaf PartitionSpecs of a cache tree; ``shard_kv_seq=False``
+    keeps the sequence axis unsharded."""
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    batch_axes = _batch_axes(sizes)
+
+    def rule(name, leaf):
+        toks = _CACHE_RULES.get(name)
+        if toks is None:
+            return P()
+        if not shard_kv_seq:
+            toks = tuple(None if t == "S" else t for t in toks)
+        shape = tuple(leaf.shape)
+        toks = (None,) * (len(shape) - len(toks)) + tuple(toks)
+        return _resolve_tokens(toks, shape, sizes, batch_axes=batch_axes)
+
+    return _map_named(rule, struct)
+
+
+def batch_pspecs(struct, sizes: Dict[str, int]):
+    """Per-leaf PartitionSpecs of a batch tree: dim 0 over the batch axes
+    where it divides, 0-d leaves replicated."""
+    from repro_torch.parallel.sharding import PartitionSpec as P
+    batch_axes = _batch_axes(sizes)
+
+    def rule(_, leaf):
+        shape = tuple(leaf.shape)
+        if len(shape) == 0:
+            return P()
+        toks = ("B",) + (None,) * (len(shape) - 1)
+        return _resolve_tokens(toks, shape, sizes, batch_axes=batch_axes)
+
+    return _map_named(rule, struct)
 
 
 def init_params(cfg: ArchConfig, seed: int = 0, device=None):

@@ -28,6 +28,10 @@ reference's launcher trains them.
         --stats-refresh-every 4 --telemetry --snapshot-every 2 \
         --ckpt-dir /tmp/ck --ckpt-every 4 --resume auto \
         --chaos nan_grad@5x3,corrupt_ckpt@8    # the resilient loop
+    torchrun --nproc_per_node 4 -m repro_torch.launch.train \
+        --arch minicpm_2b --reduced --device cpu --steps 3 --batch 8 \
+        --seq 32 --stats-refresh-every 2 --mesh host --grad-sync s2fp8 \
+        --shard-params fsdp_q          # 4 gloo ranks on the CPU
 
 Params are random from ``--seed``; AdamW (weight decay 0.01) on the
 config's schedule (WSD for minicpm, else cosine) with a 5% warmup, as the
@@ -59,6 +63,17 @@ Batches are a function of ``--seed`` and the step, so a rollback replays
 the same data.  Without ``--metrics-sink`` the console prints one JSON
 line per step: loss, the MoE aux loss (0 for an encoder-decoder), step
 ms, tokens/s (decoder tokens); events print as ``[event] ...`` lines.
+
+The step is mesh-native unless ``--mesh none`` (the reference's flags
+and defaults): ``--mesh host`` (the default: every rank of the process
+group on the ``data`` axis; run alone, a 1-rank group), ``single`` /
+``multi`` (the production 16 x 16 / 2 x 16 x 16), or a ``DxT`` /
+``PxDxT`` spec; ``--grad-sync {f32,s2fp8}`` (the S2FP8-compressed legs
+for leaves of at least ``--grad-sync-min-size`` elements);
+``--shard-params {replicated,fsdp,fsdp_q}``.  Under ``torchrun`` each
+rank is one process (NCCL on ``cuda``, gloo on ``cpu``); every rank
+builds the same global batch and trains on its slice, and rank 0 prints
+and writes checkpoints.  The header gains a mesh line.
 """
 from __future__ import annotations
 
@@ -78,11 +93,14 @@ from repro_torch.core import statsbank
 from repro_torch.core.policy import GEMM_MODES, S2FP8_MODES, make_policy
 from repro_torch.data import synthetic
 from repro_torch.launch import api
+from repro_torch.launch import mesh as mesh_mod
 from repro_torch.obs.sinks import ConsoleSink
 from repro_torch.optim import optimizers, schedules
+from repro_torch.parallel import sharding as shd
 from repro_torch.training import chaos as chaos_mod
 from repro_torch.training import guard as guard_mod
-from repro_torch.training.trainer import TrainLoop, make_train_step
+from repro_torch.training.trainer import (PARAM_SHARDING_MODES, TrainLoop,
+                                          make_train_step)
 
 
 class StepLines(ConsoleSink):
@@ -114,7 +132,7 @@ def main(argv=None):
         loop.maybe_resume()
     history = loop.run(args.steps)
     loop.sink.close()
-    if args.metrics_sink and history:
+    if args.metrics_sink and history and loop.lead:
         print(f"[train] done: final loss {history[-1]['loss']:.4f}",
               flush=True)
     return loop
@@ -156,6 +174,32 @@ def parse_args(argv=None) -> argparse.Namespace:
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--resume", default="none", choices=["none", "auto"])
+    ap.add_argument("--mesh", default="host",
+                    help="'host' (every rank of the process group on the "
+                         "data axis), 'single'/'multi' (production 16x16 / "
+                         "2x16x16), a 'DxT' / 'PxDxT' spec (e.g. '4x1'), "
+                         "or 'none' for the meshless step")
+    ap.add_argument("--grad-sync", default="f32", choices=["f32", "s2fp8"],
+                    help="cross-shard gradient sync under the mesh: plain "
+                         "f32 all-reduce, or the S2FP8-compressed reduce-"
+                         "scatter/all-gather legs (core/collectives.py) "
+                         "for every compressible leaf")
+    ap.add_argument("--grad-sync-min-size", type=int, default=1 << 16,
+                    help="element-count floor below which a gradient leaf "
+                         "takes the exact f32 path even under s2fp8 sync "
+                         "(also the floor of the FSDP compressed scatter "
+                         "leg)")
+    ap.add_argument("--shard-params", default="replicated",
+                    choices=PARAM_SHARDING_MODES,
+                    help="param/optimizer placement under the mesh: "
+                         "'replicated' (every rank holds full copies), "
+                         "'fsdp' (ZeRO-3: leaves shard dim 0 over the "
+                         "fsdp axis, f32 all-gather just-in-time, grads "
+                         "reduce-scatter back), or 'fsdp_q' (gather "
+                         "S2FP8 payloads — 1 byte/elt on the wire — "
+                         "straight into the banked GEMMs; requires "
+                         "--stats-refresh-every and a payload-GEMM "
+                         "policy)")
     ap.add_argument("--stats-ema", type=float, default=0.0,
                     help="EMA decay on the raw (mu, m) moments at each "
                          "StatsBank refresh (0 = replace)")
@@ -209,7 +253,28 @@ def parse_args(argv=None) -> argparse.Namespace:
         raise SystemExit("--guard-sat-threshold reads the StatsBank's "
                          "sat_frac telemetry leaves: add --telemetry "
                          "(and --stats-refresh-every)")
+    if args.shard_params != "replicated":
+        if args.mesh == "none":
+            raise SystemExit("--shard-params needs a mesh (--mesh != none)")
+        if args.shard_params == "fsdp_q" and args.stats_refresh_every <= 0:
+            raise SystemExit("--shard-params fsdp_q streams payloads into "
+                             "the banked GEMMs: add --stats-refresh-every "
+                             "(and an s2fp8 payload-GEMM policy)")
     return args
+
+
+def make_mesh(spec: str, device):
+    """(mesh or None, this rank's device) for ``--mesh``: the process
+    group first (``mesh.init_distributed``: torchrun's environment, else
+    one rank), then the named mesh over it."""
+    if spec == "none":
+        return None, resolve_device(device)
+    dev = mesh_mod.init_distributed(device)
+    if spec == "host":
+        return mesh_mod.make_host_mesh(), dev
+    if spec in ("single", "multi"):
+        return mesh_mod.make_production_mesh(multi_pod=spec == "multi"), dev
+    return mesh_mod.make_mesh_from_spec(spec), dev
 
 
 def build(args: argparse.Namespace) -> TrainLoop:
@@ -217,7 +282,8 @@ def build(args: argparse.Namespace) -> TrainLoop:
     AdamW state from ``--seed``, the bank (one probe pass), the step, the
     sink, the checkpoint manager and the :class:`TrainLoop` around them
     (the header lines are printed here)."""
-    dev = resolve_device(args.device)
+    mesh, dev = make_mesh(args.mesh, args.device)
+    lead = mesh is None or mesh.rank == 0
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
     if args.n_layers:
         cfg = cut_depth(cfg, args.n_layers)
@@ -253,11 +319,13 @@ def build(args: argparse.Namespace) -> TrainLoop:
             return synthetic.lm_batch(chain, gen(step), args.batch, args.seq,
                                       dev)
     params = api.init_params(cfg, seed=args.seed, device=dev)
-    opt_state = opt.init(params)
-    out = functools.partial(print, flush=True)
+    out = (functools.partial(print, flush=True) if lead
+           else (lambda *a, **k: None))
     console = StepLines(args.batch * args.seq, out)
     sink = obs.make_sink(args.metrics_sink, out) if args.metrics_sink \
         else console
+    if not lead:
+        sink = obs.NullSink()
     telemetry = (obs.Telemetry(sink, every=args.stats_refresh_every)
                  if args.telemetry else None)
     chaos_plan = chaos_mod.ChaosPlan.parse(args.chaos) if args.chaos else None
@@ -268,10 +336,17 @@ def build(args: argparse.Namespace) -> TrainLoop:
             sat_threshold=args.guard_sat_threshold)
     step_fn = make_train_step(loss_fn, opt, sched, pol,
                               track_stats=args.track_stats, stats=stats_cfg,
-                              telemetry=telemetry, guard=guard_cfg)
+                              telemetry=telemetry, guard=guard_cfg,
+                              mesh=mesh, grad_sync_mode=args.grad_sync,
+                              grad_sync_min_size=args.grad_sync_min_size,
+                              param_sharding=args.shard_params)
     bank = None
     if stats_cfg is not None:
+        # the probe pass sees the full params, before any sharding
         bank = statsbank.init_bank(loss_fn, params, data(0), pol, stats_cfg)
+    if mesh is not None:
+        params = shd.shard_tree(params, mesh, args.shard_params)
+    opt_state = shd.mark_opt_state(opt.init(params), params)
     gemm = ("-" if pol.mode not in S2FP8_MODES
             else "payload" if pol.uses_payload_gemm else "fig4")
     out(f"[train] {cfg.name} {cfg.n_layers} layers, d={cfg.d_model}, "
@@ -282,6 +357,26 @@ def build(args: argparse.Namespace) -> TrainLoop:
         f"backend {args.backend} -> {pol.backend_obj.name}, gemm {gemm}, "
         f"tf32 {torch.backends.cuda.matmul.allow_tf32}, "
         f"bank {'off' if bank is None else f'{len(bank)} sites'}, on {dev}")
+    if mesh is not None:
+        sizes = mesh_mod.axis_sizes(mesh)
+        n_shards = shd.mesh_batch_size(mesh)
+        out(f"[train] mesh {sizes}: {n_shards}-way data-parallel step, "
+            f"grad sync {args.grad_sync}, params {args.shard_params}"
+            + (f" ({shd.fsdp_axis_size(mesh)}-way over "
+               f"'{shd.fsdp_axis_entry(mesh)}')"
+               if args.shard_params != "replicated" else "")
+            + f", {mesh.size} ranks ({mesh.device_type})")
+        if args.batch % n_shards != 0:
+            out(f"[train] WARNING: --batch {args.batch} does not divide "
+                f"the {n_shards}-way data axis — the divisibility guard "
+                f"will REPLICATE the batch (every rank computes the full "
+                f"batch; no data-parallel speedup)")
+        if sizes.get("model", 1) > 1:
+            out(f"[train] WARNING: the mesh-native train step "
+                f"parallelizes the batch and (with --shard-params) the "
+                f"param store over the data axis only — the "
+                f"{sizes['model']}-way model axis runs duplicate compute; "
+                f"size the mesh as Nx1 to use every rank for data")
     if guard_cfg is not None:
         out(f"[train] step guard armed: spike x{guard_cfg.spike_factor} "
             f"(warmup {guard_cfg.warmup}), sat_threshold "
@@ -289,7 +384,7 @@ def build(args: argparse.Namespace) -> TrainLoop:
             + (f", chaos: {args.chaos}" if chaos_plan else ""))
     engine = pol.backend_obj.name
     ckpt = (CheckpointManager(args.ckpt_dir, event_fn=sink.emit,
-                              backend=engine)
+                              backend=engine, mesh=mesh)
             if args.ckpt_dir else None)
     loop = TrainLoop(step_fn, params, opt_state,
                      chaos_mod.wrap_data_fn(data, chaos_plan),
@@ -301,7 +396,7 @@ def build(args: argparse.Namespace) -> TrainLoop:
                      snapshot_ring=args.snapshot_ring,
                      snapshot_compress=args.snapshot_compress,
                      watchdog_escalate_after=args.watchdog_escalate_after,
-                     codec_backend=engine)
+                     codec_backend=engine, mesh=mesh)
     return loop
 
 

@@ -71,11 +71,14 @@ def health_update(x: torch.Tensor, state: Dict[str, torch.Tensor],
                   mu_t: torch.Tensor, m_t: torch.Tensor,
                   has: torch.Tensor, first: torch.Tensor,
                   count: torch.Tensor, *, fmt: str,
-                  backend: Optional[str] = None) -> Dict[str, torch.Tensor]:
+                  backend: Optional[str] = None,
+                  axis_name=None) -> Dict[str, torch.Tensor]:
     """One refresh's health metrics (module docstring).  ``new_stats``
     holds the freshly derived (alpha, beta); ``mu_t`` / ``m_t`` are the
-    live raw moments and ``count`` the nonzero count of the refresh's
-    reduction."""
+    live raw moments and ``count`` the (already global) nonzero count of
+    the refresh's reduction.  Under ``axis_name`` the metric partials are
+    summed over those mesh axes like the stats partials, so a sharded
+    tensor's metrics are those of the global tensor."""
     # measure with the stats that truncated recent steps: the carried
     # pair, except on bootstrap where only the fresh pair exists
     a_used = torch.where(first, new_stats["alpha"], state["alpha"])
@@ -95,6 +98,13 @@ def health_update(x: torch.Tensor, state: Dict[str, torch.Tensor],
     err2 = torch.sum(torch.square(t - xf))
     sig2 = torch.sum(torch.square(xf))
     size = float(xf.numel())
+    if axis_name is not None:
+        from repro_torch.core import collectives
+        sums = collectives.all_reduce(torch.stack(
+            [sat, uflow, err2, sig2,
+             torch.tensor(size, device=xf.device)]), axis_name)
+        sat, uflow, err2, sig2 = sums[0], sums[1], sums[2], sums[3]
+        size = float(sums[4])
 
     denom = torch.clamp(count, min=1.0)
     qmse = err2 / max(size, 1.0)

@@ -1,5 +1,4 @@
-"""Optimizers with FP32 master weights (port of ``repro.optim.optimizers``,
-meshless).
+"""Optimizers with FP32 master weights (port of ``repro.optim.optimizers``).
 
 The model may run its GEMMs in S2FP8/FP8, but the optimizer state — master
 params, momenta — is FP32.  AdamW and SGD-momentum follow the reference's
@@ -8,14 +7,26 @@ the params.  Unlike the reference's pure functions, ``update`` writes the
 new params and moments into the existing tensors (under ``no_grad``) and
 returns those same objects: at full width a second copy of params, m and
 v would not fit beside the first.
+
+Under a mesh the update runs on what the rank holds: replicated leaves,
+or its FSDP shards (ZeRO-3), so the state mirrors the params leaf for
+leaf either way.  ``global_norm(tree, axis_name=...)`` sums per-rank
+partials across mesh axes, and inside :func:`fsdp_grads` it sums the
+sharded leaves' squares over the fsdp axis and counts replicated leaves
+once; ``clip_axis_name`` gives the clip of ``sgd_momentum`` / ``adamw``
+the same psum-aware norm.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import threading
 from typing import Any, Callable, List, NamedTuple, Optional
 
 import numpy as np
 import torch
+
+_fsdp_scope = threading.local()
 
 
 class OptState(NamedTuple):
@@ -69,34 +80,79 @@ def _zeros_like_f32(params):
                                            device=p.device), params)
 
 
-def global_norm(tree) -> torch.Tensor:
-    """L2 norm over every leaf of ``tree`` (f32, on the device)."""
-    sq = [torch.sum(torch.square(x.float())) for x in tree_leaves(tree)]
-    return torch.sqrt(torch.sum(torch.stack(sq)))
+@contextlib.contextmanager
+def fsdp_grads(axis_name, sharded):
+    """Declare that some leaves of the trees reaching :func:`global_norm`
+    (and the optimizers' clip) are FSDP shards over ``axis_name``:
+    ``sharded`` is a bool tree (or a list in leaf order), True where the
+    leaf is a dim-0 shard of the logical leaf.  Inside the scope a tree
+    with that many leaves gets the mixed norm: the sharded leaves' sums of
+    squares are summed over the fsdp axis, replicated leaves count once.
+    Thread-local, as the reference's."""
+    flags = [bool(f) for f in tree_leaves(sharded)]
+    prev = getattr(_fsdp_scope, "v", None)
+    _fsdp_scope.v = (axis_name, flags)
+    try:
+        yield
+    finally:
+        _fsdp_scope.v = prev
 
 
-def clip_scale(grads, max_norm: float):
+def global_norm(tree, axis_name=None) -> torch.Tensor:
+    """L2 norm over every leaf of ``tree`` (f32, on the device).
+
+    ``axis_name``: the leaves are per-rank partials (gradients before a
+    sync); the sum of squares is all-reduced over those mesh axes before
+    the square root.  Leave it None for replicated trees.  Inside an
+    active :func:`fsdp_grads` scope (and with ``axis_name`` None) the
+    sharded leaves' per-leaf sums of squares are all-reduced over the
+    fsdp axis (one all-reduce of their stack) and summed with the
+    replicated leaves' in leaf order — the same reductions as the
+    meshless norm, in the same order."""
+    leaves = tree_leaves(tree)
+    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    scope = getattr(_fsdp_scope, "v", None)
+    if axis_name is None and scope is not None \
+            and len(scope[1]) == len(leaves):
+        from repro_torch.core import collectives
+        axis, flags = scope
+        idx = [i for i, f in enumerate(flags) if f]
+        if idx:
+            part = collectives.all_reduce(
+                torch.stack([sq[i] for i in idx]), axis)
+            for j, i in enumerate(idx):
+                sq[i] = part[j]
+    total = torch.sum(torch.stack(sq))
+    if axis_name is not None:
+        from repro_torch.core import collectives
+        total = collectives.all_reduce(total.reshape(1), axis_name)[0]
+    return torch.sqrt(total)
+
+
+def clip_scale(grads, max_norm: float, axis_name=None):
     """(the factor that brings the global L2 norm of ``grads`` to at most
     ``max_norm``, the norm), both on the device."""
-    norm = global_norm(grads)
+    norm = global_norm(grads, axis_name=axis_name)
     return torch.clamp(max_norm / (norm + 1e-9), max=1.0), norm
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, axis_name=None):
     """(grads scaled so their global L2 norm is at most ``max_norm``, the
-    norm before clipping)."""
-    scale, norm = clip_scale(grads, max_norm)
+    norm before clipping); ``axis_name`` as in :func:`global_norm`."""
+    scale, norm = clip_scale(grads, max_norm, axis_name)
     return _tree_map(lambda g: g * scale, grads), norm
 
 
 def sgd_momentum(momentum: float = 0.9, weight_decay: float = 0.0,
-                 clip_norm: Optional[float] = None) -> Optimizer:
+                 clip_norm: Optional[float] = None,
+                 clip_axis_name=None) -> Optimizer:
     def init(params):
         return OptState(0, _zeros_like_f32(params), None)
 
     @torch.no_grad()
     def update(grads, state, params, lr):
-        scale = clip_scale(grads, clip_norm)[0] if clip_norm else None
+        scale = (clip_scale(grads, clip_norm, clip_axis_name)[0]
+                 if clip_norm else None)
         for g, m, p in zip(tree_leaves(grads), tree_leaves(state.m),
                            tree_leaves(params)):
             g = g.float() if scale is None else g.float() * scale
@@ -110,14 +166,15 @@ def sgd_momentum(momentum: float = 0.9, weight_decay: float = 0.0,
 
 
 def adamw(b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-          weight_decay: float = 0.0, clip_norm: Optional[float] = 1.0
-          ) -> Optimizer:
+          weight_decay: float = 0.0, clip_norm: Optional[float] = 1.0,
+          clip_axis_name=None) -> Optimizer:
     def init(params):
         return OptState(0, _zeros_like_f32(params), _zeros_like_f32(params))
 
     @torch.no_grad()
     def update(grads, state, params, lr):
-        scale = clip_scale(grads, clip_norm)[0] if clip_norm else None
+        scale = (clip_scale(grads, clip_norm, clip_axis_name)[0]
+                 if clip_norm else None)
         t = np.float32(state.step + 1)
         # bias corrections in f32, as the reference computes b ** t
         c1 = float(np.float32(1.0) - np.float32(b1) ** t)

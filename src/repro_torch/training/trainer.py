@@ -1,6 +1,7 @@
-"""Train-step factory and host training loop (port of the meshless part
-of ``repro.training.trainer``): numerics policy, FP32 master weights, the
-StatsBank carry, the StepGuard, telemetry and chaos injection, and
+"""Train-step factory and host training loop (port of
+``repro.training.trainer``): numerics policy, FP32 master weights, the
+StatsBank carry, the StepGuard, telemetry and chaos injection, the
+mesh-native data-parallel and FSDP step over ``torch.distributed``, and
 :class:`TrainLoop` with checkpoints, the watchdog and the escalation
 ladder.
 
@@ -35,23 +36,46 @@ loss and gradient norm before the optimizer runs and the host reads
 keeps the input bank (a saturation trip keeps the refreshed one), so it
 leaves params, optimizer state, bank and guard carry bit for bit as they
 were.
+
+With ``mesh=...`` (a ``launch/mesh.py`` :class:`Mesh`; one process per
+rank) the same step runs on every rank: each rank is handed the global
+batch and takes its own dim-0 slice by its coordinates on the batch axes
+(all or nothing, ``sharding.mesh_batch_specs``); the loss is scaled by
+``1 / n_shards`` inside the differentiated function, so the gradient sync
+(``collectives.grad_sync_axis``: an f32 all-reduce per leaf, or the
+S2FP8-compressed legs) is a pure sum; float metrics become global means,
+integer ones global sums (divided back on the replicated-batch fallback),
+bools an any; StatsBank refreshes all-reduce their partials
+(``statsbank.for_mesh``), so the bank stays replicated; the guard's
+verdict is taken on the post-sync globals, so every rank takes the same
+branch and issues the same collectives in the same order; telemetry
+drains on rank 0.  Under ``param_sharding="fsdp"`` / ``"fsdp_q"`` params
+and optimizer state enter and leave the step as this rank's dim-0 shards
+(``sharding.shard_tree``), gathered inside the differentiated loss.
+``mesh=None`` is the meshless step above and issues no collective.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Callable, Optional
 
 import torch
 
-from repro_torch.core import s2fp8, statsbank
+from repro_torch.core import collectives, s2fp8, statsbank
 from repro_torch.core.policy import S2FP8_MODES, Policy
 from repro_torch.obs import telemetry as obs_telemetry
-from repro_torch.obs.sinks import ConsoleSink
+from repro_torch.obs.sinks import ConsoleSink, NullSink
+from repro_torch.optim import optimizers as optim_mod
 from repro_torch.optim.optimizers import (Optimizer, global_norm,
                                           tree_leaves, tree_unflatten)
+from repro_torch.parallel import sharding as shd
 from repro_torch.training import chaos as chaos_mod
 from repro_torch.training import fault
 from repro_torch.training import guard as guard_mod
+
+GRAD_SYNC_MODES = ("f32", "s2fp8")
+PARAM_SHARDING_MODES = ("replicated", "fsdp", "fsdp_q")
 
 
 def make_train_step(loss_fn: Callable, optimizer: Optimizer,
@@ -59,7 +83,12 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     track_stats: bool = False,
                     stats: Optional[statsbank.StatsConfig] = None,
                     telemetry: Optional[obs_telemetry.Telemetry] = None,
-                    guard: Optional[guard_mod.GuardConfig] = None):
+                    guard: Optional[guard_mod.GuardConfig] = None, *,
+                    grad_sync: Optional[Callable] = None,
+                    mesh=None, grad_sync_mode: str = "f32",
+                    grad_sync_min_size: int = 1 << 16,
+                    grad_sync_backend: Optional[str] = None,
+                    param_sharding: str = "replicated"):
     """``loss_fn(params, batch, policy) -> (loss, metrics)``; ``stats``
     enables the StatsBank carry (build the first bank with
     ``statsbank.init_bank(loss_fn, params, batch, policy, stats)``);
@@ -73,16 +102,117 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     guard ``guard_ok``, ``guard_nonfinite``, ``guard_spike``,
     ``guard_sat``, ``guard_forced``, and with ``track_stats``
     ``probe_stats``: ``s2fp8.tensor_stats`` (mu, m, alpha, beta) of the
-    last gradient leaf in the reference's leaf order (paper Fig. 5)."""
+    last gradient leaf in the reference's leaf order (paper Fig. 5).
+
+    ``grad_sync``: an optional synchronizer of the meshless step's
+    gradient tuple (legacy hook; must be None under a mesh).  ``mesh``
+    makes the step mesh-native (module docstring); ``grad_sync_mode``
+    "f32" all-reduces every gradient leaf in f32, "s2fp8" takes the
+    compressed legs for every leaf ``collectives.leaf_sync_route`` deems
+    compressible (floor ``grad_sync_min_size`` elements; encode and
+    decode on the engine ``grad_sync_backend``).  ``param_sharding``:
+    "replicated" (every rank holds full copies), "fsdp" (eligible leaves
+    live as dim-0 shards over the rule table's fsdp axis: f32 all-gather
+    inside the loss, gradients reduce-scattered back by the gather's
+    backward, the update on the shards under ``optimizers.fsdp_grads``)
+    or "fsdp_q" (payload-eligible 2-D leaves additionally reach the
+    payload GEMMs as ``collectives.FSDPPayloadParam``: quantized at the
+    owner with the leaf-global bank stats, 1-byte all-gather; needs
+    ``stats`` and a payload-GEMM policy).  Build the bank from the full
+    params (``statsbank.init_bank``) before ``sharding.shard_tree``."""
     if stats is not None and policy.mode not in S2FP8_MODES:
         raise ValueError(
             f"StatsBank requires an s2fp8-mode policy, got {policy.mode!r}")
     if telemetry is not None and stats is None:
         raise ValueError("telemetry requires a StatsBank (stats=...)")
+    if grad_sync_mode not in GRAD_SYNC_MODES:
+        raise ValueError(f"grad_sync_mode must be one of {GRAD_SYNC_MODES}, "
+                         f"got {grad_sync_mode!r}")
+    if mesh is not None and grad_sync is not None:
+        raise ValueError("mesh=... builds its own gradient sync; the "
+                         "legacy grad_sync callable must be None")
+    if param_sharding not in PARAM_SHARDING_MODES:
+        raise ValueError(f"param_sharding must be one of "
+                         f"{PARAM_SHARDING_MODES}, got {param_sharding!r}")
     scale = policy.loss_scale if policy.mode == "fp8_ls" else 1.0
 
+    batch_axes = shd.mesh_batch_axes(mesh) if mesh is not None else ()
+    axis_name = (None if not batch_axes
+                 else batch_axes[0] if len(batch_axes) == 1 else batch_axes)
+    n_shards = shd.mesh_batch_size(mesh) if mesh is not None else 1
+    axis_sizes = ({a: mesh.shape[a] for a in batch_axes}
+                  if mesh is not None else {})
+    if stats is not None and mesh is not None:
+        stats = statsbank.for_mesh(stats, mesh)
+    fsdp_axis = shd.fsdp_axis_entry(mesh) if mesh is not None else None
+    gather_f32 = pay_info = None
+    if param_sharding != "replicated":
+        if mesh is None or fsdp_axis is None:
+            raise ValueError(f"param_sharding={param_sharding!r} needs a "
+                             f"mesh whose axes carry the rule table's "
+                             f"'fsdp' logical axis")
+        if param_sharding == "fsdp_q":
+            if stats is None:
+                raise ValueError("param_sharding='fsdp_q' quantizes at "
+                                 "the owner with leaf-global bank stats — "
+                                 "pass stats=StatsConfig(...)")
+            if not policy.uses_payload_gemm:
+                raise ValueError("param_sharding='fsdp_q' streams payload "
+                                 "operands; the policy must route GEMMs "
+                                 "through qdot_train (s2fp8 mode with "
+                                 "gemm_mode='payload' or a kernel engine)")
+        lead_axes = tuple(a for a in batch_axes if a != fsdp_axis)
+        base_info = collectives.FSDPInfo(
+            fsdp_axis, mesh.shape[fsdp_axis], lead_axes, grad_sync_mode,
+            grad_sync_min_size, grad_sync_backend, mesh=mesh)
+        gather_f32 = collectives.make_param_gather(base_info)
+        pay_info = base_info._replace(gather_f32=gather_f32)
+
     def scaled(loss):
-        return loss * scale if scale != 1.0 else loss
+        # loss scaling (Eq. 6) and the data-parallel mean both fold into
+        # the differentiated function: per-shard gradients are
+        # contributions to the global mean and the sync is a pure sum
+        if scale != 1.0:
+            loss = loss * scale
+        if n_shards > 1:
+            loss = loss / float(n_shards)
+        return loss
+
+    def _global(x: torch.Tensor) -> torch.Tensor:
+        return collectives.all_reduce(x.reshape(1).clone(), axis_name)[0]
+
+    def _reduce_metrics(metrics, int_div: int):
+        # every metric leaves the step replicated: floats the global mean
+        # of the per-shard means, integers the global sum (divided back on
+        # the replicated-batch fallback), bools an any
+        out = {}
+        for k, v in metrics.items():
+            if not isinstance(v, torch.Tensor) or v.dim() != 0:
+                out[k] = v
+            elif v.is_floating_point():
+                out[k] = _global(v / float(n_shards) if n_shards > 1 else v)
+            elif v.dtype == torch.bool:
+                out[k] = _global(v.to(torch.int32)) > 0
+            else:
+                s_ = _global(v)
+                out[k] = s_ // int_div if int_div > 1 else s_
+        return out
+
+    def _gather_params(params, elig, pay):
+        # FSDP just-in-time gather, inside the differentiated loss: an
+        # eligible shard leaves through the f32 gather (its backward
+        # reduce-scatters the gradient back) or, payload-eligible under
+        # fsdp_q, wrapped for the payload GEMM
+        out = []
+        for leaf, e, q in zip(tree_leaves(params), elig, pay):
+            if not e:
+                out.append(leaf)
+            elif q:
+                out.append(collectives.FSDPPayloadParam(leaf, pay_info))
+            else:
+                out.append(gather_f32(leaf))
+        return tree_unflatten(params, out)
+
     # the cold-site map of the bank this step returned last
     carried = {"bank": None, "cold": None}
 
@@ -91,16 +221,26 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
+        elig = None
+        loss_params = params
+        if mesh is not None:
+            int_div = 1 if shd.batch_is_sharded(batch, mesh) else n_shards
+            batch = shd.shard_batch(batch, mesh)
+            if param_sharding != "replicated":
+                elig = [shd.is_shard(p) for p in leaves]
+                pay = [bool(e and param_sharding == "fsdp_q"
+                            and p.dim() == 2) for p, e in zip(leaves, elig)]
+                loss_params = _gather_params(params, elig, pay)
         sess = None
         if bank is None:
-            loss, metrics = loss_fn(params, batch, policy)
+            loss, metrics = loss_fn(loss_params, batch, policy)
             loss = scaled(loss)
             grads = torch.autograd.grad(loss, leaves)
         else:
             cold = (carried["cold"] if bank is carried["bank"]
                     else statsbank.cold_sites(bank))
             with statsbank.bind(bank, step, stats, cold) as sess:
-                loss, metrics = loss_fn(params, batch, policy)
+                loss, metrics = loss_fn(loss_params, batch, policy)
                 loss = scaled(loss)
                 # inside the session: remat replays layers in the backward
                 grads = torch.autograd.grad(loss, leaves)
@@ -108,14 +248,31 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         if scale != 1.0:
             grads = tuple(g / scale for g in grads)
             loss = loss / scale
+        out = {k: v.detach() for k, v in metrics.items()}
+        if mesh is not None:
+            # FSDP gradients left autograd already reduce-scattered to
+            # their owner: the replicated sync skips them
+            grads = tuple(collectives.grad_sync_axis(
+                list(grads), axis_name, axis_sizes, mode=grad_sync_mode,
+                min_size=grad_sync_min_size, backend=grad_sync_backend,
+                skip=elig))
+            out = _reduce_metrics(out, int_div)
+            loss = _global(loss)
+        elif grad_sync is not None:
+            grads = tuple(grad_sync(grads))
         # in-step fault injection, where the reference places it: on the
-        # scaled-back loss and gradients, before the guard
+        # scaled-back (post-sync) loss and gradients, before the guard
         loss = chaos_mod.inject_loss(chaos_fields, loss, step)
         grads = tree_unflatten(
             params, chaos_mod.inject_grads(chaos_fields, grads, step))
-        out = {k: v.detach() for k, v in metrics.items()}
+        # under FSDP the norms (the metric and the optimizer's clip) sum
+        # the shards' squares over the fsdp axis
+        def norm_scope():
+            return (optim_mod.fsdp_grads(fsdp_axis, elig)
+                    if elig is not None else contextlib.nullcontext())
         out["loss"] = loss
-        out["grad_norm"] = global_norm(grads)
+        with norm_scope():
+            out["grad_norm"] = global_norm(grads)
         out["lr"] = schedule(step)
         if track_stats:
             out["probe_stats"] = s2fp8.tensor_stats(tree_leaves(grads)[-1])
@@ -137,18 +294,30 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                                        flags["ok_bank"]]).tolist()
             out.update(guard_mod.flag_metrics(flags))
         if ok:
-            params, opt_state = optimizer.update(grads, opt_state, params,
-                                                 out["lr"])
+            with norm_scope():
+                params, opt_state = optimizer.update(grads, opt_state,
+                                                     params, out["lr"])
         if new_bank is not None:
             if not ok_bank:
                 new_bank = bank
             carried["bank"] = new_bank
             carried["cold"] = (statsbank.cold_sites(new_bank)
                                if ok_bank and sess.updates else cold)
-            if telemetry is not None and telemetry.due(step):
+            if telemetry is not None and telemetry.due(step) \
+                    and (mesh is None or mesh.rank == 0):
                 telemetry.drain(
                     obs_telemetry.telemetry_state(new_bank, step), step)
         return params, opt_state, new_bank, new_guard, out
+
+    if mesh is not None:
+        _local = _step
+
+        def _step(*args):
+            # the models' logical-axis annotations are off inside the
+            # step, and axis names resolve against this mesh in every
+            # thread (the autograd engine's too)
+            with shd.suspend_rules(), collectives.bind(mesh):
+                return _local(*args)
 
     if stats is None and guard is None:
         def train_step(params, opt_state, batch, step):
@@ -250,6 +419,15 @@ class TrainLoop:
     the step's ``aux`` and ``probe_stats`` metrics where it has them, and
     ``"event"`` records.
     Defaults to a ``ConsoleSink`` over ``run``'s ``print_fn``.
+
+    ``mesh``: the loop of one rank of a mesh-native step (every rank runs
+    the same loop).  Records, console lines and telemetry go out on rank
+    0 only; every host decision — the refresh cadence, the guard ladder,
+    rollbacks — comes from replicated metrics, and the watchdog reads the
+    slowest rank's step time (one max all-reduce a step), so all ranks
+    issue the same collectives in the same order.  The checkpoint manager
+    must be built with the same mesh; rollbacks and restores keep the
+    params' and moments' FSDP shard marks.
     """
 
     def __init__(self, train_step, params, opt_state, data_fn,
@@ -260,8 +438,9 @@ class TrainLoop:
                  snapshot_ring: int = 4, snapshot_compress: bool = False,
                  watchdog_escalate_after: int = 0,
                  max_interventions: int = 32,
-                 codec_backend: Optional[str] = None):
+                 codec_backend: Optional[str] = None, mesh=None):
         self.train_step = train_step
+        self.mesh = mesh
         self.params = params
         self.opt_state = opt_state
         self.stats_bank = stats_bank
@@ -282,6 +461,15 @@ class TrainLoop:
         self.sink = sink
         self.start_step = 0
         self.history = []
+        # which leaves of the state tree are FSDP shards (restored trees
+        # are new tensors: _load_state marks them again)
+        self._shard_flags = (shd.shard_flags(self._state_tree())
+                             if mesh is not None else None)
+
+    @property
+    def lead(self) -> bool:
+        """Whether this rank writes records (rank 0, or no mesh)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # -- state tree plumbing ------------------------------------------------
     def _state_tree(self):
@@ -294,6 +482,8 @@ class TrainLoop:
         return tuple(tree)
 
     def _load_state(self, tree):
+        if self._shard_flags is not None:
+            shd.mark_shards(tree, self._shard_flags)
         tree = list(tree)
         self.params, self.opt_state = tree[0], tree[1]
         i = 2
@@ -338,7 +528,8 @@ class TrainLoop:
             return
         self._load_state(restored)
         self.start_step = latest
-        print(f"[trainer] resumed from step {latest}")
+        if self.lead:
+            print(f"[trainer] resumed from step {latest}")
 
     # -- escalation ladder ---------------------------------------------------
     def _escalate(self, step: int, trips: int, sink) -> int:
@@ -370,8 +561,19 @@ class TrainLoop:
             return s
         return step + 1
 
+    def _slowest(self, dt: float) -> float:
+        """The step time the watchdog reads: this rank's, or under a mesh
+        the slowest rank's (the same verdict on every rank)."""
+        if self.mesh is None:
+            return dt
+        t = torch.tensor([dt], dtype=torch.float64, device=self.mesh.device)
+        return float(collectives.all_reduce(t, self.mesh.axis_names,
+                                            op="max", mesh=self.mesh)[0])
+
     def run(self, steps: int, print_fn=print):
         sink = self.sink if self.sink is not None else ConsoleSink(print_fn)
+        if not self.lead:
+            sink = NullSink()
         watchdog = fault.Watchdog(self.watchdog_factor)
         wd_consecutive = 0
         trips = 0                # consecutive guard trips = ladder rung
@@ -393,7 +595,7 @@ class TrainLoop:
                 self.chaos.maybe_sleep(step)
             metrics = self._step_once(batch, step)
             self._sync()
-            dt = time.perf_counter() - t0
+            dt = self._slowest(time.perf_counter() - t0)
             metrics = _host_metrics(metrics)
             # straggler watchdog: flag steps > factor x trailing median
             event = watchdog.observe(step, dt)

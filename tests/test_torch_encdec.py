@@ -506,6 +506,6 @@ def test_launcher_trains_transformer_tiny_on_the_cpu(capsys):
                 "--steps", "2", "--batch", "2", "--seq", "8"])
     lines = capsys.readouterr().out.strip().splitlines()
     assert lines[0].startswith("[train] transformer-tiny")
-    steps = [json.loads(x) for x in lines[1:]]
+    steps = [json.loads(x) for x in lines[1:] if x.startswith("{")]
     assert [x["step"] for x in steps] == [0, 1]
     assert all(np.isfinite(x["loss"]) for x in steps)
