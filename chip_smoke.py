@@ -195,6 +195,25 @@ Phases, each fatal on failure:
              the loss within 2e-3 relative of the meshless run's); the
              collective records counted; and the exact toy under fsdp_q
              on the card, where the 1-byte payload handoff runs.
+28. doctor — ``launch/doctor.py --smoke`` on cuda and cuda_fused; full-width
+             minicpm_2b (40 layers) probed with a cold bank at batch 4 x
+             512 on both engines (sites probed, unclean sites and seconds
+             per engine printed; the probes' kernels must launch, no
+             plain version run); a reduced checkpoint's restore round
+             trip (params bit for bit, the bank used; a bank of another
+             site structure falls back to a cold one).
+29. dryrun — full-width minicpm_2b's s2fp8 train step at 4 x 512 (exact
+             stats on cuda, remat) traced by ``roofline.trace_cost`` on
+             fake tensors and again on the card: the dry per-kind kernel
+             calls equal the launches ``kernels.counts()`` records, the
+             FLOPs within 5% of the real trace's and the peak live bytes
+             within 10% of ``torch.cuda.max_memory_allocated``; both
+             costs, 6·N·T and the roofline printed.  Then the four
+             production-mesh dry cells (``DRY_CELLS``: minicpm_2b
+             train_4k, prefill_32k, decode_32k and kimi_k2_1t_a32b
+             train_4k under fsdp_q, 16 x 16, attention on the flash
+             route), CPU subprocesses of ``launch/dryrun.py`` started after
+             phase 3, are read and their records printed; each must trace.
 Phase 4 also runs "small-families": the five attention-family configs
 reduced, served through the kernels (every call held) and through the
 plain versions teacher-forced along the kernels' tokens; and "small-ssm":
@@ -239,25 +258,9 @@ import torch
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-H100_BYTES_PER_S = 3.35e12           # HBM3, SXM data sheet
-H100_F32_FLOPS = 67e12               # f32 outside the tensor cores
-H100_TF32_FLOPS = 495e12             # TF32 tensor cores, dense
-H100_SFU_PER_S = 132 * 16 * 1.98e9   # MUFU ops (ex2): 16 a clock an SM
-TC_PASSES = 3                        # the flash kernels' compensated TF32
-
-
-def bound_ms(nbytes, flops, tensor_cores=False):
-    """(bound ms, bound_by, kind of operations) of a call that moves
-    ``nbytes`` and does ``flops`` f32 operations: the larger of the bytes
-    over HBM and the operations over the f32 cores (with
-    ``tensor_cores``, the smaller of that and TC_PASSES TF32 tensor-core
-    passes)."""
-    tb, tf = nbytes / H100_BYTES_PER_S * 1e3, flops / H100_F32_FLOPS * 1e3
-    kind = "f32 cores"
-    if tensor_cores and TC_PASSES * flops / H100_TF32_FLOPS * 1e3 < tf:
-        tf = TC_PASSES * flops / H100_TF32_FLOPS * 1e3
-        kind = f"{TC_PASSES}xTF32 tensor cores"
-    return max(tb, tf), ("bytes" if tb >= tf else "operations"), kind
+# the card's rates and the per-call bound: one copy, in roofline/analysis
+from repro_torch.roofline.analysis import (SFU_PER_S, TC_PASSES,  # noqa: E402
+                                           bound_ms)
 
 # TPU kernel each port replaces (src/repro/... file:line of the Pallas entry)
 REPLACES = {
@@ -361,7 +364,8 @@ PHASES = ("serve", "train", "train_moe", "train_exact", "train_fig4",
           "train_long_naive", "serve_dense", "train_encdec", "serve_encdec",
           "train_paper", "train_loop", "serve_moe", "train_gemma3",
           "serve_gemma3", "serve_stablelm", "serve_nemotron",
-          "train_zamba2", "train_mamba", "serve_zamba2", "train_mesh")
+          "train_zamba2", "train_mamba", "serve_zamba2", "train_mesh",
+          "doctor", "dryrun")
 
 # payload GEMM shapes phase 3 holds and times, (M, K, N) of the logical
 # GEMM: minicpm's NN at decode (8 slots) and prefill (8 rows x bucket
@@ -1106,7 +1110,7 @@ def mamba_ops_kernel_checks(dev, gen, rnd, record) -> None:
                   f"selective_scan S={s}")
         _, _, nbytes, flops = scan_bound_ms(b, s, di, n)
         # Not a bound: the exps' time were each one MUFU.EX2 on the SFUs.
-        sfu_ms = b * s * di * n / H100_SFU_PER_S * 1e3
+        sfu_ms = b * s * di * n / SFU_PER_S * 1e3
         record("selective_scan", max(ey, eh),
                cuda_time(lambda: ss.selective_scan(*args)),
                cuda_time(lambda: ss.selective_scan_plain(*args), iters=2,
@@ -2472,7 +2476,7 @@ def checked_engine(stats_mode: str = "exact"):
     from repro_torch.core import qdot, s2fp8
     from repro_torch.kernels import dispatch
     from repro_torch.kernels import s2fp8_quant as sq
-    plain = nb.BACKENDS["plain"]
+    plain = nb.get_backend("plain")
     tally = {}
 
     def held(kind, ok, detail, *pairs):
@@ -2626,7 +2630,8 @@ def checked_engine(stats_mode: str = "exact"):
                  *zip(got, want))
         return got
 
-    nb.BACKENDS["checked"] = Checked(stats_mode=stats_mode)
+    nb.register_backend("checked", Checked(stats_mode=stats_mode),
+                        overwrite=True)
     qdot._payload_flash_fwd, qdot._payload_flash_bwd = flash_fwd, flash_bwd
     try:
         yield tally
@@ -5118,7 +5123,7 @@ def _mesh_run(dev, label, mesh_spec, sync, shard) -> dict:
         return sum(a.elapsed_time(b) for a, b in checks[since:])
 
     def timed_sync(*args, **kwargs):
-        rec = collectives._RECORDS[0]
+        rec = collectives._RECORDS[-1]
         n0, c0 = len(rec), len(checks)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -5305,6 +5310,268 @@ def phase_train_mesh(dev) -> dict:
     return {"counts": counts, "metrics": metrics}
 
 
+# ---------------------------------------------------------------------------
+# phases 28-29: the doctor and the dry run (slice 13)
+# ---------------------------------------------------------------------------
+
+DOCTOR_BATCH, DOCTOR_SEQ = 4, 512       # the train phase's shape
+DOCTOR_ENGINES = "cuda,cuda_fused"
+# kernels the full-width probes must launch (both engines together)
+DOCTOR_KERNELS = ("quant_apply", "truncate_apply", "dequant", "qmatmul_nn",
+                  "qmatmul_nt", "qmatmul_tn", "qflash_fwd", "qflash_bwd",
+                  "stats", "quant")
+DRYRUN_BATCH, DRYRUN_SEQ = 4, 512
+DRYRUN_KERNELS = TRAIN_KERNELS
+DRYRUN_FLOP_RTOL = 0.05                 # dry FLOPs against the real trace's
+DRYRUN_PEAK_RTOL = 0.10                 # dry peak against the card's peak
+# production-mesh dry cells (16 x 16), each a CPU subprocess of
+# launch/dryrun.py started after phase 3 and read after phase 27: (arch,
+# shape, --shard-params); attention above 2048 tokens on the flash route
+# (the naive route's chunk loop traces 2.3 M ops at prefill_32k)
+DRY_CELLS = (("minicpm_2b", "train_4k", "replicated"),
+             ("minicpm_2b", "prefill_32k", "replicated"),
+             ("minicpm_2b", "decode_32k", "replicated"),
+             ("kimi_k2_1t_a32b", "train_4k", "fsdp_q"))
+DRY_CELL_TIMEOUT_S = 900
+DRY_DIR = ROOT / "build" / "dryrun_cells"
+
+
+def start_dry_cells() -> list:
+    """Start every ``DRY_CELLS`` cell as a subprocess on the CPU (no card
+    visible, one thread each): fake tensors, nothing allocated."""
+    import os
+    DRY_DIR.mkdir(parents=True, exist_ok=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="", OMP_NUM_THREADS="1",
+               PYTHONPATH=str(ROOT / "src"))
+    procs = []
+    for arch, shape, shard in DRY_CELLS:
+        out = DRY_DIR / f"{arch}.{shape}.{shard}.json"
+        log_path = DRY_DIR / f"{arch}.{shape}.{shard}.log"
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+               arch, "--shape", shape, "--mesh", "single", "--attn-impl",
+               "flash", "--shard-params", shard, "--force", "--results",
+               str(out)]
+        procs.append({"cell": (arch, shape, shard), "out": out,
+                      "log": log_path, "t0": time.perf_counter(),
+                      "proc": subprocess.Popen(
+                          cmd, stdout=open(log_path, "w"),
+                          stderr=subprocess.STDOUT, env=env, cwd=ROOT)})
+    log(f"dry cells started: {[p['cell'] for p in procs]}")
+    return procs
+
+
+def stop_dry_cells(procs) -> None:
+    for p in procs or ():
+        if p["proc"].poll() is None:
+            p["proc"].kill()
+            p["proc"].wait()
+
+
+def phase_dry_cells(procs) -> dict:
+    """The production-mesh dry cells: wait for each subprocess, print its
+    record (trace seconds, memory, roofline terms, kernel calls) and fail
+    unless each traced (status ok, finite terms, calls recorded)."""
+    out = {}
+    for p in procs:
+        arch, shape, shard = p["cell"]
+        rc = p["proc"].wait(timeout=DRY_CELL_TIMEOUT_S)
+        wall = time.perf_counter() - p["t0"]
+        text = p["log"].read_text()
+        assert rc == 0, f"dry cell {p['cell']} exited {rc}:\n{text[-3000:]}"
+        recs = json.loads(p["out"].read_text())
+        (key, rec), = recs.items()
+        assert rec["status"] == "ok", (key, rec)
+        r = rec["roofline"]
+        assert all(math.isfinite(r[k]) and r[k] >= 0 for k in (
+            "hlo_gflops_per_dev", "hlo_gbytes_per_dev",
+            "coll_gbytes_per_dev", "step_s", "mfu")), r
+        assert sum(rec["kernel_calls"].values()) > 0, rec["kernel_calls"]
+        show = {k: rec[k] for k in ("compile_s", "memory_analysis",
+                                    "model_axis", "param_sharding",
+                                    "kernel_calls")}
+        show["roofline"] = r
+        show["aten_ops"] = rec["cost"]["aten_ops"]
+        show["wall_s"] = wall
+        log(f"dry cell {key}: " + json.dumps(show))
+        out[key] = show
+    return out
+
+
+def phase_doctor(dev) -> dict:
+    """``launch/doctor.py --smoke`` on the cuda and cuda_fused engines;
+    then full-width minicpm_2b (40 layers) probed with a cold bank at
+    batch 4 x 512 on both engines (the main path: the counts are set to 0
+    before the probes and read after), printing the sites probed, the
+    unclean ones and each engine's seconds; then a restore round trip of a
+    checkpoint the phase writes at reduced size: the doctor reads it back
+    (params bit for bit, the bank used) and falls back to a cold bank for
+    an engine routing of another site structure (fig4)."""
+    import argparse as _ap
+    import tempfile
+    from repro_torch import kernels
+    from repro_torch.checkpoint.manager import CheckpointManager
+    from repro_torch.configs import get_reduced_config
+    from repro_torch.core import statsbank
+    from repro_torch.core.policy import make_policy
+    from repro_torch.launch import api, doctor
+    from repro_torch.obs import doctor as obs_doctor
+    from repro_torch.optim import optimizers
+    from repro_torch.optim.optimizers import tree_leaves
+
+    t_phase = time.perf_counter()
+    rc = doctor.main(["--smoke", "--device", dev.type, "--backends",
+                      DOCTOR_ENGINES])
+    assert rc == 0, f"s2fp8-doctor --smoke failed ({rc})"
+    smoke_s = time.perf_counter() - t_phase
+    free_device_memory()
+
+    args = doctor.build_parser().parse_args([
+        "--arch", "minicpm_2b", "--device", dev.type, "--backends",
+        DOCTOR_ENGINES, "--batch", str(DOCTOR_BATCH), "--seq",
+        str(DOCTOR_SEQ)])
+    kernels.reset_counts()                        # the main path starts here
+    probes = doctor.probe(args)
+    counts = path_counts()                        # ... and ends here
+    engines = {}
+    for r in probes:
+        unclean = [f"{x['site']}[{x['layer']}].{x['dir']}"
+                   if x["layer"] is not None else f"{x['site']}.{x['dir']}"
+                   for x in r["rows"] if not obs_doctor.is_clean(x)]
+        engines[r["backend"]] = {"sites": len(r["rows"]),
+                                 "unclean": len(unclean),
+                                 "unclean_sites": unclean[:10],
+                                 "probe_loss": r["loss"],
+                                 "seconds": r["seconds"]}
+        log(f"doctor minicpm_2b {r['backend']}: {len(r['rows'])} sites "
+            f"probed, {len(unclean)} unclean {unclean[:10]}, loss "
+            f"{r['loss']:.4f}, {r['seconds']:.1f} s")
+        assert r["rows"] and math.isfinite(r["loss"]), r["backend"]
+    check_counts(counts, DOCTOR_KERNELS)
+    del probes
+    free_device_memory()
+
+    # restore round trip at reduced size
+    cfg = get_reduced_config("minicpm_2b")
+    loss_fn = api.make_loss_fn(cfg)
+    params = api.init_params(cfg, seed=0, device=dev)
+    opt_state = optimizers.adamw(weight_decay=0.01).init(params)
+    small = _ap.Namespace(seed=0, batch=2, seq=32)
+    batch = doctor._data(cfg, small, dev)
+    pol = make_policy("s2fp8", backend="cuda")
+    bank = statsbank.init_bank(loss_fn, params, batch, pol,
+                               statsbank.StatsConfig())
+    bank, _ = obs_doctor.probe_bank(loss_fn, params, batch, pol, bank,
+                                    statsbank.StatsConfig(), step=0)
+    fig4 = statsbank.init_bank(loss_fn, params, batch,
+                               make_policy("s2fp8", backend="cuda",
+                                           gemm_mode="fig4"),
+                               statsbank.StatsConfig())
+    DRY_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=DRY_DIR) as td:
+        CheckpointManager(td).save(3, (params, opt_state, bank))
+        p, _, got, step = doctor._restore(td, None, params, opt_state,
+                                          statsbank.init_bank(
+                                              loss_fn, params, batch, pol,
+                                              statsbank.StatsConfig()))
+        assert step == 3 and got is not None, (step, got is None)
+        same = all(torch.equal(a, b) for a, b in zip(tree_leaves(p),
+                                                     tree_leaves(params)))
+        assert same, "restored params differ from the saved ones"
+        p2, _, cold, _ = doctor._restore(td, None, params, opt_state, fig4)
+        assert cold is None and all(
+            torch.equal(a, b) for a, b in zip(tree_leaves(p2),
+                                              tree_leaves(params)))
+        rc = doctor.main(["--arch", "minicpm_2b", "--reduced", "--device",
+                          dev.type, "--backends", DOCTOR_ENGINES,
+                          "--ckpt-dir", td, "--batch", "2", "--seq", "32"])
+        assert rc == 0
+    metrics = {"smoke_s": smoke_s, "engines": engines,
+               "round_trip": "ok", "phase_s": time.perf_counter() - t_phase}
+    log("doctor metrics: " + json.dumps(metrics))
+    log("doctor launches: " + json.dumps(counts))
+    return {"counts": counts, "metrics": metrics}
+
+
+def phase_dryrun(dev) -> dict:
+    """Full-width minicpm_2b's s2fp8 train step at batch 4 x 512 (exact
+    stats, the cuda engine's payload GEMMs, AdamW, remat; the train
+    phase's shape), traced twice under ``roofline.trace_cost``: dry, on
+    fake tensors (``launch.api`` structs; each kernel wrapper's call
+    charged as its kernel, nothing allocated), and real, on the card (the
+    main path: the counts are set to 0 just before the step and read just
+    after).  Holds the dry trace's per-kind kernel calls equal to the
+    launches ``kernels.counts()`` records, its FLOPs within
+    ``DRYRUN_FLOP_RTOL`` of the real trace's and its peak live bytes within
+    ``DRYRUN_PEAK_RTOL`` of ``torch.cuda.max_memory_allocated``; prints
+    both costs, 6·N·T and the roofline."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.policy import make_policy
+    from repro_torch.data import synthetic
+    from repro_torch.launch import api
+    from repro_torch.roofline import analysis
+    from repro_torch.roofline.trace_cost import trace_cost
+
+    t_phase = time.perf_counter()
+    cfg = get_config("minicpm_2b")
+    pol = make_policy("s2fp8")
+    b, s = DRYRUN_BATCH, DRYRUN_SEQ
+
+    step, opt = api.make_train_step(cfg, pol)
+    fparams = api.param_struct(cfg)
+    with api.fake_mode():
+        fopt = opt.init(fparams)
+        fbatch = {k: torch.empty((b, s), dtype=torch.int64)
+                  for k in ("tokens", "labels")}
+        with trace_cost((fparams, fopt, fbatch)) as dry:
+            step(fparams, fopt, fbatch, 0)
+    del fparams, fopt, fbatch
+    log(f"dryrun: dry trace {dry.seconds:.1f} s, {dry.aten_ops} aten ops")
+
+    params = api.init_params(cfg, seed=0, device=dev)
+    ostate = opt.init(params)
+    chain = synthetic.markov_chain(0, cfg.vocab)
+    batch = synthetic.lm_batch(chain, torch.Generator().manual_seed(0), b, s,
+                               dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    from repro_torch import kernels
+    kernels.reset_counts()                        # the main path starts here
+    with trace_cost((params, ostate, batch)) as real:
+        params, ostate, m = step(params, ostate, batch, 0)
+        torch.cuda.synchronize()
+    counts = path_counts()                        # ... and ends here
+    launched = {k: c["launches"] for k, c in kernels.counts().items()
+                if c["launches"]}
+    peak = torch.cuda.max_memory_allocated()
+    loss = float(m["loss"])
+    del params, ostate, batch, m
+    n_tok = b * s
+    model_flops = 6.0 * cfg.n_active_params() * n_tok
+    rl = analysis.analyze("minicpm_2b", f"train {b}x{s}", "1", 1, dry,
+                          float(dry.peak_bytes), model_flops / 1e9)
+    flop_gap = abs(dry.flops - real.flops) / real.flops
+    peak_gap = abs(dry.peak_bytes - peak) / peak
+    metrics = {
+        "dry": {k: v for k, v in dry.to_dict().items()
+                if k not in ("kernel_bytes",)},
+        "real": {k: v for k, v in real.to_dict().items()
+                 if k not in ("kernel_bytes",)},
+        "model_flops_6NT": model_flops,
+        "dry_flops_over_6NT": dry.flops / model_flops,
+        "max_memory_allocated": peak, "flop_gap": flop_gap,
+        "peak_gap": peak_gap, "loss": loss, "roofline": rl.to_dict(),
+        "phase_s": time.perf_counter() - t_phase}
+    log("dryrun metrics: " + json.dumps(metrics))
+    log("dryrun launches: " + json.dumps(counts))
+    assert math.isfinite(loss), loss
+    check_counts(counts, DRYRUN_KERNELS)
+    assert dry.calls == launched, (dry.calls, launched)
+    assert dry.calls == real.calls, (dry.calls, real.calls)
+    assert flop_gap <= DRYRUN_FLOP_RTOL, (dry.flops, real.flops)
+    assert peak_gap <= DRYRUN_PEAK_RTOL, (dry.peak_bytes, peak)
+    return {"counts": counts, "metrics": metrics}
+
+
 def free_device_memory() -> None:
     gc.collect()
     torch.cuda.empty_cache()
@@ -5312,29 +5579,8 @@ def free_device_memory() -> None:
         f"{torch.cuda.memory_allocated() / 1e9:.2f} GB")
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("kernels",), default=None,
-                    help="build + phase 3 only (no kernels or contract "
-                         "line)")
-    ap.add_argument("--ptxas", action="store_true",
-                    help="print nvcc -Xptxas -v register/smem reports, fail "
-                         "on a register spill, count the tensor-core "
-                         "instructions of the flash kernels (HMMA) and the "
-                         "large-M GEMM (HGMMA)")
-    ap.add_argument("--profile", action="store_true",
-                    help="print torch.profiler device time by kernel for "
-                         "one admission and five decode ticks of each "
-                         "server (serve, serve-moe) and one steady step of "
-                         "each train phase")
-    args = ap.parse_args()
-
-    phase_device()
-    dev = torch.device("cuda", 0)
-    phase_build(args.ptxas)
-    rows = phase_kernels(dev)
-    if args.only == "kernels":
-        return 0
+def _run_phases(dev, args, dry_procs) -> dict:
+    """Phases 4-29 in order, then the dry cells; {phase: its result}."""
     phase_small_reference(dev)
     phase_small_formats(dev)
     phase_small_train(dev)
@@ -5394,15 +5640,49 @@ def main() -> int:
     free_device_memory()
     trained_mesh = phase_train_mesh(dev)
     free_device_memory()
-    by_phase = dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
-                                 trained_fig4, served_mamba, ops, modes,
-                                 long_runs["flash"], long_runs["naive"],
-                                 served_dense, trained_encdec, served_encdec,
-                                 trained_paper, train_loop, served_moe,
-                                 trained_gemma3, served_gemma3,
-                                 served_stablelm, served_nemotron,
-                                 trained_zamba2, trained_mamba,
-                                 served_zamba2, trained_mesh)))
+    doctored = phase_doctor(dev)
+    free_device_memory()
+    dried = phase_dryrun(dev)
+    free_device_memory()
+    phase_dry_cells(dry_procs)
+    return dict(zip(PHASES, (served, trained, trained_moe, trained_exact,
+                             trained_fig4, served_mamba, ops, modes,
+                             long_runs["flash"], long_runs["naive"],
+                             served_dense, trained_encdec, served_encdec,
+                             trained_paper, train_loop, served_moe,
+                             trained_gemma3, served_gemma3, served_stablelm,
+                             served_nemotron, trained_zamba2, trained_mamba,
+                             served_zamba2, trained_mesh, doctored, dried)))
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("kernels",), default=None,
+                    help="build + phase 3 only (no kernels or contract "
+                         "line)")
+    ap.add_argument("--ptxas", action="store_true",
+                    help="print nvcc -Xptxas -v register/smem reports, fail "
+                         "on a register spill, count the tensor-core "
+                         "instructions of the flash kernels (HMMA) and the "
+                         "large-M GEMM (HGMMA)")
+    ap.add_argument("--profile", action="store_true",
+                    help="print torch.profiler device time by kernel for "
+                         "one admission and five decode ticks of each "
+                         "server (serve, serve-moe) and one steady step of "
+                         "each train phase")
+    args = ap.parse_args()
+
+    phase_device()
+    dev = torch.device("cuda", 0)
+    phase_build(args.ptxas)
+    rows = phase_kernels(dev)
+    if args.only == "kernels":
+        return 0
+    dry_procs = start_dry_cells()
+    try:
+        by_phase = _run_phases(dev, args, dry_procs)
+    finally:
+        stop_dry_cells(dry_procs)
     if args.profile:
         log_profiled_totals()
     out = []

@@ -4,12 +4,24 @@ The port keeps its own copy of the fields its serving and training
 slices read, so it never imports the JAX package. Field names, defaults
 and values match the reference, which lets a JAX config and a port
 config describe the same model.  ``MoEConfig`` and ``SSMConfig`` are the
-reference's, verbatim."""
+reference's, verbatim, and so are the block types, the assigned shape
+grid (``SHAPES``, ``SHAPE_SPECS``) and each config's ``skip_shapes``."""
 from __future__ import annotations
 
 import dataclasses
 import importlib
 from typing import Optional, Tuple
+
+# ---------------------------------------------------------------------------
+# Block types that can appear in a layer pattern:
+#   "dense"  : GQA attention + dense MLP
+#   "local"  : sliding-window GQA attention + dense MLP
+#   "moe"    : GQA attention + MoE MLP (shared + routed experts)
+#   "mamba1" : Mamba-1 selective-SSM block
+#   "mamba2" : Mamba-2 (SSD, multi-head scalar-decay) block
+#   "attn"   : attention-only block (Zamba2 shared attention)
+# ---------------------------------------------------------------------------
+BLOCK_TYPES = ("dense", "local", "moe", "mamba1", "mamba2", "attn")
 
 ARCH_IDS = ("minicpm_2b", "stablelm_12b", "gemma3_1b", "nemotron_4_340b",
             "zamba2_1p2b", "deepseek_moe_16b", "kimi_k2_1t_a32b",
@@ -17,6 +29,16 @@ ARCH_IDS = ("minicpm_2b", "stablelm_12b", "gemma3_1b", "nemotron_4_340b",
             "falcon_mamba_7b", "whisper_medium",
             # paper-reproduction models
             "transformer_tiny", "resnet20_cifar", "ncf_ml1m")
+
+SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+
+SHAPE_SPECS = {
+    # name: (seq_len, global_batch, kind)
+    "train_4k": (4_096, 256, "train"),
+    "prefill_32k": (32_768, 32, "prefill"),
+    "decode_32k": (32_768, 128, "decode"),
+    "long_500k": (524_288, 1, "decode"),
+}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,6 +107,8 @@ class ArchConfig:
     # field is carried for the configs only
     ssm_impl: str = "step"
     schedule: str = "cosine"
+    # which assigned shapes run; others map to a skip reason string
+    skip_shapes: Tuple[Tuple[str, str], ...] = ()
 
     @property
     def resolved_head_dim(self) -> int:
@@ -93,6 +117,18 @@ class ArchConfig:
     @property
     def resolved_pattern(self) -> Tuple[str, ...]:
         return self.pattern or ("dense",) * self.n_layers
+
+    @property
+    def sub_quadratic(self) -> bool:
+        p = set(self.resolved_pattern)
+        return bool(p & {"mamba1", "mamba2"}) or (p <= {"local", "dense"}
+                                                  and "local" in p)
+
+    def skip_reason(self, shape: str) -> Optional[str]:
+        for s, reason in self.skip_shapes:
+            if s == shape:
+                return reason
+        return None
 
     def _attn_params(self) -> int:
         hd = self.resolved_head_dim

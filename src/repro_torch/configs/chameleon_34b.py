@@ -10,6 +10,7 @@ CONFIG = ArchConfig(
     name="chameleon-34b", family="vlm",
     n_layers=48, d_model=8192, n_heads=64, kv_heads=8, d_ff=22016,
     vocab=65536, head_dim=128, activation="silu_glu", frontend="vq_stub",
+    skip_shapes=(("long_500k", "skip(full-attn)"),),
 )
 
 

@@ -11,6 +11,7 @@ CONFIG = ArchConfig(
     pattern=("dense_first",) + ("moe",) * 27,
     moe=MoEConfig(n_experts=64, top_k=6, n_shared=2, expert_d_ff=1408,
                   first_dense_layers=1, dense_d_ff=10944),
+    skip_shapes=(("long_500k", "skip(full-attn)"),),
 )
 
 

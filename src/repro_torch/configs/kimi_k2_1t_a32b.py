@@ -13,6 +13,7 @@ CONFIG = ArchConfig(
     pattern=("dense_first",) + ("moe",) * 60,
     moe=MoEConfig(n_experts=384, top_k=8, n_shared=1, expert_d_ff=2048,
                   first_dense_layers=1, dense_d_ff=18432),
+    skip_shapes=(("long_500k", "skip(full-attn)"),),
 )
 
 

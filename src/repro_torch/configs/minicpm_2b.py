@@ -8,6 +8,8 @@ CONFIG = ArchConfig(
     n_layers=40, d_model=2304, n_heads=36, kv_heads=36, d_ff=5760,
     vocab=122753, head_dim=64, activation="silu_glu", tie_embeddings=True,
     schedule="wsd",
+    skip_shapes=(("long_500k", "skip(full-attn): pure full attention, 500k KV "
+                  "decode needs sub-quadratic attention per assignment"),),
 )
 
 

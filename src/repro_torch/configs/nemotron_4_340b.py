@@ -8,6 +8,7 @@ CONFIG = ArchConfig(
     name="nemotron-4-340b", family="dense",
     n_layers=96, d_model=18432, n_heads=96, kv_heads=8, d_ff=73728,
     vocab=256000, head_dim=192, activation="sq_relu", norm="ln",
+    skip_shapes=(("long_500k", "skip(full-attn)"),),
 )
 
 

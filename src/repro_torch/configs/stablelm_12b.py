@@ -7,6 +7,7 @@ CONFIG = ArchConfig(
     name="stablelm-12b", family="dense",
     n_layers=40, d_model=5120, n_heads=32, kv_heads=8, d_ff=13824,
     vocab=100352, head_dim=160, activation="silu_glu",
+    skip_shapes=(("long_500k", "skip(full-attn)"),),
 )
 
 

@@ -10,6 +10,7 @@ CONFIG = ArchConfig(
     n_layers=24, d_model=1024, n_heads=16, kv_heads=16, d_ff=4096,
     vocab=51865, head_dim=64, activation="gelu", norm="ln",
     enc_dec=True, n_enc_layers=24, frontend="audio_stub",
+    skip_shapes=(("long_500k", "skip(full-attn enc-dec; 448-token decoder)"),),
 )
 
 DEC_LEN = 448  # whisper's decoder context

@@ -18,7 +18,9 @@ registered into the JAX package's registry):
 
 The kernel wrappers launch the CUDA kernel for a CUDA tensor and take the
 kernel's plain version for a CPU tensor, which is how the CPU tests run
-the two kernel engines.  ``"auto"`` resolves to ``"cuda"``.  (alpha, beta)
+the two kernel engines.  ``"auto"`` resolves to ``"cuda"``
+(``default_backend_name``); ``register_backend`` adds an engine and
+``available_backends`` lists the names.  (alpha, beta)
 travel as f32 [2] tensors (core/s2fp8.py ``as_stats``).  ``quantize`` and
 ``truncate`` take ``stats=None`` as the reference's do: exact stats of
 the tensor, reduced the engine's way.
@@ -211,22 +213,44 @@ class CudaBackend(NumericsBackend):
             out_batch=out_batch, epilogue_stats=epilogue_stats, fmt=fmt)
 
 
-BACKENDS: Dict[str, NumericsBackend] = {
-    "plain": PlainBackend(),
-    "cuda": CudaBackend(),
-    "cuda_fused": CudaBackend(stats_mode="fused", name="cuda_fused"),
-}
+BACKENDS: Dict[str, NumericsBackend] = {}
+
+
+def register_backend(name: str, backend: NumericsBackend,
+                     overwrite: bool = False) -> NumericsBackend:
+    """Add ``backend`` to the registry under ``name``; a taken name raises
+    unless ``overwrite``."""
+    if name in BACKENDS and not overwrite:
+        raise ValueError(f"backend {name!r} already registered; "
+                         f"pass overwrite=True to replace it")
+    BACKENDS[name] = backend
+    return backend
+
+
+def available_backends() -> Tuple[str, ...]:
+    return tuple(sorted(BACKENDS))
+
+
+def default_backend_name() -> str:
+    """The engine ``None`` / ``"auto"`` resolve to: the kernels."""
+    return "cuda"
 
 
 def get_backend(name: Optional[str] = None) -> NumericsBackend:
     """Resolve a backend by name; ``None``/"auto" is the ``cuda`` engine."""
     if name is None or name == "auto":
-        name = "cuda"
+        name = default_backend_name()
     try:
         return BACKENDS[name]
     except KeyError:
         raise KeyError(f"unknown numerics backend {name!r}; "
-                       f"want one of {tuple(BACKENDS)}") from None
+                       f"registered: {available_backends()}") from None
+
+
+register_backend("plain", PlainBackend())
+register_backend("cuda", CudaBackend())
+register_backend("cuda_fused", CudaBackend(stats_mode="fused",
+                                           name="cuda_fused"))
 
 
 # ---------------------------------------------------------------------------

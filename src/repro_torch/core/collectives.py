@@ -18,7 +18,9 @@ autograd engine's thread see it too).  A tuple of axes reduces over each
 in turn.
 
 Every collective of the port goes through :func:`all_reduce`,
-:func:`reduce_scatter` and :func:`all_gather`.  Inside :func:`recording`
+:func:`reduce_scatter` and :func:`all_gather`.  On a ``launch.mesh.DryMesh``
+(no process group: a dry trace's) each records itself and returns a tensor
+of its result's shape without communicating.  Inside :func:`recording`
 each call appends ``{"op", "dtype", "numel", "out_numel", "out_shape",
 "axis"}`` to the returned list, which is how the tests and ``chip_smoke.py`` count them.
 
@@ -52,7 +54,7 @@ from repro_torch.core.s2fp8 import S2FP8Tensor
 AxisName = Union[str, Tuple[str, ...]]
 
 _BOUND: List = [None]              # process-wide: autograd threads see it
-_RECORDS: List = [None]
+_RECORDS: List[List[dict]] = []      # the open recordings, outermost first
 
 
 @contextlib.contextmanager
@@ -69,25 +71,26 @@ def bind(mesh):
 
 @contextlib.contextmanager
 def recording():
-    """Record every collective issued while open; yields the list."""
-    prev = _RECORDS[0]
+    """Record every collective issued while open; yields the list.
+    Recordings nest: each open one gets every record."""
     out: List[dict] = []
-    _RECORDS[0] = out
+    _RECORDS.append(out)
     try:
         yield out
     finally:
-        _RECORDS[0] = prev
+        _RECORDS.remove(out)
 
 
 def _record(op: str, t: torch.Tensor, out_shape, axis) -> None:
-    rec = _RECORDS[0]
-    if rec is not None:
+    if _RECORDS:
         n = 1
         for d in out_shape:
             n *= d
-        rec.append({"op": op, "dtype": str(t.dtype).replace("torch.", ""),
-                    "numel": t.numel(), "out_numel": n,
-                    "out_shape": tuple(out_shape), "axis": axis})
+        entry = {"op": op, "dtype": str(t.dtype).replace("torch.", ""),
+                 "numel": t.numel(), "out_numel": n,
+                 "out_shape": tuple(out_shape), "axis": axis}
+        for rec in _RECORDS:
+            rec.append(dict(entry))
 
 
 def _axes(axis: AxisName) -> Tuple[str, ...]:
@@ -113,6 +116,8 @@ def all_reduce(t: torch.Tensor, axis: AxisName, *, op: str = "sum",
     _record("all_reduce", t, t.shape, axis)
     if not t.is_contiguous():
         t = t.contiguous()
+    if m.groups is None:
+        return t
     for a in _axes(axis):
         dist.all_reduce(t, op=_OPS[op], group=m.groups[a])
     return t
@@ -130,6 +135,8 @@ def reduce_scatter(t: torch.Tensor, axis: str, *, mesh=None
     out = torch.empty((t.shape[0] // n,) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     _record("reduce_scatter", t, out.shape, axis)
+    if m.groups is None:
+        return out
     dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
                                group=m.groups[axis])
     return out
@@ -143,6 +150,8 @@ def all_gather(t: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
     out = torch.empty((t.shape[0] * n,) + tuple(t.shape[1:]),
                       dtype=t.dtype, device=t.device)
     _record("all_gather", t, out.shape, axis)
+    if m.groups is None:
+        return out
     dist.all_gather_into_tensor(out, t.contiguous(), group=m.groups[axis])
     return out
 

@@ -108,10 +108,11 @@ class Policy:
         if self.mode not in MODES:
             raise ValueError(f"numeric mode {self.mode!r} is not ported; "
                              f"want one of {MODES}")
-        if self.backend != "auto" and self.backend not in nbackend.BACKENDS:
+        if self.backend != "auto" and \
+                self.backend not in nbackend.available_backends():
             raise ValueError(
                 f"unknown numerics backend {self.backend!r}; want one of "
-                f"{('auto',) + tuple(nbackend.BACKENDS)}")
+                f"{('auto',) + nbackend.available_backends()}")
         if self.gemm_mode not in GEMM_MODES:
             raise ValueError(f"gemm_mode {self.gemm_mode!r} is not ported; "
                              f"want one of {GEMM_MODES}")

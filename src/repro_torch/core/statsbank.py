@@ -729,8 +729,14 @@ class count_reductions(TorchDispatchMode):
 
 def cold_sites(bank: Dict[str, Any]) -> Dict[str, Dict[str, np.ndarray]]:
     """Site -> direction -> (per-layer) ``last < 0`` on the host, from one
-    device read of :func:`bookkeeping_last`."""
-    cold = (bookkeeping_last(bank) < 0).cpu().numpy()
+    device read of :func:`bookkeeping_last`.  A fake bank (a dry trace's,
+    made by :func:`init_bank` under ``FakeTensorMode``) has no values to
+    read: it has never stepped, so every site is cold, as its ``last =
+    -1`` would say."""
+    from torch._subclasses.fake_tensor import is_fake
+    mask = bookkeeping_last(bank) < 0
+    cold = (np.ones(tuple(mask.shape), bool) if is_fake(mask)
+            else mask.cpu().numpy().copy())
     out: Dict[str, Dict[str, np.ndarray]] = {}
     i = 0
     for k, e in bank.items():

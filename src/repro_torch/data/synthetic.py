@@ -13,7 +13,8 @@ their total weights, then a uniform non-successor within the bucket.
 
 Every batch is drawn from an explicit ``torch.Generator`` on the CPU and
 moved to ``device``; each task's fixed structure (the chain, the
-preference matrix, the class centers) is a function of the seed.  The
+preference matrix, the class centers) is a function of the seed.
+:class:`HostPrefetcher` generates the next batches on a thread.  The
 distributions are the reference's; JAX's random stream cannot be
 reproduced, so parity tests feed JAX batches as numpy.
 """
@@ -156,3 +157,33 @@ def cifar_batch(centers: torch.Tensor, gen: torch.Generator, batch: int,
                         generator=gen) * 0.6
     return {"images": (centers[labels] + noise).to(dev),
             "labels": labels.to(dev)}
+
+
+class HostPrefetcher:
+    """Overlaps next-batch generation with the current step (a one-worker
+    thread pool): ``get(step)`` returns ``gen_fn(step)`` and has the next
+    ``n_prefetch - 1`` steps' batches generating meanwhile.  ``gen_fn``
+    must be a function of the step alone (as the launchers' batches are:
+    a generator seeded from (seed, step)), so prefetched batches equal
+    direct generation.  Not wired into ``TrainLoop``."""
+
+    def __init__(self, gen_fn, n_prefetch: int = 2):
+        import concurrent.futures as cf
+        self._gen = gen_fn
+        self._pool = cf.ThreadPoolExecutor(max_workers=1)
+        self._pending = {}
+        self._n = n_prefetch
+
+    def get(self, step: int):
+        for s in range(step, step + self._n):
+            if s not in self._pending:
+                self._pending[s] = self._pool.submit(self._gen, s)
+        fut = self._pending.pop(step)
+        return fut.result()
+
+    def close(self) -> None:
+        """Drop the batches not taken and stop the worker."""
+        for fut in self._pending.values():
+            fut.cancel()
+        self._pending.clear()
+        self._pool.shutdown(wait=True)

@@ -8,11 +8,48 @@ for a CUDA tensor it launches its kernel or raises.  Each wrapper keeps an
 integer ``launches`` count (incremented where it launches, nowhere else)
 and each plain version a ``calls`` count, so a run can show which path
 served it (:func:`counts`, :func:`reset_counts`).
+
+Each wrapper is marked with :func:`kernel_entry` under its registry name:
+while an observer is installed (:func:`observe`, which
+``roofline/trace_cost.py`` uses to charge a call as the kernel it stands
+for), every call goes through the observer; otherwise the mark costs one
+Python call.
 """
 from __future__ import annotations
 
+import contextlib
 import functools
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, List, Tuple
+
+_OBSERVER: List = [None]
+
+
+def kernel_entry(name: str) -> Callable:
+    """Mark a wrapper as the entry point of kernel ``name``: with an
+    observer installed, a call becomes ``observer(name, fn, args,
+    kwargs)``, which must call ``fn`` and return its result."""
+    def deco(fn: Callable) -> Callable:
+        @functools.wraps(fn)
+        def entry(*args, **kwargs):
+            obs = _OBSERVER[0]
+            if obs is None:
+                return fn(*args, **kwargs)
+            return obs(name, fn, args, kwargs)
+        entry.kernel_name = name
+        return entry
+    return deco
+
+
+@contextlib.contextmanager
+def observe(observer: Callable):
+    """Route every kernel wrapper's calls through ``observer`` while open
+    (process-wide, so the autograd engine's threads see it too)."""
+    prev = _OBSERVER[0]
+    _OBSERVER[0] = observer
+    try:
+        yield observer
+    finally:
+        _OBSERVER[0] = prev
 
 
 def plain_version(fn: Callable) -> Callable:

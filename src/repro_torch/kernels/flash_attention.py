@@ -44,7 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core import s2fp8
-from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels import build, kernel_entry, plain_version, ref
 from repro_torch.kernels.s2fp8_quant import (DTYPE_ID, FMT_ID, PAYLOAD_FMT,
                                              check_cuda_operand, stats_arg)
 
@@ -176,6 +176,7 @@ def qflash_fwd_plain(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
     return out, lse.reshape(bh, sq)
 
 
+@kernel_entry("qflash_fwd")
 def qflash_fwd(qp, kp, vp, q_ab, k_ab, v_ab, *, g: int, causal=True,
                window=None, scale=None, out_ab=None, fmt="e5m2"
                ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -236,6 +237,7 @@ def qflash_bwd_plain(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
     return dq.reshape(bh, sq, d), dk.reshape(bh, sk, d), dv.reshape(bh, sk, d)
 
 
+@kernel_entry("qflash_bwd")
 def qflash_bwd(qp, kp, vp, gp, q_ab, k_ab, v_ab, g_ab, lse, delta, *,
                g: int, causal=True, window=None, scale=None
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -304,6 +306,7 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None
     return out[:, :, 0].to(q.dtype)
 
 
+@kernel_entry("flash_fwd")
 def flash_attention(q, k, v, *, causal=True, window=None) -> torch.Tensor:
     """Flash attention forward over values: q [B, H, Sq, D], k/v [B, H,
     Sk, D] (K/V heads already broadcast), all f32 or all bf16, contiguous,

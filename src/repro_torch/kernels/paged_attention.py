@@ -30,7 +30,7 @@ import math
 import torch
 
 from repro_torch.core import s2fp8
-from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels import build, kernel_entry, plain_version, ref
 from repro_torch.kernels.s2fp8_quant import (FMT_ID, check_cuda_operand,
                                              stats_arg)
 
@@ -104,6 +104,7 @@ def _inv_sqrt(hd: int) -> float:
     return float(torch.tensor(1.0) / torch.sqrt(torch.tensor(float(hd))))
 
 
+@kernel_entry("paged_decode")
 def paged_decode_attention(q, kp, vp, k_ab, v_ab, table, positions,
                            fmt: str = "e5m2"):
     """q: [B, KV, G, hd] f32; kp/vp: [n_blocks, KV, block, hd] float8 pools;

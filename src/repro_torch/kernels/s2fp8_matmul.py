@@ -49,7 +49,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels import build, kernel_entry, plain_version, ref
 from repro_torch.kernels.s2fp8_quant import (FMT_ID, PAYLOAD_FMT,
                                              check_cuda_operand, stats_arg)
 
@@ -174,6 +174,7 @@ def _check(layout: str, a: torch.Tensor, b: torch.Tensor) -> None:
     ref.gemm_dims(layout, a.shape, b.shape)
 
 
+@kernel_entry("qmatmul_nn")
 def qmatmul_nn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                out_ab: Optional[torch.Tensor] = None,
                fmt: str = "e5m2") -> torch.Tensor:
@@ -187,6 +188,7 @@ def qmatmul_nn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     return _launch("nn", a, a_ab, b, b_ab, out_ab, fmt, qmatmul_nn)
 
 
+@kernel_entry("qmatmul_nt")
 def qmatmul_nt(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                out_ab: Optional[torch.Tensor] = None,
                fmt: str = "e5m2") -> torch.Tensor:
@@ -197,6 +199,7 @@ def qmatmul_nt(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
     return _launch("nt", a, a_ab, b, b_ab, out_ab, fmt, qmatmul_nt)
 
 
+@kernel_entry("qmatmul_tn")
 def qmatmul_tn(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                out_ab: Optional[torch.Tensor] = None,
                fmt: str = "e5m2") -> torch.Tensor:
@@ -220,6 +223,7 @@ def qmatmul_batched_plain(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                                         fmt=fmt)
 
 
+@kernel_entry("qmatmul_batched")
 def qmatmul_batched(a: torch.Tensor, a_ab, b: torch.Tensor, b_ab,
                     out_ab: Optional[torch.Tensor] = None, *,
                     layout: str = "nn", out_batch: Optional[int] = None,

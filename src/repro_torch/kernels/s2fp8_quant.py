@@ -42,7 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import s2fp8
-from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels import build, kernel_entry, plain_version, ref
 
 FMT_ID = {"e5m2": 0, "e4m3": 1}
 DTYPE_ID = {torch.float32: 0, torch.bfloat16: 1}
@@ -50,7 +50,14 @@ PAYLOAD_FMT = {torch.float8_e5m2: "e5m2", torch.float8_e4m3fn: "e4m3"}
 
 
 def check_cuda_operand(t: torch.Tensor, name: str, dtypes, device=None):
-    """Device / dtype / contiguity checks shared by the kernel wrappers."""
+    """Device / dtype / contiguity checks shared by the kernel wrappers.  A
+    fake tensor (a dry trace's) holds no memory for a kernel to read, so it
+    raises here, before any pointer is taken."""
+    from torch._subclasses.fake_tensor import is_fake
+    if is_fake(t):
+        raise TypeError(f"{name} is a fake tensor: a kernel cannot launch "
+                        f"on it (trace on the CPU, where each wrapper "
+                        f"takes its plain version)")
     if t.device.type != "cuda":
         raise ValueError(f"{name} must be a CUDA tensor, got {t.device}")
     if device is not None and t.device != device:
@@ -221,6 +228,7 @@ def _stats_outputs(x: torch.Tensor):
     return scratch, out[:3], out[3:]
 
 
+@kernel_entry("stats")
 def stats_partials(x: torch.Tensor,
                    target_max: float = s2fp8.TARGET_MAX_LOG2):
     """(triplet f32 [3], ab f32 [2]) of ``x`` (f32 or bf16, any shape):
@@ -240,6 +248,7 @@ def stats_partials(x: torch.Tensor,
     return triplet, ab
 
 
+@kernel_entry("quant")
 def quant(x: torch.Tensor, fmt: str = "e5m2"):
     """(payload, ab): ``x`` quantized with its own exact stats for
     ``fmt`` — one cooperative launch (the stats, one grid barrier, the
@@ -260,6 +269,7 @@ def quant(x: torch.Tensor, fmt: str = "e5m2"):
     return out.view(s2fp8.FMT_QDTYPE[fmt]), ab
 
 
+@kernel_entry("truncate_fused")
 def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     """(out, ab): the Eq. 5 round trip of ``x`` with its own exact stats,
     out in ``x``'s dtype — one cooperative launch (the stats, one grid
@@ -280,6 +290,7 @@ def truncate_fused(x: torch.Tensor, fmt: str = "e5m2"):
     return out, ab
 
 
+@kernel_entry("quant_apply")
 def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     """8-bit payload of ``x`` (same shape, float8 dtype of ``fmt``) under
     the given (alpha, beta).  CPU tensors take the plain version."""
@@ -297,6 +308,7 @@ def quant_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     return out.view(s2fp8.FMT_QDTYPE[fmt])
 
 
+@kernel_entry("truncate_apply")
 def truncate_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     """Eq. 5 round trip of ``x`` under the given (alpha, beta), returned in
     ``x``'s dtype (f32 or bf16).  CPU tensors take the plain version."""
@@ -314,6 +326,7 @@ def truncate_apply(x: torch.Tensor, stats, fmt: str = "e5m2") -> torch.Tensor:
     return out
 
 
+@kernel_entry("dequant")
 def dequant(payload: torch.Tensor, stats) -> torch.Tensor:
     """f32 values of a float8 payload (same shape; the format is the
     payload's dtype) under the given (alpha, beta).  CPU tensors take the

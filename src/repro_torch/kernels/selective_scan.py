@@ -37,7 +37,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.kernels import build, plain_version, ref
+from repro_torch.kernels import build, kernel_entry, plain_version, ref
 from repro_torch.kernels.s2fp8_quant import check_cuda_operand
 
 MAX_STATE = 64
@@ -104,6 +104,7 @@ def _check_cuda(x, dt, bmat, cmat, a, d_skip, *more) -> None:
                          f"states, got {n}")
 
 
+@kernel_entry("selective_scan")
 def selective_scan(x, dt, bmat, cmat, a, d_skip, chunk_states: bool = False):
     """(y f32 [B, S, di], h f32 [B, di, n]) of the selective scan, per
     channel or per head (see the module docstring); every input f32 and
@@ -151,6 +152,7 @@ def selective_scan_bwd_plain(x, dt, bmat, cmat, a, d_skip, dy,
         return torch.autograd.grad(y, ins, dy.float())
 
 
+@kernel_entry("selective_scan_bwd")
 def selective_scan_bwd(x, dt, bmat, cmat, a, d_skip, dy,
                        chunks: Optional[torch.Tensor]):
     """(dx, ddt, dB, dC, dA, dD) of y = ``selective_scan(x, dt, B, C, A,

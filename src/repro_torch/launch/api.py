@@ -25,14 +25,24 @@ The PartitionSpec half (reference ``api.py:56-164``): ``param_pspecs``,
 ``cache_pspecs`` and ``batch_pspecs`` map a port tree to
 ``parallel.sharding.PartitionSpec``s by name-based rules over the leaf
 names (the nearest dict key on the leaf's path), divisibility-guarded
-against the mesh's axis sizes.  The ShapeDtypeStruct half
-(``param_struct``, ``batch_struct``, ``cache_struct``) is not ported.
+against the mesh's axis sizes.
+
+The struct half (the reference's ShapeDtypeStructs): ``param_struct``,
+``batch_struct`` and ``cache_struct`` build fake tensors
+(``FakeTensorMode``: shapes, dtypes and devices on meta storage) of the
+reference's leaves, keys and shapes, so a 1 T-parameter struct allocates
+nothing.  They share one mode (:func:`fake_mode`), and a dry trace runs
+inside it (``launch/dryrun.py``).  Token ids are int64 where the
+reference's are int32 (the port's batches are int64); the rest keep the
+reference's dtypes.
 """
 from __future__ import annotations
 
 from typing import Callable, Dict, Tuple
 
-from repro_torch.configs.base import ArchConfig
+import torch
+
+from repro_torch.configs.base import SHAPE_SPECS, ArchConfig
 from repro_torch.core.policy import Policy
 from repro_torch.models import encdec
 from repro_torch.models import transformer as tlm
@@ -182,6 +192,81 @@ def init_params(cfg: ArchConfig, seed: int = 0, device=None):
     return tlm.init_lm(cfg, seed=seed, device=device)
 
 
+# =========================================================================
+# Structs: fake tensors of the reference's shapes
+# =========================================================================
+
+_FAKE_MODE = []
+
+
+def fake_mode():
+    """The process's ``FakeTensorMode`` for structs: every struct is made
+    in it, so structs from separate calls meet in one traced step.  Real
+    tensors may enter it (module-level constants)."""
+    if not _FAKE_MODE:
+        from torch._subclasses.fake_tensor import FakeTensorMode
+        _FAKE_MODE.append(FakeTensorMode(allow_non_fake_inputs=True))
+    return _FAKE_MODE[0]
+
+
+def param_struct(cfg: ArchConfig, dtype=None):
+    """The param tree of ``cfg`` as fake tensors on the CPU (every leaf in
+    ``dtype`` when given)."""
+    with fake_mode():
+        params = init_params(cfg, seed=0, device="cpu")
+        if dtype is not None:
+            params = _map_named(lambda _, t: t.to(dtype), params)
+    return params
+
+
+def batch_struct(cfg: ArchConfig, shape_name: str):
+    """The batch of one ``SHAPE_SPECS`` cell as fake tensors: train
+    ``tokens`` / ``labels`` [gbs, seq] (enc-dec: bf16 ``enc_inputs`` [gbs,
+    seq, d], ``dec_tokens`` / ``dec_labels`` [gbs, 448]), prefill
+    ``tokens`` (enc-dec: ``enc_inputs`` and ``dec_bos`` [gbs, 1]), decode
+    ``token`` [gbs, 1]."""
+    seq, gbs, kind = SHAPE_SPECS[shape_name]
+    ids = torch.int64
+    with fake_mode():
+        def t(shape, dtype=ids):
+            return torch.empty(shape, dtype=dtype)
+        if kind == "train":
+            if cfg.enc_dec:
+                return {"enc_inputs": t((gbs, seq, cfg.d_model),
+                                        torch.bfloat16),
+                        "dec_tokens": t((gbs, WHISPER_DEC_LEN)),
+                        "dec_labels": t((gbs, WHISPER_DEC_LEN))}
+            return {"tokens": t((gbs, seq)), "labels": t((gbs, seq))}
+        if kind == "prefill":
+            if cfg.enc_dec:
+                return {"enc_inputs": t((gbs, seq, cfg.d_model),
+                                        torch.bfloat16),
+                        "dec_bos": t((gbs, 1))}
+            return {"tokens": t((gbs, seq))}
+        return {"token": t((gbs, 1))}
+
+
+def cache_struct(cfg: ArchConfig, shape_name: str, dtype=torch.bfloat16):
+    """The caches one cell's step takes, as fake tensors: prefill of a
+    decoder LM its dense caches over ``seq``, decode the same (enc-dec:
+    ``{"ekv": {"k", "v"} [L, gbs, KV, seq, hd], "caches": self-attention
+    caches over 448 tokens}``); None where the step takes none."""
+    seq, gbs, kind = SHAPE_SPECS[shape_name]
+    with fake_mode():
+        if kind != "decode":
+            if kind == "prefill" and not cfg.enc_dec:
+                return tlm.init_caches(cfg, gbs, seq, device="cpu",
+                                       dtype=dtype)
+            return None
+        if cfg.enc_dec:
+            shape = (cfg.n_layers, gbs, cfg.kv_heads, seq,
+                     cfg.resolved_head_dim)
+            ekv = {k: torch.empty(shape, dtype=dtype) for k in ("k", "v")}
+            return {"ekv": ekv, "caches": encdec.init_dec_caches(
+                cfg, gbs, WHISPER_DEC_LEN, dtype=dtype, device="cpu")}
+        return tlm.init_caches(cfg, gbs, seq, device="cpu", dtype=dtype)
+
+
 def make_loss_fn(cfg: ArchConfig) -> Callable:
     """``loss(params, batch, policy) -> (loss, metrics)``."""
     if cfg.enc_dec:
@@ -196,18 +281,19 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     return loss
 
 
-def make_train_step(cfg: ArchConfig, policy: Policy, lr: float = 1e-4
-                    ) -> Tuple[Callable, optimizers.Optimizer]:
+def make_train_step(cfg: ArchConfig, policy: Policy, lr: float = 1e-4,
+                    **step_kw) -> Tuple[Callable, optimizers.Optimizer]:
     """(train step, AdamW) as the reference's: weight decay 0.01, the
     config's WSD or cosine schedule over 10,000 steps with 100 of warmup;
     the step is ``training.trainer.make_train_step``'s (params, opt_state,
-    batch, step) -> (params, opt_state, metrics)."""
+    batch, step) -> (params, opt_state, metrics).  ``step_kw`` go to it
+    (``stats``, ``mesh``, ``param_sharding``, ...)."""
     from repro_torch.training.trainer import make_train_step as mk
     opt = optimizers.adamw(weight_decay=0.01)
     sched = schedules.make_schedule(
         cfg.schedule if cfg.schedule in ("wsd", "cosine") else "cosine",
         lr, total_steps=10_000, warmup=100)
-    return mk(make_loss_fn(cfg), opt, sched, policy), opt
+    return mk(make_loss_fn(cfg), opt, sched, policy, **step_kw), opt
 
 
 def make_prefill_step(cfg: ArchConfig, policy: Policy) -> Callable:

@@ -158,15 +158,14 @@ def fsdp_shards_of(axis_sizes: Dict[str, int]) -> int:
 
 
 def arch_state(arch: str):
-    """(params, AdamW state) of ``arch`` at full size as fake tensors:
-    shapes and dtypes on meta storage, no memory."""
-    from torch._subclasses.fake_tensor import FakeTensorMode
+    """(params, AdamW state) of ``arch`` at full size as fake tensors
+    (``api.param_struct``): shapes and dtypes on meta storage, no
+    memory."""
     from repro_torch.configs.base import get_config
     from repro_torch.launch import api
     from repro_torch.optim import optimizers
-    cfg = get_config(arch)
-    with FakeTensorMode():
-        params = api.init_params(cfg, seed=0, device="cpu")
+    params = api.param_struct(get_config(arch))
+    with api.fake_mode():
         opt = optimizers.adamw().init(params)
     return params, opt
 

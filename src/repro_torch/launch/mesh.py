@@ -112,12 +112,41 @@ class Mesh:
         return f"Mesh({self.shape}, rank {self.rank}, coords {self.coords})"
 
 
-def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+class DryMesh:
+    """A mesh's axis names and sizes with no process group behind them, for
+    dry traces (``launch/dryrun.py``): this process stands for rank 0
+    (coordinate 0 on every axis), and ``core/collectives.py``'s
+    primitives record each collective and return a tensor of its result's
+    shape without communicating (``groups`` is None)."""
+
+    groups = None
+
+    def __init__(self, dims: Sequence[int], axis_names: Sequence[str],
+                 device="cpu"):
+        dims = tuple(int(d) for d in dims)
+        self.axis_names = tuple(axis_names)
+        if len(dims) != len(self.axis_names):
+            raise ValueError(f"{len(dims)} dims for axes {self.axis_names}")
+        self.shape: Dict[str, int] = dict(zip(self.axis_names, dims))
+        self.coords = {a: 0 for a in self.axis_names}
+        self.rank = 0
+        self.size = 1
+        for d in dims:
+            self.size *= d
+        self.device = torch.device(device)
+        self.device_type = self.device.type
+
+    def __repr__(self):
+        return f"DryMesh({self.shape})"
+
+
+def make_production_mesh(*, multi_pod: bool = False, dry: bool = False):
     """16 x 16 single pod (256 ranks) or 2 x 16 x 16 two-pod (512); raises
-    unless the world has that many ranks."""
+    unless the world has that many ranks.  ``dry=True``: a
+    :class:`DryMesh` of those sizes (no process group)."""
     shape = (2, 16, 16) if multi_pod else (16, 16)
     axes = ("pod", "data", "model") if multi_pod else ("data", "model")
-    return Mesh(shape, axes)
+    return DryMesh(shape, axes) if dry else Mesh(shape, axes)
 
 
 def make_host_mesh() -> Mesh:

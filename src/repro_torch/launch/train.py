@@ -156,7 +156,7 @@ def parse_args(argv=None) -> argparse.Namespace:
                     help="attention above 2048 tokens (default: the "
                          "config's)")
     ap.add_argument("--backend", default="auto",
-                    choices=("auto",) + tuple(nbackend.BACKENDS),
+                    choices=("auto",) + nbackend.available_backends(),
                     help="numerics engine: 'cuda' (kernels, torch stats "
                          "reductions), 'cuda_fused' (kernels, stats "
                          "kernels), 'plain'; 'auto' = cuda")

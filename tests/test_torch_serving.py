@@ -509,6 +509,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         f.name for f in files}
     # and the launchers' model API
     assert "api.py" in {f.name for f in files}
+    # and the dry run, the cost counter, the doctor and the examples
+    assert {"dryrun.py", "trace_cost.py", "analysis.py", "quickstart.py",
+            "serve_lm.py", "train_100m_e2e.py"} <= {f.name for f in files}
     offenders = [str(f) for f in files if pat.search(f.read_text())]
     assert offenders == []
 
