@@ -25,7 +25,8 @@ the batch norms' running ``mean`` / ``var``) and
 ``repro.models.ncf.init_ncf``'s tree (the tables, ``mlp`` a list).  Lists
 stay lists and dicts keep their keys.  The two frameworks draw
 different random numbers from the same seed, so parity tests start both
-sides from these converted params.
+sides from these converted params; :func:`placed_from_jax` gives a mesh
+rank its part of them, placed by ``param_pspecs``.
 
 The whole train state crosses too, in both directions, leaf by leaf in
 the order ``jax.tree_util.tree_flatten`` gives (dict entries by sorted
@@ -60,6 +61,17 @@ def params_from_jax(tree: Any, device=None) -> Any:
         return torch.as_tensor(np.array(node, dtype=np.float32), device=dev)
 
     return conv(tree)
+
+
+def placed_from_jax(tree: Any, mesh, specs=None, device=None) -> Any:
+    """This rank's part of :func:`params_from_jax`'s tree, placed as
+    ``launch.api.param_pspecs`` places it on ``mesh``
+    (``parallel.sharding.place_params``; ``specs`` overrides the spec
+    tree), so a mesh run starts from the same reference params as a
+    meshless one."""
+    from repro_torch.parallel import sharding
+    return sharding.place_params(params_from_jax(tree, device), mesh,
+                                 specs=specs)
 
 
 def jax_leaves(tree) -> List[Any]:

@@ -59,6 +59,37 @@ def all_reduce_stats_partials(partials, axis_name):
     return sc[0].float(), mx[0].float(), sc[1].float()
 
 
+def split_stats_partials(partials, axis):
+    """Combine the (log_sum, log_max, count) partials of the ranks' slices
+    of a tensor split over the mesh axis ``axis`` (the model axis) into
+    the whole tensor's: every rank's triplet gathered in f64 and summed
+    in axis order, the maxes maxed, so every rank ends with the same bits
+    whatever the collective library's reduction order.  Back in f32, as
+    the partials went in."""
+    from repro_torch.core import collectives
+    log_sum, log_max, count = partials
+    row = torch.stack([log_sum.double(), count.double(),
+                       log_max.double()]).reshape(1, 3)
+    rows = collectives.all_gather(row, axis)
+    s_, c_, m_ = rows[0, 0], rows[0, 1], rows[0, 2]
+    for i in range(1, rows.shape[0]):
+        s_, c_ = s_ + rows[i, 0], c_ + rows[i, 1]
+        m_ = torch.maximum(m_, rows[i, 2])
+    return s_.float(), m_.float(), c_.float()
+
+
+def split_stats(be, x: torch.Tensor, fmt: str, axis: Optional[str]
+                ) -> torch.Tensor:
+    """Exact (alpha, beta) of ``x``'s whole tensor: its own when ``axis``
+    is None, else of its slices over ``axis`` (``split_stats_partials``)."""
+    if axis is None:
+        return be.compute_stats(x, fmt=fmt)
+    alpha, beta = s2fp8.stats_from_reduction(
+        *split_stats_partials(be.compute_stats_partials(x), axis),
+        s2fp8.FMT_TARGET_MAX[fmt])
+    return torch.stack([alpha, beta])
+
+
 class NumericsBackend:
     """Interface every engine implements.  ``stats`` is (alpha, beta) as an
     f32 [2] tensor or a pair: serving quantizes with frozen or calibrated
@@ -256,6 +287,28 @@ register_backend("cuda_fused", CudaBackend(stats_mode="fused",
 # ---------------------------------------------------------------------------
 # differentiable exact-stats truncation per engine (reference backend.py:555)
 # ---------------------------------------------------------------------------
+
+@functools.lru_cache(maxsize=None)
+def bidir_truncate_split(backend: Optional[str], fmt: str, axis: str):
+    """:func:`bidir_truncate` of a tensor split over the mesh axis
+    ``axis``: the forward value and the cotangent each truncated with the
+    whole tensor's exact stats (``split_stats``)."""
+
+    def trunc(x):
+        be = get_backend(backend)
+        return be.truncate(x, stats=split_stats(be, x, fmt, axis), fmt=fmt)
+
+    class _BidirSplit(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, x):
+            return trunc(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            return trunc(g)
+
+    return _BidirSplit.apply
+
 
 @functools.lru_cache(maxsize=None)
 def bidir_truncate(backend: Optional[str] = None, fmt: str = "e5m2"):

@@ -69,6 +69,11 @@ def bind(mesh):
         _BOUND[0] = prev
 
 
+def bound():
+    """The mesh bound by :func:`bind`, or None."""
+    return _BOUND[0]
+
+
 @contextlib.contextmanager
 def recording():
     """Record every collective issued while open; yields the list.
@@ -108,6 +113,23 @@ def _mesh(mesh):
 _OPS = {"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}
 
 
+def _dry_fill(fn) -> None:
+    """Give a dry collective's result on real tensors defined values
+    (``fn`` writes them), out of sight of any dispatch mode: a dry trace
+    counts the same on fake and on real tensors, and a real run on a
+    ``DryMesh`` (rank 0 of a mesh on one card) computes on finite
+    numbers.  The callers leave fake tensors, which hold no data, as they
+    are."""
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        fn()
+
+
+def _is_fake(t: torch.Tensor) -> bool:
+    from torch._subclasses.fake_tensor import is_fake
+    return is_fake(t) or t.device.type == "meta"
+
+
 def all_reduce(t: torch.Tensor, axis: AxisName, *, op: str = "sum",
                mesh=None) -> torch.Tensor:
     """``op``-reduce ``t`` over the axis (or each axis of a tuple, in
@@ -136,6 +158,9 @@ def reduce_scatter(t: torch.Tensor, axis: str, *, mesh=None
                       dtype=t.dtype, device=t.device)
     _record("reduce_scatter", t, out.shape, axis)
     if m.groups is None:
+        if not _is_fake(t):
+            # rank 0's slice of its own operand
+            _dry_fill(lambda: out.copy_(t[:out.shape[0]]))
         return out
     dist.reduce_scatter_tensor(out, t.contiguous(), op=dist.ReduceOp.SUM,
                                group=m.groups[axis])
@@ -151,6 +176,10 @@ def all_gather(t: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
                       dtype=t.dtype, device=t.device)
     _record("all_gather", t, out.shape, axis)
     if m.groups is None:
+        if not _is_fake(t):
+            # every rank's chunk a copy of this one's
+            _dry_fill(lambda: out.view((n,) + tuple(t.shape)).copy_(
+                t.unsqueeze(0).expand((n,) + tuple(t.shape))))
         return out
     dist.all_gather_into_tensor(out, t.contiguous(), group=m.groups[axis])
     return out
@@ -485,3 +514,147 @@ def compressed_grad_sync(grads, mesh, axis: str = "data",
         return out.reshape(g.shape).to(g.dtype)
 
     return _map(sync_leaf, grads)
+
+
+# ---------------------------------------------------------------------------
+# the model axis: tensor-parallel primitives
+# ---------------------------------------------------------------------------
+
+class TpSpec(NamedTuple):
+    """How one contraction's operands and result lie over a mesh axis
+    (the model axis; ``models/blocks.py`` builds them from the logical
+    axes' splits).  ``a``, ``b``: ``"full"`` (every rank holds the whole
+    operand) or ``"split"`` (the rank's slice of one of its dims);
+    ``out``: ``"full"``, ``"split"``, or ``"partial"`` (a split contracted
+    dim: each rank holds a partial sum, all-reduced in f32 before any
+    truncation).  ``b_pick``: the index along ``b``'s dim 1 (a grouped
+    K/V head) that the rank's query heads attend with, taken from the
+    whole ``b`` after its truncation (GQA where the K/V heads do not
+    split but the query heads do).
+
+    A split tensor's S2FP8 stats are the whole tensor's (its partials
+    combined over ``axis``); a cotangent follows :meth:`grad_state`."""
+    axis: str
+    a: str = "full"
+    b: str = "split"
+    out: str = "split"
+    b_pick: Optional[int] = None
+
+    def state(self, which: str) -> str:
+        """``a``, ``b``, ``out`` (the value), or ``g`` (the cotangent of
+        the output: split where the output is, whole after a partial
+        output's all-reduce)."""
+        if which == "g":
+            return "split" if self.out == "split" else "full"
+        return getattr(self, which)
+
+    def grad_state(self, which: str) -> str:
+        """The raw cotangent of operand ``which``: ``"partial"`` when the
+        operand is whole and the output split (a sum over the split
+        dim), ``"split"`` when the operand is, else ``"full"``."""
+        st = getattr(self, which)
+        if st == "split":
+            return "split"
+        return "partial" if self.out == "split" else "full"
+
+    def split_axis(self, state: str) -> Optional[str]:
+        """``axis`` for a split state (its stats take the whole tensor's),
+        else None."""
+        return self.axis if state == "split" else None
+
+
+class _CopyIn(torch.autograd.Function):
+    """Identity forward, all-reduce backward: a whole operand entering a
+    contraction whose other operand is split gets its cotangent summed
+    over the axis."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        ctx.axis, ctx.mesh = axis, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g.contiguous().clone(), ctx.axis,
+                          mesh=ctx.mesh), None, None
+
+
+class _ReduceOut(torch.autograd.Function):
+    """All-reduce forward (partial sums over the axis), identity
+    backward (the whole cotangent reaches every rank's partial)."""
+
+    @staticmethod
+    def forward(ctx, x, axis, mesh):
+        return all_reduce(x.contiguous().clone(), axis, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_in(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """``x`` unchanged; its cotangent all-reduced over ``axis``."""
+    return _CopyIn.apply(x, axis, mesh)
+
+
+def reduce_out(x: torch.Tensor, axis: str, *, mesh=None) -> torch.Tensor:
+    """Sum ``x`` over ``axis`` (every rank gets the sum); the cotangent
+    passes unchanged."""
+    return _ReduceOut.apply(x, axis, mesh)
+
+
+def gather_dim(x: torch.Tensor, axis: str, dim: int, *, mesh=None
+               ) -> torch.Tensor:
+    """Concatenate every rank's ``x`` along ``dim`` in axis order (no
+    autograd)."""
+    if dim == 0:
+        return all_gather(x.contiguous(), axis, mesh=mesh)
+    full = all_gather(x.movedim(dim, 0).contiguous(), axis, mesh=mesh)
+    return full.movedim(0, dim).contiguous()
+
+
+def scatter_dim(g: torch.Tensor, axis: str, dim: int, *, mesh=None
+                ) -> torch.Tensor:
+    """Sum ``g`` over ``axis`` and keep this rank's slice of ``dim`` (no
+    autograd)."""
+    if dim == 0:
+        return reduce_scatter(g, axis, mesh=mesh)
+    out = reduce_scatter(g.movedim(dim, 0).contiguous(), axis, mesh=mesh)
+    return out.movedim(0, dim).contiguous()
+
+
+class _GatherDim(torch.autograd.Function):
+    """A stored slice gathered along ``dim`` over ``axis`` for use.
+    Backward ``"reduce_scatter"``: the ranks of ``axis`` hold partial
+    gradients (their rows of the batch): summed over ``lead`` first, then
+    reduce-scattered back to the slice (f32).  ``"slice"``: the use is
+    replicated over ``axis``, every rank holds the whole gradient, and
+    keeps its own slice."""
+
+    @staticmethod
+    def forward(ctx, x, axis, dim, grad, lead, mesh):
+        ctx.meta = (axis, dim, grad, lead, mesh, x.shape[dim], x.dtype)
+        return gather_dim(x.detach(), axis, dim, mesh=mesh)
+
+    @staticmethod
+    def backward(ctx, g):
+        axis, dim, grad, lead, mesh, n, dtype = ctx.meta
+        m = _mesh(mesh)
+        if grad == "slice":
+            c = m.coords[axis]
+            return (g.narrow(dim, c * n, n).contiguous(), None, None, None,
+                    None, None)
+        g = g.float()
+        if lead:
+            g = all_reduce(g.contiguous().clone(), lead, mesh=mesh)
+        return (scatter_dim(g, axis, dim, mesh=mesh).to(dtype), None, None,
+                None, None, None)
+
+
+def gather_for_use(x: torch.Tensor, axis: str, dim: int, grad: str,
+                   lead: Tuple[str, ...] = (), *, mesh=None
+                   ) -> torch.Tensor:
+    """Differentiable :class:`_GatherDim`: the whole of ``dim`` from this
+    rank's slice; the gradient comes back by ``grad`` (``"slice"`` or
+    ``"reduce_scatter"``)."""
+    return _GatherDim.apply(x, axis, dim, grad, tuple(lead), mesh)

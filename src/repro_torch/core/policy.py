@@ -75,16 +75,20 @@ OUTPUT_DTYPES = {None: torch.float32, "bfloat16": torch.bfloat16}
 
 
 @functools.lru_cache(maxsize=None)
-def _s2fp8_wrap(backend: Optional[str], fmt: str) -> Callable:
+def _s2fp8_wrap(backend: Optional[str], fmt: str,
+                split: Optional[str] = None) -> Callable:
     """Session-aware truncation of the s2fp8 modes (reference
     ``_s2fp8_wrap``): under a StatsBank session the site's stats (site
-    kind ``t``), else exact per-call stats through ``bidir_truncate``."""
-    exact = nbackend.bidir_truncate(backend, fmt)
+    kind ``t``), else exact per-call stats through ``bidir_truncate``.
+    ``split``: the tensor is the rank's slice of one split over that mesh
+    axis, and its stats (forward and cotangent) are the whole tensor's."""
+    exact = (nbackend.bidir_truncate(backend, fmt) if split is None
+             else nbackend.bidir_truncate_split(backend, fmt, split))
 
     def wrap(x):
         sess = statsbank.current_session()
         if sess is not None:
-            return sess.truncate(x, fmt=fmt, backend=backend)
+            return sess.truncate(x, fmt=fmt, backend=backend, split=split)
         return exact(x)
 
     return wrap
@@ -166,22 +170,34 @@ class Policy:
             return _bf16_cast
         return _identity
 
-    def _wrap_out(self, y: torch.Tensor) -> torch.Tensor:
+    def _wrap_split(self, x: torch.Tensor, split: Optional[str]
+                    ) -> torch.Tensor:
+        """:meth:`_wrap` of a tensor split over the mesh axis ``split``
+        (None: a whole one): the s2fp8 modes take the whole tensor's
+        stats; the other modes' wraps are elementwise without stats."""
+        if split is not None and self.mode in S2FP8_MODES:
+            return _s2fp8_wrap(self.backend, self._fmt, split)(x)
+        return self._wrap(x)
+
+    def _wrap_out(self, y: torch.Tensor, split: Optional[str] = None
+                  ) -> torch.Tensor:
         """The chain's output truncation: only under ``truncate_output``
         and only in the truncating modes (bf16 and fp32 keep the f32
         result)."""
         if self.truncate_output and self.mode in TRUNCATING_MODES:
-            return self._wrap(y)
+            return self._wrap_split(y, split)
         return y
 
-    def truncate(self, x: torch.Tensor) -> torch.Tensor:
+    def truncate(self, x: torch.Tensor, split: Optional[str] = None
+                 ) -> torch.Tensor:
         """Tensor-level truncation at op boundaries (site kind ``t``),
-        bidirectional, in ``x``'s dtype.  An FSDP payload operand
-        (``collectives.FSDPPayloadParam``) is not a GEMM B slot: it takes
-        the f32 gather first."""
+        bidirectional, in ``x``'s dtype; ``split``: ``x`` is the rank's
+        slice of a tensor split over that mesh axis (the whole tensor's
+        stats).  An FSDP payload operand (``collectives.FSDPPayloadParam``)
+        is not a GEMM B slot: it takes the f32 gather first."""
         if isinstance(x, collectives_mod.FSDPPayloadParam):
             x = x.full()
-        return self._wrap(x)
+        return self._wrap_split(x, split)
 
     def _qdot_out(self, y: torch.Tensor, dtype) -> torch.Tensor:
         """Round the payload path's f32 result through ``accum_dtype`` to
@@ -198,12 +214,51 @@ class Policy:
              else _NarrowAccum.apply(fn, self.accum_dtype, *xs))
         return self._wrap_out(y).to(_promoted(operands))
 
-    def dot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    def _dense_tp(self, fn, a, b, tp) -> torch.Tensor:
+        """The chain of a contraction split over the model axis
+        (``collectives.TpSpec``): split operands and outputs truncated with
+        the whole tensor's stats; a whole operand beside a split output
+        enters through ``copy_in`` after its truncation (its cotangent, a
+        partial sum, is all-reduced before the truncation's backward), and
+        ``b_pick`` takes its K/V head after that; a partial output is
+        all-reduced in f32 before the output truncation."""
+        wa = self._wrap_split(a, tp.split_axis(tp.a)).float()
+        wb = self._wrap_split(b, tp.split_axis(tp.b)).float()
+        if tp.out == "split":
+            if tp.a == "full":
+                wa = collectives_mod.copy_in(wa, tp.axis)
+            if tp.b == "full":
+                wb = collectives_mod.copy_in(wb, tp.axis)
+        if tp.b_pick is not None:
+            wb = wb[:, tp.b_pick:tp.b_pick + 1]
+        if tp.out == "partial":
+            y = collectives_mod.reduce_out(fn(wa, wb), tp.axis)
+            y = y.to(self.accum_dtype)
+        elif self.accum_dtype == torch.float32:
+            y = fn(wa, wb)
+        else:
+            y = _NarrowAccum.apply(fn, self.accum_dtype, wa, wb)
+        return self._wrap_out(y, tp.split_axis(tp.out)).to(
+            _promoted((a, b)))
+
+    def dot(self, a: torch.Tensor, b: torch.Tensor,
+            tp: Optional[collectives_mod.TpSpec] = None) -> torch.Tensor:
         """``jnp.dot`` semantics (a's last axis against b's second to last,
         or b's only axis).  Payload-domain when ``b`` is a 2-D ``[K, N]``
         on the payload path, else the chain.  An FSDP payload operand
         streams into ``qdot_train`` as a gathered 1-byte payload where the
-        payload path takes it, else it takes the f32 gather."""
+        payload path takes it, else it takes the f32 gather.  ``tp``: the
+        rank's part of a contraction split over the model axis
+        (``collectives.TpSpec``: column-parallel ``a`` whole, ``b`` and the
+        output split; row-parallel ``a`` and ``b`` split, the output a
+        partial sum)."""
+        if tp is not None:
+            if self._qdot_routable(a, b):
+                y = qdot_mod.qdot_train(a, b, backend=self.backend,
+                                        fmt=self._fmt, tp=tp)
+                return self._qdot_out(y, torch.promote_types(a.dtype,
+                                                             b.dtype))
+            return self._dense_tp(_jnp_dot, a, b, tp)
         if isinstance(b, collectives_mod.FSDPPayloadParam):
             if self._qdot_routable(a, b):
                 y = qdot_mod.qdot_train(a, b, backend=self.backend,
@@ -217,7 +272,9 @@ class Policy:
         return self._dense(_jnp_dot, a, b)
 
     def dot_general(self, a: torch.Tensor, b: torch.Tensor,
-                    dimension_numbers) -> torch.Tensor:
+                    dimension_numbers,
+                    tp: Optional[collectives_mod.TpSpec] = None
+                    ) -> torch.Tensor:
         """``lax.dot_general`` semantics (output ``batch + a_free +
         b_free``).  On the payload path every contraction the planner maps
         (``backend.plan_qdot_general``: dense, NT/TN, batched) runs
@@ -230,18 +287,34 @@ class Policy:
                 if self.uses_payload_gemm else None)
         if plan is not None:
             y = qdot_mod.qdot_train(a, b, plan=plan, backend=self.backend,
-                                    fmt=self._fmt)
+                                    fmt=self._fmt, tp=tp)
             return self._qdot_out(y, torch.promote_types(a.dtype, b.dtype))
         spec = _dot_general_spec(a.dim(), b.dim(), dimension_numbers)
+        if tp is not None:
+            return self._dense_tp(lambda x, y: torch.einsum(spec, x, y), a,
+                                  b, tp)
         return self._dense(lambda x, y: torch.einsum(spec, x, y), a, b)
 
-    def einsum(self, spec: str, *operands) -> torch.Tensor:
+    def einsum(self, spec: str, *operands,
+               tp: Optional[collectives_mod.TpSpec] = None) -> torch.Tensor:
         """Two-operand contractions the planner maps (``backend.
         plan_einsum``: dense, batched ``ecd,edf->ecf``, broadcast
         ``becd,edf->becf``, attention) run payload-domain on the payload
-        path; every other contraction runs the chain."""
+        path; every other contraction runs the chain.  ``tp`` as in
+        :meth:`dot` (two operands)."""
         operands = tuple(o.full() if isinstance(
             o, collectives_mod.FSDPPayloadParam) else o for o in operands)
+        if tp is not None:
+            a, b = operands
+            if self.uses_payload_gemm and tp.b_pick is None:
+                plan = nbackend.plan_einsum(spec, a.shape, b.shape)
+                if plan is not None:
+                    y = qdot_mod.qdot_train(a, b, plan=plan,
+                                            backend=self.backend,
+                                            fmt=self._fmt, tp=tp)
+                    return self._qdot_out(y, _promoted(operands))
+            return self._dense_tp(lambda x, y: torch.einsum(spec, x, y), a,
+                                  b, tp)
         if len(operands) == 2 and self.uses_payload_gemm:
             plan = nbackend.plan_einsum(spec, operands[0].shape,
                                         operands[1].shape)
@@ -310,7 +383,9 @@ class Policy:
         return self._qdot_out(y, x.dtype)
 
     def flash_attention(self, q, k, v, *, causal: bool = True,
-                        window=None) -> torch.Tensor:
+                        window=None,
+                        tp: Optional[collectives_mod.TpSpec] = None
+                        ) -> torch.Tensor:
         """q ``[B, KV, G, Sq, d]``; k, v ``[B, KV, Sk, d]``.  The payload
         path runs the payload flash node (``qdot.qflash_attention``: the
         flash kernels); every other policy truncates q, k and v at their
@@ -322,14 +397,34 @@ class Policy:
             y = qdot_mod.qflash_attention(q, k, v, causal=causal,
                                           window=window,
                                           backend=self.backend,
-                                          fmt=self._fmt)
+                                          fmt=self._fmt, tp=tp)
             dt = torch.promote_types(torch.promote_types(q.dtype, k.dtype),
                                      v.dtype)
             return self._qdot_out(y, dt)
         from repro_torch.models.flash import flash_attention as _fa
-        q, k, v = self.truncate(q), self.truncate(k), self.truncate(v)
+        q, k, v = self.split_qkv(q, k, v, tp)
         window = None if window is None else int(window)
-        return self.truncate(_fa(q, k, v, causal, window))
+        return self.truncate(_fa(q, k, v, causal, window),
+                             None if tp is None else tp.axis)
+
+    def split_qkv(self, q, k, v, tp):
+        """q, k and v truncated at their sites for an attention whose
+        contractions run outside the policy (the flash and chunked
+        paths): under a model split (``tp``), split tensors with the whole
+        tensor's stats, and a whole K/V through ``copy_in`` (its cotangent
+        summed over the axis) and ``b_pick``."""
+        if tp is None:
+            return self.truncate(q), self.truncate(k), self.truncate(v)
+        kvs = tp.split_axis(tp.b)
+        q = self.truncate(q, tp.split_axis(tp.a))
+        k, v = self.truncate(k, kvs), self.truncate(v, kvs)
+        if tp.b == "full":
+            k = collectives_mod.copy_in(k, tp.axis)
+            v = collectives_mod.copy_in(v, tp.axis)
+        if tp.b_pick is not None:
+            i = tp.b_pick
+            k, v = k[:, i:i + 1], v[:, i:i + 1]
+        return q, k, v
 
     def qdot(self, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         """Forward-only payload GEMM of 2-D ``a [M, K]`` and ``b [K, N]``

@@ -143,16 +143,21 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
                   *, ema_decay: float = 0.0,
                   target_max: float = s2fp8.TARGET_MAX_LOG2,
                   backend: Optional[str] = None,
-                  axis_name=None) -> Dict[str, torch.Tensor]:
+                  axis_name=None, split=None) -> Dict[str, torch.Tensor]:
     """One refresh: raw moments of ``x`` folded into the EMAs, (alpha, beta)
-    re-derived — the reference's rule, op for op.  With ``axis_name`` the
-    (sum, max, count) partials are all-reduced over those mesh axes first
-    (``backend.all_reduce_stats_partials``).  A state that carries the
+    re-derived — the reference's rule, op for op.  ``split``: ``x`` is the
+    rank's slice of a tensor split over that mesh axis (the model axis),
+    whose partials combine first (``backend.split_stats_partials``).
+    With ``axis_name`` the (sum, max, count) partials are then all-reduced
+    over those mesh axes (``backend.all_reduce_stats_partials``).  A state that carries the
     telemetry leaves gets its health metrics recomputed, measured against
     its pre-refresh stats (``obs_metrics.health_update``), in the payload
     format that ``target_max`` belongs to."""
     be = nbackend.get_backend(backend)
     log_sum, log_max, count = be.compute_stats_partials(x)
+    if split is not None:
+        log_sum, log_max, count = nbackend.split_stats_partials(
+            (log_sum, log_max, count), split)
     if axis_name is not None:
         log_sum, log_max, count = nbackend.all_reduce_stats_partials(
             (log_sum, log_max, count), axis_name)
@@ -175,20 +180,30 @@ def refresh_state(x: torch.Tensor, state: Dict[str, torch.Tensor], step_f,
         new.update(obs_metrics.health_update(
             x, state, new, mu_t, m_t, has, first, count,
             fmt=obs_metrics.resolve_fmt(target_max), backend=backend,
-            axis_name=axis_name))
+            axis_name=_with_split(axis_name, split)))
     return new
+
+
+def _with_split(axis_name, split):
+    """The mesh axes a sharded tensor's sums run over: ``split`` (the model
+    axis) then ``axis_name``'s."""
+    if split is None:
+        return axis_name
+    rest = () if axis_name is None else (
+        (axis_name,) if isinstance(axis_name, str) else tuple(axis_name))
+    return (split,) + rest
 
 
 def maybe_refresh(x: torch.Tensor, state: Dict[str, torch.Tensor],
                   need: bool, step_f, cfg: StatsConfig, target_max: float,
-                  backend: Optional[str] = None):
+                  backend: Optional[str] = None, split=None):
     """(ab, new_state or None): refresh from ``x`` when ``need`` (a host
     bool), else the carried (alpha, beta) — refresh-then-use on refresh
     steps, no reduction otherwise."""
     if need:
         new = refresh_state(x, state, step_f, ema_decay=cfg.ema_decay,
                             target_max=target_max, backend=backend,
-                            axis_name=cfg.axis_name)
+                            axis_name=cfg.axis_name, split=split)
         return torch.stack([new["alpha"], new["beta"]]), new
     return torch.stack([state["alpha"], state["beta"]]), None
 
@@ -238,8 +253,9 @@ class Site:
         return ab if self.layer is None else ab[self.layer]
 
     def refresh(self, direction: str, x: torch.Tensor, fmt: str,
-                backend: Optional[str] = None) -> torch.Tensor:
-        return self.session.refresh(self, direction, x, fmt, backend)
+                backend: Optional[str] = None, split=None) -> torch.Tensor:
+        return self.session.refresh(self, direction, x, fmt, backend,
+                                    split=split)
 
     def need(self, direction: str) -> bool:
         return self.session.need(self, direction)
@@ -249,10 +265,13 @@ class Site:
         return torch.stack([st["alpha"], st["beta"]])
 
     def stats(self, direction: str, x: torch.Tensor, fmt: str,
-              backend: Optional[str] = None) -> torch.Tensor:
+              backend: Optional[str] = None, split=None) -> torch.Tensor:
         """The (alpha, beta) to use for ``x``: refreshed from it when due
-        (refresh-then-use), else carried (training sessions)."""
-        return self.session.stats(self, direction, x, fmt, backend)
+        (refresh-then-use), else carried (training sessions).  ``split``:
+        ``x`` is the rank's slice of a tensor split over that mesh axis;
+        a refresh takes the whole tensor's stats."""
+        return self.session.stats(self, direction, x, fmt, backend,
+                                  split=split)
 
 
 class Session:
@@ -319,6 +338,18 @@ class Session:
             self._segment = None
             self._counters = saved
 
+    @contextlib.contextmanager
+    def shared_ctx(self):
+        """Mint the same unsegmented keys on every entry: the counters are
+        restored on exit, so each pass of a layer loop run inside it
+        visits the same sites (the reference's scan body traced once
+        outside any segment)."""
+        saved = dict(self._counters)
+        try:
+            yield
+        finally:
+            self._counters = saved
+
     def site(self, kind: str) -> Site:
         key = self._site_key(kind)
         self._require(key, kind)
@@ -337,7 +368,7 @@ class Session:
                 f"match this model; calibrate or export it again")
 
     def truncate(self, x: torch.Tensor, *, fmt: str = "e5m2",
-                 backend: Optional[str] = None) -> torch.Tensor:
+                 backend: Optional[str] = None, split=None) -> torch.Tensor:
         raise NotImplementedError
 
     def operand_stats(self, x: torch.Tensor, *, fmt: str = "e5m2"
@@ -361,7 +392,7 @@ class FrozenSession(Session):
         super().__init__(frozen_bank.bank, StatsConfig())
         self.frozen_bank = frozen_bank
 
-    def truncate(self, x, *, fmt="e5m2", backend=None):
+    def truncate(self, x, *, fmt="e5m2", backend=None, split=None):
         ab = self.site("t").frozen("fwd", fmt)
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
 
@@ -401,12 +432,12 @@ class CalibratingSession(Session):
         self.bank[key] = entry
 
     def refresh(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
-                backend: Optional[str] = None) -> torch.Tensor:
+                backend: Optional[str] = None, split=None) -> torch.Tensor:
         full = self.bank[site.key][direction]
         new = refresh_state(x, self.state(site, direction), 0.0,
                             ema_decay=self.cfg.ema_decay,
                             target_max=s2fp8.FMT_TARGET_MAX[fmt],
-                            backend=backend)
+                            backend=backend, split=split)
         for f in new:
             if site.layer is None:
                 full[f] = new[f]
@@ -418,11 +449,11 @@ class CalibratingSession(Session):
         return True
 
     def stats(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
-              backend: Optional[str] = None) -> torch.Tensor:
-        return self.refresh(site, direction, x, fmt, backend)
+              backend: Optional[str] = None, split=None) -> torch.Tensor:
+        return self.refresh(site, direction, x, fmt, backend, split=split)
 
-    def truncate(self, x, *, fmt="e5m2", backend=None):
-        ab = self.site("t").refresh("fwd", x, fmt, backend)
+    def truncate(self, x, *, fmt="e5m2", backend=None, split=None):
+        ab = self.site("t").refresh("fwd", x, fmt, backend, split=split)
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
 
 
@@ -440,17 +471,17 @@ class _TruncateBanked(torch.autograd.Function):
     "bwd" stats, each refreshed when due."""
 
     @staticmethod
-    def forward(ctx, x, site, fmt, backend):
-        ctx.meta = (site, fmt, backend)
-        ab = site.stats("fwd", x, fmt, backend)
+    def forward(ctx, x, site, fmt, backend, split=None):
+        ctx.meta = (site, fmt, backend, split)
+        ab = site.stats("fwd", x, fmt, backend, split=split)
         return nbackend.get_backend(backend).truncate(x, stats=ab, fmt=fmt)
 
     @staticmethod
     def backward(ctx, g):
-        site, fmt, backend = ctx.meta
-        ab = site.stats("bwd", g, fmt, backend)
+        site, fmt, backend, split = ctx.meta
+        ab = site.stats("bwd", g, fmt, backend, split=split)
         return (nbackend.get_backend(backend).truncate(g, stats=ab, fmt=fmt),
-                None, None, None)
+                None, None, None, None)
 
 
 class TrainSession(Session):
@@ -482,12 +513,13 @@ class TrainSession(Session):
 
     def stats(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
               backend: Optional[str] = None,
-              need: Optional[bool] = None) -> torch.Tensor:
+              need: Optional[bool] = None, split=None) -> torch.Tensor:
         if need is None:
             need = self.need(site, direction)
         ab, new = maybe_refresh(x, self.state(site, direction), need,
                                 self.step, self.cfg,
-                                s2fp8.FMT_TARGET_MAX[fmt], backend)
+                                s2fp8.FMT_TARGET_MAX[fmt], backend,
+                                split=split)
         if new is not None:
             entry = self.updates.setdefault(site.key, {})
             if direction not in entry:       # copy on first write
@@ -502,11 +534,12 @@ class TrainSession(Session):
         return ab
 
     def refresh(self, site: Site, direction: str, x: torch.Tensor, fmt: str,
-                backend: Optional[str] = None) -> torch.Tensor:
-        return self.stats(site, direction, x, fmt, backend, need=True)
+                backend: Optional[str] = None, split=None) -> torch.Tensor:
+        return self.stats(site, direction, x, fmt, backend, need=True,
+                          split=split)
 
-    def truncate(self, x, *, fmt="e5m2", backend=None):
-        return _TruncateBanked.apply(x, self.site("t"), fmt, backend)
+    def truncate(self, x, *, fmt="e5m2", backend=None, split=None):
+        return _TruncateBanked.apply(x, self.site("t"), fmt, backend, split)
 
 
 class DiscoverySession(Session):
@@ -530,7 +563,7 @@ class DiscoverySession(Session):
                               else self._segment[0], _KIND_DIRS[kind])
         return None
 
-    def truncate(self, x, *, fmt="e5m2", backend=None):
+    def truncate(self, x, *, fmt="e5m2", backend=None, split=None):
         self.site("t")
         return x
 
@@ -620,6 +653,18 @@ def segment_ctx(name: str, layer: int):
         yield
         return
     with sess.segment_ctx(name, layer):
+        yield
+
+
+@contextlib.contextmanager
+def shared_sites():
+    """Run a layer of a loop whose layers share one unsegmented entry per
+    site (``Session.shared_ctx``); no-op without a session."""
+    sess = current_session()
+    if sess is None:
+        yield
+        return
+    with sess.shared_ctx():
         yield
 
 

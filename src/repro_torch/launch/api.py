@@ -25,7 +25,10 @@ The PartitionSpec half (reference ``api.py:56-164``): ``param_pspecs``,
 ``cache_pspecs`` and ``batch_pspecs`` map a port tree to
 ``parallel.sharding.PartitionSpec``s by name-based rules over the leaf
 names (the nearest dict key on the leaf's path), divisibility-guarded
-against the mesh's axis sizes.
+against the mesh's axis sizes.  ``parallel.sharding.place_params`` cuts a
+full tree to a rank's part by them, and :func:`placement` describes such
+params to the steps, which run on a ``Mesh`` or ``DryMesh`` under the
+caller's rules (``TRAIN_RULES`` / ``DECODE_RULES``).
 
 The struct half (the reference's ShapeDtypeStructs): ``param_struct``,
 ``batch_struct`` and ``cache_struct`` build fake tensors
@@ -281,13 +284,28 @@ def make_loss_fn(cfg: ArchConfig) -> Callable:
     return loss
 
 
+def placement(cfg: ArchConfig, mesh, struct=None):
+    """The ``parallel.sharding.Placement`` of ``cfg``'s params on ``mesh``:
+    stored as :func:`param_pspecs` places them (``struct``: the full
+    param tree or its struct; default :func:`param_struct`), used as the
+    model computes under the rules active at each call
+    (``models.transformer.compute_pspecs``)."""
+    from repro_torch.parallel import sharding as shd
+    specs = param_pspecs(cfg, param_struct(cfg) if struct is None
+                         else struct, dict(mesh.shape))
+    return shd.Placement(specs, lambda: tlm.compute_pspecs(cfg, specs),
+                         mesh)
+
+
 def make_train_step(cfg: ArchConfig, policy: Policy, lr: float = 1e-4,
                     **step_kw) -> Tuple[Callable, optimizers.Optimizer]:
     """(train step, AdamW) as the reference's: weight decay 0.01, the
     config's WSD or cosine schedule over 10,000 steps with 100 of warmup;
     the step is ``training.trainer.make_train_step``'s (params, opt_state,
     batch, step) -> (params, opt_state, metrics).  ``step_kw`` go to it
-    (``stats``, ``mesh``, ``param_sharding``, ...)."""
+    (``stats``, ``mesh``, ``param_sharding``, ``placement``: params
+    placed by ``sharding.place_params`` on the mesh, described by
+    :func:`placement`)."""
     from repro_torch.training.trainer import make_train_step as mk
     opt = optimizers.adamw(weight_decay=0.01)
     sched = schedules.make_schedule(
@@ -296,27 +314,52 @@ def make_train_step(cfg: ArchConfig, policy: Policy, lr: float = 1e-4,
     return mk(make_loss_fn(cfg), opt, sched, policy, **step_kw), opt
 
 
-def make_prefill_step(cfg: ArchConfig, policy: Policy) -> Callable:
+def _placed(fn, where):
+    """``fn`` run on ``where``'s mesh (bound) with its params (argument 0)
+    as the model computes them, under the caller's rules; ``fn`` itself
+    without a placement."""
+    if where is None:
+        return fn
+    from repro_torch.core import collectives
+
+    def step(params, *args):
+        with collectives.bind(where.mesh):
+            return fn(where.for_compute(params), *args)
+    return step
+
+
+def make_prefill_step(cfg: ArchConfig, policy: Policy, *,
+                      placement=None) -> Callable:
+    """``step(params, batch, caches)`` (enc-dec: ``step(params, batch)``).
+    ``placement`` (:func:`placement`): the params are a rank's, placed by
+    ``sharding.place_params`` on its mesh (a ``Mesh`` or ``DryMesh``), which
+    the step binds, so under the caller's rules (``DECODE_RULES``) the
+    model computes its part of the model axis, with the caches' ``S``
+    entries split as :func:`cache_pspecs` places them.  The logits are the
+    rank's vocab slice where the vocab splits."""
     if cfg.enc_dec:
         def step(params, batch):
             return encdec.serve_prefill(params, batch["enc_inputs"],
                                         batch["dec_bos"], cfg, policy,
                                         max_dec_len=WHISPER_DEC_LEN)
-        return step
+        return _placed(step, placement)
 
     def step(params, batch, caches):
         return tlm.prefill(params, batch["tokens"], cfg, policy, caches)
-    return step
+    return _placed(step, placement)
 
 
-def make_decode_step(cfg: ArchConfig, policy: Policy) -> Callable:
+def make_decode_step(cfg: ArchConfig, policy: Policy, *,
+                     placement=None) -> Callable:
+    """``step(params, batch, caches, cache_index)``; ``placement`` as in
+    :func:`make_prefill_step`."""
     if cfg.enc_dec:
         def step(params, batch, state, cache_index):
             return encdec.serve_decode(params, batch["token"], state,
                                        cache_index, cfg, policy)
-        return step
+        return _placed(step, placement)
 
     def step(params, batch, caches, cache_index):
         return tlm.decode_step(params, batch["token"], cfg, policy, caches,
                                cache_index)
-    return step
+    return _placed(step, placement)

@@ -20,30 +20,38 @@ wrapper takes its plain version and the counter charges the call as the
 kernel; a fake tensor never reaches a kernel.
 
   * train: ``api.make_train_step`` (AdamW, the config's schedule) on the
-    mesh: the rank slices its rows of the global batch (the all-or-nothing
-    divisibility guard of ``parallel.sharding``), the f32 gradient sync is
-    recorded, ``--shard-params fsdp`` / ``fsdp_q`` hand the step the
-    rank's dim-0 shards (``sharding.shard_tree``; fsdp_q also a StatsBank
-    built from the full params, which it needs).  Exact-stats s2fp8 with
-    no bank and no guard otherwise, as the reference traces.
+    mesh under ``TRAIN_RULES``: the rank slices its rows of the global
+    batch (the all-or-nothing divisibility guard of
+    ``parallel.sharding``), computes its part of the ``model`` axis, and
+    the f32 gradient sync is recorded.  Exact-stats s2fp8 with no bank and
+    no guard, as the reference traces.
   * prefill / decode: ``api.make_prefill_step`` / ``make_decode_step`` on
-    the rank's rows of the batch and caches (``api.batch_pspecs`` /
-    ``cache_pspecs``: the batch axes' entries), under no_grad.
+    the mesh under ``DECODE_RULES``, on the rank's part of the batch and
+    caches (``api.batch_pspecs`` / ``cache_pspecs``: the batch axes'
+    entries and the caches' ``S`` entry over ``model``), under no_grad.
 
-The port replicates the ``model`` axis (``launch/mesh.py``): a rank holds
-every head and expert of its rows, where the reference's GSPMD splits them
-16 ways, so a port rank's FLOPs at ``model`` 16 are about 16 times the
-reference's.  Each record says so (``"model_axis": "replicated"``).
+Params are placed as the reference's are, by ``api.param_pspecs``
+(``--shard-params pspecs``, the default: ``T`` entries over ``model``,
+``F`` over ``data``; ``parallel.sharding.place_params``), and each use
+gathers what the compute keeps whole.  ``--shard-params replicated``
+keeps every leaf whole and the ``model`` axis replicated (the launcher's
+mesh step); ``fsdp`` / ``fsdp_q`` hand the train step the rank's dim-0
+shards (``sharding.shard_tree``; fsdp_q also a StatsBank built from the
+full params, which it needs) with the ``model`` axis replicated.
 
 Records are cached incrementally in ``build/dryrun_torch.json`` (the
 ``build/`` directory is not committed), under the reference's keys:
 ``status``, ``compile_s`` (the trace's seconds), ``memory_analysis``,
-``roofline``, ``policy``; plus ``model_axis``, ``param_sharding``,
+``roofline``, ``policy``; plus ``model_axis`` (the logical axes that
+split over ``model`` and their sizes, e.g. ``{"mlp": 16, "vocab": 16}``,
+or ``"replicated"``), ``param_sharding`` and ``param_placement``,
+``coll_by_axis`` (collective bytes a rank moves over each mesh axis),
 ``kernel_calls`` and ``cost`` (the whole ``TraceCost``).
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -66,7 +74,10 @@ RESULTS = Path(__file__).resolve().parents[3] / "build" / "dryrun_torch.json"
 
 LM_ARCHS = [a for a in ARCH_IDS if a not in
             ("resnet20_cifar", "ncf_ml1m", "transformer_tiny")]
-PARAM_SHARDING = ("replicated", "fsdp", "fsdp_q")
+PARAM_SHARDING = ("pspecs", "replicated", "fsdp", "fsdp_q")
+PLACEMENT = {"pspecs": "param_pspecs: T over model, F over data",
+             "replicated": "replicated",
+             "fsdp": "dim 0 over data", "fsdp_q": "dim 0 over data"}
 
 
 def _load_results(path=RESULTS) -> dict:
@@ -84,17 +95,17 @@ def _save_results(res: dict, path=RESULTS) -> None:
     os.replace(tmp, path)
 
 
-def _local_rows(tree, specs, sizes):
-    """Rank 0's part of each leaf: every dim whose spec entry names batch
-    axes (pod / data) cut to its first 1 / prod(sizes) rows (a copy, so the
-    leaf holds only its own bytes); entries naming ``model`` stay whole
-    (the port replicates that axis)."""
+def _local_rows(tree, specs, sizes, axes=("pod", "data", "model")):
+    """Rank 0's part of each leaf: every dim whose spec entry names mesh
+    axes of ``axes`` cut to its first 1 / prod(sizes) entries (a copy, so
+    the leaf holds only its own bytes): the batch rows over pod / data, a
+    cache's positions (``S``) over model."""
     def one(leaf, spec):
         for dim, entry in enumerate(spec):
-            axes = (entry,) if isinstance(entry, str) else (entry or ())
+            names = (entry,) if isinstance(entry, str) else (entry or ())
             n = 1
-            for a in axes:
-                if a in ("pod", "data"):
+            for a in names:
+                if a in axes:
                     n *= sizes[a]
             if n > 1:
                 leaf = leaf.narrow(dim, 0, leaf.shape[dim] // n).clone()
@@ -119,7 +130,7 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
              truncate_output: bool | None = None, tag: str = "",
              moe_routing: str | None = None,
              output_dtype: str | None = None,
-             param_sharding: str = "replicated") -> dict:
+             param_sharding: str = "pspecs") -> dict:
     """Trace one cell on fake tensors; the record (module docstring)."""
     overrides = dict(overrides) if overrides else {}
     shard_kv_seq = overrides.pop("_shard_kv_seq", True)
@@ -133,8 +144,9 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     if reason:
         return {"status": "skipped", "reason": reason}
     seq, gbs, kind = SHAPE_SPECS[shape]
-    if kind != "train" and param_sharding != "replicated":
-        raise ValueError("--shard-params applies to train cells only")
+    if kind != "train" and param_sharding in ("fsdp", "fsdp_q"):
+        raise ValueError("--shard-params fsdp / fsdp_q apply to train cells "
+                         "only")
 
     mesh = make_production_mesh(multi_pod=multi_pod, dry=True)
     sizes = axis_sizes(mesh)
@@ -155,8 +167,17 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
     bspecs = api.batch_pspecs(bstruct, sizes)
     fake = api.fake_mode()
 
+    # the model axis splits under the rules with params placed by
+    # param_pspecs; the other modes keep it replicated (no rules)
+    split = param_sharding == "pspecs"
+    ctx = (shd.use_rules(rules, sizes) if split
+           else contextlib.nullcontext())
     t0 = time.perf_counter()
-    with fake:
+    with fake, ctx:
+        where = params = None
+        if split:
+            where = api.placement(cfg, mesh, pstruct)
+            params = shd.place_params(pstruct, mesh, specs=where.specs)
         if kind == "train":
             from repro_torch.core import statsbank
             stats = bank = None
@@ -166,10 +187,12 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
                 bank = statsbank.init_bank(
                     api.make_loss_fn(cfg), pstruct,
                     _local_rows(bstruct, bspecs, sizes), pol, stats)
+            # pspecs is a placement, not one of the trainer's modes
             step_fn, opt = api.make_train_step(
-                cfg, pol, stats=stats, mesh=mesh,
-                param_sharding=param_sharding)
-            params = shd.shard_tree(pstruct, mesh, param_sharding)
+                cfg, pol, stats=stats, mesh=mesh, placement=where,
+                param_sharding="replicated" if split else param_sharding)
+            if not split:
+                params = shd.shard_tree(pstruct, mesh, param_sharding)
             ostate = shd.mark_opt_state(opt.init(params), params)
             args = (params, ostate, bstruct) + (
                 (bank,) if stats is not None else ())
@@ -180,23 +203,32 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
                     out = step_fn(params, ostate, bank, bstruct, 0)
         else:
             batch = _local_rows(bstruct, bspecs, sizes)
-            with shd.use_rules(rules, sizes), torch.no_grad():
+            on = dict(placement=where)
+            params = params if split else pstruct
+            with torch.no_grad():
                 if kind == "prefill" and cfg.enc_dec:
-                    args = (pstruct, batch)
+                    args = (params, batch)
                     with trace_cost(args) as cost:
-                        out = api.make_prefill_step(cfg, pol)(*args)
+                        out = api.make_prefill_step(cfg, pol, **on)(*args)
                 else:
                     cstruct = api.cache_struct(cfg, shape)
                     cspecs = api.cache_pspecs(cfg, cstruct, sizes,
                                               shard_kv_seq=shard_kv_seq)
-                    caches = _local_rows(cstruct, cspecs, sizes)
-                    args = (pstruct, batch, caches)
+                    caches = _local_rows(
+                        cstruct, cspecs, sizes,
+                        ("pod", "data", "model") if split
+                        else ("pod", "data"))
+                    args = (params, batch, caches)
                     if kind == "prefill":
                         with trace_cost(args) as cost:
-                            out = api.make_prefill_step(cfg, pol)(*args)
+                            out = api.make_prefill_step(cfg, pol,
+                                                        **on)(*args)
                     else:
                         with trace_cost(args) as cost:
-                            out = api.make_decode_step(cfg, pol)(*args, 0)
+                            out = api.make_decode_step(cfg, pol,
+                                                       **on)(*args, 0)
+        model_axis = (model_axis_record(cfg, mesh, rules, shape)
+                      if split else "replicated")
     trace_s = time.perf_counter() - t0
     held = _storages(args)
     output_bytes = sum(v for k, v in _storages(out).items() if k not in held)
@@ -210,9 +242,44 @@ def run_cell(arch: str, shape: str, multi_pod: bool,
                               cfg, shape) / 1e9)
     return {"status": "ok", "compile_s": trace_s, "memory_analysis": mem,
             "roofline": rl.to_dict(), "policy": policy_mode,
-            "model_axis": "replicated", "param_sharding": param_sharding,
+            "model_axis": model_axis, "param_sharding": param_sharding,
+            "param_placement": PLACEMENT[param_sharding],
+            "coll_by_axis": dict(cost.coll_axis),
             "kernel_calls": dict(cost.calls), "cost": cost.to_dict(),
             "tag": tag}
+
+
+def model_axis_record(cfg, mesh, rules, shape: str):
+    """The logical axes that split over the model axis in a cell, with
+    their sizes (``"replicated"`` where none does): the vocab, and the
+    query / K/V heads and MLP of the ``TP_BLOCK_TYPES`` blocks, under
+    ``rules`` on ``mesh``; the caches' positions (``kv_seq``) in prefill
+    and decode cells."""
+    from repro_torch.core import collectives
+    from repro_torch.models import blocks
+    from repro_torch.models import transformer as tlm
+    seq, _, kind = SHAPE_SPECS[shape]
+    out = {}
+    with shd.use_rules(rules, dict(mesh.shape)), collectives.bind(mesh):
+        if cfg.enc_dec:
+            return "replicated"
+        vs = tlm.vocab_split(cfg)
+        if vs is not None:
+            out["vocab"] = vs.size
+        for btype, _ in tlm.segments_of(cfg):
+            sp = blocks.attn_split(cfg, btype)
+            if sp is not None:
+                out["heads"] = sp.heads.size
+                if sp.kv is not None:
+                    out["kv"] = sp.kv.size
+            ms = blocks.mlp_split(cfg, btype, blocks.block_d_ff(cfg, btype))
+            if ms is not None:
+                out["mlp"] = ms.size
+            if kind != "train" and btype in blocks.TP_BLOCK_TYPES:
+                ks = shd.split("kv_seq", seq)
+                if ks is not None:
+                    out["kv_seq"] = ks.size
+    return out or "replicated"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -242,12 +309,16 @@ def build_parser() -> argparse.ArgumentParser:
                     choices=[None, "bfloat16"])
     ap.add_argument("--truncate-output", default=None,
                     choices=[None, "0", "1"])
-    ap.add_argument("--shard-params", default="replicated",
+    ap.add_argument("--shard-params", default="pspecs",
                     choices=PARAM_SHARDING,
-                    help="train cells: the rank holds full params "
-                         "('replicated') or its dim-0 shards over 'data' "
-                         "('fsdp', 'fsdp_q': payload gathers, needs a "
-                         "StatsBank, which the cell builds)")
+                    help="the rank holds its part of each leaf as "
+                         "api.param_pspecs places it ('pspecs', the "
+                         "default, the model axis split under the rules), "
+                         "full params with the model axis replicated "
+                         "('replicated'), or, train cells only, its dim-0 "
+                         "shards over 'data' ('fsdp', 'fsdp_q': payload "
+                         "gathers, needs a StatsBank, which the cell "
+                         "builds)")
     ap.add_argument("--results", default=str(RESULTS),
                     help="the JSON file of cached records (default: "
                          "build/dryrun_torch.json)")
@@ -262,12 +333,23 @@ def build_parser() -> argparse.ArgumentParser:
     return ap
 
 
-def cell_key(arch, shape, mesh_name, policy, shard_params="replicated",
+def cell_key(arch, shape, mesh_name, policy, shard_params="pspecs",
              tag="") -> str:
     key = f"{arch}|{shape}|{mesh_name}|{policy}"
-    if shard_params != "replicated":
+    if shard_params != "pspecs":
         key += f"|{shard_params}"
     return key + (f"|{tag}" if tag else "")
+
+
+def _reusable(rec, shard_params: str) -> bool:
+    """A cached record serves again: a skip, or a trace of the same
+    param placement (an un-suffixed record of an older file may hold
+    another placement under the same key)."""
+    if rec is None:
+        return False
+    return rec.get("status") == "skipped" or (
+        rec.get("status") == "ok"
+        and rec.get("param_sharding") == shard_params)
 
 
 def main(argv=None) -> int:
@@ -305,8 +387,8 @@ def main(argv=None) -> int:
                 mesh_name = "2x16x16" if mp else "16x16"
                 key = cell_key(arch, shape, mesh_name, args.policy,
                                args.shard_params, args.tag)
-                if key in results and results[key].get("status") in (
-                        "ok", "skipped") and not args.force:
+                if _reusable(results.get(key), args.shard_params) \
+                        and not args.force:
                     print(f"[cached] {key}: {results[key]['status']}")
                     continue
                 print(f"[run] {key} ...", flush=True)

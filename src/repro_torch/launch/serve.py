@@ -46,8 +46,8 @@ from repro_torch.serving import paged_cache
 from repro_torch.serving.engine import LMServer, PayloadLMServer, Request
 
 
-def main(argv=None):
-    ap = argparse.ArgumentParser()
+def build_parser() -> argparse.ArgumentParser:
+    ap = argparse.ArgumentParser(prog="repro_torch.launch.serve")
     ap.add_argument("--arch", required=True)
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default="cuda")
@@ -67,11 +67,19 @@ def main(argv=None):
     ap.add_argument("--max-len", type=int, default=128)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--new-tokens", type=int, default=16)
-    ap.add_argument("--calib-passes", type=int, default=2)
+    ap.add_argument("--export-passes", "--calib-passes",
+                    dest="export_passes", type=int, default=2,
+                    help="stats-bank probe passes of the frozen bank's "
+                         "calibration (payload engine); --calib-passes is "
+                         "an alias")
     ap.add_argument("--metrics", default=None,
                     help="per-tick metrics sink spec (obs.sinks.make_sink)")
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_reduced_config(args.arch) if args.reduced else get_config(args.arch)
@@ -94,10 +102,10 @@ def main(argv=None):
     else:
         calib = torch.as_tensor(rng.integers(0, cfg.vocab, (2, min(
             args.prompt_len, 32)), dtype=np.int64), device=dev)
-        print(f"[serve] calibrating frozen bank ({args.calib_passes} "
+        print(f"[serve] calibrating frozen bank ({args.export_passes} "
               f"passes)...")
         bank = sbank.calibrate_serving_bank(params, cfg, pol, calib,
-                                            passes=args.calib_passes)
+                                            passes=args.export_passes)
         sink = make_sink(args.metrics) if args.metrics else None
         server = PayloadLMServer(cfg, params, pol, bank=bank,
                                  slots=args.slots, max_len=args.max_len,

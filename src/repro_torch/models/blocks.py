@@ -42,19 +42,77 @@ The layer params keep the reference's names and layout (weights
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional
+from typing import Any, Dict, NamedTuple, Optional
 
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import statsbank
+from repro_torch.core import collectives, statsbank
+from repro_torch.core.collectives import TpSpec
 from repro_torch.core.policy import Policy
 from repro_torch.kernels import selective_scan as scan
 from repro_torch.kernels.flash_attention import flash_fwd_reference
 from repro_torch.models.flash import check_chunks
+from repro_torch.parallel import sharding as shd
 
 LONG_SEQ = 2048        # above this, chunked or flash attention
 _MASK = -1e30
+# the block types whose attention and MLP split over the model axis (the
+# MoE experts, the Mamba blocks and the encoder-decoder replicate)
+TP_BLOCK_TYPES = ("dense", "local", "attn", "dense_first")
+
+
+class AttnSplit(NamedTuple):
+    """An attention block's split over the model axis: its query heads
+    (``heads``), its K/V heads (``kv``, None when they stay whole) and,
+    with whole K/V, the one K/V head this rank's query heads use
+    (``pick``)."""
+    heads: shd.Split
+    kv: Optional[shd.Split]
+    pick: Optional[int]
+
+
+def attn_split(cfg: ArchConfig, block_type: str) -> Optional[AttnSplit]:
+    """The model-axis split of a block's attention under the active rules
+    (``parallel.sharding.split`` of ``heads`` and ``kv``), or None.  Query
+    heads split where ``heads`` does; K/V heads where ``kv`` does too,
+    else each rank attends with the one whole K/V head of its query heads
+    (GQA), or the heads stay whole where a rank's query heads would span
+    several K/V heads."""
+    if block_type not in TP_BLOCK_TYPES:
+        return None
+    h, kvh = cfg.n_heads, cfg.kv_heads
+    hs = shd.split("heads", h)
+    if hs is None:
+        return None
+    kvs = shd.split("kv", kvh)
+    if kvs is not None and kvs.axis == hs.axis:
+        return AttnSplit(hs, kvs, None)
+    g, hl = h // kvh, h // hs.size
+    if g % hl:
+        return None
+    return AttnSplit(hs, None, hs.coord * hl // g)
+
+
+def mlp_split(cfg: ArchConfig, block_type: str, d_ff: int
+              ) -> Optional[shd.Split]:
+    """The model-axis split of a block's MLP hidden dim (``mlp``)."""
+    if block_type not in TP_BLOCK_TYPES:
+        return None
+    return shd.split("mlp", d_ff)
+
+
+def col_tp(sp: Optional[shd.Split]) -> Optional[TpSpec]:
+    """Column-parallel: the input whole, the weight's columns and the
+    output split."""
+    return None if sp is None else TpSpec(sp.axis, "full", "split", "split")
+
+
+def row_tp(sp: Optional[shd.Split]) -> Optional[TpSpec]:
+    """Row-parallel: the input and the weight's rows split, the output a
+    partial sum."""
+    return None if sp is None else TpSpec(sp.axis, "split", "split",
+                                          "partial")
 
 
 def init_norm(cfg: ArchConfig, dim: int, device=None) -> Dict[str, torch.Tensor]:
@@ -138,25 +196,41 @@ def _grouped(q: torch.Tensor, kv_heads: int) -> torch.Tensor:
     return q.reshape(b, kv_heads, h // kv_heads, s, d)
 
 
-def _attn_einsum(policy: Optional[Policy], spec: str, a, b):
+def _attn_einsum(policy: Optional[Policy], spec: str, a, b,
+                 tp: Optional[TpSpec] = None):
     """An attention contraction through the policy (its result in f32),
-    or an f32 einsum without one (reference ``_attn_einsum``)."""
+    or an f32 einsum without one (reference ``_attn_einsum``); ``tp``
+    (a model-axis split, which the models run through a policy) as in
+    ``Policy.einsum``."""
     if policy is None:
+        if tp is not None:
+            raise ValueError("a split attention runs through a policy")
         return torch.einsum(spec, a.float(), b.float())
-    return policy.einsum(spec, a, b).float()
+    return policy.einsum(spec, a, b, tp=tp).float()
+
+
+def _score_tp(tp: Optional[TpSpec]) -> Optional[TpSpec]:
+    """The P.V contraction's split of a heads-split attention: the
+    probabilities split as the scores, V as K."""
+    return None if tp is None else tp._replace(a="split")
 
 
 def full_attention(q, k, v, *, causal=True, window=None,
-                   policy: Optional[Policy] = None):
+                   policy: Optional[Policy] = None,
+                   tp: Optional[TpSpec] = None):
     """q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d].  Payload policies run the fused
     payload flash node; the others a plain masked softmax whose two
-    contractions go through ``policy.einsum`` (reference blocks.py:117)."""
+    contractions go through ``policy.einsum`` (reference blocks.py:117).
+    ``tp``: the rank's query heads of a heads-split attention (q split;
+    K/V split, or whole with ``b_pick``), each rank's softmax over its own
+    heads."""
     if policy is not None and policy.uses_payload_gemm:
         return policy.flash_attention(q, k, v, causal=causal,
-                                      window=window).to(q.dtype)
+                                      window=window, tp=tp).to(q.dtype)
     d = q.shape[-1]
     sq, sk = q.shape[3], k.shape[2]
-    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k) / math.sqrt(d)
+    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k, tp) \
+        / math.sqrt(d)
     qpos = torch.arange(sq, device=q.device)[:, None] + (sk - sq)
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -165,12 +239,13 @@ def full_attention(q, k, v, *, causal=True, window=None,
     if window:
         mask &= kpos > qpos - window
     probs = torch.softmax(torch.where(mask, logits, _MASK), dim=-1)
-    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v)
+    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v, _score_tp(tp))
     return out.to(q.dtype)
 
 
 def chunked_attention(q, k, v, *, causal=True, window=None, q_chunk=1024,
-                      kv_chunk=1024, policy: Optional[Policy] = None):
+                      kv_chunk=1024, policy: Optional[Policy] = None,
+                      tp: Optional[TpSpec] = None):
     """Doubly chunked (q x kv) attention with an f32 online softmax
     (reference blocks.py:144-202), differentiated op by op (the "naive"
     ``attn_impl``).  q: [B,KV,G,Sq,d]; k,v: [B,KV,Sk,d].  The policy
@@ -181,30 +256,50 @@ def chunked_attention(q, k, v, *, causal=True, window=None, q_chunk=1024,
     q_chunk, kv_chunk = check_chunks(q.shape[3], k.shape[2], q_chunk,
                                      kv_chunk)
     if policy is not None:
-        q, k, v = policy.truncate(q), policy.truncate(k), policy.truncate(v)
+        q, k, v = policy.split_qkv(q, k, v, tp)
+    elif tp is not None:
+        raise ValueError("a split attention runs through a policy")
     out, _ = flash_fwd_reference(q, k, v, causal=causal, window=window,
                                  q_chunk=q_chunk, kv_chunk=kv_chunk)
     out = out.to(q.dtype)
     if policy is not None:
-        out = policy.truncate(out)
+        out = policy.truncate(out, None if tp is None else tp.axis)
     return out
 
 
 def decode_attention(q, k_cache, v_cache, valid, *,
-                     policy: Optional[Policy] = None):
+                     policy: Optional[Policy] = None,
+                     seq: Optional[shd.Split] = None):
     """One token's attention over a dense cache (reference
     blocks.py:205-222).  q: [B,KV,G,1,d]; caches [B,KV,Smax,d]; ``valid``:
     bool [Smax] of live cache slots, or [B, Smax] when the rows sit at
     their own positions (serving).  A sliding window is in ``valid`` (the
     caller's ring occupancy or window mask).  Both contractions go through
     ``policy.einsum``: on the payload path the batched payload GEMM with
-    one query row a (slot, head) group."""
+    one query row a (slot, head) group.
+
+    ``seq``: the caches (and ``valid``) are this rank's slice of the
+    positions (``kv_seq`` over the model axis): the scores are split, the
+    softmax's max and sum are combined over the axis, and P.V is a
+    partial sum, all-reduced before its output truncation."""
     d = q.shape[-1]
-    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k_cache) \
+    tp = None if seq is None else TpSpec(seq.axis, "full", "split", "split")
+    logits = _attn_einsum(policy, "bkgqd,bksd->bkgqs", q, k_cache, tp) \
         / math.sqrt(d)
     vmask = valid[:, None, None, None, :] if valid.dim() == 2 else valid
-    probs = torch.softmax(torch.where(vmask, logits, _MASK), dim=-1)
-    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v_cache)
+    masked = torch.where(vmask, logits, _MASK)
+    if seq is None:
+        probs = torch.softmax(masked, dim=-1)
+    else:
+        top = collectives.all_reduce(
+            masked.amax(dim=-1, keepdim=True).contiguous(), seq.axis,
+            op="max")
+        e = torch.exp(masked - top)
+        probs = e / collectives.all_reduce(e.sum(dim=-1, keepdim=True),
+                                           seq.axis)
+    out = _attn_einsum(policy, "bkgqs,bksd->bkgqd", probs, v_cache,
+                       None if tp is None else tp._replace(
+                           a="split", out="partial"))
     return out.to(q.dtype)
 
 
@@ -223,13 +318,20 @@ def init_mlp(cfg: ArchConfig, gen: torch.Generator, d_in: int, d_ff: int,
     return p
 
 
-def mlp_fwd(p, x, cfg: ArchConfig, pol: Policy):
+def mlp_fwd(p, x, cfg: ArchConfig, pol: Policy,
+            split: Optional[shd.Split] = None):
+    """The MLP; ``split``: its hidden dim split over the model axis
+    (``mlp_split``; the weights the rank's slices): ``w_gate`` / ``w_up``
+    column-parallel, ``w_down`` row-parallel (its output a partial
+    sum)."""
     glu = cfg.activation.endswith("_glu")
     with statsbank.scope("mlp"):
-        hg = pol.dot(x, p["w_gate"].to(x.dtype))
-        hl = pol.dot(x, p["w_up"].to(x.dtype)) if glu else None
+        hg = pol.dot(x, p["w_gate"].to(x.dtype), tp=col_tp(split))
+        hl = (pol.dot(x, p["w_up"].to(x.dtype), tp=col_tp(split))
+              if glu else None)
         h = activate(hg, hl, cfg.activation)
-        return pol.dot(h, p["w_down"].to(x.dtype))
+        return pol.dot(h, p["w_down"].to(x.dtype), tp=row_tp(split))
+
 
 
 def init_moe(cfg: ArchConfig, gen: torch.Generator, device=None
@@ -417,21 +519,42 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     ``cfg.window`` keys whatever ``window`` says (the reference's rule);
     the other types take ``window`` as given (None: global).  Returns (x,
     cache, aux): aux is the MoE's load-balance loss, 0 for the other block
-    types."""
+    types.
+
+    Under the rules on a bound mesh (``parallel.sharding``) a
+    ``TP_BLOCK_TYPES`` block computes its part of the model axis
+    (``attn_split``, ``mlp_split``): q/k/v column-parallel by query / K/V
+    heads and ``wo`` row-parallel; the MLP as ``mlp_fwd``; a dense decode
+    cache split on ``kv_seq`` holds this rank's positions
+    (``_dense_decode``, and the prefill stores its slice).  The weights
+    are the rank's slices (``parallel.sharding.Placement``)."""
     b, s, _ = x.shape
     hd = cfg.resolved_head_dim
     h, kvh = cfg.n_heads, cfg.kv_heads
     if block_type == "local":
         window = cfg.window
+    sp = attn_split(cfg, block_type)
+    heads = None if sp is None else sp.heads
+    kv = None if sp is None else sp.kv
+    hl = h if heads is None else heads.part(h)
+    kvl = kvh if kv is None else kv.part(kvh)
 
     xn = apply_norm(p["ln1"], x, cfg)
     with statsbank.scope("attn"):
-        q = pol.dot(xn, p["wq"].to(x.dtype)).reshape(b, s, h, hd).transpose(1, 2)
-        k = pol.dot(xn, p["wk"].to(x.dtype)).reshape(b, s, kvh, hd).transpose(1, 2)
-        v = pol.dot(xn, p["wv"].to(x.dtype)).reshape(b, s, kvh, hd).transpose(1, 2)
+        q = pol.dot(xn, p["wq"].to(x.dtype), tp=col_tp(heads)).reshape(
+            b, s, hl, hd).transpose(1, 2)
+        k = pol.dot(xn, p["wk"].to(x.dtype), tp=col_tp(kv)).reshape(
+            b, s, kvl, hd).transpose(1, 2)
+        v = pol.dot(xn, p["wv"].to(x.dtype), tp=col_tp(kv)).reshape(
+            b, s, kvl, hd).transpose(1, 2)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
-    qg = _grouped(q, kvh)
+    # the attention's split: q's heads; K/V split with them, or whole with
+    # the rank's one K/V head picked after their truncation
+    a_tp = None if sp is None else TpSpec(
+        heads.axis, "split", "full" if kv is None else "split", "split",
+        sp.pick)
+    qg = _grouped(q, 1 if sp is not None and kv is None else kvl)
 
     if mode == "decode" and cache is not None and "kp" in cache:
         from repro_torch.serving import paged_cache as _paged
@@ -442,40 +565,84 @@ def attn_block_apply(p, x: torch.Tensor, cfg: ArchConfig, pol: Policy,
     elif mode == "decode":
         if s != 1 or cache is None:
             raise ValueError("decode runs one token against a cache")
-        attn = _dense_decode(qg, k, v, cache, cache_index, pol, window)
+        if sp is not None:
+            raise NotImplementedError("decode with split heads: the decode "
+                                      "rules split kv_seq, not heads")
+        attn = _dense_decode(qg, k, v, cache, cache_index, pol, window,
+                             _seq_split(block_type, cache))
     elif mode in ("train", "prefill"):
         causal = not (cfg.enc_dec and block_type == "encoder")
         if s > LONG_SEQ:
             if cfg.attn_impl == "flash":
                 attn = pol.flash_attention(qg, k, v, causal=causal,
-                                           window=window).to(qg.dtype)
+                                           window=window,
+                                           tp=a_tp).to(qg.dtype)
             else:
                 attn = chunked_attention(qg, k, v, causal=causal,
-                                         window=window, policy=pol)
+                                         window=window, policy=pol,
+                                         tp=a_tp)
         else:
             attn = full_attention(qg, k, v, causal=causal, window=window,
-                                  policy=pol)
+                                  policy=pol, tp=a_tp)
         if mode == "prefill" and cache is not None:
+            if sp is not None:
+                raise NotImplementedError("a prefill cache with split "
+                                          "heads: the decode rules keep "
+                                          "heads whole")
             k_store, v_store = _kv_store(k, v, pol)
-            keep = min(cache["k"].shape[2], s) if window else s
-            for key, val in (("k", k_store), ("v", v_store)):
-                cache[key][:, :, :keep] = val[:, :, s - keep:]
-                cache[key][:, :, keep:] = 0.0
+            _prefill_store(cache, k_store, v_store, s, window,
+                           _seq_split(block_type, cache))
     else:
         raise ValueError(f"mode {mode!r} is not ported "
                          f"(train/prefill/decode)")
 
-    attn = attn.reshape(b, h, s, hd).transpose(1, 2).reshape(b, s, h * hd)
+    attn = attn.reshape(b, hl, s, hd).transpose(1, 2).reshape(b, s, hl * hd)
     with statsbank.scope("attn"):
-        x = x + pol.dot(attn, p["wo"].to(x.dtype))
+        x = x + pol.dot(attn, p["wo"].to(x.dtype), tp=row_tp(heads))
     xn2 = apply_norm(p["ln2"], x, cfg)
     if block_type == "moe":
         with statsbank.scope("moe"):
             y, aux = moe_fwd(p["moe"], xn2, cfg, pol)
     else:
-        y = mlp_fwd(p["mlp"], xn2, cfg, pol)
+        y = mlp_fwd(p["mlp"], xn2, cfg, pol,
+                    mlp_split(cfg, block_type, block_d_ff(cfg, block_type)))
         aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return x + y, cache, aux
+
+
+def block_d_ff(cfg: ArchConfig, block_type: str) -> int:
+    """The MLP width of a non-MoE attention block (``init_attn_block``'s
+    rule)."""
+    if block_type == "dense_first" and cfg.moe:
+        return cfg.moe.dense_d_ff or cfg.d_ff
+    return cfg.d_ff
+
+
+def _seq_split(block_type: str, cache) -> Optional[shd.Split]:
+    """The ``kv_seq`` split of a ``TP_BLOCK_TYPES`` block's dense cache
+    over the model axis (the rank's cache holds its share of the
+    positions), or None."""
+    if block_type not in TP_BLOCK_TYPES or cache is None:
+        return None
+    return shd.split("kv_seq",
+                     cache["k"].shape[2] * shd.axis_size("kv_seq"))
+
+
+def _prefill_store(cache, k_store, v_store, s: int, window,
+                   seq: Optional[shd.Split]) -> None:
+    """Write a prefill's K/V into the dense cache in place: the whole
+    cache's first ``keep`` positions hold the last ``keep`` tokens (all
+    ``s`` without a window), the rest zeros; with ``seq`` the cache is
+    this rank's slice of the positions and takes its part."""
+    sl = cache["k"].shape[2]
+    lo = 0 if seq is None else seq.coord * sl
+    smax = sl if seq is None else sl * seq.size
+    keep = min(smax, s) if window else s
+    n = max(0, min(keep - lo, sl))
+    for key, val in (("k", k_store), ("v", v_store)):
+        if n:
+            cache[key][:, :, :n] = val[:, :, s - keep + lo:s - keep + lo + n]
+        cache[key][:, :, n:] = 0.0
 
 
 def _kv_store(k, v, pol: Policy):
@@ -490,17 +657,24 @@ def _kv_store(k, v, pol: Policy):
 
 
 def _dense_decode(qg, k, v, cache, cache_index, pol: Policy,
-                  window: Optional[int]):
+                  window: Optional[int], seq: Optional[shd.Split] = None):
     """The dense-cache decode of reference blocks.py:431-481: write the
     token's (kv_cache-site truncated) K/V at its slot, in place, then
     ``decode_attention`` over the cache.  ``cache_index``: a scalar
     position for every row, or [B] per-slot positions.  With ``window``
     and Smax <= window the cache is a ring buffer (slot = position mod
     Smax, every written slot live); otherwise the slot is the position and
-    the window masks older keys."""
+    the window masks older keys.
+
+    ``seq``: the cache is this rank's slice of the positions (``kv_seq``
+    over the model axis; Smax the whole length): only the rank whose
+    slice holds the slot writes, and the attention combines over the
+    axis (``decode_attention``)."""
     b = qg.shape[0]
-    smax = cache["k"].shape[2]
-    kpos = torch.arange(smax, device=qg.device)
+    sl = cache["k"].shape[2]
+    lo = 0 if seq is None else seq.coord * sl
+    smax = sl if seq is None else sl * seq.size
+    kpos = torch.arange(lo, lo + sl, device=qg.device)
     ci = torch.as_tensor(cache_index, device=qg.device).long()
     ring = bool(window) and smax <= window
     k_store, v_store = _kv_store(k, v, pol)
@@ -514,8 +688,18 @@ def _dense_decode(qg, k, v, cache, cache_index, pol: Policy,
             if window:
                 valid &= kpos[None, :] > ci[:, None] - window
         bi = torch.arange(b, device=qg.device)
-        for key, val in (("k", k_store), ("v", v_store)):
-            cache[key][bi, :, slot] = val[:, :, 0].to(cache[key].dtype)
+        if seq is None:
+            for key, val in (("k", k_store), ("v", v_store)):
+                cache[key][bi, :, slot] = val[:, :, 0].to(cache[key].dtype)
+        else:
+            # rows whose slot is in this rank's slice write; the others
+            # rewrite what they read
+            mine = (slot >= lo) & (slot < lo + sl)
+            local = torch.clamp(slot - lo, 0, sl - 1)
+            for key, val in (("k", k_store), ("v", v_store)):
+                old = cache[key][bi, :, local]
+                cache[key][bi, :, local] = torch.where(
+                    mine[:, None, None], val[:, :, 0].to(old.dtype), old)
     else:
         c = int(ci)
         if ring:
@@ -527,9 +711,12 @@ def _dense_decode(qg, k, v, cache, cache_index, pol: Policy,
             if window:
                 valid &= kpos > c - window
         slot = min(max(slot, 0), smax - 1)    # dynamic_update_slice clamps
-        for key, val in (("k", k_store), ("v", v_store)):
-            cache[key][:, :, slot:slot + 1] = val.to(cache[key].dtype)
-    return decode_attention(qg, cache["k"], cache["v"], valid, policy=pol)
+        if lo <= slot < lo + sl:
+            for key, val in (("k", k_store), ("v", v_store)):
+                cache[key][:, :, slot - lo:slot - lo + 1] = val.to(
+                    cache[key].dtype)
+    return decode_attention(qg, cache["k"], cache["v"], valid, policy=pol,
+                            seq=seq)
 
 
 # =========================================================================

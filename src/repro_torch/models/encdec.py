@@ -25,9 +25,10 @@ projections sit at the segment root, with no ``attn`` scope, as in the
 reference), and the ``head`` scope; so one bank drives both packages with
 the same keys.  Serving (:func:`serve_prefill`, :func:`serve_decode`) runs
 the decoder layers outside any segment, as the reference's cached scan
-does; the port runs them with exact per-call stats and refuses a session
-there, whose per-layer keys the Python loop cannot share as one traced
-scan body does.
+does: under a session every layer visits the same unsegmented sites
+(``statsbank.shared_sites``), one entry shared by all decoder layers, so
+a bank discovered on the cached decode graph drives both packages and a
+bank of the training graph (keys under ``dec/``) raises ``KeyError``.
 """
 from __future__ import annotations
 
@@ -246,16 +247,17 @@ def decode_stack(params, dec_tokens: torch.Tensor, enc_kv, cfg: ArchConfig,
             x = remat_call(run, cfg.remat and mode == "train", x,
                            enc_kv["k"][li], enc_kv["v"][li])
     else:
-        if statsbank.current_session() is not None:
-            raise NotImplementedError(
-                "cached encoder-decoder decoding under a StatsBank session "
-                "is not ported: serve it with exact per-call stats")
+        # the reference scans the cached layers outside any segment: under
+        # a session every layer visits the same unsegmented sites, one
+        # entry shared by all of them (a bank of the training graph, keyed
+        # under dec/, has none and raises KeyError)
         for li, layer_p in enumerate(layers):
             layer_c = {k: v[li] for k, v in caches.items()}
-            x, _ = dec_block_apply(layer_p, x, {"k": enc_kv["k"][li],
-                                                "v": enc_kv["v"][li]},
-                                   cfg, pol, positions, layer_c, cache_index,
-                                   mode)
+            with statsbank.shared_sites():
+                x, _ = dec_block_apply(layer_p, x, {"k": enc_kv["k"][li],
+                                                    "v": enc_kv["v"][li]},
+                                       cfg, pol, positions, layer_c,
+                                       cache_index, mode)
     x = apply_norm(params["dec_norm"], x, cfg)
     with statsbank.scope("head"):
         logits = pol.dot(x, params["head"].to(x.dtype))

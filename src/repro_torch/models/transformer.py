@@ -16,6 +16,15 @@ input: f32 router product, stable sorts), and it reruns an SSM layer's
 scan forward, whose kernel gives the same bits on every launch.  The MoE
 load-balance losses are summed over the layers into the loss.
 
+Under the rules on a bound mesh (``parallel.sharding``) the LM computes
+its part of the model axis: the blocks of ``blocks.TP_BLOCK_TYPES`` split
+their heads, MLP and dense caches (``models/blocks.py``), and the vocab
+splits the embedding (:func:`embed_tokens`: the rank's rows, other
+tokens 0, summed over the axis), the head (:func:`lm_head`: the logits'
+vocab slice) and the loss (:func:`loss_fn`: the cross entropy's max, sum
+of exponentials and target logit combined over the axis).
+:func:`compute_pspecs` says which stored splits the compute keeps.
+
 Entry points: ``init_lm``, ``loss_fn``, ``prefill``, ``decode_step``.
 """
 from __future__ import annotations
@@ -28,9 +37,10 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core import statsbank
+from repro_torch.core import collectives, statsbank
 from repro_torch.core.policy import TRUNCATING_MODES, Policy
 from repro_torch.models import blocks
+from repro_torch.parallel import sharding as shd
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 BLOCK_TYPES = blocks.ATTN_BLOCK_TYPES + ("mamba1", "mamba2")
@@ -96,26 +106,44 @@ def init_lm(cfg: ArchConfig, seed: int = 0, device=None) -> Dict[str, Any]:
     return params
 
 
+def vocab_split(cfg: ArchConfig) -> Optional[shd.Split]:
+    """The model-axis split of the vocab under the active rules."""
+    return shd.split("vocab", cfg.vocab)
+
+
 def embed_tokens(params, tokens, cfg: ArchConfig, pol: Policy):
     """Truncates the whole embedding table at the ``embed`` site in the
     truncating modes (as the reference does on every call; fp32 and bf16
-    have no site), then gathers rows."""
+    have no site), then gathers rows.  Vocab-parallel: the rank's rows of
+    the table (its stats the whole table's), the tokens outside them 0,
+    summed over the axis."""
     table = params["embed"]
+    vs = vocab_split(cfg)
     if pol.mode in TRUNCATING_MODES:
         with statsbank.scope("embed"):
-            table = pol.truncate(table)
-    return table[tokens].to(DTYPES[cfg.activation_dtype])
+            table = pol.truncate(table, None if vs is None else vs.axis)
+    if vs is None:
+        return table[tokens].to(DTYPES[cfg.activation_dtype])
+    n = table.shape[0]
+    local = tokens - vs.coord * n
+    mine = (local >= 0) & (local < n)
+    rows = torch.where(mine[..., None], table[local.clamp(0, n - 1)], 0.0)
+    return collectives.reduce_out(rows.float(), vs.axis).to(
+        DTYPES[cfg.activation_dtype])
 
 
 def lm_head(params, x, cfg: ArchConfig, pol: Policy):
     """Logits at the ``head`` site.  The tied head contracts x with the
     stored [V, d] table, x . E^T (the "nt" payload GEMM): no transpose is
-    materialized, and the values are the reference's ``x @ E.T``."""
+    materialized, and the values are the reference's ``x @ E.T``.
+    Vocab-parallel: the logits' vocab slice, from the rank's rows of the
+    table (or columns of the untied head)."""
+    tp = blocks.col_tp(vocab_split(cfg))
     with statsbank.scope("head"):
         if cfg.tie_embeddings:
             return pol.dot_general(x, params["embed"].to(x.dtype),
-                                   (((x.dim() - 1,), (1,)), ((), ())))
-        return pol.dot(x, params["head"].to(x.dtype))
+                                   (((x.dim() - 1,), (1,)), ((), ())), tp=tp)
+        return pol.dot(x, params["head"].to(x.dtype), tp=tp)
 
 
 def _unstack(tree, length: int) -> List[Any]:
@@ -129,14 +157,22 @@ def _unstack(tree, length: int) -> List[Any]:
 def remat_call(fn, remat: bool, *args):
     """``fn(*args)``; with ``remat`` (and autograd on), rematerialized in
     the backward by ``torch.utils.checkpoint``, the replay under this
-    forward's StatsBank session whatever thread the autograd engine
-    uses."""
+    forward's StatsBank session and sharding rules whatever thread the
+    autograd engine uses."""
     if not (remat and torch.is_grad_enabled()):
         return fn(*args)
     sess = statsbank.current_session()
+    rules = shd.current_rules()
     return checkpoint(fn, *args, use_reentrant=False,
                       context_fn=lambda: (contextlib.nullcontext(),
-                                          statsbank.resume(sess)))
+                                          _replay(sess, rules)))
+
+
+@contextlib.contextmanager
+def _replay(sess, rules):
+    """The remat replay's context: the forward's session and rules."""
+    with statsbank.resume(sess), shd.resume_rules(rules):
+        yield
 
 
 def forward(params, tokens, cfg: ArchConfig, pol: Policy, *, caches=None,
@@ -187,11 +223,76 @@ def loss_fn(params, tokens, labels, cfg: ArchConfig, pol: Policy):
     nll, "aux": aux})."""
     x, aux, _ = forward(params, tokens, cfg, pol, mode="train")
     logits = lm_head(params, x, cfg, pol).float()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    vs = vocab_split(cfg)
+    if vs is None:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = logits.gather(-1, labels[..., None].long())[..., 0]
+    else:
+        logz, gold = _vocab_parallel_terms(logits, labels, vs)
     nll = (logz - gold).mean()
     zloss = 1e-4 * (logz ** 2).mean()
     return nll + zloss + aux, {"nll": nll, "aux": aux}
+
+
+def _vocab_parallel_terms(logits, labels, vs: shd.Split):
+    """(logz, gold) of the rank's vocab slice of the logits: the max over
+    the axis (a constant shift), the sum of exponentials summed over it,
+    and the target logit from the rank holding it (the others add 0)."""
+    n = logits.shape[-1]
+    top = collectives.all_reduce(
+        logits.detach().amax(dim=-1, keepdim=True).contiguous(), vs.axis,
+        op="max")
+    sumexp = collectives.reduce_out(
+        torch.exp(logits - top).sum(dim=-1), vs.axis)
+    logz = top[..., 0] + torch.log(sumexp)
+    local = labels.long() - vs.coord * n
+    mine = (local >= 0) & (local < n)
+    picked = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = collectives.reduce_out(torch.where(mine, picked, 0.0), vs.axis)
+    return logz, gold
+
+
+def compute_pspecs(cfg: ArchConfig, specs):
+    """The splits of a stored spec tree (``launch.api.param_pspecs``)
+    that the model's compute keeps under the active rules on the bound
+    mesh: a leaf's model-axis entry where its logical axis splits (the
+    embedding's and the untied head's vocab, the ``TP_BLOCK_TYPES``
+    blocks' query / K/V heads of ``wq`` / ``wk`` / ``wv`` / ``wo`` and the
+    MLP's hidden dim), every other entry dropped (the leaf is gathered for
+    use: ``parallel.sharding.Placement``)."""
+    P = shd.PartitionSpec
+
+    def keep(spec, sp):
+        if sp is None or spec is None:
+            return P()
+        return P(*[e if e == sp.axis else None for e in spec])
+
+    def drop(tree):
+        if isinstance(tree, dict):
+            return {k: drop(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [drop(v) for v in tree]
+        return P()
+
+    vs = vocab_split(cfg) if not cfg.enc_dec else None
+    out = drop(specs)
+    if cfg.enc_dec:
+        return out
+    out["embed"] = keep(specs["embed"], vs)
+    if "head" in specs:
+        out["head"] = keep(specs["head"], vs)
+    for i, (btype, _) in enumerate(segments_of(cfg)):
+        seg, got = specs["segments"][i], out["segments"][i]
+        sp = blocks.attn_split(cfg, btype)
+        if sp is not None:
+            for name in ("wq", "wo"):
+                got[name] = keep(seg[name], sp.heads)
+            for name in ("wk", "wv"):
+                got[name] = keep(seg[name], sp.kv)
+        if "mlp" in seg:
+            ms = blocks.mlp_split(cfg, btype, blocks.block_d_ff(cfg, btype))
+            got["mlp"] = {k: keep(v, ms) for k, v in seg["mlp"].items()}
+    return out
 
 
 def _layer_cache(seg_cache, li: int):

@@ -88,8 +88,16 @@ def fsdp_grads(axis_name, sharded):
     leaf is a dim-0 shard of the logical leaf.  Inside the scope a tree
     with that many leaves gets the mixed norm: the sharded leaves' sums of
     squares are summed over the fsdp axis, replicated leaves count once.
+    ``sharded`` may instead be a list in leaf order whose entries are
+    tuples of mesh axes (a leaf placed by
+    ``parallel.sharding.place_params``, split over each): each leaf's sum
+    of squares is summed over its axes (``()``: replicated).
     Thread-local, as the reference's."""
-    flags = [bool(f) for f in tree_leaves(sharded)]
+    if isinstance(sharded, list) and all(
+            isinstance(f, (bool, tuple)) for f in sharded):
+        flags = [f if isinstance(f, tuple) else bool(f) for f in sharded]
+    else:
+        flags = [bool(f) for f in tree_leaves(sharded)]
     prev = getattr(_fsdp_scope, "v", None)
     _fsdp_scope.v = (axis_name, flags)
     try:
@@ -110,16 +118,25 @@ def global_norm(tree, axis_name=None) -> torch.Tensor:
     replicated leaves' in leaf order — the same reductions as the
     meshless norm, in the same order."""
     leaves = tree_leaves(tree)
-    sq = [torch.sum(torch.square(x.float())) for x in leaves]
+    # each leaf reduced in its contiguous layout: a gradient autograd leaves
+    # strided (the tied embedding's) sums in the same order as its
+    # contiguous copy from a collective, so the meshless step and a 1-rank
+    # mesh step clip by the same bits
+    sq = [torch.sum(torch.square(x.float().contiguous())) for x in leaves]
     scope = getattr(_fsdp_scope, "v", None)
     if axis_name is None and scope is not None \
             and len(scope[1]) == len(leaves):
         from repro_torch.core import collectives
         axis, flags = scope
-        idx = [i for i, f in enumerate(flags) if f]
-        if idx:
+        groups = {}
+        for i, f in enumerate(flags):
+            axes = f if isinstance(f, tuple) else ((axis,) if f else ())
+            if axes:
+                groups.setdefault(axes, []).append(i)
+        for axes, idx in groups.items():
             part = collectives.all_reduce(
-                torch.stack([sq[i] for i in idx]), axis)
+                torch.stack([sq[i] for i in idx]),
+                axes[0] if len(axes) == 1 else axes)
             for j, i in enumerate(idx):
                 sq[i] = part[j]
     total = torch.sum(torch.stack(sq))

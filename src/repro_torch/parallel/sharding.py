@@ -17,22 +17,37 @@ Default rule tables (the reference's):
             -> model                        kv_seq  -> model
     seq, kv_seq, conv, state -> None
 
-The port has no GSPMD: a tensor lives whole on the rank that holds it, and
-the mesh-native train step (training/trainer.py) moves data between ranks
-with explicit ``torch.distributed`` collectives (core/collectives.py).  So
-:func:`shard` checks its rank argument and returns the tensor unchanged —
-the reference suspends these annotations inside its mesh-native step too
-(``suspend_rules``).  What the port does use of this module is the spec
-arithmetic: which batch and param leaves split over which mesh axes
-(:func:`mesh_batch_specs`, :func:`fsdp_param_specs`,
-:func:`train_step_specs`), and :func:`shard_tree` / :func:`gather_tree`,
-which move a tree between full leaves and the rank's dim-0 shards.
+The port has no GSPMD: each rank computes its own part and moves data
+between ranks with explicit ``torch.distributed`` collectives
+(core/collectives.py).  Under active rules with a mesh bound
+(``collectives.bind``), the model code asks :func:`split` how a logical
+axis splits over the non-batch mesh axes (the ``model`` axis; the batch
+axes are the step's, which takes its rows itself): the axis, its size and
+this rank's coordinate, or None where the rules replicate it, the mesh
+has no such axis or it is 1 wide, or the divisibility guard keeps the
+logical dim whole.  The models compute on their slice of every split
+logical axis (``models/blocks.py``, ``models/transformer.py``), and
+:func:`shard` cuts a whole tensor to its slice.  Without rules, or
+without a bound mesh, :func:`shard` checks its rank argument and returns
+the tensor unchanged.  The mesh-native step that ``launch/train.py``
+builds suspends the rules (``suspend_rules``), as the reference's does.
+
+Params live where ``launch.api.param_pspecs`` puts them
+(:func:`place_params`: ``T`` entries over ``model``, ``F`` over
+``data``); a :class:`Placement` gathers, for each use, every dim stored
+split over an axis along which the model computes whole
+(``collectives.gather_for_use``).  The rest of the module is the spec
+arithmetic of the data-parallel and FSDP step: which batch and param
+leaves split over which mesh axes (:func:`mesh_batch_specs`,
+:func:`fsdp_param_specs`, :func:`train_step_specs`), and
+:func:`shard_tree` / :func:`gather_tree`, which move a tree between full
+leaves and the rank's dim-0 shards.
 """
 from __future__ import annotations
 
 import contextlib
 import threading
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -171,14 +186,94 @@ def _guard(shape, spec) -> PartitionSpec:
     return P(*guarded)
 
 
+class Split(NamedTuple):
+    """How a logical axis splits: over mesh ``axis`` of ``size`` ranks,
+    this rank at ``coord``."""
+    axis: str
+    size: int
+    coord: int
+
+    def part(self, n: int) -> int:
+        """This rank's share of ``n`` entries."""
+        return n // self.size
+
+    def lo(self, n: int) -> int:
+        """The first of this rank's entries of ``n``."""
+        return self.coord * (n // self.size)
+
+    def take(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's slice of ``x``'s whole ``dim`` (a view)."""
+        n = x.shape[dim]
+        return x.narrow(dim, self.lo(n), self.part(n))
+
+
+def current_rules():
+    """The active (rules, mesh axes, sizes), for :func:`resume_rules` in
+    another thread (the remat replay, the autograd engine)."""
+    return (_rules(), _mesh_axes(), _axis_sizes())
+
+
+@contextlib.contextmanager
+def resume_rules(snapshot):
+    """Activate a :func:`current_rules` snapshot in this thread."""
+    prev = current_rules()
+    _state.rules, _state.mesh_axes, _state.axis_sizes = snapshot
+    try:
+        yield
+    finally:
+        _state.rules, _state.mesh_axes, _state.axis_sizes = prev
+
+
+def split(logical: Optional[str], n: int) -> Optional[Split]:
+    """The split of a logical dim of ``n`` entries under the active rules
+    on the bound mesh, over the rules' non-batch mesh axes (the model
+    axis): None without rules or a bound mesh, where the rules replicate
+    the axis or map it to an axis the mesh lacks or holds 1 wide, or where
+    ``n`` does not divide by the axis (the reference's guard)."""
+    sp = _mapped(logical)
+    return None if sp is None or n % sp.size else sp
+
+
+def axis_size(logical: Optional[str]) -> int:
+    """The size of the mesh axis :func:`split` would split a logical axis
+    over, whatever its length (1 where it would not)."""
+    sp = _mapped(logical)
+    return 1 if sp is None else sp.size
+
+
+def _mapped(logical: Optional[str]) -> Optional[Split]:
+    """:func:`split` before the divisibility guard."""
+    rules = _rules()
+    if rules is None or logical is None:
+        return None
+    from repro_torch.core import collectives
+    mesh = collectives.bound()
+    if mesh is None:
+        return None
+    batch = set(rules.get("batch") or ())
+    axes = [a for a in (rules.get(logical) or ())
+            if a in mesh.shape and a not in batch and mesh.shape[a] > 1]
+    if len(axes) > 1:
+        raise NotImplementedError(f"logical axis {logical!r} splits over "
+                                  f"several mesh axes {axes}")
+    if not axes:
+        return None
+    return Split(axes[0], mesh.shape[axes[0]], mesh.coords[axes[0]])
+
+
 def shard(x: torch.Tensor, *logical: Optional[str]) -> torch.Tensor:
-    """Annotate an activation: the rank check of the reference's, then
-    ``x`` unchanged (no GSPMD here; see the module docstring)."""
+    """Annotate an activation: the reference's rank check, then this
+    rank's slice of every dim whose logical axis :func:`split` splits
+    (``x`` itself where none does; see the module docstring)."""
     if _rules() is None:
         return x
     if len(logical) != x.dim():
         raise ValueError(f"shard(): {len(logical)} axes for rank-{x.dim()} "
                          f"tensor")
+    for dim, name in enumerate(logical):
+        sp = split(name, x.shape[dim])
+        if sp is not None:
+            x = sp.take(x, dim)
     return x
 
 
@@ -491,3 +586,149 @@ def reshard_like(full, like, mesh):
         return out
 
     return _map(one, full, like)
+
+
+# ---------------------------------------------------------------------------
+# params placed by launch.api.param_pspecs
+# ---------------------------------------------------------------------------
+
+def _entries(spec) -> List[Tuple[int, str]]:
+    """(dim, mesh axis) of every axis a spec's entries name."""
+    out = []
+    for dim, entry in enumerate(spec or ()):
+        for a in ((entry,) if isinstance(entry, str) else (entry or ())):
+            out.append((dim, a))
+    return out
+
+
+def _map_spec(fn, tree, specs):
+    """``fn(leaf, spec)`` over a tree and its PartitionSpec tree."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _map_spec(fn, tree[k], specs[k]) for k in tree}
+    if isinstance(tree, (list, tuple)) and not isinstance(tree,
+                                                          PartitionSpec):
+        kids = [_map_spec(fn, v, specs[i]) for i, v in enumerate(tree)]
+        if hasattr(tree, "_fields"):
+            return type(tree)(*kids)
+        return type(tree)(kids)
+    return fn(tree, specs)
+
+
+def param_specs(params, sizes: Dict[str, int], cfg=None):
+    """``launch.api.param_pspecs`` of a full param tree on a mesh of
+    ``sizes`` (name -> size)."""
+    from repro_torch.launch.api import param_pspecs
+    return param_pspecs(cfg, params, dict(sizes))
+
+
+def place_params(params, mesh, sizes: Optional[Dict[str, int]] = None,
+                 specs=None):
+    """This rank's part of a full param tree placed as
+    ``launch.api.param_pspecs`` places it on a mesh of ``sizes`` (default
+    ``mesh.shape``): every dim a spec entry names cut to this rank's
+    slice over that axis (``T`` over ``model``, ``F`` over ``data``; an
+    axis 1 wide cuts nothing), each cut leaf a contiguous copy.  ``specs``
+    overrides the spec tree."""
+    specs = param_specs(params, sizes or mesh.shape) if specs is None \
+        else specs
+
+    def one(leaf, spec):
+        out = leaf
+        for dim, a in _entries(spec):
+            n = mesh.shape[a]
+            if n > 1:
+                size = out.shape[dim] // n
+                out = out.narrow(dim, mesh.coords[a] * size, size)
+        return out if out is leaf else out.detach().clone()
+
+    return _map_spec(one, params, specs)
+
+
+def unplace_params(local, mesh, specs):
+    """The inverse of :func:`place_params`: every placed dim all-gathered
+    over its axis (a collective: every rank calls it), for checkpoints and
+    tests; ``specs`` the full tree's spec tree."""
+    from repro_torch.core import collectives
+
+    def one(leaf, spec):
+        out = leaf.detach()
+        for dim, a in reversed(_entries(spec)):
+            if mesh.shape[a] > 1:
+                out = collectives.gather_dim(out, a, dim, mesh=mesh)
+        return out
+
+    return _map_spec(one, local, specs)
+
+
+class Placement:
+    """Params stored as :func:`place_params` leaves them, used as the model
+    computes.  ``specs``: the full tree's storage spec tree
+    (``launch.api.param_pspecs``); ``compute_specs()``: the spec tree of
+    the splits the model's own compute keeps under the active rules (a
+    subset of the model-axis entries, read at each use).  A dim stored
+    split over an axis the compute keeps whole is all-gathered for use
+    (:meth:`for_compute`): over a batch axis (``F`` -> ``data``) the
+    gradient is reduce-scattered back, summed over the other batch axes
+    first (the ranks hold partial gradients of their rows); over ``model``
+    every rank holds the whole gradient and keeps its slice."""
+
+    def __init__(self, specs, compute_specs: Callable[[], Any], mesh):
+        self.specs = specs
+        self.compute_specs = compute_specs
+        self.mesh = mesh
+        self.batch_axes = mesh_batch_axes(mesh)
+
+    def stored_axes(self) -> List[Tuple[str, ...]]:
+        """Per leaf (in leaf order), the axes its storage splits over."""
+        return [tuple(a for _, a in _entries(sp) if self.mesh.shape[a] > 1)
+                for sp in _spec_leaves(self.specs)]
+
+    def batch_reduced(self) -> List[bool]:
+        """Per leaf, whether its gradient leaves :meth:`for_compute`
+        already summed over the batch axes (a dim stored over one)."""
+        return [any(a in self.batch_axes for a in axes)
+                for axes in self.stored_axes()]
+
+    def for_compute(self, local):
+        """The leaves as the model computes on them (differentiable)."""
+        from repro_torch.core import collectives
+        keep = self.compute_specs()
+        mesh = self.mesh
+
+        def one(leaf, spec, kept):
+            kept = set(_entries(kept))
+            out = leaf
+            for dim, a in reversed(_entries(spec)):
+                if mesh.shape[a] == 1 or (dim, a) in kept:
+                    continue
+                if a in self.batch_axes:
+                    lead = tuple(b for b in self.batch_axes if b != a)
+                    out = collectives.gather_for_use(
+                        out, a, dim, "reduce_scatter", lead, mesh=mesh)
+                else:
+                    out = collectives.gather_for_use(out, a, dim, "slice",
+                                                     mesh=mesh)
+            return out
+
+        def walk(tree, specs, kept):
+            if isinstance(tree, dict):
+                return {k: walk(tree[k], specs[k], kept[k]) for k in tree}
+            if isinstance(tree, (list, tuple)):
+                return type(tree)(walk(v, specs[i], kept[i])
+                                  for i, v in enumerate(tree))
+            return one(tree, specs, kept)
+
+        return walk(local, self.specs, keep)
+
+
+def _spec_leaves(specs) -> List[PartitionSpec]:
+    """The PartitionSpecs of a spec tree, in leaf order."""
+    if isinstance(specs, PartitionSpec):
+        return [specs]
+    if isinstance(specs, dict):
+        return [x for k in sorted(specs) for x in _spec_leaves(specs[k])]
+    if isinstance(specs, (list, tuple)):
+        return [x for v in specs for x in _spec_leaves(v)]
+    return [P()]

@@ -36,7 +36,10 @@ per device:
           bound model of PERF.md's kernel table).
   coll:   from ``collectives.recording()``, with the reference's
           multipliers: all-reduce 2x its result, all-gather 1x its result,
-          reduce-scatter 1x its operand.
+          reduce-scatter 1x its operand; by op (``coll``) and by mesh axis
+          (``coll_axis``: ``model`` traffic apart from ``data``'s, a
+          collective over several axes under their names joined by
+          ``+``).
   peak:   live storage bytes, from the call's tensor arguments (``args``:
           resident throughout) and every storage an op or a kernel call
           allocates, freed when its last tensor dies (a weak reference to
@@ -266,6 +269,7 @@ class TraceCost:
     bytes: float = 0.0
     coll_bytes: float = 0.0
     coll: Dict[str, float] = dataclasses.field(default_factory=dict)
+    coll_axis: Dict[str, float] = dataclasses.field(default_factory=dict)
     argument_bytes: int = 0
     peak_bytes: int = 0
     calls: Dict[str, int] = dataclasses.field(default_factory=dict)
@@ -281,6 +285,7 @@ class TraceCost:
     def to_dict(self) -> dict:
         return {"flops": self.flops, "bytes": self.bytes,
                 "coll_bytes": self.coll_bytes, "coll": dict(self.coll),
+                "coll_axis": dict(self.coll_axis),
                 "argument_bytes": self.argument_bytes,
                 "temp_bytes": self.temp_bytes,
                 "peak_bytes": self.peak_bytes, "calls": dict(self.calls),
@@ -403,6 +408,9 @@ def trace_cost(args=()):
                   else r["out_numel"]) * _itemsize(r["dtype"])
         traffic = nbytes * COLL_MULT[r["op"]]
         cost.coll[r["op"]] = cost.coll.get(r["op"], 0.0) + traffic
+        axis = (r["axis"] if isinstance(r["axis"], str)
+                else "+".join(r["axis"]))
+        cost.coll_axis[axis] = cost.coll_axis.get(axis, 0.0) + traffic
         cost.coll_bytes += traffic
 
 

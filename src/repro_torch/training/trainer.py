@@ -88,7 +88,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
                     mesh=None, grad_sync_mode: str = "f32",
                     grad_sync_min_size: int = 1 << 16,
                     grad_sync_backend: Optional[str] = None,
-                    param_sharding: str = "replicated"):
+                    param_sharding: str = "replicated",
+                    placement: Optional[shd.Placement] = None):
     """``loss_fn(params, batch, policy) -> (loss, metrics)``; ``stats``
     enables the StatsBank carry (build the first bank with
     ``statsbank.init_bank(loss_fn, params, batch, policy, stats)``);
@@ -119,7 +120,21 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     payload GEMMs as ``collectives.FSDPPayloadParam``: quantized at the
     owner with the leaf-global bank stats, 1-byte all-gather; needs
     ``stats`` and a payload-GEMM policy).  Build the bank from the full
-    params (``statsbank.init_bank``) before ``sharding.shard_tree``."""
+    params (``statsbank.init_bank``) before ``sharding.shard_tree``.
+    ``placement`` (a ``sharding.Placement``, on a mesh, with
+    ``param_sharding`` "replicated"): params and optimizer state are the
+    rank's leaves as ``sharding.place_params`` placed them by
+    ``param_pspecs``; each use gathers the dims stored split over an axis
+    the model computes whole (a ``data`` gather's backward
+    reduce-scatters the gradient, which then skips the batch sync), and
+    the norms sum each leaf's squares over the axes it is stored split
+    over.
+
+    Called under active sharding rules (``sharding.use_rules``: the dry
+    run, the tests), the mesh step keeps them, so the model computes its
+    part of the model axis; called without (the train launcher), it
+    suspends them and replicates the model axis, as the reference's
+    mesh-native step does."""
     if stats is not None and policy.mode not in S2FP8_MODES:
         raise ValueError(
             f"StatsBank requires an s2fp8-mode policy, got {policy.mode!r}")
@@ -134,6 +149,11 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
     if param_sharding not in PARAM_SHARDING_MODES:
         raise ValueError(f"param_sharding must be one of "
                          f"{PARAM_SHARDING_MODES}, got {param_sharding!r}")
+    if placement is not None and (mesh is None
+                                  or param_sharding != "replicated"):
+        raise ValueError("placement=... places the params on a mesh by "
+                         "param_pspecs: it needs mesh=... and no other "
+                         "param_sharding")
     scale = policy.loss_scale if policy.mode == "fp8_ls" else 1.0
 
     batch_axes = shd.mesh_batch_axes(mesh) if mesh is not None else ()
@@ -223,10 +243,15 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
             p.requires_grad_(True)
         elig = None
         loss_params = params
+        norm_axes = None
         if mesh is not None:
             int_div = 1 if shd.batch_is_sharded(batch, mesh) else n_shards
             batch = shd.shard_batch(batch, mesh)
-            if param_sharding != "replicated":
+            if placement is not None:
+                elig = placement.batch_reduced()
+                norm_axes = placement.stored_axes()
+                loss_params = placement.for_compute(params)
+            elif param_sharding != "replicated":
                 elig = [shd.is_shard(p) for p in leaves]
                 pay = [bool(e and param_sharding == "fsdp_q"
                             and p.dim() == 2) for p, e in zip(leaves, elig)]
@@ -268,6 +293,8 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         # under FSDP the norms (the metric and the optimizer's clip) sum
         # the shards' squares over the fsdp axis
         def norm_scope():
+            if norm_axes is not None:
+                return optim_mod.fsdp_grads(None, norm_axes)
             return (optim_mod.fsdp_grads(fsdp_axis, elig)
                     if elig is not None else contextlib.nullcontext())
         out["loss"] = loss
@@ -313,10 +340,13 @@ def make_train_step(loss_fn: Callable, optimizer: Optimizer,
         _local = _step
 
         def _step(*args):
-            # the models' logical-axis annotations are off inside the
-            # step, and axis names resolve against this mesh in every
-            # thread (the autograd engine's too)
-            with shd.suspend_rules(), collectives.bind(mesh):
+            # the caller's sharding rules stay on (the model splits the
+            # model axis), else they are off inside the step; axis names
+            # resolve against this mesh in every thread (the autograd
+            # engine's too)
+            rules = (contextlib.nullcontext() if shd.active()
+                     else shd.suspend_rules())
+            with rules, collectives.bind(mesh):
                 return _local(*args)
 
     if stats is None and guard is None:

@@ -509,3 +509,105 @@ def test_launcher_trains_transformer_tiny_on_the_cpu(capsys):
     steps = [json.loads(x) for x in lines[1:] if x.startswith("{")]
     assert [x["step"] for x in steps] == [0, 1]
     assert all(np.isfinite(x["loss"]) for x in steps)
+
+
+def test_banked_cached_decode_matches_the_reference(sides):
+    """Cached encoder-decoder decoding under a StatsBank session, as the
+    reference runs it (repaired: the port refused it).  The reference
+    discovers a bank on its cached ``serve_prefill`` graph: the decoder's
+    sites are unsegmented, one entry shared by every decoder layer (its
+    scan body is traced once).  Carried over by ``load_serving_bank``, it
+    drives ``serve_prefill`` + 4 ``serve_decode`` steps in both packages,
+    each call under its own training session at step 0 (every site
+    refreshes from its tensor, then uses the stats), token 1 fed at every
+    step.  The port's own discovery finds the same keys and shapes.
+    Logits within the serving budget of
+    ``test_serve_s2fp8_logits_within_budget``: mean |diff| at most 0.1 *
+    mean |JAX|, max |diff| at most 0.1 * max |JAX|."""
+    from repro_torch.serving.bank import load_serving_bank
+    s = sides["whisper"]
+    jcfg, tcfg = s["jcfg"], s["tcfg"]
+    jpol, tpol = _pols("s2fp8", "payload")
+    jbos = jnp.ones((B, 1), jnp.int32)
+    tbos = torch.ones((B, 1), dtype=torch.long)
+
+    def jprefill(p, e, pol):
+        return jed.serve_prefill(p, e, jbos, jcfg, pol, max_dec_len=16)
+
+    def tprefill(p, e, pol):
+        return encdec.serve_prefill(p, e, tbos, tcfg, pol, max_dec_len=16)
+
+    jstats = jsb.StatsConfig(refresh_every=2)
+    jbank = jsb.init_bank(lambda p, b, pol: (jprefill(p, b, pol)[0].sum(),
+                                             {}),
+                          s["jparams"], jnp.asarray(s["enc"]), jpol, jstats)
+    dec_keys = [k for k in jbank if not k.startswith(("enc/", "xkv/",
+                                                      "head/"))]
+    assert dec_keys and all(
+        st["last"].shape == () for k in dec_keys for st in jbank[k].values())
+    params = params_from_jax(s["np_params"], device="cpu")
+    stats = tsb.StatsConfig(refresh_every=2)
+    tbank = load_serving_bank(jax.device_get(jbank), device="cpu")
+    own = tsb.init_bank(lambda p, b, pol: (tprefill(p, b, pol)[0].sum(), {}),
+                        params, _t(s["enc"]), tpol, stats)
+    assert set(own) == set(tbank)
+    for k in dec_keys:
+        assert all(st["last"].shape == () for st in own[k].values())
+
+    jdecode = jax.jit(lambda p, st, i: jed.serve_decode(p, jbos, st, i, jcfg,
+                                                        jpol))
+    with jsb.bind(jbank, 0, jstats):
+        logits, state = jax.jit(lambda p, e: jprefill(p, e, jpol))(
+            s["jparams"], jnp.asarray(s["enc"]))
+    jl = [_np(logits)]
+    for i in range(1, 5):
+        with jsb.bind(jbank, 0, jstats):
+            logits, state = jdecode(s["jparams"], state, i)
+        jl.append(_np(logits))
+    with torch.no_grad():
+        with tsb.bind(tbank, 0, stats) as sess:
+            logits, state = tprefill(params, _t(s["enc"]), tpol)
+        assert set(dec_keys) <= set(sess.updates)
+        tl = [logits.float().numpy()]
+        for i in range(1, 5):
+            with tsb.bind(tbank, 0, stats):
+                logits, state = encdec.serve_decode(params, tbos, state, i,
+                                                    tcfg, tpol)
+            tl.append(logits.float().numpy())
+    for want, got in zip(jl, tl):
+        d = np.abs(got - want)
+        assert np.isfinite(got).all()
+        assert d.mean() <= 0.1 * np.abs(want).mean(), (
+            d.mean(), np.abs(want).mean())
+        assert d.max() <= 0.1 * np.abs(want).max(), (
+            d.max(), np.abs(want).max())
+
+
+def test_training_graph_bank_misses_the_cached_decode_sites(sides):
+    """A bank discovered on the training graph (decoder keys under
+    ``dec/``) has no entry for the cached decoder's unsegmented sites:
+    ``KeyError`` in both packages (reference statsbank.py:358)."""
+    from repro_torch.serving.bank import load_serving_bank
+    s = sides["whisper"]
+    jcfg, tcfg = s["jcfg"], s["tcfg"]
+    jpol, tpol = _pols("s2fp8", "payload")
+    jbatch = {"enc": jnp.asarray(s["enc"]), "dec": jnp.asarray(s["dec"]),
+              "lab": jnp.asarray(s["lab"])}
+    jbank = jsb.init_bank(
+        lambda p, b, pol: jed.loss_fn(p, b["enc"], b["dec"], b["lab"], jcfg,
+                                      pol),
+        s["jparams"], jbatch, jpol, jsb.StatsConfig())
+    assert any(k.startswith("dec/") for k in jbank)
+    bos = jnp.ones((B, 1), jnp.int32)
+    with pytest.raises(KeyError):
+        with jsb.bind(jbank, 0, jsb.StatsConfig()):
+            jax.jit(lambda p, e: jed.serve_prefill(
+                p, e, bos, jcfg, jpol, max_dec_len=16))(
+                    s["jparams"], jnp.asarray(s["enc"]))
+    params = params_from_jax(s["np_params"], device="cpu")
+    tbank = load_serving_bank(jax.device_get(jbank), device="cpu")
+    with pytest.raises(KeyError, match="has no StatsBank entry"):
+        with torch.no_grad(), tsb.bind(tbank, 0, tsb.StatsConfig()):
+            encdec.serve_prefill(params, _t(s["enc"]),
+                                 torch.ones((B, 1), dtype=torch.long), tcfg,
+                                 tpol, max_dec_len=16)

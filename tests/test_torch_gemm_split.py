@@ -19,6 +19,8 @@ Here, in plain torch / numpy:
 * an emulation of the split-K path, each split in its kernel's order,
   covers K once, stays within that tolerance, and gives the same bits
   whatever order the blocks run in;
+* the checked engine's raw-GEMM bound at the tied head's depth passes
+  the emulation and rejects a result with one wrong output tile;
 * the planner gives every GEMM shape that ``chip_smoke.py`` checks, and
   every decode GEMM of the served models, a path, and its decode grids
   cover at least two waves of an H100's 132 SMs;
@@ -329,3 +331,75 @@ def test_family_batched_shapes_are_the_configs():
             assert ga == gb and ob is None
             plan = mm.plan_gemm(m, n, k, g=ga, layout=lay)
             assert plan.path == "large" and plan.bm == 64
+
+
+HEAD_K = 122753      # minicpm_2b's vocab: the tied head's dX sums over it
+
+
+def _head_dx_operands(rng, m, n, fmt="e5m2"):
+    """The tied head's dX operands at its whole depth, dequantized:
+    A = (softmax(logits) - onehot(label)) / m over the vocab, B a seeded
+    embedding [vocab, n]; and |A| @ |B|."""
+    logits = torch.from_numpy(
+        (2.0 * rng.standard_normal((m, HEAD_K))).astype(np.float32))
+    a = torch.softmax(logits, dim=1)
+    a[torch.arange(m), torch.from_numpy(rng.integers(0, HEAD_K, m))] -= 1.0
+    b = torch.from_numpy(
+        (0.02 * rng.standard_normal((HEAD_K, n))).astype(np.float32))
+    ta, tb = s2fp8.quantize(a / m, fmt=fmt), s2fp8.quantize(b, fmt=fmt)
+    da = ref.s2fp8_dequant_ref(ta.payload, ta.ab)
+    db = ref.s2fp8_dequant_ref(tb.payload, tb.ab)
+    return da, db, da.abs() @ db.abs()
+
+
+def _plant(kind, y, a, b):
+    """``y`` with one 32 x 32 output tile wrong the way ``kind`` says."""
+    y = y.clone()
+    s = 32 * (HEAD_K // 64)                 # a K stage in the middle
+    stage = a[:32, s:s + 32] @ b[s:s + 32, :32]
+    if kind == "stage dropped":
+        y[:32, :32] -= stage
+    elif kind == "stage twice":
+        y[:32, :32] += stage
+    elif kind == "rows shifted":
+        y[:32, :32] = y[1:33, :32]
+    else:                                   # "tile scaled by <eps>"
+        y[:32, :32] *= 1.0 + float(kind.split()[-1])
+    return y
+
+
+@pytest.mark.parametrize("operands,fault", [
+    ("random", "stage dropped"), ("random", "stage twice"),
+    ("random", "rows shifted"), ("random", "tile scaled by 0.03"),
+    ("head dx", "stage dropped"), ("head dx", "rows shifted"),
+    ("head dx", "tile scaled by 0.001")])
+def test_checked_engine_rejects_a_wrong_tile_at_the_head_depth(operands,
+                                                               fault):
+    """The checked engine's raw-GEMM bound at the tied head's K 122,753
+    (``chip_smoke.raw_close``: ``raw_tol(K)``, there its cap 4e-5 of
+    |A| @ |B|): the large path's 3-pass emulation passes it (measured worst
+    4.3e-8 on random operands, 3.0e-6 on the head's dX; the card's kernel
+    in a full-width step 1.38e-5), and the same result with one 32 x 32
+    output tile wrong fails it by at least twice the bound — a 32-deep K
+    stage dropped or added twice (measured 6.0x on random operands, whose
+    outputs cancel to ~1/sqrt(K) of |A| @ |B|; 21x on the head's dX,
+    softmax minus one-hot over the vocab, whose outputs are about half of
+    |A| @ |B|), the tile's rows read one row off (580x; 81,000x), the tile
+    scaled by 3% (11x, random) or by 0.1% (20x, the head's dX).  Without
+    the cap (8 sqrt(K) 2^-24 = 1.67e-4) the dropped stage on random
+    operands fails by 1.4x only.  A wrong one-term K tail (122,753 =
+    3,836 stages + 1) is below any bound a sound kernel passes at this
+    depth; phase 3's rows at K 77 and 130 hold the tail path, and its row
+    ``qmatmul_nn head dx`` holds this shape at 1e-5 of |A| @ |B| on random
+    operands."""
+    cs = _chip_smoke()
+    rng = np.random.default_rng(11)
+    a, b, scale = (_operands(rng, 64, HEAD_K, 64) if operands == "random"
+                   else _head_dx_operands(rng, 64, 64))
+    want = a @ b                            # the plain version's product
+    got = large_path_emulated(a, b)
+    ok, (worst, tol, _, _) = cs.raw_close(got, want, scale, HEAD_K)
+    assert ok and worst <= tol / 4, (worst, tol)
+    ok, (worst, tol, _, _) = cs.raw_close(_plant(fault, got, a, b), want,
+                                          scale, HEAD_K)
+    assert not ok and worst >= 2 * tol, (worst, tol)

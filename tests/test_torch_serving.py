@@ -556,3 +556,14 @@ def test_paged_cache_rejects_unported_formats(port_side):
         caches = paged_cache.init_paged_caches(port_side["cfg"],
                                                cache_fmt=fmt, **kw)
         assert caches[0]["kp"].dtype == paged_cache.pool_dtype(fmt)
+
+
+def test_serve_launcher_takes_the_reference_flag_name():
+    """``--export-passes`` (the reference's name, serve.py:47) and the
+    port's ``--calib-passes`` set the same value; the default is 2."""
+    from repro_torch.launch import serve
+    ap = serve.build_parser()
+    base = ["--arch", "minicpm_2b"]
+    assert ap.parse_args(base + ["--export-passes", "3"]).export_passes == 3
+    assert ap.parse_args(base + ["--calib-passes", "3"]).export_passes == 3
+    assert ap.parse_args(base).export_passes == 2

@@ -28,17 +28,18 @@ for _p in (HERE, SRC):
 TIMEOUT_S = 150          # a rank's collectives and the join, each
 
 
-def run_ranks(suite: str, world: int, work: str, timeout: float = TIMEOUT_S
-              ) -> dict:
+def run_ranks(suite: str, world: int, work: str, timeout: float = TIMEOUT_S,
+              script: str = None) -> dict:
     """Start ``world`` rank processes of ``suite`` and return rank 0's
     results; a rank that fails or outlives ``timeout`` fails the call
-    (every rank is killed first)."""
-    init = os.path.join(work, "pg_init")
+    (every rank is killed first).  ``script``: the module file whose
+    suites run (default this one; it calls this module's ``_main``)."""
+    init = os.path.join(work, f"pg_init_{suite}")
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=os.pathsep.join(
                    [SRC, HERE, os.environ.get("PYTHONPATH", "")]))
     procs = [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), suite, str(r),
+        [sys.executable, os.path.abspath(script or __file__), suite, str(r),
          str(world), init, work], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
@@ -281,7 +282,9 @@ def int_metric_case(mesh):
     return res
 
 
-def _main():
+def _main(suites=None):
+    """Run one rank of a suite of ``suites`` (a module's globals; default
+    this module's)."""
     suite, rank, world, init, work = sys.argv[1:6]
     rank, world = int(rank), int(world)
     torch.set_num_threads(1)
@@ -291,7 +294,8 @@ def _main():
         "gloo", init_method=f"file://{init}", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=TIMEOUT_S))
     try:
-        out = globals()[f"suite_{suite}"](lmesh.make_mesh_from_spec, work)
+        out = (suites or globals())[f"suite_{suite}"](
+            lmesh.make_mesh_from_spec, work)
         if rank == 0:
             with open(os.path.join(work, f"{suite}.pkl"), "wb") as f:
                 pickle.dump(out, f)
